@@ -1,0 +1,147 @@
+"""Builds and loads the port's CUDA kernels; reads and resets their launch counts.
+
+The kernels under ``dinounet_tpu_torch/csrc/`` are compiled on first use by
+``nvcc`` into one shared library with a plain C interface, loaded with
+``ctypes`` (no PyTorch headers, so the build takes seconds). The library goes
+to ``build/dinounet_tpu_torch/<hash>/`` at the repository root, keyed by a
+hash of the sources and the flags, so an edited source rebuilds and an
+unchanged one loads what is there. Nothing here runs at import time: the CPU
+tests import every module on a machine without ``nvcc``.
+
+Each kernel's wrapper keeps its own launch count, a plain integer attribute
+``launches`` that it raises by one where it launches the kernel;
+``launch_counts`` and ``reset_launch_counts`` read and clear them together.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "dinounet_tpu_torch"
+SOURCES = ("msda_fwd.cu", "rope_attention.cu", "dense_stats.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# C signatures: every pointer and the stream as c_void_p, sizes as c_int.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # value, off, logits, base, out, B, M, D, H, W, P, Lq, stream
+    "msda_fwd_fused": [_P] * 5 + [_I] * 7 + [_P],
+    # qkv, sin_eff_t, cos_t, scratch, out, B, M, Dh, N, scale, stream
+    "rope_attention_dmaj": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
+    # h, w, b, res, gamma, out, mu, var, B, N, K, D, channel_major, gelu, stream
+    "dense_residual_stats": [_P] * 8 + [_I] * 6 + [_P],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    found = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(found):
+        raise RuntimeError(
+            "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels are "
+            "built on first use on a machine with the CUDA toolkit")
+    return found
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_ROOT / _source_hash() / "libdinounet_kernels.so"
+
+
+def _compile(out: Path) -> None:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    # compile to a private name and rename: concurrent builds never load a
+    # half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    (out.parent / "ptxas.log").write_text(proc.stderr)
+    os.replace(tmp, out)
+
+
+def lib() -> ctypes.CDLL:
+    """The kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not path.exists():
+                _compile(path)
+            handle = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError_t {err}")
+
+
+def check_inputs(op: str, device, **specs) -> None:
+    """Raise unless every ``name=(tensor, dtype, shape)`` is a contiguous
+    tensor of that dtype and shape on ``device`` — what a kernel takes."""
+    for name, (t, dtype, shape) in specs.items():
+        if (t.device != device or t.dtype != dtype
+                or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
+            raise ValueError(
+                f"{op}: {name} must be a contiguous {dtype} tensor of shape "
+                f"{tuple(shape)} on {device}; got {t.dtype} {tuple(t.shape)} "
+                f"on {t.device} (contiguous={t.is_contiguous()})")
+
+
+def stream_of(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _wrappers():
+    from dinounet_tpu_torch.ops.attention import fused_rope_attention_premapped_dmaj
+    from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
+                                                    dense_residual_stats)
+    from dinounet_tpu_torch.ops.msda_kernel import ms_deform_attn_premapped_fused
+
+    return {
+        "rope_attention": fused_rope_attention_premapped_dmaj,
+        "dense_cm_stats": dense_cm_residual_stats,
+        "dense_rm_stats": dense_residual_stats,
+        "msda_fwd": ms_deform_attn_premapped_fused,
+    }
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last reset, by kernel name."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0

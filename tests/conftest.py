@@ -41,3 +41,8 @@ def rng():
 @pytest.fixture(scope="session")
 def cpu_devices():
     return jax.devices("cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips where none is present")

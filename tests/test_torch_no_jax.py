@@ -1,0 +1,50 @@
+"""The port stands without JAX: the machine that serves it has none.
+
+Every module of ``dinounet_tpu_torch`` is imported in a fresh interpreter,
+after which neither jax, flax nor the JAX package may be loaded; and no
+source file of the port names them in an import (lazy imports included).
+"""
+
+import json
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import dinounet_tpu_torch
+
+PKG_DIR = Path(dinounet_tpu_torch.__file__).parent
+REPO = PKG_DIR.parent
+FORBIDDEN = ("jax", "flax", "dinounet_tpu")
+_IMPORT = re.compile(
+    r"^\s*(?:from|import)\s+(jax|flax|dinounet_tpu)(?![\w])", re.MULTILINE)
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages([str(PKG_DIR)],
+                                                        "dinounet_tpu_torch."))
+
+
+def test_importing_every_port_module_loads_no_jax():
+    modules = _port_modules()
+    assert "dinounet_tpu_torch.inference.predictor" in modules
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in "
+        f"{FORBIDDEN!r})))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_no_port_source_imports_jax():
+    offenders = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
+                 for p in sorted(PKG_DIR.rglob("*.py"))
+                 for m in _IMPORT.finditer(p.read_text())]
+    assert offenders == []
+    assert _IMPORT.search("    from dinounet_tpu.ops import x")  # the check bites
+    assert not _IMPORT.search("from dinounet_tpu_torch.ops import x")
