@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Smoke run of the PyTorch/CUDA port's serving and training paths on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -7,9 +8,10 @@ not 0:
 
 1. build   -- compile the CUDA kernels from dinounet_tpu_torch/csrc/.
 2. kernels -- each kernel against its plain PyTorch version on the card, at
-              the shapes the dinounet_b tile forward gives it (tile batch 8),
-              within its stated tolerance; kernel and plain times (CUDA
-              events, median of 20).
+              the shapes the dinounet_b tile forward gives it (tile batch 8;
+              the MSDA backward at the train step's batch 2), within its
+              stated tolerance; kernel and plain times (CUDA events, median
+              of 20).
 3. serve   -- dinounet_b at full width with seeded random weights, behind the
               port's nnUNetPredictor (2d, 512 x 512 patches, step 0.5, tile
               batch 8, bf16): one 1 x 1280 x 1280 case = 16 tiles in 2
@@ -20,16 +22,42 @@ not 0:
 4. parity  -- one 512 x 512 tile through DinoUNet on the card in bf16 (the
               kernels) and on the CPU in fp32 (the plain versions), the same
               weights: relative L2 error of the logits <= PARITY_BOUND.
+5. train   -- a synthetic preprocessed 2-D dataset (6 cases of 640 x 640, a
+              bright disk and a dark ring) in a temporary nnUNet_preprocessed;
+              DinoUNetTrainer_b through run.get_trainer_from_args on cuda:0
+              (512 x 512 patches, batch 2, bf16, random frozen backbone),
+              run_training() for 2 epochs of TRAIN_ITERS steps and 2
+              validation iterations. Checks: every logged loss finite, the
+              launch counts of the run (per train step: attention 12, dense
+              12 + 12 in the frozen backbone, MSDA forward 6 + 6 in the
+              checkpointed recompute, MSDA backward 6; per validation
+              forward the serve counts), checkpoint_final.pth written and
+              loaded back by a fresh trainer with equal weights, and over
+              LEARN_STEPS further steps on the same loader the mean loss of
+              the last 10 below that of the first 10. Step time, steps/s and
+              peak device memory for information.
+6. train parity -- one train step's loss and trainable gradients on the card
+              (bf16, the kernels) against the CPU (fp32, the plain
+              versions): same dinounet_b weights and 256 x 256 batch of 1,
+              no augmentation, drop-path 0; relative L2 of the concatenated
+              gradients <= TRAIN_GRAD_BOUND (those of the projections in
+              front of the MSDA kernels, alone, <= TRAIN_MSDA_GRAD_BOUND),
+              loss within TRAIN_LOSS_BOUND;
+              an optimizer step on the card leaves every backbone parameter
+              as it was.
 
-Then the card's name and power limit, one JSON line of kernel results, and
-as the last line {"ok": true, "device": {...}}. Without a CUDA device the
-script raises before printing any result.
+Then the card's name and power limit, one JSON line of kernel results
+(launches: the serve and train phases' counts), and as the last line
+{"ok": true, "device": {...}}. Without a CUDA device the script raises
+before printing any result.
 """
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -48,9 +76,17 @@ from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
                                                 dense_residual_stats_plain)
 from dinounet_tpu_torch.ops.kernel_check import (KERNEL_TOLERANCES, max_abs_err,
                                                  max_excess, median_ms)
-from dinounet_tpu_torch.ops.msda import ms_deform_attn_premapped_fused_plain
-from dinounet_tpu_torch.ops.msda_kernel import ms_deform_attn_premapped_fused
+from dinounet_tpu_torch.ops.msda import (ms_deform_attn_premapped_backward_plain,
+                                         ms_deform_attn_premapped_fused_plain,
+                                         premapped_fused_prep)
+from dinounet_tpu_torch.ops.msda_kernel import (ms_deform_attn_premapped_backward,
+                                                ms_deform_attn_premapped_fused)
+from dinounet_tpu_torch.run import get_trainer_from_args
+from dinounet_tpu_torch.training.losses import dc_and_ce_loss
+from dinounet_tpu_torch.training.trainer import clip_and_step, sgd_nesterov
 from dinounet_tpu_torch.utilities.plans_handler import PlansManager
+from dinounet_tpu_torch.utilities.synthetic_dataset import (disk_ring_case,
+                                                            write_disk_ring_dataset)
 
 TILE_BATCH = 8
 PATCH = 512
@@ -61,7 +97,27 @@ N_CLASSES = 3
 PARITY_BOUND = 0.05
 # kernel launches per tile-batch forward of dinounet_b
 PER_FORWARD = {"rope_attention": 12, "dense_cm_stats": 18, "dense_rm_stats": 18,
-               "msda_fwd": 6}
+               "msda_fwd": 6, "msda_bwd": 0}
+# kernel launches per train step: the backbone's 12 blocks (attention, the
+# channel-major attention projection, the row-major fc2); the adapter trains
+# unfused, so its 6 extractors launch only the MSDA forward (twice: the
+# checkpointed interaction blocks run it again in the backward) and backward
+PER_TRAIN_STEP = {"rope_attention": 12, "dense_cm_stats": 12, "dense_rm_stats": 12,
+                  "msda_fwd": 12, "msda_bwd": 6}
+TRAIN_ITERS, TRAIN_EPOCHS, VAL_ITERS, LEARN_STEPS = 5, 2, 2, 40
+TRAIN_DATASET = "Dataset998_SmokeTrain"
+# one train step, card bf16 (kernels) vs CPU fp32 (plain versions), relative
+# L2. bf16 keeps 8 significant bits and the ~60 layers of forward and
+# backward each round activations and gradients at 2^-9 relative: the whole
+# trainable gradient is held to 0.15, the JAX package's bound for its own
+# bf16 forward (tests/test_vit_parity.py). The MSDA projections' gradients
+# also go through the sampling position: bf16 offsets place a point only to
+# ~1/64 pixel and the bilinear derivative jumps at pixel edges, so they are
+# noisier (0.12 measured between the CPU's bf16 and fp32 plain versions at
+# 64^2); they are held to 0.3 -- a dropped or zeroed MSDA gradient gives 1.0
+TRAIN_GRAD_BOUND = 0.15
+TRAIN_MSDA_GRAD_BOUND = 0.3
+TRAIN_LOSS_BOUND = 0.02
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "rope_attention": ("dinounet_tpu_torch/csrc/rope_attention.cu",
                        "dinounet_tpu/ops/attention_pallas.py:110"),
@@ -71,6 +127,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                        "dinounet_tpu/ops/dense_stats_pallas.py:71"),
     "msda_fwd": ("dinounet_tpu_torch/csrc/msda_fwd.cu",
                  "dinounet_tpu/ops/msda_pallas.py:251"),
+    "msda_bwd": ("dinounet_tpu_torch/csrc/msda_bwd.cu",
+                 "dinounet_tpu/ops/msda_pallas.py:582"),
 }
 ARCH = {  # the plans' architecture of a 2d dinounet_b configuration
     "n_stages": 4, "features_per_stage": [32, 64, 128, 256],
@@ -172,6 +230,18 @@ def phase_kernels(dev) -> dict:
         "msda_fwd", f"value {tuple(v.shape)} Lq={Lq}",
         lambda: ms_deform_attn_premapped_fused(v, ((Hv, Hv),), off, logits, base),
         lambda: ms_deform_attn_premapped_fused_plain(v, ((Hv, Hv),), off, logits, base))
+
+    # MSDA backward at the train step's shapes (batch 2): the prepped
+    # coordinates and weights of the forward's inputs, an fp32 cotangent
+    Bt = 2
+    xs, ys, aw = (t.contiguous() for t in premapped_fused_prep(
+        off[:Bt], logits[:Bt], base))
+    cot = randn(Bt, Mq, Dv, Lq)
+    vt = v[:Bt].contiguous()
+    results["msda_bwd"] = _compare(
+        "msda_bwd", f"value {tuple(vt.shape)} Lq={Lq}",
+        lambda: ms_deform_attn_premapped_backward(vt, ((Hv, Hv),), xs, ys, aw, cot),
+        lambda: ms_deform_attn_premapped_backward_plain(vt, ((Hv, Hv),), xs, ys, aw, cot))
     return results
 
 
@@ -240,6 +310,153 @@ def phase_parity(dev, model: DinoUNet) -> float:
     return rel
 
 
+def _train_env(root: str) -> None:
+    for sub in ("preprocessed", "results"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    os.environ["nnUNet_preprocessed"] = os.path.join(root, "preprocessed")
+    os.environ["nnUNet_results"] = os.path.join(root, "results")
+    write_disk_ring_dataset(os.environ["nnUNet_preprocessed"], TRAIN_DATASET, 6,
+                            (640, 640), (PATCH, PATCH), 2, ARCH, seed=0)
+
+
+def _trainer(dev):
+    trainer = get_trainer_from_args(TRAIN_DATASET, "2d", 0, "DinoUNetTrainer_b",
+                                    device=dev)
+    trainer.seed = 0
+    trainer.num_epochs = TRAIN_EPOCHS
+    trainer.num_iterations_per_epoch = TRAIN_ITERS
+    trainer.num_val_iterations_per_epoch = VAL_ITERS
+    return trainer
+
+
+def phase_train(dev) -> dict:
+    trainer = _trainer(dev)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.run_training()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    n_steps = TRAIN_EPOCHS * TRAIN_ITERS
+    n_val = TRAIN_EPOCHS * VAL_ITERS
+    want = {k: n_steps * PER_TRAIN_STEP[k] + n_val * PER_FORWARD[k] for k in PER_FORWARD}
+    log(f"[train] run_training: {TRAIN_EPOCHS} epochs x {TRAIN_ITERS} steps + "
+        f"{VAL_ITERS} validation batches in {run_s:.1f} s; launches {counts}")
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, the path makes {want}")
+    logged = trainer.logger.my_fantastic_logging
+    losses = logged["train_losses"] + logged["val_losses"]
+    log(f"[train] train losses {logged['train_losses']}, val losses "
+        f"{logged['val_losses']}, pseudo dice {logged['dice_per_class_or_region']}")
+    if len(losses) != 2 * TRAIN_EPOCHS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"logged losses {losses}")
+
+    final = os.path.join(trainer.output_folder, "checkpoint_final.pth")
+    if not os.path.isfile(final):
+        raise AssertionError("no checkpoint_final.pth")
+    fresh = _trainer(dev)
+    fresh.load_checkpoint(final)
+    trained = trainer.network.state_dict()
+    for name, t in fresh.network.state_dict().items():
+        if not torch.equal(t, trained[name]):
+            raise AssertionError(f"checkpoint_final.pth restores {name} differently")
+    if fresh.current_epoch != TRAIN_EPOCHS:
+        raise AssertionError(f"resumed at epoch {fresh.current_epoch}")
+    log(f"[train] checkpoint_final.pth ({os.path.getsize(final) / 2**20:.0f} MiB) "
+        f"loaded into a fresh trainer: {len(trained)} tensors equal")
+    del fresh
+
+    _build.reset_launch_counts()
+    trainer.train_step_host(trainer.dataloader_train.generate_train_batch())
+    torch.cuda.synchronize()
+    one = _build.launch_counts()
+    if one != PER_TRAIN_STEP:
+        raise AssertionError(f"one train step launched {one}, the path makes "
+                             f"{PER_TRAIN_STEP}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_losses, step_ms, load_ms = [], [], []
+    for _ in range(LEARN_STEPS):
+        t0 = time.perf_counter()
+        batch = trainer.dataloader_train.generate_train_batch()
+        t1 = time.perf_counter()
+        step_losses.append(float(trainer.train_step_host(batch)))  # synchronises
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        load_ms.append((t1 - t0) * 1e3)
+    first, last = float(np.mean(step_losses[:10])), float(np.mean(step_losses[-10:]))
+    med = float(np.median(step_ms))
+    log(f"[train] {LEARN_STEPS} more steps: mean loss of the first 10 {first:.4f}, "
+        f"of the last 10 {last:.4f} (margin {first - last:.4f}); step "
+        f"{med:.1f} ms median ({1e3 / med:.2f} steps/s, batch 2 x {PATCH}^2, "
+        f"augmentation included; the host loader, which run_training overlaps "
+        f"in a thread, {float(np.median(load_ms)):.1f} ms a batch); peak device "
+        f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    if not np.all(np.isfinite(step_losses)) or not last < first:
+        raise AssertionError(f"the loss did not fall: {step_losses}")
+    for k, n in one.items():
+        counts[k] += n
+    return counts
+
+
+def phase_train_parity(dev) -> None:
+    pm = PlansManager(PLANS)
+    arch = pm.get_configuration("2d").network_arch_init_kwargs
+    cfg = DinoUNetConfig.from_plans_arch(arch, N_CLASSES, model_name="dinounet_b",
+                                         drop_path_rate=0.0)
+    card = DinoUNet(cfg).init_weights(seed=1).train()
+    ref = DinoUNet(dataclasses.replace(cfg, dtype="float32")).train()
+    ref.load_state_dict(card.state_dict())
+    card.to(dev)
+    img, seg = disk_ring_case(np.random.default_rng(2), 256, 256)
+    x = torch.from_numpy(img)  # (1, 1, 256, 256)
+    y = torch.from_numpy(seg[:, 0]).long()  # (1, 256, 256)
+
+    def step(model, x, y):
+        loss = dc_and_ce_loss(model(x), y, batch_dice=True, smooth=1e-5, do_bg=False)
+        loss.backward()
+        grads = {n: p.grad.float().flatten().cpu()
+                 for n, p in model.named_parameters() if p.grad is not None}
+        return float(loss.detach()), grads
+
+    def rel_l2(got, want, names):
+        g = torch.cat([got[n] for n in names])
+        w = torch.cat([want[n] for n in names])
+        return float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
+
+    backbone_before = [p.detach().clone() for p in
+                       card.encoder.dinov3_adapter.backbone.parameters()]
+    got_loss, got = step(card, x.to(dev), y.to(dev))
+    t0 = time.perf_counter()
+    want_loss, want = step(ref, x, y)
+    cpu_s = time.perf_counter() - t0
+    if got.keys() != want.keys():
+        raise AssertionError("card and CPU steps give gradients to different parameters")
+    names = sorted(want)
+    # the projections in front of the MSDA kernels: their gradients are the
+    # ones the MSDA backward kernel produces (checked on their own, since
+    # they are a small part of the whole gradient's norm)
+    msda = [n for n in names if ".attn." in n and "dinov3_adapter.interactions" in n]
+    rel, rel_msda = rel_l2(got, want, names), rel_l2(got, want, msda)
+    loss_rel = abs(got_loss - want_loss) / abs(want_loss)
+    log(f"[train parity] 256x256 step, card bf16 vs CPU fp32 ({cpu_s:.1f} s): loss "
+        f"{got_loss:.5f} vs {want_loss:.5f} (rel {loss_rel:.3e}, bound "
+        f"{TRAIN_LOSS_BOUND}); relative L2 of the {len(names)} trainable gradient "
+        f"tensors {rel:.4e} (bound {TRAIN_GRAD_BOUND}), of the {len(msda)} MSDA "
+        f"projections' {rel_msda:.4e} (bound {TRAIN_MSDA_GRAD_BOUND})")
+    if not (rel <= TRAIN_GRAD_BOUND and rel_msda <= TRAIN_MSDA_GRAD_BOUND
+            and loss_rel <= TRAIN_LOSS_BOUND):
+        raise AssertionError(f"train parity: gradients {rel}, MSDA projections "
+                             f"{rel_msda}, loss {loss_rel}")
+    opt = sgd_nesterov([p for p in card.parameters() if p.requires_grad], 1e-2, 3e-5)
+    clip_and_step(opt, 12.0)
+    torch.cuda.synchronize()
+    backbone = list(card.encoder.dinov3_adapter.backbone.parameters())
+    if not all(torch.equal(a, b) for a, b in zip(backbone_before, backbone)):
+        raise AssertionError("the optimizer step changed a backbone parameter")
+    log(f"[train parity] an optimizer step left all {len(backbone)} backbone "
+        "tensors unchanged")
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -258,13 +475,21 @@ def main() -> int:
     phase_build()
     kernel_results = phase_kernels(dev)
     model = build_model()
-    counts = phase_serve(dev, model)
+    serve_counts = phase_serve(dev, model)
     phase_parity(dev, model)
+    del model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        _train_env(root)
+        train_counts = phase_train(dev)
+    phase_train_parity(dev)
 
     log(card_line())
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": counts[name], **kernel_results[name]}
+         "launches": serve_counts[name] + train_counts[name],
+         "launches_by_path": {"serve": serve_counts[name], "train": train_counts[name]},
+         **kernel_results[name]}
         for name, (src, tpu) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

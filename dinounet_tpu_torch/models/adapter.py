@@ -1,26 +1,33 @@
-"""ViT-Adapter (DINOv3_Adapter), inference path, PyTorch.
+"""ViT-Adapter (DINOv3_Adapter), PyTorch.
 
-Counterpart of ``dinounet_tpu/models/adapter.py`` on the path the serving
-slice runs: the deformable attention in the premapped fused-prep form (the
-projections emit the kernel's channel-major layouts, the kernel does the
-offset base add and the point softmax, ``ops/msda_kernel.py``), and both
-residual junctions of every extractor as fused dense + residual + LayerNorm
-statistics ops, the statistics threaded from one extractor to the next.
+Counterpart of ``dinounet_tpu/models/adapter.py``. The deformable attention
+always runs in the premapped fused-prep form (the projections emit the
+kernel's channel-major layouts, the kernel does the offset base add and the
+point softmax, ``ops/msda_kernel.py``; differentiable, its backward is the
+MSDA backward kernel). In eval mode (serving, validation) both residual
+junctions of every extractor run as fused dense + residual + LayerNorm
+statistics ops, the statistics threaded from one extractor to the next. In
+train mode the extractors run unfused, as the JAX package's train path does
+(``adapter.py:440-461``): plain output projections, an exact GELU before the
+ConvFFN's fc2, a drop-path on the ConvFFN branch, and every interaction block
+recomputed in the backward (``torch.utils.checkpoint``, the JAX ``remat``).
+The frozen backbone runs under ``torch.no_grad()`` (``stop_gradient``), and
+the SPM's and output BatchNorms use batch statistics.
 
 Token layout (input H x W, patch 16): the conv queries c are the three scale
 grids [H/8*W/8, H/16*W/16, H/32*W/32] = 21n tokens, n = H/32*W/32; the values
 are the single-level ViT patch grid (H/16 x W/16). Parameter names are the
 reference's (``spm.stem.0.weight``, ``interactions.3.extra_extractors.1...``).
-Drop-path and BatchNorm statistics updates belong to training, which is not
-ported yet.
 """
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dinounet_tpu_torch.models.layers import (BatchNorm, Conv2d, Linear,
                                               TransposedConv, bilinear_resize)
@@ -79,11 +86,9 @@ class MSDeformAttn(nn.Module):
             nn.init.zeros_(self.attention_weights.weight)
             nn.init.zeros_(self.attention_weights.bias)
 
-    def forward(self, query, reference_points, value_tokens,
-                value_spatial_shapes: Sequence[Tuple[int, int]], residual):
-        """query (B, Lq, C) and value_tokens (B, S, C), both normed;
-        reference_points (1, Lq, 1, 2). Returns (residual + proj(attn),
-        mean, var) with the next LayerNorm's statistics."""
+    def _sample(self, query, reference_points, value_tokens,
+                value_spatial_shapes: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """The projections and the sampling: (B, M, D, Lq) channel-major."""
         M, L, P = self.n_heads, self.n_levels, self.n_points
         B, Lq, C = query.shape
         S = value_tokens.shape[1]
@@ -106,9 +111,23 @@ class MSDeformAttn(nn.Module):
         base = base[:, None].expand(L, P, Lq, 2).permute(0, 1, 3, 2)
         base = base.reshape(2 * LP, Lq).contiguous()
 
-        out_t = ms_deform_attn_premapped_fused(
+        return ms_deform_attn_premapped_fused(
             v_t.contiguous(), tuple(value_spatial_shapes), off.contiguous(),
             logits.contiguous(), base)
+
+    def forward(self, query, reference_points, value_tokens,
+                value_spatial_shapes: Sequence[Tuple[int, int]], residual=None):
+        """query (B, Lq, C) and value_tokens (B, S, C), both normed;
+        reference_points (1, Lq, 1, 2). Without `residual`, returns
+        proj(attn) (B, Lq, C), the train path's plain projection. With it,
+        returns (residual + proj(attn), mean, var) with the next LayerNorm's
+        statistics, from the fused dense op."""
+        out_t = self._sample(query, reference_points, value_tokens,
+                             value_spatial_shapes)
+        B, M, D, Lq = out_t.shape
+        if residual is None:
+            return self.output_proj(out_t.reshape(B, M * D, Lq).transpose(1, 2))
+        C = query.shape[2]
         ones = torch.ones(C, dtype=torch.float32, device=query.device)
         return dense_cm_residual_stats(out_t.reshape(B, M * D, Lq),
                                        self.output_proj.weight.t(),
@@ -137,8 +156,10 @@ class DWConvMS(nn.Module):
 
 
 class ConvFFN(nn.Module):
-    """fc1 -> multiscale depthwise conv -> GELU -> fc2, the last three fused
-    with the residual and the next LayerNorm's statistics."""
+    """fc1 -> multiscale depthwise conv -> GELU -> fc2. With `residual` the
+    last three are fused with the residual and the next LayerNorm's
+    statistics; without it fc2 is a plain Linear after an exact GELU (the
+    train path)."""
 
     def __init__(self, dim: int, hidden: int, dtype: torch.dtype):
         super().__init__()
@@ -146,22 +167,48 @@ class ConvFFN(nn.Module):
         self.dwconv = DWConvMS(hidden, dtype)
         self.fc2 = Linear(hidden, dim, dtype=dtype)
 
-    def forward(self, x, H: int, W: int, residual):
+    def forward(self, x, H: int, W: int, residual=None):
         h = self.dwconv(self.fc1(x), H, W)
+        if residual is None:
+            return self.fc2(F.gelu(h))
         ones = torch.ones(residual.shape[-1], dtype=torch.float32, device=x.device)
         return dense_residual_stats(h, self.fc2.weight.t(), self.fc2.bias,
                                     residual, ones, apply_gelu=True)
 
 
+def drop_path_keep(batch: int, rate: float,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Per-sample stochastic-depth draw (ref dinov3_adapter.py:18-26):
+    (batch,) bool, True where the sample keeps its branch (probability
+    1 - rate), drawn on the CPU from `generator` (the default generator when
+    None)."""
+    return torch.rand(batch, generator=generator) < 1.0 - rate
+
+
+def drop_path(x: torch.Tensor, keep: Optional[torch.Tensor],
+              rate: float) -> torch.Tensor:
+    """x / (1 - rate) where the sample keeps its branch, zero where it drops
+    it (adapter.py:403-410); `keep` None leaves x as it is."""
+    if keep is None or rate == 0.0:
+        return x
+    mask = keep.to(x.device).view((-1,) + (1,) * (x.ndim - 1))
+    return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x))
+
+
 class Extractor(nn.Module):
     """query += MSDeformAttn(query_norm(query), feat_norm(feat));
-    query += ConvFFN(ffn_norm(query)). `stats` are query_norm's statistics
-    from the previous extractor's fc2 junction (None for the first);
-    returns (query, next stats)."""
+    query += drop_path(ConvFFN(ffn_norm(query))). In eval mode both junctions
+    are fused: `stats` are query_norm's statistics from the previous
+    extractor's fc2 junction (None for the first), and the call returns
+    (query, next stats). In train mode the junctions are plain residual adds,
+    `keep` is this extractor's drop-path draw (None: no drop-path), and the
+    returned statistics are None."""
 
     def __init__(self, dim: int, num_heads: int, n_points: int,
-                 deform_ratio: float, cffn_ratio: float, dtype: torch.dtype):
+                 deform_ratio: float, cffn_ratio: float, dtype: torch.dtype,
+                 drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         self.query_norm = LayerNormFp32(dim, 1e-6)
         self.feat_norm = LayerNormFp32(dim, 1e-6)
         self.attn = MSDeformAttn(dim, 1, num_heads, n_points, deform_ratio, dtype)
@@ -169,9 +216,14 @@ class Extractor(nn.Module):
         self.ffn_norm = LayerNormFp32(dim, 1e-6)
 
     def forward(self, query, reference_points, feat, value_spatial_shapes,
-                H_c: int, W_c: int, stats=None):
+                H_c: int, W_c: int, stats=None, keep=None):
         q_normed = self.query_norm(query, stats)
         f_normed = self.feat_norm(feat)
+        if self.training:
+            query = query + self.attn(q_normed, reference_points, f_normed,
+                                      value_spatial_shapes)
+            ffn_out = self.ffn(self.ffn_norm(query), H_c, W_c)
+            return query + drop_path(ffn_out, keep, self.drop_path_rate), None
         query, mu, var = self.attn(q_normed, reference_points, f_normed,
                                    value_spatial_shapes, query)
         query, mu2, var2 = self.ffn(self.ffn_norm(query, (mu, var)), H_c, W_c,
@@ -185,19 +237,25 @@ class InteractionBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, n_points: int,
                  deform_ratio: float, cffn_ratio: float, extra_extractor: bool,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, drop_path_rate: float = 0.0):
         super().__init__()
-        args = (dim, num_heads, n_points, deform_ratio, cffn_ratio, dtype)
+        args = (dim, num_heads, n_points, deform_ratio, cffn_ratio, dtype,
+                drop_path_rate)
         self.extractor = Extractor(*args)
         self.extra_extractors = (nn.ModuleList([Extractor(*args), Extractor(*args)])
                                  if extra_extractor else None)
 
+    @property
+    def n_extractors(self) -> int:
+        return 1 + len(self.extra_extractors or [])
+
     def forward(self, vit_tokens, c, reference_points, value_spatial_shapes,
-                H_c: int, W_c: int, stats=None):
+                H_c: int, W_c: int, stats=None, keeps=None):
+        """`keeps`: one drop-path draw per extractor (train mode), or None."""
         extractors = [self.extractor] + list(self.extra_extractors or [])
-        for ex in extractors:
+        for i, ex in enumerate(extractors):
             c, stats = ex(c, reference_points, vit_tokens, value_spatial_shapes,
-                          H_c, W_c, stats)
+                          H_c, W_c, stats, None if keeps is None else keeps[i])
         return c, stats
 
 
@@ -238,24 +296,33 @@ class SpatialPriorModule(nn.Module):
 
 class DINOv3Adapter(nn.Module):
     """Backbone + SPM + 4 interaction blocks + scale assembly + BatchNorm.
-    forward(x (B, 3, H, W)) -> 4 fp32 NCHW maps at 1/4, 1/8, 1/16, 1/32."""
+    forward(x (B, 3, H, W)) -> 4 fp32 NCHW maps at 1/4, 1/8, 1/16, 1/32.
+
+    Train mode: the drop-path draws of all extractors are taken from
+    `drop_path_generator` (a CPU torch.Generator; None uses the default
+    generator) before the interaction blocks run, so that the checkpointed
+    recompute of a block (`remat`) sees the same draws."""
 
     def __init__(self, backbone: DinoViT, interaction_indexes: Sequence[int],
                  embed_dim: int, conv_inplane: int = 64, n_points: int = 4,
                  deform_num_heads: int = 16, cffn_ratio: float = 0.25,
                  deform_ratio: float = 0.5, patch_size: int = 16,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, drop_path_rate: float = 0.0,
+                 remat: bool = False):
         super().__init__()
         self.backbone = backbone
         self.interaction_indexes = tuple(interaction_indexes)
         self.patch_size = patch_size
+        self.drop_path_rate = drop_path_rate
+        self.remat = remat
+        self.drop_path_generator: Optional[torch.Generator] = None
         E = embed_dim
         self.level_embed = nn.Parameter(torch.zeros(3, E))
         self.spm = SpatialPriorModule(conv_inplane, E, dtype)
         n = len(self.interaction_indexes)
         self.interactions = nn.ModuleList([
             InteractionBlock(E, deform_num_heads, n_points, deform_ratio,
-                             cffn_ratio, i == n - 1, dtype)
+                             cffn_ratio, i == n - 1, dtype, drop_path_rate)
             for i in range(n)])
         self.up = TransposedConv(E, E, (2, 2), dtype=dtype)
         self.norm1 = BatchNorm(E)
@@ -272,7 +339,9 @@ class DINOv3Adapter(nn.Module):
         E = self.level_embed.shape[1]
         H_c, W_c = H // 16, W // 16
         H_t, W_t = H // self.patch_size, W // self.patch_size
-        backbone_outputs = self.backbone(x, self.interaction_indexes)
+        # the frozen backbone: no graph, outputs detached (stop_gradient)
+        with torch.no_grad():
+            backbone_outputs = self.backbone(x, self.interaction_indexes)
 
         c1, c2, c3, c4 = self.spm(x)
         le = self.level_embed.to(c2.dtype)
@@ -284,8 +353,22 @@ class DINOv3Adapter(nn.Module):
         value_shapes = ((H_t, W_t),)
         outs, stats = [], None
         for block, (vit_tokens, _cls) in zip(self.interactions, backbone_outputs):
-            c, stats = block(vit_tokens, c, ref_points, value_shapes, H_c, W_c,
-                             stats)
+            if not self.training:
+                c, stats = block(vit_tokens, c, ref_points, value_shapes, H_c,
+                                 W_c, stats)
+            else:
+                keeps = None
+                if self.drop_path_rate > 0:
+                    keeps = [drop_path_keep(B, self.drop_path_rate,
+                                            self.drop_path_generator)
+                             for _ in range(block.n_extractors)]
+                if self.remat and torch.is_grad_enabled():
+                    c, _ = checkpoint(block, vit_tokens, c, ref_points,
+                                      value_shapes, H_c, W_c, None, keeps,
+                                      use_reentrant=False)
+                else:
+                    c, _ = block(vit_tokens, c, ref_points, value_shapes, H_c,
+                                 W_c, None, keeps)
             outs.append(vit_tokens.transpose(1, 2).reshape(B, E, H_t, W_t))
 
         def spatial(t, h, w):

@@ -1,10 +1,15 @@
 """DinoUNet: frozen DINOv3 ViT + ViT-Adapter + FAPM + U-Net decoder, PyTorch.
 
-Counterpart of ``dinounet_tpu/models/dinounet.py`` for inference. The plans'
+Counterpart of ``dinounet_tpu/models/dinounet.py``. The plans'
 ``architecture`` dict configures it (op strings through the registry); the
 adapter has the reference's fixed hyperparameters (conv_inplane 64, 4 points,
-16 heads, cffn_ratio 0.25, deform_ratio 0.5). Input and output are NCHW; the
-logits are fp32. Module nesting and parameter names follow the reference
+16 heads, drop-path 0.3, cffn_ratio 0.25, deform_ratio 0.5). Input and output
+are NCHW; the logits are fp32. ``train()`` / ``eval()`` choose the path, as
+``train=`` does in the JAX package: train mode runs the adapter's unfused,
+drop-path, checkpointed graph and BatchNorm batch statistics. The backbone is
+frozen (its parameters do not require grad, the JAX optimizer's
+``backbone_param_filter``) and runs under ``no_grad``. Deep-supervision
+outputs are not ported yet: the DinoUNet trainers train without them. Module nesting and parameter names follow the reference
 (``encoder.dinov3_adapter.backbone.blocks.0...``, ``decoder.seg_layers.0...``),
 so its checkpoints load by name; ``models/convert.py`` maps the JAX package's
 parameter trees onto the same names.
@@ -54,8 +59,11 @@ class DinoUNetConfig:
     conv_inplane: int = 64
     n_points: int = 4
     deform_num_heads: int = 16
+    drop_path_rate: float = 0.3
     cffn_ratio: float = 0.25
     deform_ratio: float = 0.5
+    remat_adapter: bool = True
+    deep_supervision: bool = False
     dtype: str = COMPUTE_DTYPE
 
     @classmethod
@@ -92,6 +100,10 @@ class DinoUNet(nn.Module):
 
     def __init__(self, cfg: DinoUNetConfig):
         super().__init__()
+        if cfg.deep_supervision:
+            raise NotImplementedError(
+                "DinoUNet's deep-supervision outputs are not ported yet (a "
+                "later training slice); the DinoUNet trainers train without them")
         self.cfg = cfg
         cdt = getattr(torch, cfg.dtype)
         self.compute_dtype = cdt
@@ -101,7 +113,8 @@ class DinoUNet(nn.Module):
             conv_inplane=cfg.conv_inplane, n_points=cfg.n_points,
             deform_num_heads=cfg.deform_num_heads, cffn_ratio=cfg.cffn_ratio,
             deform_ratio=cfg.deform_ratio, patch_size=cfg.vit.patch_size,
-            dtype=cdt)
+            dtype=cdt, drop_path_rate=cfg.drop_path_rate, remat=cfg.remat_adapter)
+        adapter.backbone.requires_grad_(False)
         self.encoder = FAPMEncoder(
             adapter, cfg.vit.embed_dim, cfg.features_per_stage, norm=cfg.norm,
             nonlin=cfg.nonlin, nonlin_kwargs=cfg.nonlin_kwargs,

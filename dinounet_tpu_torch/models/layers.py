@@ -169,12 +169,33 @@ class InstanceNorm(nn.Module):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d on running statistics (inference), fp32 in and out — the
-    flax module's dtype=float32. Training-mode statistics come with training."""
+    """BatchNorm2d with flax's semantics, fp32 in and out (the flax module's
+    dtype=float32, momentum 0.9). In eval mode it applies the running
+    statistics. In train mode it normalises with the batch mean and the
+    biased batch variance, E[x^2] - E[x]^2 clamped at 0 as flax computes it,
+    and updates ra = 0.9 ra + 0.1 batch_stat with the *biased* variance too.
+    F.batch_norm(training=True) would put the unbiased variance into
+    running_var, so the update is done here."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__(num_features, eps=eps, momentum=0.1)
 
     def forward(self, x):
-        return F.batch_norm(x.float(), self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        xf = x.float()
+        if not self.training:
+            return F.batch_norm(xf, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        axes = (0, 2, 3)
+        mean = xf.mean(dim=axes)
+        var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(self.momentum * mean)
+            self.running_var.mul_(keep).add_(self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean[:, None, None]) * scale[:, None, None]
+                + self.bias[:, None, None])
 
 
 def Norm(kind: str, num_features: int, eps: float = 1e-5) -> nn.Module:

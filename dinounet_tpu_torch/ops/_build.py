@@ -1,8 +1,9 @@
 """Builds and loads the port's CUDA kernels; reads and resets their launch counts.
 
 The kernels under ``dinounet_tpu_torch/csrc/`` are compiled on first use by
-``nvcc`` into one shared library with a plain C interface, loaded with
-``ctypes`` (no PyTorch headers, so the build takes seconds). The library goes
+``nvcc``, one process per source started together, and linked into one
+shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers, so the build takes seconds). The library goes
 to ``build/dinounet_tpu_torch/<hash>/`` at the repository root, keyed by a
 hash of the sources and the flags, so an edited source rebuilds and an
 unchanged one loads what is there. Nothing here runs at import time: the CPU
@@ -25,15 +26,17 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "dinounet_tpu_torch"
-SOURCES = ("msda_fwd.cu", "rope_attention.cu", "dense_stats.cu")
+SOURCES = ("msda_fwd.cu", "msda_bwd.cu", "rope_attention.cu", "dense_stats.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C signatures: every pointer and the stream as c_void_p, sizes as c_int.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # value, off, logits, base, out, B, M, D, H, W, P, Lq, stream
     "msda_fwd_fused": [_P] * 5 + [_I] * 7 + [_P],
+    # value, xs, ys, aw, g, gv, ga, gx, gy, B, M, D, H, W, P, Lq, stream
+    "msda_bwd": [_P] * 9 + [_I] * 7 + [_P],
     # qkv, sin_eff_t, cos_t, scratch, out, B, M, Dh, N, scale, stream
     "rope_attention_dmaj": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
     # h, w, b, res, gamma, out, mu, var, B, N, K, D, channel_major, gelu, stream
@@ -68,17 +71,28 @@ def library_path() -> Path:
 
 def _compile(out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a private name and rename: concurrent builds never load a
-    # half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    (out.parent / "ptxas.log").write_text(proc.stderr)
-    os.replace(tmp, out)
+    # compile into a private directory and rename the library: concurrent
+    # builds never load a half-written one
+    work = Path(tempfile.mkdtemp(dir=out.parent))
+    try:
+        objs = [work / (Path(s).stem + ".o") for s in SOURCES]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(CSRC / s)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        for s, p, log in zip(SOURCES, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n{log}")
+        lib_tmp = work / out.name
+        link = subprocess.run([_nvcc(), "-shared", "-o", str(lib_tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        (out.parent / "ptxas.log").write_text("".join(logs))
+        os.replace(lib_tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def lib() -> ctypes.CDLL:
@@ -127,13 +141,15 @@ def _wrappers():
     from dinounet_tpu_torch.ops.attention import fused_rope_attention_premapped_dmaj
     from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
                                                     dense_residual_stats)
-    from dinounet_tpu_torch.ops.msda_kernel import ms_deform_attn_premapped_fused
+    from dinounet_tpu_torch.ops.msda_kernel import (ms_deform_attn_premapped_backward,
+                                                    ms_deform_attn_premapped_fused)
 
     return {
         "rope_attention": fused_rope_attention_premapped_dmaj,
         "dense_cm_stats": dense_cm_residual_stats,
         "dense_rm_stats": dense_residual_stats,
         "msda_fwd": ms_deform_attn_premapped_fused,
+        "msda_bwd": ms_deform_attn_premapped_backward,
     }
 
 

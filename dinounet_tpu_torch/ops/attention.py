@@ -6,7 +6,8 @@ out. For a CUDA tensor the wrapper launches ``csrc/rope_attention.cu`` (which
 replaces the TPU kernel ``_kernel_pm_dmaj``; its header says what bounds it
 and how it is built); for a CPU tensor it runs
 ``rope_attention_dmaj_plain``, the same function in plain PyTorch with the TPU
-kernel's rounding points.
+kernel's rounding points. On every device the op is differentiable with
+respect to qkv_t (see ``_RopeAttention``).
 """
 
 from typing import Optional, Tuple
@@ -53,15 +54,9 @@ def rope_attention_dmaj_plain(qkv_t: torch.Tensor, sin_eff_t: torch.Tensor,
     return (pv / denom[:, :, None, :]).to(cdt)
 
 
-def fused_rope_attention_premapped_dmaj(
-        qkv_t: torch.Tensor, sin: Optional[torch.Tensor],
-        cos: Optional[torch.Tensor]) -> torch.Tensor:
-    """qkv_t (B, 3, M, Dh, N); sin/cos (N, Dh) fp32 RoPE tables with identity
-    rows for the prefix tokens, or None for no RoPE. Returns (B, M, Dh, N)."""
-    B, three, M, Dh, N = qkv_t.shape
-    if three != 3:
-        raise ValueError(f"qkv_t must be (B, 3, M, Dh, N), got {tuple(qkv_t.shape)}")
-    sin_eff_t, cos_t = rope_tables_dmaj(sin, cos, N, Dh, qkv_t.device)
+def _forward(qkv_t: torch.Tensor, sin_eff_t: torch.Tensor,
+             cos_t: torch.Tensor) -> torch.Tensor:
+    B, _, M, Dh, N = qkv_t.shape
     if qkv_t.device.type == "cpu":
         return rope_attention_dmaj_plain(qkv_t, sin_eff_t, cos_t)
     if qkv_t.device.type != "cuda":
@@ -85,6 +80,38 @@ def fused_rope_attention_premapped_dmaj(
     _build.check(err, "rope_attention_dmaj")
     fused_rope_attention_premapped_dmaj.launches += 1
     return out
+
+
+class _RopeAttention(torch.autograd.Function):
+    """The kernel (or plain version) forward; the backward differentiates the
+    plain version recomputed from the saved qkv, as the JAX package's custom
+    VJP differentiates its reference formulation. The tables are constants."""
+
+    @staticmethod
+    def forward(ctx, qkv_t, sin_eff_t, cos_t):
+        ctx.save_for_backward(qkv_t, sin_eff_t, cos_t)
+        return _forward(qkv_t, sin_eff_t, cos_t)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv_t, sin_eff_t, cos_t = ctx.saved_tensors
+        qkv = qkv_t.detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = rope_attention_dmaj_plain(qkv, sin_eff_t, cos_t)
+        return torch.autograd.grad(out, qkv, g)[0], None, None
+
+
+def fused_rope_attention_premapped_dmaj(
+        qkv_t: torch.Tensor, sin: Optional[torch.Tensor],
+        cos: Optional[torch.Tensor]) -> torch.Tensor:
+    """qkv_t (B, 3, M, Dh, N); sin/cos (N, Dh) fp32 RoPE tables with identity
+    rows for the prefix tokens, or None for no RoPE. Returns (B, M, Dh, N),
+    differentiable with respect to qkv_t."""
+    B, three, M, Dh, N = qkv_t.shape
+    if three != 3:
+        raise ValueError(f"qkv_t must be (B, 3, M, Dh, N), got {tuple(qkv_t.shape)}")
+    sin_eff_t, cos_t = rope_tables_dmaj(sin, cos, N, Dh, qkv_t.device)
+    return _RopeAttention.apply(qkv_t, sin_eff_t, cos_t)
 
 
 fused_rope_attention_premapped_dmaj.launches = 0

@@ -11,8 +11,10 @@ exact-erf GELU on h; ``dense_cm_residual_stats`` takes it channel-major
 tensors both launch ``csrc/dense_stats.cu`` (which replaces the TPU kernels
 ``_kernel`` and ``_cm_kernel``; its header says what bounds it and how it is
 built); for CPU tensors they run the plain versions below, which round where
-the JAX package's ``_reference`` / ``_cm_reference`` round. ``row_stats``
-(the entry statistics of the chain) stays plain PyTorch on every device.
+the JAX package's ``_reference`` / ``_cm_reference`` round. Both are
+differentiable on every device: the backward differentiates the plain
+version (see ``_DenseStats``). ``row_stats`` (the entry statistics of the
+chain) stays plain PyTorch on every device.
 """
 
 from typing import Tuple
@@ -77,28 +79,53 @@ def _launch(h, w, b, res, gamma, channel_major: bool, gelu: bool, op: str) -> St
     return out, mu, var
 
 
-def dense_residual_stats(h, w, b, res, gamma, apply_gelu: bool = False) -> Stats:
-    """h (B, N, K) -> (out (B, N, D), mean (B, N), var (B, N))."""
+def _forward(h, w, b, res, gamma, channel_major: bool, gelu: bool) -> Stats:
     if h.device.type == "cpu":
-        return dense_residual_stats_plain(h, w, b, res, gamma, apply_gelu)
+        if channel_major:
+            return dense_cm_residual_stats_plain(h, w, b, res, gamma)
+        return dense_residual_stats_plain(h, w, b, res, gamma, gelu)
     if h.device.type != "cuda":
         raise ValueError(f"no dense kernel for device {h.device}")
-    result = _launch(h, w, b, res, gamma, False, apply_gelu,
-                     "dense_residual_stats")
-    dense_residual_stats.launches += 1
+    wrapper = dense_cm_residual_stats if channel_major else dense_residual_stats
+    result = _launch(h, w, b, res, gamma, channel_major, gelu, wrapper.__name__)
+    wrapper.launches += 1
     return result
+
+
+class _DenseStats(torch.autograd.Function):
+    """The kernel (or plain version) forward; the backward differentiates the
+    plain version recomputed from the saved inputs, as the JAX package's
+    custom VJP differentiates its reference formulation."""
+
+    @staticmethod
+    def forward(ctx, h, w, b, res, gamma, channel_major, gelu):
+        ctx.flags = (channel_major, gelu)
+        ctx.save_for_backward(h, w, b, res, gamma)
+        return _forward(h, w, b, res, gamma, channel_major, gelu)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        channel_major, gelu = ctx.flags
+        needs = ctx.needs_input_grad[:5]
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+        with torch.enable_grad():
+            if channel_major:
+                outs = dense_cm_residual_stats_plain(*inputs)
+            else:
+                outs = dense_residual_stats_plain(*inputs, gelu)
+        wanted = [t for t, n in zip(inputs, needs) if n]
+        got = iter(torch.autograd.grad(outs, wanted, grads, allow_unused=True))
+        return tuple(next(got) if n else None for n in needs) + (None, None)
+
+
+def dense_residual_stats(h, w, b, res, gamma, apply_gelu: bool = False) -> Stats:
+    """h (B, N, K) -> (out (B, N, D), mean (B, N), var (B, N))."""
+    return _DenseStats.apply(h, w, b, res, gamma, False, apply_gelu)
 
 
 def dense_cm_residual_stats(h_t, w, b, res, gamma) -> Stats:
     """h_t (B, K, N) -> (out (B, N, D), mean (B, N), var (B, N))."""
-    if h_t.device.type == "cpu":
-        return dense_cm_residual_stats_plain(h_t, w, b, res, gamma)
-    if h_t.device.type != "cuda":
-        raise ValueError(f"no dense kernel for device {h_t.device}")
-    result = _launch(h_t, w, b, res, gamma, True, False,
-                     "dense_cm_residual_stats")
-    dense_cm_residual_stats.launches += 1
-    return result
+    return _DenseStats.apply(h_t, w, b, res, gamma, True, False)
 
 
 dense_residual_stats.launches = 0

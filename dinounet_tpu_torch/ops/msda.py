@@ -18,6 +18,14 @@ with zero padding outside the map, as ``F.grid_sample(bilinear, zeros,
 align_corners=False)``. Returns (B, M, D, Lq) in value_t's dtype, accumulated
 in fp32. This is the CPU path of ``ops/msda_kernel.py`` and the reference the
 CUDA kernel is held against.
+
+``ms_deform_attn_premapped_backward_plain`` is the backward the JAX package's
+``_backward_premapped`` computes from the prepped coordinates and weights
+(``premapped_fused_prep``): the value gradient as an explicit scatter-add of
+the four corner terms, and the weight / coordinate gradients from re-sampled
+values and the separable bilinear derivatives. It is written out, not taken
+from autograd of the forward, so that it is an independent oracle for the
+CUDA backward kernel.
 """
 
 from typing import Sequence, Tuple
@@ -58,12 +66,8 @@ def ms_deform_attn_premapped_fused_plain(
     B, M, D, S = value_t.shape
     LP, Lq = logits.shape[2], logits.shape[3]
     P = LP // len(spatial_shapes)
-    if S != sum(h * w for h, w in spatial_shapes):
-        raise ValueError(f"value has {S} positions, spatial_shapes "
-                         f"{tuple(spatial_shapes)} hold a different number")
-    coords = off.float() + base.float()
-    xs, ys = coords[:, :, 0::2], coords[:, :, 1::2]
-    attn = torch.softmax(logits.float(), dim=2)
+    _check_positions(S, spatial_shapes)
+    xs, ys, attn = premapped_fused_prep(off, logits, base)
     v = value_t.float()
     out = torch.zeros((B, M, D, Lq), dtype=torch.float32, device=v.device)
     start = 0
@@ -75,3 +79,72 @@ def ms_deform_attn_premapped_fused_plain(
                     * attn[:, :, r, None, :])
         start += H * W
     return out.to(value_t.dtype)
+
+
+def _check_positions(S: int, spatial_shapes: Sequence[Tuple[int, int]]) -> None:
+    if S != sum(h * w for h, w in spatial_shapes):
+        raise ValueError(f"value has {S} positions, spatial_shapes "
+                         f"{tuple(spatial_shapes)} hold a different number")
+
+
+def premapped_fused_prep(off: torch.Tensor, logits: torch.Tensor,
+                         base: torch.Tensor):
+    """The fused prep in fp32 (``msda_pallas._premapped_fused_prep``):
+    xs, ys = off's x / y rows + base, s = softmax of logits over the points;
+    each (B, M, L*P, Lq)."""
+    coords = off.float() + base.float()
+    return coords[:, :, 0::2], coords[:, :, 1::2], torch.softmax(logits.float(), dim=2)
+
+
+def ms_deform_attn_premapped_backward_plain(
+        value_t: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+        xs: torch.Tensor, ys: torch.Tensor, aw: torch.Tensor,
+        g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """value_t (B, M, D, S); xs, ys, aw (B, M, L*P, Lq) fp32 pixel coordinates
+    and point weights; g (B, M, D, Lq) the output cotangent. Returns fp32
+    (gv (B, M, D, S), ga, gx, gy (B, M, L*P, Lq)), coordinate gradients in
+    pixel units; out-of-map corners contribute nothing."""
+    B, M, D, S = value_t.shape
+    LP, Lq = xs.shape[2], xs.shape[3]
+    P = LP // len(spatial_shapes)
+    _check_positions(S, spatial_shapes)
+    v = value_t.float()
+    g = g.float()
+    dev = v.device
+    gv = torch.zeros(B * M * D * S, dtype=torch.float32, device=dev)
+    ga, gx, gy = (torch.zeros((B, M, LP, Lq), dtype=torch.float32, device=dev)
+                  for _ in range(3))
+    # flat index of gv[b, m, d, 0] for every (b, m, d, q)
+    row = (torch.arange(B * M * D, device=dev) * S).view(B, M, D, 1)
+    start = 0
+    for lvl, (H, W) in enumerate(spatial_shapes):
+        v_l = v[..., start:start + H * W]
+        for p in range(P):
+            r = lvl * P + p
+            x, y, a = xs[:, :, r].float(), ys[:, :, r].float(), aw[:, :, r].float()
+            x0, y0 = torch.floor(x), torch.floor(y)
+            fx, fy = x - x0, y - y0
+            x0, y0 = x0.long(), y0.long()
+            s_val = torch.zeros_like(x)
+            s_dx = torch.zeros_like(x)
+            s_dy = torch.zeros_like(x)
+            for dy in (0, 1):
+                wy = fy if dy else 1.0 - fy
+                for dx in (0, 1):
+                    wx = fx if dx else 1.0 - fx
+                    yy, xx = y0 + dy, x0 + dx
+                    valid = ((yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)).float()
+                    idx = yy.clamp(0, H - 1) * W + xx.clamp(0, W - 1)  # (B, M, Lq)
+                    sampled = torch.gather(v_l, 3, idx[:, :, None].expand(-1, -1, D, -1))
+                    dot = (sampled * g).sum(dim=2) * valid
+                    s_val += wy * wx * dot
+                    s_dx += (wy if dx else -wy) * dot
+                    s_dy += (wx if dy else -wx) * dot
+                    contrib = g * (a * wy * wx * valid)[:, :, None]
+                    gv.index_add_(0, (row + start + idx[:, :, None]).reshape(-1),
+                                  contrib.reshape(-1))
+            ga[:, :, r] = s_val
+            gx[:, :, r] = a * s_dx
+            gy[:, :, r] = a * s_dy
+        start += H * W
+    return gv.view(B, M, D, S), ga, gx, gy

@@ -1,0 +1,88 @@
+"""DinoUNet trainer family, PyTorch.
+
+Counterpart of ``dinounet_tpu/training/dinounet_trainer.py`` (ref:
+dinounet_training.py:833-956): a trainer that ignores the plans' network
+class and builds DinoUNet (frozen DINOv3 backbone + adapter + FAPM + decoder)
+from the plans' architecture dict, and the size variants pinning the
+backbone. Deep supervision is off (the base class
+is nnUNetTrainerNoDeepSupervision).
+
+The published DINOv3 ``.pth`` backbones load in a later slice; until then a
+trainer whose checkpoint file is missing goes on with a randomly initialised
+frozen backbone and says so in its log, as the JAX trainer does, and one
+whose file is present raises rather than train from the wrong weights.
+``DinoUNetTrainer_7b`` raises: its SwiGLU backbone and the row-major
+attention kernel are not ported yet.
+"""
+
+import os
+
+from dinounet_tpu_torch.models.dinounet import DinoUNet, DinoUNetConfig
+from dinounet_tpu_torch.training.trainer_variants import nnUNetTrainerNoDeepSupervision
+from dinounet_tpu_torch.utilities import registry
+
+
+@registry.trainers.register("DinoUNetTrainer")
+class DinoUNetTrainer(nnUNetTrainerNoDeepSupervision):
+    """ref dinounet_training.py:833-881."""
+
+    _dinov3_pretrained_path = None
+    _dinov3_model_name = "dinounet_s"
+
+    @classmethod
+    def build_network_architecture(cls, architecture_class_name: str, arch_init_kwargs: dict,
+                                   arch_init_kwargs_req_import, num_input_channels: int,
+                                   num_output_channels: int,
+                                   enable_deep_supervision: bool = True) -> DinoUNet:
+        """Ignores the plans' network class; returns DinoUNet (ref :857-881)."""
+        arch = dict(arch_init_kwargs)
+        arch.setdefault("n_stages", len(arch.get("features_per_stage", [32, 64, 128, 256])))
+        cfg = DinoUNetConfig.from_plans_arch(
+            arch, num_classes=num_output_channels, model_name=cls._dinov3_model_name,
+            deep_supervision=enable_deep_supervision)
+        return DinoUNet(cfg)
+
+    def initialize(self):
+        super().initialize()
+        path = self._dinov3_pretrained_path
+        if path and os.path.exists(path):
+            raise NotImplementedError(
+                f"{path} exists, but loading a published DINOv3 backbone into "
+                "the port waits for the checkpoint slice; remove it or train "
+                "with the JAX package")
+        self.print_to_log_file(
+            "WARNING: no pretrained DINOv3 checkpoint found "
+            f"({path}); the frozen backbone is randomly initialized.")
+
+
+@registry.trainers.register("DinoUNetTrainer_s")
+class DinoUNetTrainer_s(DinoUNetTrainer):
+    """DINOv3 ViT-S/16 (ref :885-893)."""
+    _dinov3_model_name = "dinounet_s"
+    _dinov3_pretrained_path = "dinounet/checkpoints/dinov3_vits16_pretrain.pth"
+
+
+@registry.trainers.register("DinoUNetTrainer_b")
+class DinoUNetTrainer_b(DinoUNetTrainer):
+    """DINOv3 ViT-B/16 (ref :897-905)."""
+    _dinov3_model_name = "dinounet_b"
+    _dinov3_pretrained_path = "dinounet/checkpoints/dinov3_vitb16_pretrain.pth"
+
+
+@registry.trainers.register("DinoUNetTrainer_l")
+class DinoUNetTrainer_l(DinoUNetTrainer):
+    """DINOv3 ViT-L/16 (ref :909-917)."""
+    _dinov3_model_name = "dinounet_l"
+    _dinov3_pretrained_path = "dinounet/checkpoints/dinov3_vitl16_pretrain.pth"
+
+
+@registry.trainers.register("DinoUNetTrainer_7b")
+class DinoUNetTrainer_7b(DinoUNetTrainer):
+    """DINOv3 ViT-7B/16 (ref :921-930): not trainable in the port yet."""
+    _dinov3_model_name = "dinounet_7b"
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "DinoUNetTrainer_7b waits for the SwiGLU backbone and the row-major "
+            "attention kernel (Pallas #9), a later slice of the port")
+

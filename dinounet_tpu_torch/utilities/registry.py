@@ -11,10 +11,14 @@ the mapping is auditable.
 from typing import Any, Callable, Dict
 
 
-# Modules of this package that register built-ins on import. The serving
-# slice has none yet: preprocessors, planners, readers and trainers come with
-# the parts of the port that add them.
-_REGISTRATION_MODULES = ()
+# Modules of this package that register built-ins on import: the trainers.
+# Preprocessors, planners and readers come with the parts of the port that
+# add them.
+_REGISTRATION_MODULES = (
+    "dinounet_tpu_torch.training.trainer",
+    "dinounet_tpu_torch.training.trainer_variants",
+    "dinounet_tpu_torch.training.dinounet_trainer",
+)
 
 
 def _ensure_registered() -> None:

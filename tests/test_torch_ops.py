@@ -198,3 +198,53 @@ def test_kernel_paths_refuse_other_devices():
     meta = torch.empty((1, 3, 1, 64, 8), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError):
         fused_rope_attention_premapped_dmaj(meta, None, None)
+
+
+def _grads(fn, leaves):
+    """Gradients of a fixed random projection of fn's outputs."""
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    gen = torch.Generator().manual_seed(5)
+    loss = sum((o.float() * torch.randn(o.shape, generator=gen)).sum() for o in outs)
+    return torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("channel_major,gelu", [(False, False), (False, True),
+                                                (True, False)])
+def test_dense_wrapper_grads_equal_plain(channel_major, gelu):
+    """The wrappers are autograd Functions whose backward differentiates the
+    plain version: on the CPU the gradients are the plain version's own."""
+    from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats_plain,
+                                                    dense_residual_stats_plain)
+
+    h, w, b, res, g = _dense_inputs(np.random.default_rng(6), 2, 21, 40, 24)
+    if channel_major:
+        h = np.ascontiguousarray(np.swapaxes(h, 1, 2))
+        wrapper, plain = dense_cm_residual_stats, dense_cm_residual_stats_plain
+    else:
+        wrapper = lambda *a: dense_residual_stats(*a, apply_gelu=gelu)
+        plain = lambda *a: dense_residual_stats_plain(*a, gelu)
+
+    def leaves():
+        return [torch.tensor(a, dtype=torch.float32, requires_grad=True)
+                for a in (h, w, b, res, g)]
+
+    got = _grads(wrapper, leaves())
+    want = _grads(plain, leaves())
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a, b_, rtol=0, atol=0)
+
+
+def test_attention_wrapper_grads_equal_plain():
+    from dinounet_tpu_torch.ops.attention import (rope_attention_dmaj_plain,
+                                                  rope_tables_dmaj)
+
+    N, Dh = 21, 16
+    sin, cos = (torch.from_numpy(t) for t in _rope_tables(N, Dh, 5))
+    qkv = np.random.default_rng(7).standard_normal((2, 3, 2, Dh, N))
+    tables = rope_tables_dmaj(sin, cos, N, Dh, "cpu")
+    got = _grads(lambda q: fused_rope_attention_premapped_dmaj(q, sin, cos),
+                 [torch.tensor(qkv, dtype=torch.float32, requires_grad=True)])
+    want = _grads(lambda q: rope_attention_dmaj_plain(q, *tables),
+                  [torch.tensor(qkv, dtype=torch.float32, requires_grad=True)])
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
