@@ -10,8 +10,13 @@ not 0:
 2. kernels -- each kernel against its plain PyTorch version on the card, at
               the shapes the dinounet_b tile forward gives it (tile batch 8;
               the MSDA backward at the train step's batch 2), within its
-              stated tolerance; kernel and plain times (CUDA events, median
-              of 20).
+              stated tolerance; kernel, plain and library times (CUDA events,
+              median of 20) and the bound (the larger of the bytes each call
+              must move over 3.35 TB/s and its operations over the peak rate
+              of their type). The library call is one PyTorch op computing
+              the same function or, for the convs, the same conv alone (cuDNN
+              on channels-last bf16, no prologue or statistics), timed as a
+              yardstick and never called by the port.
 3. serve   -- dinounet_b at full width with seeded random weights, behind the
               port's nnUNetPredictor (2d, 512 x 512 patches, step 0.5, tile
               batch 8, bf16): one 1 x 1280 x 1280 case = 16 tiles in 2
@@ -22,7 +27,16 @@ not 0:
 4. parity  -- one 512 x 512 tile through DinoUNet on the card in bf16 (the
               kernels) and on the CPU in fp32 (the plain versions), the same
               weights: relative L2 error of the logits <= PARITY_BOUND.
-5. train   -- a synthetic preprocessed 2-D dataset (6 cases of 640 x 640, a
+5. serve routes -- the same case served again with each inference conv
+              route on (ROUTES: the channel-major decoder chain, upsampling
+              and SPM stem; the HWBC decoder stages): launch counts per
+              tile-batch forward (PER_FORWARD_ROUTE on top of the serve
+              counts), finite fp16 logits, and the parity tile (in a batch of
+              8, as the HWBC stages need) against the same CPU fp32 logits
+              within PARITY_BOUND. Tiles/s and the SPM, upsampling and decoder
+              CUDA-event times per tile batch, beside the default route's.
+              The environment is restored after each route.
+6. train   -- a synthetic preprocessed 2-D dataset (6 cases of 640 x 640, a
               bright disk and a dark ring) in a temporary nnUNet_preprocessed;
               DinoUNetTrainer_b through run.get_trainer_from_args on cuda:0
               (512 x 512 patches, batch 2, bf16, random frozen backbone),
@@ -36,7 +50,7 @@ not 0:
               LEARN_STEPS further steps on the same loader the mean loss of
               the last 10 below that of the first 10. Step time, steps/s and
               peak device memory for information.
-6. train parity -- one train step's loss and trainable gradients on the card
+7. train parity -- one train step's loss and trainable gradients on the card
               (bf16, the kernels) against the CPU (fp32, the plain
               versions): same dinounet_b weights and 256 x 256 batch of 1,
               no augmentation, drop-path 0; relative L2 of the concatenated
@@ -47,11 +61,12 @@ not 0:
               as it was.
 
 Then the card's name and power limit, one JSON line of kernel results
-(launches: the serve and train phases' counts), and as the last line
-{"ok": true, "device": {...}}. Without a CUDA device the script raises
-before printing any result.
+(launches: the counts of the serve, serve_cm, serve_hwbc and train paths),
+and as the last line {"ok": true, "device": {...}}. Without a CUDA device the
+script raises before printing any result.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -62,6 +77,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from dinounet_tpu_torch.inference.predictor import nnUNetPredictor
 from dinounet_tpu_torch.models.dinounet import DinoUNet, DinoUNetConfig
@@ -70,12 +86,17 @@ from dinounet_tpu_torch.ops import _build
 from dinounet_tpu_torch.ops.attention import (fused_rope_attention_premapped_dmaj,
                                               rope_attention_dmaj_plain,
                                               rope_tables_dmaj)
+from dinounet_tpu_torch.ops.conv_hwbc import conv3x3_hwbc, conv3x3_hwbc_plain
+from dinounet_tpu_torch.ops.decoder_tail import (conv3x3_cm, conv3x3_cm_plain,
+                                                 seg_head_cm, seg_head_cm_plain,
+                                                 transpconv2x2_cm,
+                                                 transpconv2x2_cm_plain)
 from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
                                                 dense_cm_residual_stats_plain,
                                                 dense_residual_stats,
                                                 dense_residual_stats_plain)
-from dinounet_tpu_torch.ops.kernel_check import (KERNEL_TOLERANCES, max_abs_err,
-                                                 max_excess, median_ms)
+from dinounet_tpu_torch.ops.kernel_check import (KERNEL_TOLERANCES, STATS_TOLERANCE,
+                                                 max_abs_err, max_excess, median_ms)
 from dinounet_tpu_torch.ops.msda import (ms_deform_attn_premapped_backward_plain,
                                          ms_deform_attn_premapped_fused_plain,
                                          premapped_fused_prep)
@@ -97,13 +118,30 @@ N_CLASSES = 3
 PARITY_BOUND = 0.05
 # kernel launches per tile-batch forward of dinounet_b
 PER_FORWARD = {"rope_attention": 12, "dense_cm_stats": 18, "dense_rm_stats": 18,
-               "msda_fwd": 6, "msda_bwd": 0}
+               "msda_fwd": 6, "msda_bwd": 0, "conv3x3_cm": 0, "transpconv2x2_cm": 0,
+               "seg_head_cm": 0, "conv3x3_hwbc": 0}
+# the inference conv routes, as environment settings, and the launches each
+# adds per tile-batch forward. serve_cm: conv3x3_cm 2 per decoder stage at
+# 128^2, 256^2, 512^2 and the 2 SPM stem convs at 256^2; transpconv2x2_cm the
+# 3 decoder upsamplings and the 4 LearnableUpsamples' 2 doublings each; one
+# seg head (no deep supervision). serve_hwbc: the 64-channel stage at 256^2
+# and the 32-channel stage at 512^2, 2 convs each (the 128-channel stage is
+# not eligible).
+ROUTES = {
+    "serve_cm": {"DINOUNET_TPU_DECODER_TAIL": "pallas", "DINOUNET_TPU_SPM_CM": "pallas"},
+    "serve_hwbc": {"DINOUNET_TPU_DECODER_HWBC": "auto", "DINOUNET_TPU_DECODER_TAIL": "jax"},
+}
+PER_FORWARD_ROUTE = {
+    "serve_cm": {"conv3x3_cm": 8, "transpconv2x2_cm": 11, "seg_head_cm": 1},
+    "serve_hwbc": {"conv3x3_hwbc": 4},
+}
 # kernel launches per train step: the backbone's 12 blocks (attention, the
 # channel-major attention projection, the row-major fc2); the adapter trains
 # unfused, so its 6 extractors launch only the MSDA forward (twice: the
 # checkpointed interaction blocks run it again in the backward) and backward
 PER_TRAIN_STEP = {"rope_attention": 12, "dense_cm_stats": 12, "dense_rm_stats": 12,
-                  "msda_fwd": 12, "msda_bwd": 6}
+                  "msda_fwd": 12, "msda_bwd": 6, "conv3x3_cm": 0, "transpconv2x2_cm": 0,
+                  "seg_head_cm": 0, "conv3x3_hwbc": 0}
 TRAIN_ITERS, TRAIN_EPOCHS, VAL_ITERS, LEARN_STEPS = 5, 2, 2, 40
 TRAIN_DATASET = "Dataset998_SmokeTrain"
 # one train step, card bf16 (kernels) vs CPU fp32 (plain versions), relative
@@ -129,7 +167,18 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                  "dinounet_tpu/ops/msda_pallas.py:251"),
     "msda_bwd": ("dinounet_tpu_torch/csrc/msda_bwd.cu",
                  "dinounet_tpu/ops/msda_pallas.py:582"),
+    "conv3x3_cm": ("dinounet_tpu_torch/csrc/conv3x3_stats.cu",
+                   "dinounet_tpu/ops/decoder_tail_pallas.py:141"),
+    "transpconv2x2_cm": ("dinounet_tpu_torch/csrc/transpconv2x2.cu",
+                         "dinounet_tpu/ops/decoder_tail_pallas.py:399"),
+    "seg_head_cm": ("dinounet_tpu_torch/csrc/seg_head.cu",
+                    "dinounet_tpu/ops/decoder_tail_pallas.py:207"),
+    "conv3x3_hwbc": ("dinounet_tpu_torch/csrc/conv3x3_stats.cu",
+                     "dinounet_tpu/ops/conv_hwbc_pallas.py:78"),
 }
+# the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, dense
+# bf16 tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores
+HBM_BYTES_S, BF16_FLOP_S, FP32_FLOP_S = 3.35e12, 989e12, 67e12
 ARCH = {  # the plans' architecture of a 2d dinounet_b configuration
     "n_stages": 4, "features_per_stage": [32, 64, 128, 256],
     "kernel_sizes": [[3, 3]] * 4, "strides": [[1, 1], [2, 2], [2, 2], [2, 2]],
@@ -159,24 +208,77 @@ def phase_build() -> None:
         f"({_build.library_path().parent})")
 
 
-def _compare(name, shape_desc, kernel_fn, plain_fn):
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _bound(nbytes: int, flops: float, peak: float):
+    """The least time (ms) the card could take: bytes over the HBM rate or
+    operations over their type's peak, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _compare(name, shape_desc, kernel_fn, plain_fn, inputs, flops, peak,
+             library_fn=None, tols=None, library_label="library"):
+    """Kernel vs plain version on the same inputs; `inputs` are the tensors
+    the function reads (each counted once in the bound, with the outputs);
+    `tols` optionally one (atol, rtol) per output (default: the kernel's)."""
     got, want = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    tol = KERNEL_TOLERANCES[name]
-    excess = max(max_excess(g, w, tol) for g, w in zip(got, want))
+    tols = tols or [KERNEL_TOLERANCES[name]] * len(got)
+    excess = max(max_excess(g, w, tol) for g, w, tol in zip(got, want, tols))
     err = max(max_abs_err(g, w) for g, w in zip(got, want))
     rel = max(max_abs_err(g, w) / max(float(w.float().abs().max()), 1e-30)
               for g, w in zip(got, want))
+    bound_ms, bound_by = _bound(_nbytes(*inputs, *got), flops, peak)
     ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn)
+    library_ms = median_ms(library_fn) if library_fn is not None else None
+    lib_txt = f", {library_label} {library_ms:.4f} ms" if library_ms is not None else ""
     log(f"[kernels] {name} {shape_desc}: max abs err {err:.3e} (max rel "
-        f"{rel:.3e}; bound atol {tol[0]} + rtol {tol[1]}*|ref|, excess "
-        f"{excess:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        f"{rel:.3e}; bound atol {tols[0][0]} + rtol {tols[0][1]}*|ref|, excess "
+        f"{excess:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib_txt}; "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
     if not excess <= 0:
         raise AssertionError(f"{name} {shape_desc}: kernel disagrees with its "
                              f"plain version (excess {excess})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def _conv_case(g, dev, B, C1, C2, H, W, Cout, prologue, slope=0.01):
+    """Random bf16 inputs, (Cout, Cin, 3, 3) weights and an optional prologue
+    (as an InstanceNorm apply gives it) for one 3x3 conv of the path."""
+    bf = torch.bfloat16
+    x = torch.randn((B, C1, H, W), generator=g, device=dev).to(bf)
+    x2 = torch.randn((B, C2, H, W), generator=g, device=dev).to(bf) if C2 else None
+    cin = C1 + C2
+    w = torch.randn((Cout, cin, 3, 3), generator=g, device=dev) * (9 * cin) ** -0.5
+    b = torch.randn((Cout,), generator=g, device=dev) * 0.1
+    pro = None
+    if prologue:
+        pro = (torch.rand((B, cin), generator=g, device=dev) + 0.5,
+               torch.randn((B, cin), generator=g, device=dev) * 0.3)
+    return x, x2, w, b, pro, slope
+
+
+def _conv_library(x, x2, w, b):
+    """cuDNN's conv alone on channels-last bf16 (the concat made beforehand)."""
+    xin = x if x2 is None else torch.cat([x, x2], dim=1)
+    xin = xin.contiguous(memory_format=torch.channels_last)
+    wl = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    bl = b.to(torch.bfloat16)
+    return lambda: F.conv2d(xin, wl, bl, padding=1)
+
+
+CUDNN_LABEL = "library (cuDNN conv alone, channels-last bf16)"
+
+
+def _normalized(out, n):
+    """(y, sum, ssq) -> (y, sum / n, ssq / n): statistics compared as means."""
+    return (out[0], out[1] / n, out[2] / n) if isinstance(out, tuple) else out
 
 
 def phase_kernels(dev) -> dict:
@@ -188,39 +290,57 @@ def phase_kernels(dev) -> dict:
         return torch.randn(shape, generator=g, device=dev) * scale
 
     results = {}
-    # attention: ViT-B, 12 heads of 64 over 5 + 32 * 32 tokens
+    # attention: ViT-B, 12 heads of 64 over 5 + 32 * 32 tokens; library:
+    # scaled_dot_product_attention on the rotated q, k and v
     N, M, Dh = 1029, 12, 64
     qkv = randn(B, 3, M, Dh, N).to(bf)
     sin, cos = rope_sincos(32, 32, Dh, device=dev)
     sin = torch.cat([torch.zeros((5, Dh), device=dev), sin])
     cos = torch.cat([torch.ones((5, Dh), device=dev), cos])
     tables = rope_tables_dmaj(sin, cos, N, Dh, dev)
+
+    def rotated(x):
+        xf = x.float()
+        r = xf * tables[1] + torch.roll(xf, Dh // 2, dims=-2) * tables[0]
+        return r.to(bf).transpose(-1, -2).contiguous()  # (B, M, N, Dh)
+
+    q, k, v = rotated(qkv[:, 0]), rotated(qkv[:, 1]), qkv[:, 2].transpose(-1, -2).contiguous()
     results["rope_attention"] = _compare(
         "rope_attention", f"qkv {tuple(qkv.shape)}",
         lambda: fused_rope_attention_premapped_dmaj(qkv, sin, cos),
-        lambda: rope_attention_dmaj_plain(qkv, *tables))
+        lambda: rope_attention_dmaj_plain(qkv, *tables),
+        (qkv, sin, cos), 4.0 * B * M * N * N * Dh, BF16_FLOP_S,
+        lambda: F.scaled_dot_product_attention(q, k, v))
 
-    # dense + residual + stats: (K, N) of the ViT and of the adapter, D = 768
+    # dense + residual + stats: (K, N) of the ViT and of the adapter, D = 768;
+    # library: the cuBLAS GEMM alone (a lower yardstick: no epilogue)
     D = 768
     for K, N, where in ((768, 1029, "vit proj"), (384, 5376, "msda output proj")):
         h = randn(B, K, N).to(bf)
         w, b = randn(K, D, scale=K ** -0.5), randn(D, scale=0.1)
         res, gamma = randn(B, N, D).to(bf), randn(D, scale=0.5)
+        wb, ht = w.to(bf), h.transpose(1, 2)
         r = _compare("dense_cm_stats", f"{where} K={K} N={N}",
                      lambda: dense_cm_residual_stats(h, w, b, res, gamma),
-                     lambda: dense_cm_residual_stats_plain(h, w, b, res, gamma))
+                     lambda: dense_cm_residual_stats_plain(h, w, b, res, gamma),
+                     (h, w, b, res, gamma), 2.0 * B * N * K * D, BF16_FLOP_S,
+                     lambda: torch.matmul(ht, wb))
         results.setdefault("dense_cm_stats", r)
     for K, N, where in ((3072, 1029, "vit fc2"), (192, 5376, "convffn fc2")):
         h = randn(B, N, K).to(bf)
         w, b = randn(K, D, scale=K ** -0.5), randn(D, scale=0.1)
         res, gamma = randn(B, N, D).to(bf), randn(D, scale=0.5)
+        wb = w.to(bf)
         r = _compare("dense_rm_stats", f"{where} +GELU K={K} N={N}",
                      lambda: dense_residual_stats(h, w, b, res, gamma, apply_gelu=True),
-                     lambda: dense_residual_stats_plain(h, w, b, res, gamma, True))
+                     lambda: dense_residual_stats_plain(h, w, b, res, gamma, True),
+                     (h, w, b, res, gamma), 2.0 * B * N * K * D, BF16_FLOP_S,
+                     lambda: torch.matmul(h, wb))
         results.setdefault("dense_rm_stats", r)
 
     # MSDA: 16 heads of 24 channels over the 32 x 32 ViT grid, 5376 queries
-    # around the adapter's reference grid, 4 points
+    # around the adapter's reference grid, 4 points; no library op computes
+    # it. Operations: 4 corners x 2 FLOP per channel and point (fp32 FMA).
     Mq, Dv, Hv, P, Lq = 16, 24, 32, 4, 5376
     v = randn(B, Mq, Dv, Hv * Hv).to(bf)
     off = randn(B, Mq, 2 * P, Lq, scale=2.0).to(bf)
@@ -229,10 +349,13 @@ def phase_kernels(dev) -> dict:
     results["msda_fwd"] = _compare(
         "msda_fwd", f"value {tuple(v.shape)} Lq={Lq}",
         lambda: ms_deform_attn_premapped_fused(v, ((Hv, Hv),), off, logits, base),
-        lambda: ms_deform_attn_premapped_fused_plain(v, ((Hv, Hv),), off, logits, base))
+        lambda: ms_deform_attn_premapped_fused_plain(v, ((Hv, Hv),), off, logits, base),
+        (v, off, logits, base), 8.0 * B * Mq * Lq * P * Dv, FP32_FLOP_S)
 
     # MSDA backward at the train step's shapes (batch 2): the prepped
-    # coordinates and weights of the forward's inputs, an fp32 cotangent
+    # coordinates and weights of the forward's inputs, an fp32 cotangent.
+    # Operations: per corner and channel the value-gradient scatter, the
+    # attention-weight product and the two coordinate derivatives (8 FLOP).
     Bt = 2
     xs, ys, aw = (t.contiguous() for t in premapped_fused_prep(
         off[:Bt], logits[:Bt], base))
@@ -241,7 +364,79 @@ def phase_kernels(dev) -> dict:
     results["msda_bwd"] = _compare(
         "msda_bwd", f"value {tuple(vt.shape)} Lq={Lq}",
         lambda: ms_deform_attn_premapped_backward(vt, ((Hv, Hv),), xs, ys, aw, cot),
-        lambda: ms_deform_attn_premapped_backward_plain(vt, ((Hv, Hv),), xs, ys, aw, cot))
+        lambda: ms_deform_attn_premapped_backward_plain(vt, ((Hv, Hv),), xs, ys, aw, cot),
+        (vt, xs, ys, aw, cot), 32.0 * Bt * Mq * Lq * P * Dv, FP32_FLOP_S)
+
+    # the decoder/SPM conv family at the dinounet_b serve shapes (tile batch
+    # 8, 512^2 tiles). The first of each kernel's shapes is the one its JSON
+    # entry reports.
+    conv_cases = [  # (where, C1, C2, H, Cout, prologue, slope, stats)
+        ("decoder conv0 512^2", 32, 32, 512, 32, False, 0.01, True),
+        ("decoder conv1 512^2", 32, 0, 512, 32, True, 0.01, True),
+        ("decoder conv0 256^2", 64, 64, 256, 64, False, 0.01, True),
+        ("decoder conv1 256^2", 64, 0, 256, 64, True, 0.01, True),
+        ("decoder conv0 128^2", 128, 128, 128, 128, False, 0.01, True),
+        ("decoder conv1 128^2", 128, 0, 128, 128, True, 0.01, True),
+        ("SPM stem3 256^2", 64, 0, 256, 64, True, 0.0, False),
+    ]
+    for where, C1, C2, H, Cout, pro, slope, stats in conv_cases:
+        x, x2, w, b, p, slope = _conv_case(g, dev, B, C1, C2, H, H, Cout, pro, slope)
+        n = H * H
+        tols = [KERNEL_TOLERANCES["conv3x3_cm"]] + [STATS_TOLERANCE] * (2 if stats else 0)
+        r = _compare(
+            "conv3x3_cm", f"{where} ({C1}+{C2} -> {Cout})",
+            lambda: _normalized(conv3x3_cm(x, w, b, p, slope, stats, x2), n),
+            lambda: _normalized(conv3x3_cm_plain(x, w, b, p, slope, stats, x2), n),
+            (x, x2, w, b, *(p or ())), 2.0 * B * n * 9 * (C1 + C2) * Cout, BF16_FLOP_S,
+            _conv_library(x, x2, w, b), tols, CUDNN_LABEL)
+        results.setdefault("conv3x3_cm", r)
+    # the HWBC route's convs on (H, W, B, C) views of NCHW maps, as the
+    # decoder calls them
+    for where, C1, C2, H, Cout, pro in (("conv0 512^2", 32, 32, 512, 32, False),
+                                        ("conv1 512^2", 32, 0, 512, 32, True),
+                                        ("conv0 256^2", 64, 64, 256, 64, False),
+                                        ("conv1 256^2", 64, 0, 256, 64, True)):
+        x, x2, w, b, p, slope = _conv_case(g, dev, B, C1, C2, H, H, Cout, pro)
+        xv, x2v = x.permute(2, 3, 0, 1), None if x2 is None else x2.permute(2, 3, 0, 1)
+        n = H * H
+        tols = [KERNEL_TOLERANCES["conv3x3_hwbc"], STATS_TOLERANCE, STATS_TOLERANCE]
+        r = _compare(
+            "conv3x3_hwbc", f"{where} ({C1}+{C2} -> {Cout})",
+            lambda: _normalized(conv3x3_hwbc(xv, w, b, x2v, p, slope), n),
+            lambda: _normalized(conv3x3_hwbc_plain(xv, w, b, x2v, p, slope), n),
+            (x, x2, w, b, *(p or ())), 2.0 * B * n * 9 * (C1 + C2) * Cout, BF16_FLOP_S,
+            _conv_library(x, x2, w, b), tols, CUDNN_LABEL)
+        results.setdefault("conv3x3_hwbc", r)
+    # transposed convs: the decoder's three (with the previous stage's
+    # InstanceNorm apply after the first) and LearnableUpsample doublings
+    for where, Cin, Cout, H, pro in (("decoder 256^2", 64, 32, 256, True),
+                                     ("decoder 128^2", 128, 64, 128, True),
+                                     ("decoder 64^2", 256, 128, 64, False),
+                                     ("upsample 256^2", 32, 32, 256, False),
+                                     ("upsample 32^2", 256, 256, 32, False)):
+        x = randn(B, Cin, H, H).to(bf)
+        w, b = randn(Cin, Cout, 2, 2, scale=Cin ** -0.5), randn(Cout, scale=0.1)
+        p = (torch.rand((B, Cin), generator=g, device=dev) + 0.5,
+             randn(B, Cin, scale=0.3)) if pro else None
+        xl = x.contiguous(memory_format=torch.channels_last)
+        wl, bl = w.to(bf), b.to(bf)
+        r = _compare(
+            "transpconv2x2_cm", f"{where} ({Cin} -> {Cout})",
+            lambda: transpconv2x2_cm(x, w, b, p), lambda: transpconv2x2_cm_plain(x, w, b, p),
+            (x, w, b, *(p or ())), 2.0 * B * H * H * Cin * 4 * Cout, BF16_FLOP_S,
+            lambda: F.conv_transpose2d(xl, wl, bl, stride=2), library_label=CUDNN_LABEL)
+        results.setdefault("transpconv2x2_cm", r)
+    # the seg head over the last stage: (8, 32, 512, 512) -> 3 fp32 logits
+    C, K, H = 32, N_CLASSES, PATCH
+    x = randn(B, C, H, H).to(bf)
+    w, b = randn(K, C, 1, 1, scale=C ** -0.5), randn(K, scale=0.1)
+    p = (torch.rand((B, C), generator=g, device=dev) + 0.5, randn(B, C, scale=0.3))
+    xl, wl = x.contiguous(memory_format=torch.channels_last), w.to(bf)
+    results["seg_head_cm"] = _compare(
+        "seg_head_cm", f"({B}, {C}, {H}, {H}) -> {K}",
+        lambda: seg_head_cm(x, w, b, p), lambda: seg_head_cm_plain(x, w, b, p),
+        (x, w, b, *p), 2.0 * B * H * H * C * K, FP32_FLOP_S,
+        lambda: F.conv2d(xl, wl), library_label=CUDNN_LABEL)
     return results
 
 
@@ -252,7 +447,22 @@ def build_model() -> DinoUNet:
     return DinoUNet(cfg).init_weights(seed=0).eval()
 
 
-def phase_serve(dev, model: DinoUNet) -> dict:
+@contextlib.contextmanager
+def route_env(settings: dict):
+    """Set the route variables for the block, then restore what was there."""
+    saved = {k: os.environ.get(k) for k in settings}
+    os.environ.update(settings)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_serve(dev, model: DinoUNet, path: str = "serve") -> dict:
     pm = PlansManager(PLANS)
     predictor = nnUNetPredictor(tile_step_size=0.5, use_mirroring=False,
                                 device=dev, tile_batch=TILE_BATCH)
@@ -260,21 +470,24 @@ def phase_serve(dev, model: DinoUNet) -> dict:
                                     DATASET_JSON, "nnUNetTrainer", None)
     case = np.random.default_rng(0).standard_normal(CASE).astype(np.float32)
     n_tiles, n_batches = 16, 2
+    tag = f"[{path}]" if path == "serve" else f"[serve routes: {path}]"
 
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     logits = predictor.predict_logits_from_preprocessed_data(case)
     first_s = time.perf_counter() - t0
     counts = _build.launch_counts()
-    log(f"[serve] first case {first_s:.2f} s; launches {counts}")
-    want = {k: n * n_batches for k, n in PER_FORWARD.items()}
+    log(f"{tag} first case {first_s:.2f} s; launches {counts}")
+    per_forward = {k: n + PER_FORWARD_ROUTE.get(path, {}).get(k, 0)
+                   for k, n in PER_FORWARD.items()}
+    want = {k: n * n_batches for k, n in per_forward.items()}
     if counts != want:
-        raise AssertionError(f"kernel launches {counts}, the path makes {want}")
+        raise AssertionError(f"{path}: kernel launches {counts}, the path makes {want}")
     if logits.shape != (N_CLASSES,) + CASE[1:] or logits.dtype != np.float16:
-        raise AssertionError(f"logits {logits.shape} {logits.dtype}")
+        raise AssertionError(f"{path}: logits {logits.shape} {logits.dtype}")
     if not np.all(np.isfinite(logits)):
-        raise AssertionError("non-finite logits")
-    log(f"[serve] logits {logits.shape} {logits.dtype}, all finite, "
+        raise AssertionError(f"{path}: non-finite logits")
+    log(f"{tag} logits {logits.shape} {logits.dtype}, all finite, "
         f"mean {float(logits.astype(np.float32).mean()):.4f} "
         f"std {float(logits.astype(np.float32).std()):.4f}")
 
@@ -284,13 +497,58 @@ def phase_serve(dev, model: DinoUNet) -> dict:
         t0 = time.perf_counter()
         predictor.predict_logits_from_preprocessed_data(case)
         rates.append(n_tiles / (time.perf_counter() - t0))
-    log(f"[serve] tiles/s over 3 repeats: {', '.join(f'{r:.2f}' for r in rates)} "
+    log(f"{tag} tiles/s over 3 repeats: {', '.join(f'{r:.2f}' for r in rates)} "
         f"(median {sorted(rates)[1]:.2f}); peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     return counts
 
 
-def phase_parity(dev, model: DinoUNet) -> float:
+def phase_layer_times(dev, model: DinoUNet, path: str, iters: int = 5) -> dict:
+    """CUDA-event times of the layers the routes change (the SPM, the four
+    LearnableUpsamples, the decoder) per tile-batch forward, from forward
+    pre/post hooks, mean of `iters` forwards after one warm-up."""
+    layers = {"spm": [model.encoder.dinov3_adapter.spm],
+              "upsample": list(model.encoder.ups), "decoder": [model.decoder]}
+    events = {name: [] for name in layers}
+    handles = []
+    for name, mods in layers.items():
+        def pre(mod, args, name=name):
+            events[name].append([torch.cuda.Event(enable_timing=True), None])
+            events[name][-1][0].record()
+
+        def post(mod, args, out, name=name):
+            events[name][-1][1] = torch.cuda.Event(enable_timing=True)
+            events[name][-1][1].record()
+        for m in mods:
+            handles += [m.register_forward_pre_hook(pre), m.register_forward_hook(post)]
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (TILE_BATCH, 1, PATCH, PATCH)).astype(np.float32)).to(dev)
+    try:
+        with torch.inference_mode():
+            model(x)
+            torch.cuda.synchronize()
+            for v in events.values():
+                v.clear()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for _ in range(iters):
+                model(x)
+            end.record()
+            torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    ms = {name: sum(a.elapsed_time(b) for a, b in v) / iters for name, v in events.items()}
+    ms["forward"] = start.elapsed_time(end) / iters
+    log(f"[layers: {path}] per tile-batch forward ({TILE_BATCH} x {PATCH}^2, CUDA "
+        f"events, mean of "
+        f"{iters}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
+    return ms
+
+
+def phase_parity(dev, model: DinoUNet):
+    """Card bf16 vs CPU fp32 on one tile; returns the tile and the CPU logits
+    for the routes' parity checks."""
     tile = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (1, 1, PATCH, PATCH)).astype(np.float32))
     with torch.inference_mode():
@@ -307,6 +565,29 @@ def phase_parity(dev, model: DinoUNet) -> float:
         f"{float(want.abs().max()):.4e}")
     if not rel <= PARITY_BOUND:
         raise AssertionError(f"parity {rel} over {PARITY_BOUND}")
+    return tile, want
+
+
+def phase_route_parity(dev, model: DinoUNet, tile, want, path: str) -> float:
+    """The parity tile as the first of a tile batch of 8 (the HWBC stages
+    need batch 8) on the card with the route on, against the CPU fp32 logits
+    of the stock model; the batch must launch the route's kernels."""
+    others = np.random.default_rng(2).standard_normal(
+        (TILE_BATCH - 1, 1, PATCH, PATCH)).astype(np.float32)
+    batch = torch.cat([tile, torch.from_numpy(others)]).to(dev)
+    _build.reset_launch_counts()
+    with torch.inference_mode():
+        got = model(batch)[:1].float().cpu()
+    counts = _build.launch_counts()
+    for k, n in PER_FORWARD_ROUTE[path].items():
+        if counts[k] != n:
+            raise AssertionError(f"{path} parity batch launched {counts}")
+    rel = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+    log(f"[parity: {path}] 512x512 tile, card bf16 with the route vs CPU fp32 "
+        f"stock: relative L2 error {rel:.4e} (bound {PARITY_BOUND}); max abs "
+        f"{float((got - want).abs().max()):.4e}")
+    if not rel <= PARITY_BOUND:
+        raise AssertionError(f"{path} parity {rel} over {PARITY_BOUND}")
     return rel
 
 
@@ -475,20 +756,26 @@ def main() -> int:
     phase_build()
     kernel_results = phase_kernels(dev)
     model = build_model()
-    serve_counts = phase_serve(dev, model)
-    phase_parity(dev, model)
+    counts = {"serve": phase_serve(dev, model)}
+    phase_layer_times(dev, model, "serve")
+    tile, want = phase_parity(dev, model)
+    for path, settings in ROUTES.items():
+        with route_env(settings):
+            counts[path] = phase_serve(dev, model, path)
+            phase_layer_times(dev, model, path)
+            phase_route_parity(dev, model, tile, want, path)
     del model
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         _train_env(root)
-        train_counts = phase_train(dev)
+        counts["train"] = phase_train(dev)
     phase_train_parity(dev)
 
     log(card_line())
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": serve_counts[name] + train_counts[name],
-         "launches_by_path": {"serve": serve_counts[name], "train": train_counts[name]},
+         "launches": sum(c[name] for c in counts.values()),
+         "launches_by_path": {path: c[name] for path, c in counts.items()},
          **kernel_results[name]}
         for name, (src, tpu) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {

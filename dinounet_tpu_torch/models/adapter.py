@@ -29,9 +29,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from dinounet_tpu_torch.configuration import use_spm_cm
 from dinounet_tpu_torch.models.layers import (BatchNorm, Conv2d, Linear,
                                               TransposedConv, bilinear_resize)
 from dinounet_tpu_torch.models.vit import DinoViT, LayerNormFp32
+from dinounet_tpu_torch.ops.decoder_tail import conv3x3_cm, tail_supported
 from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
                                                 dense_residual_stats)
 from dinounet_tpu_torch.ops.msda_kernel import ms_deform_attn_premapped_fused
@@ -266,7 +268,14 @@ def _cbr(in_ch: int, out_ch: int, stride: int, dtype) -> List[nn.Module]:
 
 class SpatialPriorModule(nn.Module):
     """Conv stem producing 4 scale maps (1/4 .. 1/32), projected to embed_dim.
-    Returns c1 as an NCHW map and c2..c4 as (B, n, E) token sequences."""
+    Returns c1 as an NCHW map and c2..c4 as (B, n, E) token sequences.
+
+    In eval mode, with DINOUNET_TPU_SPM_CM on (``configuration.py``), stem2
+    and stem3 (3x3, stride 1, at half resolution) run through
+    ``ops/decoder_tail.py::conv3x3_cm`` where the JAX package takes that route
+    (``adapter.py:553-596``): stem2's BatchNorm (running statistics) + ReLU
+    rides stem3's prologue as a leaky ReLU of slope 0, and stem3's BatchNorm
+    + ReLU is applied on exit in fp32."""
 
     def __init__(self, inplanes: int = 64, embed_dim: int = 384,
                  dtype: torch.dtype = torch.bfloat16):
@@ -283,8 +292,33 @@ class SpatialPriorModule(nn.Module):
         self.fc3 = Conv2d(4 * ip, embed_dim, 1, dtype=dtype)
         self.fc4 = Conv2d(4 * ip, embed_dim, 1, dtype=dtype)
 
+    def _use_cm(self, y) -> bool:
+        return (not self.training and use_spm_cm(y)
+                and tail_supported(tuple(y.shape)))
+
+    def _stem23_cm(self, a1):
+        """stem2 -> BN -> ReLU -> stem3 -> BN -> ReLU on stem1's activated
+        output a1 (B, ip, H, W); fp32 out, as the stock BatchNorm gives."""
+        conv2, bn2, _, conv3, bn3 = list(self.stem)[3:8]
+        B, ip = a1.shape[0], a1.shape[1]
+
+        def bn_apply(bn):
+            s = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+            t = bn.bias - bn.running_mean * s
+            return s[None].expand(B, ip), t[None].expand(B, ip)
+
+        zeros = torch.zeros(ip, device=a1.device)
+        x = a1.to(conv2.compute_dtype)
+        y2 = conv3x3_cm(x, conv2.weight, zeros, stats=False)
+        y3 = conv3x3_cm(y2, conv3.weight, zeros, prologue=bn_apply(bn2),
+                        leaky_slope=0.0, stats=False)
+        s3, t3 = bn_apply(bn3)
+        return F.relu(y3.float() * s3[:, :, None, None] + t3[:, :, None, None])
+
     def forward(self, x):
-        c1 = self.stem(x)
+        y = self.stem[:3](x)
+        y = self._stem23_cm(y) if self._use_cm(y) else self.stem[3:9](y)
+        c1 = self.stem[9](y)
         c2 = self.conv2(c1)
         c3 = self.conv3(c2)
         c4 = self.conv4(c3)

@@ -20,6 +20,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dinounet_tpu_torch.configuration import use_decoder_tail
+from dinounet_tpu_torch.ops.decoder_tail import _pick_stripe, transpconv2x2_cm
+
 # flax's truncated normal has std 1 after truncation at +-2: the unit-variance
 # correction of variance_scaling(..., "truncated_normal")
 _TRUNC_STD = 0.87962566103423978
@@ -322,7 +325,10 @@ def bilinear_resize(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
 
 class LearnableUpsample(nn.Module):
     """A shared 2x transposed conv repeated while the map fits in the target,
-    then a bilinear resize to the exact size."""
+    then a bilinear resize to the exact size. In eval mode, with the decoder
+    tail route on (DINOUNET_TPU_DECODER_TAIL, ``configuration.py``), a bf16
+    map's doublings run through ``ops/decoder_tail.py::transpconv2x2_cm`` where
+    the JAX package runs them channel-major (``layers.py:540-569``)."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
@@ -330,9 +336,23 @@ class LearnableUpsample(nn.Module):
 
     def forward(self, x, target_size: Tuple[int, int]):
         h, w = x.shape[2], x.shape[3]
+        doublings = []
         while h * 2 <= target_size[0] and w * 2 <= target_size[1]:
-            x = self.up2(x)
+            doublings.append(h)
             h, w = h * 2, w * 2
+        if doublings and self._use_cm(x, doublings):
+            for _ in doublings:
+                x = transpconv2x2_cm(x, self.up2.weight, self.up2.bias)
+        else:
+            for _ in doublings:
+                x = self.up2(x)
         if (h, w) != tuple(target_size):
             x = bilinear_resize(x, target_size)
         return x
+
+    def _use_cm(self, x, heights) -> bool:
+        if self.training or x.dim() != 4 or x.dtype != torch.bfloat16:
+            return False
+        if not use_decoder_tail(x):
+            return False
+        return all(_pick_stripe(h, vmem_rows=16) is not None for h in heights)

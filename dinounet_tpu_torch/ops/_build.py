@@ -26,12 +26,13 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "dinounet_tpu_torch"
-SOURCES = ("msda_fwd.cu", "msda_bwd.cu", "rope_attention.cu", "dense_stats.cu")
+SOURCES = ("msda_fwd.cu", "msda_bwd.cu", "rope_attention.cu", "dense_stats.cu",
+           "conv3x3_stats.cu", "transpconv2x2.cu", "seg_head.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C signatures: every pointer and the stream as c_void_p, sizes as c_int.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # value, off, logits, base, out, B, M, D, H, W, P, Lq, stream
     "msda_fwd_fused": [_P] * 5 + [_I] * 7 + [_P],
@@ -41,6 +42,14 @@ _SIGNATURES = {
     "rope_attention_dmaj": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
     # h, w, b, res, gamma, out, mu, var, B, N, K, D, channel_major, gelu, stream
     "dense_residual_stats": [_P] * 8 + [_I] * 6 + [_P],
+    # x, x2, c1, c2, x strides (b, c, h, w), x2 strides, w, bias, s, t, slope,
+    # y, y strides, sum, ssq, B, H, W, Cout, stream
+    "conv3x3_stats": [_P] * 2 + [_I] * 10 + [_P] * 4 + [_F, _P] + [_I] * 4
+                     + [_P] * 2 + [_I] * 4 + [_P],
+    # x, x strides (b, c, h, w), w, bias, s, t, slope, y, B, Cin, H, W, Cout, stream
+    "transpconv2x2": [_P] + [_I] * 4 + [_P] * 4 + [_F, _P] + [_I] * 5 + [_P],
+    # x, w, bias, s, t, slope, out, B, C, HW, K, stream
+    "seg_head": [_P] * 5 + [_F, _P] + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -139,6 +148,9 @@ def stream_of(device) -> int:
 
 def _wrappers():
     from dinounet_tpu_torch.ops.attention import fused_rope_attention_premapped_dmaj
+    from dinounet_tpu_torch.ops.conv_hwbc import conv3x3_hwbc
+    from dinounet_tpu_torch.ops.decoder_tail import (conv3x3_cm, seg_head_cm,
+                                                     transpconv2x2_cm)
     from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
                                                     dense_residual_stats)
     from dinounet_tpu_torch.ops.msda_kernel import (ms_deform_attn_premapped_backward,
@@ -150,6 +162,10 @@ def _wrappers():
         "dense_rm_stats": dense_residual_stats,
         "msda_fwd": ms_deform_attn_premapped_fused,
         "msda_bwd": ms_deform_attn_premapped_backward,
+        "conv3x3_cm": conv3x3_cm,
+        "transpconv2x2_cm": transpconv2x2_cm,
+        "seg_head_cm": seg_head_cm,
+        "conv3x3_hwbc": conv3x3_hwbc,
     }
 
 

@@ -11,6 +11,11 @@ import pytest
 import torch
 
 from dinounet_tpu_torch.ops import _build
+from dinounet_tpu_torch.ops.conv_hwbc import conv3x3_hwbc, conv3x3_hwbc_plain
+from dinounet_tpu_torch.ops.decoder_tail import (conv3x3_cm, conv3x3_cm_plain,
+                                                 seg_head_cm, seg_head_cm_plain,
+                                                 transpconv2x2_cm,
+                                                 transpconv2x2_cm_plain)
 from dinounet_tpu_torch.ops.attention import (fused_rope_attention_premapped_dmaj,
                                               rope_attention_dmaj_plain,
                                               rope_tables_dmaj)
@@ -18,7 +23,8 @@ from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
                                                 dense_cm_residual_stats_plain,
                                                 dense_residual_stats,
                                                 dense_residual_stats_plain)
-from dinounet_tpu_torch.ops.kernel_check import KERNEL_TOLERANCES, max_excess
+from dinounet_tpu_torch.ops.kernel_check import (KERNEL_TOLERANCES, STATS_TOLERANCE,
+                                                 max_excess)
 from dinounet_tpu_torch.ops.msda import (ms_deform_attn_premapped_backward_plain,
                                          ms_deform_attn_premapped_fused_plain,
                                          premapped_fused_prep)
@@ -181,6 +187,113 @@ def test_dense_kernel_matches_plain(dev, channel_major, gelu, B, N, K, D):
         assert max_excess(gt, wt, KERNEL_TOLERANCES[name]) <= 0
 
 
+def _prologue(g, B, C, dev):
+    return ((torch.rand((B, C), generator=g) + 0.5).to(dev),
+            _randn(g, (B, C), dev, 0.3))
+
+
+def _check_conv(name, got, want, n):
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    torch.cuda.synchronize()
+    assert got[0].shape == want[0].shape and got[0].dtype == want[0].dtype
+    assert max_excess(got[0], want[0], KERNEL_TOLERANCES[name]) <= 0
+    for gt, wt in zip(got[1:], want[1:]):
+        assert max_excess(gt / n, wt / n, STATS_TOLERANCE) <= 0
+
+
+# ragged maps (W not a multiple of the 128-pixel tile, odd H), each Cout the
+# kernel takes, two inputs, the prologue, and the SPM form (slope 0, no stats)
+@pytest.mark.parametrize("B,C1,C2,H,W,Cout,pro,slope,stats", [
+    (2, 16, 0, 9, 37, 16, False, 0.01, True),
+    (2, 32, 16, 12, 130, 32, True, 0.01, True),
+    (1, 64, 64, 20, 64, 128, False, 0.01, True),
+    (3, 64, 0, 17, 256, 64, True, 0.0, False),
+])
+def test_conv3x3_cm_kernel_matches_plain(dev, B, C1, C2, H, W, Cout, pro, slope, stats):
+    g = torch.Generator().manual_seed(9)
+    bf = torch.bfloat16
+    x = _randn(g, (B, C1, H, W), dev).to(bf)
+    x2 = _randn(g, (B, C2, H, W), dev).to(bf) if C2 else None
+    w = _randn(g, (Cout, C1 + C2, 3, 3), dev, (9 * (C1 + C2)) ** -0.5)
+    b = _randn(g, (Cout,), dev, 0.1)
+    p = _prologue(g, B, C1 + C2, dev) if pro else None
+    _check_conv("conv3x3_cm", conv3x3_cm(x, w, b, p, slope, stats, x2),
+                conv3x3_cm_plain(x, w, b, p, slope, stats, x2), H * W)
+
+
+@pytest.mark.parametrize("nchw_backed", [False, True])
+def test_conv3x3_hwbc_kernel_matches_plain(dev, nchw_backed):
+    """(H, W, B, C) maps, contiguous or as views of NCHW buffers (the
+    decoder's form: the output keeps the input's memory layout)."""
+    g = torch.Generator().manual_seed(10)
+    bf = torch.bfloat16
+    H, W, B, C, Co = 6, 140, 8, 32, 32
+
+    def hwbc(shape_nchw):
+        t = _randn(g, shape_nchw, dev).to(bf)
+        return t.permute(2, 3, 0, 1) if nchw_backed else t.permute(2, 3, 0, 1).contiguous()
+
+    x, x2 = hwbc((B, C, H, W)), hwbc((B, C, H, W))
+    w = _randn(g, (Co, 2 * C, 3, 3), dev, (18 * C) ** -0.5)
+    b = _randn(g, (Co,), dev, 0.1)
+    p = _prologue(g, B, 2 * C, dev)
+    got = conv3x3_hwbc(x, w, b, x2=x2, prologue=p)
+    _check_conv("conv3x3_hwbc", got, conv3x3_hwbc_plain(x, w, b, x2=x2, prologue=p), H * W)
+    assert got[0].permute(2, 3, 0, 1).is_contiguous() == nchw_backed
+    w1 = w[:, :C].contiguous()
+    _check_conv("conv3x3_hwbc", conv3x3_hwbc(x, w1, b),
+                conv3x3_hwbc_plain(x, w1, b), H * W)
+
+
+# Cout 4 (GEMM width 16), ragged W, two 128-column blocks with a partial one,
+# a channels-last input (as the FAPM hands LearnableUpsample its maps)
+@pytest.mark.parametrize("B,Cin,Cout,H,W,pro,cl", [(2, 16, 4, 5, 7, False, False),
+                                                   (2, 64, 32, 16, 130, True, False),
+                                                   (1, 32, 40, 8, 64, True, True),
+                                                   (8, 256, 128, 64, 64, False, False)])
+def test_transpconv2x2_kernel_matches_plain(dev, B, Cin, Cout, H, W, pro, cl):
+    g = torch.Generator().manual_seed(11)
+    x = _randn(g, (B, Cin, H, W), dev).to(torch.bfloat16)
+    if cl:
+        x = x.contiguous(memory_format=torch.channels_last)
+    w = _randn(g, (Cin, Cout, 2, 2), dev, Cin ** -0.5)
+    b = _randn(g, (Cout,), dev, 0.1)
+    p = _prologue(g, B, Cin, dev) if pro else None
+    got = transpconv2x2_cm(x, w, b, p)
+    want = transpconv2x2_cm_plain(x, w, b, p)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (B, Cout, 2 * H, 2 * W)
+    assert max_excess(got, want, KERNEL_TOLERANCES["transpconv2x2_cm"]) <= 0
+
+
+# H * W not a multiple of 4 (the scalar path), and each class-count template
+@pytest.mark.parametrize("B,C,H,W,K", [(2, 16, 7, 9, 3), (2, 32, 16, 128, 5),
+                                       (1, 64, 8, 40, 14), (1, 16, 4, 4, 32)])
+def test_seg_head_kernel_matches_plain(dev, B, C, H, W, K):
+    g = torch.Generator().manual_seed(12)
+    x = _randn(g, (B, C, H, W), dev).to(torch.bfloat16)
+    w = _randn(g, (K, C, 1, 1), dev, C ** -0.5)
+    b = _randn(g, (K,), dev, 0.1)
+    p = _prologue(g, B, C, dev)
+    got, want = seg_head_cm(x, w, b, p), seg_head_cm_plain(x, w, b, p)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (B, K, H, W)
+    assert max_excess(got, want, KERNEL_TOLERANCES["seg_head_cm"]) <= 0
+
+
+def test_conv_family_bad_inputs_raise(dev):
+    x = torch.zeros((1, 16, 4, 4), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        conv3x3_cm(x, torch.zeros((48, 16, 3, 3), device=dev), torch.zeros(48, device=dev))
+    with pytest.raises(ValueError):
+        conv3x3_cm(x.float(), torch.zeros((16, 16, 3, 3), device=dev),
+                   torch.zeros(16, device=dev))
+    with pytest.raises(ValueError):
+        transpconv2x2_cm(x[:, :8], torch.zeros((8, 4, 2, 2), device=dev),
+                         torch.zeros(4, device=dev))
+
+
 def test_launches_are_counted(dev):
     _build.reset_launch_counts()
     qkv = torch.zeros((1, 3, 1, 64, 8), dtype=torch.bfloat16, device=dev)
@@ -188,10 +301,19 @@ def test_launches_are_counted(dev):
     v, off, logits, base = _msda_case(8, 1, 1, 8, 4, 4, 2, 9, dev)
     v.requires_grad_(True)
     ms_deform_attn_premapped_fused(v, ((4, 4),), off, logits, base).sum().backward()
+    x = torch.zeros((8, 16, 4, 128), dtype=torch.bfloat16, device=dev)
+    w, b = torch.zeros((16, 16, 3, 3), device=dev), torch.zeros(16, device=dev)
+    p = (torch.ones((8, 16), device=dev), torch.zeros((8, 16), device=dev))
+    conv3x3_cm(x, w, b)
+    conv3x3_hwbc(x.permute(2, 3, 0, 1), w, b)
+    transpconv2x2_cm(x, torch.zeros((16, 4, 2, 2), device=dev), torch.zeros(4, device=dev))
+    seg_head_cm(x, torch.zeros((3, 16, 1, 1), device=dev), torch.zeros(3, device=dev), p)
     torch.cuda.synchronize()
     counts = _build.launch_counts()
     assert counts["rope_attention"] == 1
     assert counts["msda_fwd"] == 1 and counts["msda_bwd"] == 1
+    assert all(counts[k] == 1 for k in ("conv3x3_cm", "conv3x3_hwbc",
+                                        "transpconv2x2_cm", "seg_head_cm"))
 
 
 def test_bad_inputs_raise(dev):
