@@ -7,16 +7,18 @@ Phases, each printing its own lines; any failure raises and the exit code is
 not 0:
 
 1. build   -- compile the CUDA kernels from dinounet_tpu_torch/csrc/.
-2. kernels -- each kernel against its plain PyTorch version on the card, at
-              the shapes the dinounet_b tile forward gives it (tile batch 8;
-              the MSDA backward at the train step's batch 2), within its
-              stated tolerance; kernel, plain and library times (CUDA events,
-              median of 20) and the bound (the larger of the bytes each call
-              must move over 3.35 TB/s and its operations over the peak rate
-              of their type). The library call is one PyTorch op computing
-              the same function or, for the convs, the same conv alone (cuDNN
-              on channels-last bf16, no prologue or statistics), timed as a
-              yardstick and never called by the port.
+2. kernels -- each of the 13 kernels against its plain PyTorch version on
+              the card, at the shapes the dinounet_b tile forward gives it
+              (tile batch 8; the MSDA backward at the train step's batch 2),
+              within its stated tolerance; kernel, plain and library times
+              (CUDA events, median of 20) and the bound (the larger of the
+              bytes each call must move over 3.35 TB/s and its operations
+              over the peak rate of their type: bf16 or int8 tensor cores,
+              fp32). The library call is one PyTorch op computing the same
+              function or, for the convs, the same conv alone (cuDNN on
+              channels-last bf16, no prologue or statistics), for the int8
+              ops torch._int_mm on the pre-quantized operands (the int8 GEMM
+              alone), timed as a yardstick and never called by the port.
 3. serve   -- dinounet_b at full width with seeded random weights, behind the
               port's nnUNetPredictor (2d, 512 x 512 patches, step 0.5, tile
               batch 8, bf16): one 1 x 1280 x 1280 case = 16 tiles in 2
@@ -27,13 +29,22 @@ not 0:
 4. parity  -- one 512 x 512 tile through DinoUNet on the card in bf16 (the
               kernels) and on the CPU in fp32 (the plain versions), the same
               weights: relative L2 error of the logits <= PARITY_BOUND.
-5. serve routes -- the same case served again with each inference conv
-              route on (ROUTES: the channel-major decoder chain, upsampling
-              and SPM stem; the HWBC decoder stages): launch counts per
-              tile-batch forward (PER_FORWARD_ROUTE on top of the serve
-              counts), finite fp16 logits, and the parity tile (in a batch of
-              8, as the HWBC stages need) against the same CPU fp32 logits
-              within PARITY_BOUND. Tiles/s and the SPM, upsampling and decoder
+5. serve routes -- the same case served again with each route on (ROUTES:
+              the channel-major decoder chain, upsampling and SPM stem; the
+              HWBC decoder stages; the int8 serving mode, backbone only and
+              with the adapter's junctions): launch counts per tile-batch
+              forward (PER_FORWARD_ROUTE sets the counts a route changes),
+              finite fp16 logits, and the parity tile (in a batch of 8, as
+              the HWBC stages need) against CPU fp32 logits within
+              PARITY_BOUND: the stock model's for the conv routes, the same
+              weights with the int8 mode on (the plain versions) for the int8
+              routes. The int8 routes' batch is also held against the card's
+              stock bf16 logits: relative L2 within INT8_BF16_BOUND, and the
+              share of pixels whose argmax agrees. The int8 routes run last,
+              with the backbone's LayerScale set to INT8_LAYERSCALE (at the
+              init's 1e-5 the backbone's residual branches, and the int8
+              error in them, vanish in bf16). Tiles/s, peak memory and
+              the backbone, extractors, SPM, upsampling and decoder
               CUDA-event times per tile batch, beside the default route's.
               The environment is restored after each route.
 6. train   -- a synthetic preprocessed 2-D dataset (6 cases of 640 x 640, a
@@ -61,7 +72,7 @@ not 0:
               as it was.
 
 Then the card's name and power limit, one JSON line of kernel results
-(launches: the counts of the serve, serve_cm, serve_hwbc and train paths),
+(launches: the counts of the serve path, each route's and the train path),
 and as the last line {"ok": true, "device": {...}}. Without a CUDA device the
 script raises before printing any result.
 """
@@ -91,6 +102,12 @@ from dinounet_tpu_torch.ops.decoder_tail import (conv3x3_cm, conv3x3_cm_plain,
                                                  seg_head_cm, seg_head_cm_plain,
                                                  transpconv2x2_cm,
                                                  transpconv2x2_cm_plain)
+from dinounet_tpu_torch.ops.dense_q8 import (dense_cm_q8_residual_stats,
+                                             dense_cm_q8_residual_stats_plain, dense_q8,
+                                             dense_q8_plain, dense_q8_residual_stats,
+                                             dense_q8_residual_stats_plain, qkv_q8_dmaj,
+                                             qkv_q8_dmaj_plain, quantize_act_cm,
+                                             quantize_weight)
 from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
                                                 dense_cm_residual_stats_plain,
                                                 dense_residual_stats,
@@ -116,24 +133,38 @@ N_CLASSES = 3
 # bf16 on the card vs fp32 on the CPU, relative L2 of the logits; the JAX
 # package holds its own bf16 path to 0.15 (tests/test_vit_parity.py)
 PARITY_BOUND = 0.05
+# the int8 mode against the stock bf16 model on the card, relative L2 of the
+# logits: the JAX package's bound for its int8 mode (tests/test_vit_parity.py)
+INT8_BF16_BOUND = 0.1
+INT8_LAYERSCALE = 0.1
+INT8_KERNELS = ("qkv_q8_dmaj", "dense_q8", "dense_q8_stats", "dense_cm_q8_stats")
+INT8_ROUTES = ("serve_int8", "serve_int8_adapter")
 # kernel launches per tile-batch forward of dinounet_b
 PER_FORWARD = {"rope_attention": 12, "dense_cm_stats": 18, "dense_rm_stats": 18,
                "msda_fwd": 6, "msda_bwd": 0, "conv3x3_cm": 0, "transpconv2x2_cm": 0,
-               "seg_head_cm": 0, "conv3x3_hwbc": 0}
-# the inference conv routes, as environment settings, and the launches each
-# adds per tile-batch forward. serve_cm: conv3x3_cm 2 per decoder stage at
-# 128^2, 256^2, 512^2 and the 2 SPM stem convs at 256^2; transpconv2x2_cm the
-# 3 decoder upsamplings and the 4 LearnableUpsamples' 2 doublings each; one
-# seg head (no deep supervision). serve_hwbc: the 64-channel stage at 256^2
-# and the 32-channel stage at 512^2, 2 convs each (the 128-channel stage is
-# not eligible).
+               "seg_head_cm": 0, "conv3x3_hwbc": 0, **dict.fromkeys(INT8_KERNELS, 0)}
+# the routes, as environment settings, and the launches per tile-batch
+# forward each sets (the others keep PER_FORWARD's). serve_cm: conv3x3_cm 2
+# per decoder stage at 128^2, 256^2, 512^2 and the 2 SPM stem convs at 256^2;
+# transpconv2x2_cm the 3 decoder upsamplings and the 4 LearnableUpsamples' 2
+# doublings each; one seg head (no deep supervision). serve_hwbc: the
+# 64-channel stage at 256^2 and the 32-channel stage at 512^2, 2 convs each
+# (the 128-channel stage is not eligible). serve_int8: the 12 blocks' qkv,
+# attention projection, fc1 and fc2 in int8, the 6 extractors' junctions
+# bf16; serve_int8_adapter: those junctions in int8 too.
 ROUTES = {
     "serve_cm": {"DINOUNET_TPU_DECODER_TAIL": "pallas", "DINOUNET_TPU_SPM_CM": "pallas"},
     "serve_hwbc": {"DINOUNET_TPU_DECODER_HWBC": "auto", "DINOUNET_TPU_DECODER_TAIL": "jax"},
+    "serve_int8": {"DINOUNET_TPU_VIT_INT8": "1"},
+    "serve_int8_adapter": {"DINOUNET_TPU_VIT_INT8": "1", "DINOUNET_TPU_INT8_ADAPTER": "1"},
 }
 PER_FORWARD_ROUTE = {
     "serve_cm": {"conv3x3_cm": 8, "transpconv2x2_cm": 11, "seg_head_cm": 1},
     "serve_hwbc": {"conv3x3_hwbc": 4},
+    "serve_int8": {"qkv_q8_dmaj": 12, "dense_cm_q8_stats": 12, "dense_q8": 12,
+                   "dense_q8_stats": 12, "dense_cm_stats": 6, "dense_rm_stats": 6},
+    "serve_int8_adapter": {"qkv_q8_dmaj": 12, "dense_cm_q8_stats": 18, "dense_q8": 12,
+                           "dense_q8_stats": 18, "dense_cm_stats": 0, "dense_rm_stats": 0},
 }
 # kernel launches per train step: the backbone's 12 blocks (attention, the
 # channel-major attention projection, the row-major fc2); the adapter trains
@@ -141,7 +172,7 @@ PER_FORWARD_ROUTE = {
 # checkpointed interaction blocks run it again in the backward) and backward
 PER_TRAIN_STEP = {"rope_attention": 12, "dense_cm_stats": 12, "dense_rm_stats": 12,
                   "msda_fwd": 12, "msda_bwd": 6, "conv3x3_cm": 0, "transpconv2x2_cm": 0,
-                  "seg_head_cm": 0, "conv3x3_hwbc": 0}
+                  "seg_head_cm": 0, "conv3x3_hwbc": 0, **dict.fromkeys(INT8_KERNELS, 0)}
 TRAIN_ITERS, TRAIN_EPOCHS, VAL_ITERS, LEARN_STEPS = 5, 2, 2, 40
 TRAIN_DATASET = "Dataset998_SmokeTrain"
 # one train step, card bf16 (kernels) vs CPU fp32 (plain versions), relative
@@ -175,10 +206,20 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                     "dinounet_tpu/ops/decoder_tail_pallas.py:207"),
     "conv3x3_hwbc": ("dinounet_tpu_torch/csrc/conv3x3_stats.cu",
                      "dinounet_tpu/ops/conv_hwbc_pallas.py:78"),
+    "qkv_q8_dmaj": ("dinounet_tpu_torch/csrc/qkv_q8_dmaj.cu",
+                    "dinounet_tpu/ops/dense_q8_pallas.py:457"),
+    "dense_q8": ("dinounet_tpu_torch/csrc/dense_q8.cu",
+                 "dinounet_tpu/ops/dense_q8_pallas.py:96"),
+    "dense_q8_stats": ("dinounet_tpu_torch/csrc/dense_q8.cu",
+                       "dinounet_tpu/ops/dense_q8_pallas.py:109"),
+    "dense_cm_q8_stats": ("dinounet_tpu_torch/csrc/dense_q8.cu",
+                          "dinounet_tpu/ops/dense_q8_pallas.py:130"),
 }
 # the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, dense
-# bf16 tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores
+# bf16 tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores, dense int8
+# tensor-core operations/s
 HBM_BYTES_S, BF16_FLOP_S, FP32_FLOP_S = 3.35e12, 989e12, 67e12
+INT8_OP_S = 1979e12
 ARCH = {  # the plans' architecture of a 2d dinounet_b configuration
     "n_stages": 4, "features_per_stage": [32, 64, 128, 256],
     "kernel_sizes": [[3, 3]] * 4, "strides": [[1, 1], [2, 2], [2, 2], [2, 2]],
@@ -219,11 +260,42 @@ def _bound(nbytes: int, flops: float, peak: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_times(fn, iters: int = 5) -> dict:
+    """Device time (ms) per call of fn, by kernel name, from torch.profiler's
+    CUDA activity over `iters` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
+def _log_int8_breakdown(name, shape_desc, kernel_fn, event_ms) -> None:
+    """An int8 wrapper's device time split into its three kernels and the
+    PyTorch ops that quantize the weight; the rest of the event time is the
+    host's."""
+    parts = {"gemm": 0.0, "quantize": 0.0, "row stats": 0.0, "weight quantization": 0.0}
+    for kernel, ms in device_times(kernel_fn).items():
+        part = ("gemm" if "gemm_kernel" in kernel else "quantize" if "quant_" in kernel
+                else "row stats" if "row_stats" in kernel else "weight quantization")
+        parts[part] += ms
+    busy = sum(parts.values())
+    log(f"[kernels] {name} {shape_desc}: device time {busy:.4f} ms a call ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+        + f"), {event_ms - busy:.4f} ms of the {event_ms:.4f} ms event time idle")
+
+
 def _compare(name, shape_desc, kernel_fn, plain_fn, inputs, flops, peak,
              library_fn=None, tols=None, library_label="library"):
     """Kernel vs plain version on the same inputs; `inputs` are the tensors
     the function reads (each counted once in the bound, with the outputs);
-    `tols` optionally one (atol, rtol) per output (default: the kernel's)."""
+    `tols` optionally one (atol, rtol) per output (default: the kernel's).
+    An int8 op's device time is also broken down."""
     got, want = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
@@ -244,6 +316,8 @@ def _compare(name, shape_desc, kernel_fn, plain_fn, inputs, flops, peak,
     if not excess <= 0:
         raise AssertionError(f"{name} {shape_desc}: kernel disagrees with its "
                              f"plain version (excess {excess})")
+    if name in INT8_KERNELS:
+        _log_int8_breakdown(name, shape_desc, kernel_fn, ms)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
 
@@ -274,6 +348,7 @@ def _conv_library(x, x2, w, b):
 
 
 CUDNN_LABEL = "library (cuDNN conv alone, channels-last bf16)"
+INT8MM_LABEL = "library (torch._int_mm alone, pre-quantized int8)"
 
 
 def _normalized(out, n):
@@ -437,6 +512,54 @@ def phase_kernels(dev) -> dict:
         lambda: seg_head_cm(x, w, b, p), lambda: seg_head_cm_plain(x, w, b, p),
         (x, w, b, *p), 2.0 * B * H * H * C * K, FP32_FLOP_S,
         lambda: F.conv2d(xl, wl), library_label=CUDNN_LABEL)
+
+    # the int8 serving mode's w8a8 ops at the same shapes. The bound counts
+    # the fp32 weight the wrapper is given (it quantizes it on every call).
+    # Library: torch._int_mm on the pre-quantized operands, the int8 GEMM
+    # alone (no quantization, rescale or epilogue)
+    def int_mm(x_tokens_major, w):
+        """x (B, N, K) -> the (B * N, K) int8 rows; w (K, D) -> the int8
+        (D, K) weight; _int_mm of the rows and the weight's transposed view."""
+        xq = quantize_act_cm(x_tokens_major.transpose(1, 2))[0].transpose(1, 2)
+        xq = xq.reshape(-1, xq.shape[-1]).contiguous()
+        wq = quantize_weight(w)[0].t().contiguous()
+        return lambda: torch._int_mm(xq, wq.t())
+
+    C, N = 768, 1029
+    x = randn(B, N, C).to(bf)
+    w, b = randn(C, 3 * C, scale=C ** -0.5), randn(3 * C, scale=0.1)
+    results["qkv_q8_dmaj"] = _compare(
+        "qkv_q8_dmaj", f"x {tuple(x.shape)} -> ({B}, 3, 12, 64, {N})",
+        lambda: qkv_q8_dmaj(x, w, b, 12, 64), lambda: qkv_q8_dmaj_plain(x, w, b, 12, 64),
+        (x, w, b), 2.0 * B * N * C * 3 * C, INT8_OP_S, int_mm(x, w),
+        library_label=INT8MM_LABEL)
+    for K, N, where in ((768, 1029, "vit proj"), (384, 5376, "msda output proj")):
+        h = randn(B, K, N).to(bf)
+        w, b = randn(K, D, scale=K ** -0.5), randn(D, scale=0.1)
+        res, gamma = randn(B, N, D).to(bf), randn(D, scale=0.5)
+        r = _compare("dense_cm_q8_stats", f"{where} K={K} N={N}",
+                     lambda: dense_cm_q8_residual_stats(h, w, b, res, gamma),
+                     lambda: dense_cm_q8_residual_stats_plain(h, w, b, res, gamma),
+                     (h, w, b, res, gamma), 2.0 * B * N * K * D, INT8_OP_S,
+                     int_mm(h.transpose(1, 2), w), library_label=INT8MM_LABEL)
+        results.setdefault("dense_cm_q8_stats", r)
+    K, N, Dff = 768, 1029, 3072
+    h = randn(B, N, K).to(bf)
+    w, b = randn(K, Dff, scale=K ** -0.5), randn(Dff, scale=0.1)
+    results["dense_q8"] = _compare(
+        "dense_q8", f"vit fc1 K={K} D={Dff} N={N}", lambda: dense_q8(h, w, b),
+        lambda: dense_q8_plain(h, w, b), (h, w, b), 2.0 * B * N * K * Dff, INT8_OP_S,
+        int_mm(h, w), library_label=INT8MM_LABEL)
+    for K, N, where in ((3072, 1029, "vit fc2"), (192, 5376, "convffn fc2")):
+        h = randn(B, N, K).to(bf)
+        w, b = randn(K, D, scale=K ** -0.5), randn(D, scale=0.1)
+        res, gamma = randn(B, N, D).to(bf), randn(D, scale=0.5)
+        r = _compare("dense_q8_stats", f"{where} +GELU K={K} N={N}",
+                     lambda: dense_q8_residual_stats(h, w, b, res, gamma, "gelu"),
+                     lambda: dense_q8_residual_stats_plain(h, w, b, res, gamma, "gelu"),
+                     (h, w, b, res, gamma), 2.0 * B * N * K * D, INT8_OP_S,
+                     int_mm(h, w), library_label=INT8MM_LABEL)
+        results.setdefault("dense_q8_stats", r)
     return results
 
 
@@ -478,8 +601,7 @@ def phase_serve(dev, model: DinoUNet, path: str = "serve") -> dict:
     first_s = time.perf_counter() - t0
     counts = _build.launch_counts()
     log(f"{tag} first case {first_s:.2f} s; launches {counts}")
-    per_forward = {k: n + PER_FORWARD_ROUTE.get(path, {}).get(k, 0)
-                   for k, n in PER_FORWARD.items()}
+    per_forward = {**PER_FORWARD, **PER_FORWARD_ROUTE.get(path, {})}
     want = {k: n * n_batches for k, n in per_forward.items()}
     if counts != want:
         raise AssertionError(f"{path}: kernel launches {counts}, the path makes {want}")
@@ -504,11 +626,16 @@ def phase_serve(dev, model: DinoUNet, path: str = "serve") -> dict:
 
 
 def phase_layer_times(dev, model: DinoUNet, path: str, iters: int = 5) -> dict:
-    """CUDA-event times of the layers the routes change (the SPM, the four
-    LearnableUpsamples, the decoder) per tile-batch forward, from forward
-    pre/post hooks, mean of `iters` forwards after one warm-up."""
-    layers = {"spm": [model.encoder.dinov3_adapter.spm],
-              "upsample": list(model.encoder.ups), "decoder": [model.decoder]}
+    """CUDA-event times of the layers the routes change (the backbone, the
+    six extractors, the SPM, the four LearnableUpsamples, the decoder) per
+    tile-batch forward, from forward pre/post hooks, mean of `iters`
+    forwards after one warm-up."""
+    adapter = model.encoder.dinov3_adapter
+    extractors = [ex for blk in adapter.interactions
+                  for ex in [blk.extractor, *(blk.extra_extractors or [])]]
+    layers = {"backbone": [adapter.backbone], "extractors": extractors,
+              "spm": [adapter.spm], "upsample": list(model.encoder.ups),
+              "decoder": [model.decoder]}
     events = {name: [] for name in layers}
     handles = []
     for name, mods in layers.items():
@@ -546,6 +673,21 @@ def phase_layer_times(dev, model: DinoUNet, path: str, iters: int = 5) -> dict:
     return ms
 
 
+def cpu_logits(model: DinoUNet, tile):
+    """The fp32 logits of `tile` from a CPU copy of `model` (the plain
+    versions), under the current environment; and the seconds they took."""
+    with torch.inference_mode():
+        ref_model = DinoUNet(dataclasses.replace(model.cfg, dtype="float32")).eval()
+        ref_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        t0 = time.perf_counter()
+        want = ref_model(tile)
+    return want, time.perf_counter() - t0
+
+
+def rel_l2(got, want) -> float:
+    return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+
+
 def phase_parity(dev, model: DinoUNet):
     """Card bf16 vs CPU fp32 on one tile; returns the tile and the CPU logits
     for the routes' parity checks."""
@@ -553,12 +695,8 @@ def phase_parity(dev, model: DinoUNet):
         (1, 1, PATCH, PATCH)).astype(np.float32))
     with torch.inference_mode():
         got = model.to(dev)(tile.to(dev)).float().cpu()
-        ref_model = DinoUNet(dataclasses.replace(model.cfg, dtype="float32")).eval()
-        ref_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-        t0 = time.perf_counter()
-        want = ref_model(tile)
-        cpu_s = time.perf_counter() - t0
-    rel = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+    want, cpu_s = cpu_logits(model, tile)
+    rel = rel_l2(got, want)
     log(f"[parity] 512x512 tile, card bf16 vs CPU fp32 ({cpu_s:.1f} s): relative "
         f"L2 error {rel:.4e} (bound {PARITY_BOUND}); max abs "
         f"{float((got - want).abs().max()):.4e} of max |ref| "
@@ -568,26 +706,48 @@ def phase_parity(dev, model: DinoUNet):
     return tile, want
 
 
-def phase_route_parity(dev, model: DinoUNet, tile, want, path: str) -> float:
+def parity_batch(dev, tile):
     """The parity tile as the first of a tile batch of 8 (the HWBC stages
-    need batch 8) on the card with the route on, against the CPU fp32 logits
-    of the stock model; the batch must launch the route's kernels."""
+    need batch 8)."""
     others = np.random.default_rng(2).standard_normal(
         (TILE_BATCH - 1, 1, PATCH, PATCH)).astype(np.float32)
-    batch = torch.cat([tile, torch.from_numpy(others)]).to(dev)
-    _build.reset_launch_counts()
+    return torch.cat([tile, torch.from_numpy(others)]).to(dev)
+
+
+def card_logits(model: DinoUNet, batch):
     with torch.inference_mode():
-        got = model(batch)[:1].float().cpu()
+        return model(batch).float().cpu()
+
+
+def phase_route_parity(dev, model: DinoUNet, tile, want, path: str,
+                       card_stock) -> float:
+    """The parity batch on the card with the route on; its first tile
+    against `want`, the CPU fp32 logits (of the stock model for a conv
+    route, with the int8 mode on for an int8 route); the batch must launch
+    the route's kernels. An int8 route's batch is also held against
+    `card_stock`, the stock bf16 logits of the same batch on the card."""
+    _build.reset_launch_counts()
+    got_batch = card_logits(model, parity_batch(dev, tile))
     counts = _build.launch_counts()
     for k, n in PER_FORWARD_ROUTE[path].items():
         if counts[k] != n:
             raise AssertionError(f"{path} parity batch launched {counts}")
-    rel = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+    got = got_batch[:1]
+    rel = rel_l2(got, want)
+    ref = "int8 plain versions" if path in INT8_ROUTES else "stock"
     log(f"[parity: {path}] 512x512 tile, card bf16 with the route vs CPU fp32 "
-        f"stock: relative L2 error {rel:.4e} (bound {PARITY_BOUND}); max abs "
+        f"{ref}: relative L2 error {rel:.4e} (bound {PARITY_BOUND}); max abs "
         f"{float((got - want).abs().max()):.4e}")
     if not rel <= PARITY_BOUND:
         raise AssertionError(f"{path} parity {rel} over {PARITY_BOUND}")
+    if path in INT8_ROUTES:
+        rel8 = rel_l2(got_batch, card_stock)
+        agree = float((got_batch.argmax(1) == card_stock.argmax(1)).float().mean())
+        log(f"[parity: {path}] the batch of {TILE_BATCH} tiles, card int8 vs card "
+            f"bf16 stock: relative L2 {rel8:.4e} (bound {INT8_BF16_BOUND}), argmax "
+            f"agreement {agree:.4%} of {card_stock[:, 0].numel()} pixels")
+        if not rel8 <= INT8_BF16_BOUND:
+            raise AssertionError(f"{path}: int8 vs bf16 {rel8} over {INT8_BF16_BOUND}")
     return rel
 
 
@@ -759,11 +919,23 @@ def main() -> int:
     counts = {"serve": phase_serve(dev, model)}
     phase_layer_times(dev, model, "serve")
     tile, want = phase_parity(dev, model)
+    card_stock = None
     for path, settings in ROUTES.items():
+        if path in INT8_ROUTES and card_stock is None:
+            with torch.no_grad():
+                for blk in model.encoder.dinov3_adapter.backbone.blocks:
+                    blk.ls1.gamma.fill_(INT8_LAYERSCALE)
+                    blk.ls2.gamma.fill_(INT8_LAYERSCALE)
+            card_stock = card_logits(model, parity_batch(dev, tile))
         with route_env(settings):
             counts[path] = phase_serve(dev, model, path)
             phase_layer_times(dev, model, path)
-            phase_route_parity(dev, model, tile, want, path)
+            route_want = want
+            if path in INT8_ROUTES:
+                route_want, cpu_s = cpu_logits(model, tile)
+                log(f"[parity: {path}] CPU fp32 logits with the int8 mode on "
+                    f"({cpu_s:.1f} s)")
+            phase_route_parity(dev, model, tile, route_want, path, card_stock)
     del model
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:

@@ -1,9 +1,11 @@
 """Global settings of the port.
 
 The compute dtype of the model, the device-memory budget of the
-sliding-window accumulators, and the three inference-only conv routes. The
-JAX package's switches that only choose between TPU formulations of the same
-math have no counterpart here: the port keeps one formulation per op.
+sliding-window accumulators, the three inference-only conv routes and the
+int8 serving mode. The JAX package's switches that only choose between TPU
+formulations of the same math have no counterpart here: the port keeps one
+formulation per op (``DINOUNET_TPU_INT8_QKV_IMPL``, for one, picks between
+two TPU formulations of the int8 qkv that give the same numbers).
 
 The routes read the JAX package's environment variables, at call time, with
 its value logic (``dinounet_tpu/configuration.py:271-292,355-368,426-448``):
@@ -12,6 +14,16 @@ the route on any device, where an op on a CPU tensor runs its plain version
 and one on a CUDA tensor launches its kernel; "auto" takes it only for CUDA
 tensors, as the JAX package's "auto" takes it only on a TPU. A module in
 train mode never takes a route.
+
+The int8 serving mode reads the JAX package's variables, at call time, with
+its value logic (``dinounet_tpu/configuration.py:112-156``), and is off by
+default: ``DINOUNET_TPU_VIT_INT8=1`` runs the frozen backbone's four
+projections as w8a8 ops (``ops/dense_q8.py``), ``DINOUNET_TPU_INT8_QKV=0``
+keeps its qkv projection bf16, and ``DINOUNET_TPU_INT8_ADAPTER=1`` (with
+VIT_INT8) also the adapter extractors' MSDA output projections and ConvFFN
+fc2 in eval mode. Quantization happens at apply time, so one checkpoint
+serves both modes. The accuracy of int8 on the published checkpoints has
+not been checked; the mode stays opt-in.
 """
 
 import os
@@ -69,3 +81,22 @@ def use_decoder_hwbc(x: torch.Tensor) -> bool:
     if mode == "auto":
         return x.is_cuda
     return True
+
+
+def vit_int8() -> bool:
+    """DINOUNET_TPU_VIT_INT8 == "1" (default "0"): the backbone's qkv,
+    attention output projection, fc1 and fc2 as w8a8 ops."""
+    return os.environ.get("DINOUNET_TPU_VIT_INT8", "0") == "1"
+
+
+def int8_qkv() -> bool:
+    """DINOUNET_TPU_INT8_QKV == "1" (default "1"): with vit_int8(), the qkv
+    projection in int8 too; "0" keeps it bf16."""
+    return os.environ.get("DINOUNET_TPU_INT8_QKV", "1") == "1"
+
+
+def adapter_int8() -> bool:
+    """vit_int8() and DINOUNET_TPU_INT8_ADAPTER == "1" (default "0"): the
+    extractors' fused junctions (MSDA output projection, ConvFFN fc2) as
+    w8a8 ops too."""
+    return vit_int8() and os.environ.get("DINOUNET_TPU_INT8_ADAPTER", "0") == "1"

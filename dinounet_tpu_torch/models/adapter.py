@@ -11,6 +11,9 @@ train mode the extractors run unfused, as the JAX package's train path does
 (``adapter.py:440-461``): plain output projections, an exact GELU before the
 ConvFFN's fc2, a drop-path on the ConvFFN branch, and every interaction block
 recomputed in the backward (``torch.utils.checkpoint``, the JAX ``remat``).
+With ``configuration.adapter_int8`` the eval-mode junctions run as w8a8 ops
+(``ops/dense_q8.py``, as ``dinounet_tpu/models/adapter.py:327-338,386-395``);
+the train path is the same in both modes.
 The frozen backbone runs under ``torch.no_grad()`` (``stop_gradient``), and
 the SPM's and output BatchNorms use batch statistics.
 
@@ -29,11 +32,13 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from dinounet_tpu_torch.configuration import use_spm_cm
+from dinounet_tpu_torch.configuration import adapter_int8, use_spm_cm
 from dinounet_tpu_torch.models.layers import (BatchNorm, Conv2d, Linear,
                                               TransposedConv, bilinear_resize)
 from dinounet_tpu_torch.models.vit import DinoViT, LayerNormFp32
 from dinounet_tpu_torch.ops.decoder_tail import conv3x3_cm, tail_supported
+from dinounet_tpu_torch.ops.dense_q8 import (dense_cm_q8_residual_stats,
+                                             dense_q8_residual_stats)
 from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
                                                 dense_residual_stats)
 from dinounet_tpu_torch.ops.msda_kernel import ms_deform_attn_premapped_fused
@@ -131,9 +136,9 @@ class MSDeformAttn(nn.Module):
             return self.output_proj(out_t.reshape(B, M * D, Lq).transpose(1, 2))
         C = query.shape[2]
         ones = torch.ones(C, dtype=torch.float32, device=query.device)
-        return dense_cm_residual_stats(out_t.reshape(B, M * D, Lq),
-                                       self.output_proj.weight.t(),
-                                       self.output_proj.bias, residual, ones)
+        dense = dense_cm_q8_residual_stats if adapter_int8() else dense_cm_residual_stats
+        return dense(out_t.reshape(B, M * D, Lq), self.output_proj.weight.t(),
+                     self.output_proj.bias, residual, ones)
 
 
 class DWConvMS(nn.Module):
@@ -174,6 +179,9 @@ class ConvFFN(nn.Module):
         if residual is None:
             return self.fc2(F.gelu(h))
         ones = torch.ones(residual.shape[-1], dtype=torch.float32, device=x.device)
+        if adapter_int8():
+            return dense_q8_residual_stats(h, self.fc2.weight.t(), self.fc2.bias,
+                                           residual, ones, prologue="gelu")
         return dense_residual_stats(h, self.fc2.weight.t(), self.fc2.bias,
                                     residual, ones, apply_gelu=True)
 

@@ -9,6 +9,15 @@ the Dh-major QKV layout. Axial RoPE applies to the patch tokens; the cls and
 storage tokens carry identity rows (sin 0, cos 1) in the tables. Parameter
 names are the reference's (``blocks.N.attn.qkv.weight``, ``blocks.N.ls1.gamma``,
 ...). The SwiGLU FFN (ViT-7B) is not ported yet.
+
+In the int8 serving mode (``configuration.vit_int8``, as
+``dinounet_tpu/models/vit.py:276-323,436-452``) the same chain runs its four
+projections as w8a8 ops (``ops/dense_q8.py``): the qkv straight into the
+Dh-major layout (bf16 with ``DINOUNET_TPU_INT8_QKV=0``), the attention output
+projection channel-major with the residual and statistics, fc1 plain, fc2
+with the GELU prologue, the residual and statistics; the attention stays
+bf16. The weights are quantized when applied, so the parameters (and
+``models/convert.py``) are the same in both modes.
 """
 
 import dataclasses
@@ -18,10 +27,12 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from dinounet_tpu_torch.configuration import COMPUTE_DTYPE
+from dinounet_tpu_torch.configuration import COMPUTE_DTYPE, int8_qkv, vit_int8
 from dinounet_tpu_torch.models.layers import (Linear, lecun_normal_,
                                               trunc_normal_)
 from dinounet_tpu_torch.ops.attention import fused_rope_attention_premapped_dmaj
+from dinounet_tpu_torch.ops.dense_q8 import (dense_cm_q8_residual_stats, dense_q8,
+                                             dense_q8_residual_stats, qkv_q8_dmaj)
 from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
                                                 dense_residual_stats, row_stats)
 
@@ -152,11 +163,16 @@ class Attention(nn.Module):
         mean, var) with the next LayerNorm's statistics."""
         B, N, C = x.shape
         M = self.num_heads
-        qkv = self.qkv(x).view(B, N, 3, M, C // M).permute(0, 2, 3, 4, 1)
+        int8 = vit_int8()
+        if int8 and int8_qkv():
+            qkv = qkv_q8_dmaj(x, self.qkv.weight.t(), self.qkv.bias, M, C // M)
+        else:
+            qkv = self.qkv(x).view(B, N, 3, M, C // M).permute(0, 2, 3, 4, 1)
         o_t = fused_rope_attention_premapped_dmaj(qkv.contiguous(), *rope)
         bias = self.proj.bias if self.proj.bias is not None else torch.zeros_like(ls_gamma)
-        return dense_cm_residual_stats(o_t.reshape(B, C, N), self.proj.weight.t(),
-                                       bias, residual, ls_gamma)
+        dense = dense_cm_q8_residual_stats if int8 else dense_cm_residual_stats
+        return dense(o_t.reshape(B, C, N), self.proj.weight.t(), bias, residual,
+                     ls_gamma)
 
 
 class Mlp(nn.Module):
@@ -168,6 +184,12 @@ class Mlp(nn.Module):
     def forward(self, x, residual, ls_gamma):
         """Returns (residual + gamma * fc2(gelu(fc1(x))), mean, var)."""
         bias = self.fc2.bias if self.fc2.bias is not None else torch.zeros_like(ls_gamma)
+        if vit_int8():
+            b1 = (self.fc1.bias if self.fc1.bias is not None
+                  else torch.zeros(self.fc1.out_features, device=x.device))
+            h = dense_q8(x, self.fc1.weight.t(), b1)
+            return dense_q8_residual_stats(h, self.fc2.weight.t(), bias, residual,
+                                           ls_gamma, prologue="gelu")
         return dense_residual_stats(self.fc1(x), self.fc2.weight.t(), bias,
                                     residual, ls_gamma, apply_gelu=True)
 

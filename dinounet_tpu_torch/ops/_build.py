@@ -27,7 +27,9 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "dinounet_tpu_torch"
 SOURCES = ("msda_fwd.cu", "msda_bwd.cu", "rope_attention.cu", "dense_stats.cu",
-           "conv3x3_stats.cu", "transpconv2x2.cu", "seg_head.cu")
+           "conv3x3_stats.cu", "transpconv2x2.cu", "seg_head.cu", "dense_q8.cu",
+           "qkv_q8_dmaj.cu")
+HEADERS = ("int8_gemm.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,6 +52,11 @@ _SIGNATURES = {
     "transpconv2x2": [_P] + [_I] * 4 + [_P] * 4 + [_F, _P] + [_I] * 5 + [_P],
     # x, w, bias, s, t, slope, out, B, C, HW, K, stream
     "seg_head": [_P] * 5 + [_F, _P] + [_I] * 4 + [_P],
+    # h, wq, ws, b, res, gamma, xq, a, out, mu, var, B, N, K, D,
+    # channel_major, gelu, residual, stream
+    "dense_q8": [_P] * 11 + [_I] * 7 + [_P],
+    # x, wq, ws, bias, xq, a, out, B, N, C, D3, stream
+    "qkv_q8_dmaj": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -68,7 +75,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -151,6 +158,8 @@ def _wrappers():
     from dinounet_tpu_torch.ops.conv_hwbc import conv3x3_hwbc
     from dinounet_tpu_torch.ops.decoder_tail import (conv3x3_cm, seg_head_cm,
                                                      transpconv2x2_cm)
+    from dinounet_tpu_torch.ops.dense_q8 import (dense_cm_q8_residual_stats, dense_q8,
+                                                 dense_q8_residual_stats, qkv_q8_dmaj)
     from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
                                                     dense_residual_stats)
     from dinounet_tpu_torch.ops.msda_kernel import (ms_deform_attn_premapped_backward,
@@ -166,6 +175,10 @@ def _wrappers():
         "transpconv2x2_cm": transpconv2x2_cm,
         "seg_head_cm": seg_head_cm,
         "conv3x3_hwbc": conv3x3_hwbc,
+        "qkv_q8_dmaj": qkv_q8_dmaj,
+        "dense_q8": dense_q8,
+        "dense_q8_stats": dense_q8_residual_stats,
+        "dense_cm_q8_stats": dense_cm_q8_residual_stats,
     }
 
 

@@ -1,0 +1,309 @@
+"""w8a8 dense ops of the int8 serving mode (``DINOUNET_TPU_VIT_INT8``).
+
+Counterparts of ``dinounet_tpu/ops/dense_q8_pallas.py``, with its
+quantization scheme: per-output-channel symmetric int8 weights
+(``quantize_weight``: scale max|w| / 127 over K, quantized on every call),
+per-token symmetric int8 activations (scale max|x| / 127 over the K
+channels of a token), an exact int32 product, and the fp32 rescale
+``(acc * a) * ws + b`` rounded once to the compute dtype:
+
+- ``dense_q8``: h (B, N, K) -> act(h) @ w + b, (B, N, D) (ViT fc1);
+- ``dense_q8_residual_stats``: h (B, N, K) -> out = res + gamma * (...) and
+  the next LayerNorm's row statistics (ViT fc2 and ConvFFN fc2, with the
+  exact-erf GELU prologue);
+- ``dense_cm_q8_residual_stats``: the same from a channel-major h_t
+  (B, K, N) (the attention and MSDA output projections);
+- ``qkv_q8_dmaj``: x (B, N, C) -> the Dh-major (B, 3, M, Dh, N) qkv that
+  ``ops/attention.py`` reads.
+
+w is (K, D) as in the JAX package (a float parameter; quantized here), b
+and gamma (D,). For CUDA tensors the first three launch
+``csrc/dense_q8.cu`` and the qkv ``csrc/qkv_q8_dmaj.cu`` (which replace the
+TPU kernels ``_q8_kernel``, ``_q8_stats_kernel``, ``_cm_q8_kernel`` and
+``_qkv_q8_dmaj_kernel``; their headers say what bounds them); for CPU
+tensors they run the plain versions below, which round where the JAX
+package's ``_reference_q8``, ``_reference_q8_stats``,
+``_reference_cm_q8_stats`` and ``qkv_q8_premapped_dmaj`` round: the GELU
+prologue to the compute dtype before quantization, true divisions,
+round-half-to-even, the int32 sums exact (taken in float64, exact below
+2^53; fp32 is not, K * 127^2 reaches 4.9e7 > 2^24), the bias added in fp32
+before the one rounding. Every op is differentiable on every device: the
+backward differentiates the plain version recomputed from the saved inputs,
+as the JAX custom VJPs do (zero through the rounding, exact through the
+scales).
+"""
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from dinounet_tpu_torch.ops import _build
+from dinounet_tpu_torch.ops.dense_stats import grads_of_plain, row_stats
+
+Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+PROLOGUES = ("none", "gelu")
+
+
+def _quantize(xf: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 levels of `xf` along `dim`, kept as float in xf's
+    dtype (the rounding has a zero gradient, the scale an exact one):
+    (q, scale), scale max(max|xf|, 1e-12) / 127 with `dim` kept. The 127 is
+    a tensor on xf's device: PyTorch's CUDA division by a CPU scalar
+    multiplies by its reciprocal, which is not the IEEE quotient."""
+    amax = torch.clamp(xf.abs().amax(dim=dim, keepdim=True), min=1e-12)
+    scale = amax / amax.new_full((), 127.0)
+    return torch.clamp(torch.round(xf / scale), -127, 127), scale
+
+
+def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(K, D) float kernel -> (wq int8 (K, D), w_scale (D,)), per output
+    channel, in w's dtype as the JAX package computes it (fp32 for the
+    model's parameters)."""
+    q, scale = _quantize(w, 0)
+    return q.to(torch.int8), scale[0]
+
+
+def quantize_act_cm(h_t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Channel-major (B, K, N) activation -> (xq int8 (B, K, N), a_col fp32
+    (B, N, 1)), one scale per token."""
+    q, a = _quantize(h_t.float(), 1)
+    return q.to(torch.int8), a.transpose(1, 2)
+
+
+def _exact_matmul(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The int32 product of two integer-valued float tensors, exact, as fp32
+    (one rounding, as JAX's int32 -> fp32 convert)."""
+    return torch.einsum(equation, a.double(), b.double()).float()
+
+
+def _prologue(prologue: str, h: torch.Tensor) -> torch.Tensor:
+    if prologue not in PROLOGUES:
+        raise ValueError(f"prologue must be one of {PROLOGUES}, got {prologue!r}")
+    hf = h.float()
+    if prologue == "gelu":
+        hf = F.gelu(hf).to(h.dtype).float()
+    return hf
+
+
+def _rescaled(h, w, b, prologue) -> torch.Tensor:
+    """(acc * a) * ws + b in fp32, (B, N, D), from row-major h."""
+    wq, ws = _quantize(w, 0)
+    q, a = _quantize(_prologue(prologue, h), -1)
+    return _exact_matmul("bnk,kd->bnd", q, wq) * a * ws + b.float()
+
+
+def _residual_stats(y, res, gamma) -> Stats:
+    out = res + y.to(res.dtype) * gamma.to(res.dtype)
+    mu, var = row_stats(out)
+    return out, mu, var
+
+
+def dense_q8_plain(h, w, b, prologue: str = "none") -> torch.Tensor:
+    return _rescaled(h, w, b, prologue).to(h.dtype)
+
+
+def dense_q8_residual_stats_plain(h, w, b, res, gamma, prologue: str = "none") -> Stats:
+    return _residual_stats(_rescaled(h, w, b, prologue), res, gamma)
+
+
+def dense_cm_q8_residual_stats_plain(h_t, w, b, res, gamma) -> Stats:
+    wq, ws = _quantize(w, 0)
+    q, a = _quantize(h_t.float(), 1)  # a (B, 1, N)
+    y = _exact_matmul("bkn,kd->bnd", q, wq) * a.transpose(1, 2) * ws + b.float()
+    return _residual_stats(y, res, gamma)
+
+
+def qkv_q8_dmaj_plain(x, w, b: Optional[torch.Tensor], n_heads: int,
+                      head_dim: int) -> torch.Tensor:
+    B, N, C = x.shape
+    M, Dh = n_heads, head_dim
+    wq, ws = _quantize(w, 0)  # (C, 3C), (1, 3C)
+    q, a = _quantize(x.float(), -1)  # (B, N, C), (B, N, 1)
+    acc = _exact_matmul("bnc,cj->bjn", q, wq)  # (B, 3C, N)
+    y = acc * a.transpose(1, 2) * ws.reshape(1, 3 * M * Dh, 1)
+    if b is not None:
+        y = y + b.float().reshape(1, 3 * M * Dh, 1)
+    return y.to(x.dtype).reshape(B, 3, M, Dh, N)
+
+
+# ----------------------------------------------------------------- kernels
+
+def _quantized_weight(w, K, D, op):
+    wq, ws = quantize_weight(w)
+    if tuple(wq.shape) != (K, D):
+        raise ValueError(f"{op}: w must be ({K}, {D}), got {tuple(w.shape)}")
+    return wq.contiguous(), ws.float().contiguous()
+
+
+def _launch_dense(h, w, b, res, gamma, channel_major: bool, prologue: str,
+                  op: str):
+    """The dense_q8.cu launch: res/gamma None for the plain epilogue (fc1)."""
+    if prologue not in PROLOGUES:
+        raise ValueError(f"prologue must be one of {PROLOGUES}, got {prologue!r}")
+    if channel_major:
+        B, K, N = h.shape
+    else:
+        B, N, K = h.shape
+    D = w.shape[1]
+    dev = h.device
+    bf16, f32 = torch.bfloat16, torch.float32
+    wq, ws = _quantized_weight(w, K, D, op)
+    b = b.to(f32).contiguous()
+    specs = dict(h=(h, bf16, h.shape), wq=(wq, torch.int8, (K, D)),
+                 ws=(ws, f32, (D,)), b=(b, f32, (D,)))
+    residual = res is not None
+    if residual:
+        gamma = gamma.to(f32).contiguous()
+        specs.update(res=(res, bf16, (B, N, D)), gamma=(gamma, f32, (D,)))
+    _build.check_inputs(op, dev, **specs)
+    # per-token int8 activations and their scales, written by the kernel's
+    # quantize pass: rows padded to 16 bytes along the contiguous dim
+    pad16 = lambda n: -(-n // 16) * 16
+    xq = torch.empty((B, K, pad16(N)) if channel_major else (B, N, pad16(K)),
+                     dtype=torch.int8, device=dev)
+    a = torch.empty((B, N), dtype=f32, device=dev)
+    out = torch.empty((B, N, D), dtype=bf16, device=dev)
+    mu = var = None
+    if residual:
+        mu = torch.empty((B, N), dtype=f32, device=dev)
+        var = torch.empty((B, N), dtype=f32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = _build.lib().dense_q8(
+        h.data_ptr(), wq.data_ptr(), ws.data_ptr(), b.data_ptr(), ptr(res),
+        ptr(gamma), xq.data_ptr(), a.data_ptr(), out.data_ptr(), ptr(mu), ptr(var),
+        B, N, K, D, int(channel_major), int(prologue == "gelu"), int(residual),
+        _build.stream_of(dev))
+    _build.check(err, op)
+    return (out, mu, var) if residual else out
+
+
+def _launch_qkv(x, w, b, n_heads, head_dim):
+    op = "qkv_q8_dmaj"
+    B, N, C = x.shape
+    D3 = 3 * n_heads * head_dim
+    dev = x.device
+    f32 = torch.float32
+    wq, ws = _quantized_weight(w, C, D3, op)
+    b = (torch.zeros((D3,), dtype=f32, device=dev) if b is None
+         else b.to(f32).contiguous())
+    _build.check_inputs(op, dev, x=(x, torch.bfloat16, (B, N, C)),
+                        wq=(wq, torch.int8, (C, D3)), ws=(ws, f32, (D3,)),
+                        b=(b, f32, (D3,)))
+    xq = torch.empty((B, N, -(-C // 16) * 16), dtype=torch.int8, device=dev)
+    a = torch.empty((B, N), dtype=f32, device=dev)
+    out = torch.empty((B, D3, N), dtype=torch.bfloat16, device=dev)
+    err = _build.lib().qkv_q8_dmaj(
+        x.data_ptr(), wq.data_ptr(), ws.data_ptr(), b.data_ptr(), xq.data_ptr(),
+        a.data_ptr(), out.data_ptr(), B, N, C, D3, _build.stream_of(dev))
+    _build.check(err, op)
+    return out.reshape(B, 3, n_heads, head_dim, N)
+
+
+def _on_cpu(t: torch.Tensor, op: str) -> bool:
+    """True for a CPU tensor (the plain version), False for a CUDA one (the
+    kernel); any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"no {op} kernel for device {t.device}")
+    return False
+
+
+class _DenseQ8(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, w, b, prologue):
+        ctx.prologue = prologue
+        ctx.save_for_backward(h, w, b)
+        if _on_cpu(h, "dense_q8"):
+            return dense_q8_plain(h, w, b, prologue)
+        out = _launch_dense(h, w, b, None, None, False, prologue, "dense_q8")
+        dense_q8.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        plain = lambda h, w, b: dense_q8_plain(h, w, b, ctx.prologue)
+        return grads_of_plain(ctx, plain, g, 3) + (None,)
+
+
+class _DenseQ8Stats(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, w, b, res, gamma, prologue):
+        ctx.prologue = prologue
+        ctx.save_for_backward(h, w, b, res, gamma)
+        if _on_cpu(h, "dense_q8_residual_stats"):
+            return dense_q8_residual_stats_plain(h, w, b, res, gamma, prologue)
+        out = _launch_dense(h, w, b, res, gamma, False, prologue,
+                            "dense_q8_residual_stats")
+        dense_q8_residual_stats.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        plain = lambda *a: dense_q8_residual_stats_plain(*a, ctx.prologue)
+        return grads_of_plain(ctx, plain, grads, 5) + (None,)
+
+
+class _DenseCmQ8Stats(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h_t, w, b, res, gamma):
+        ctx.save_for_backward(h_t, w, b, res, gamma)
+        if _on_cpu(h_t, "dense_cm_q8_residual_stats"):
+            return dense_cm_q8_residual_stats_plain(h_t, w, b, res, gamma)
+        out = _launch_dense(h_t, w, b, res, gamma, True, "none",
+                            "dense_cm_q8_residual_stats")
+        dense_cm_q8_residual_stats.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return grads_of_plain(ctx, dense_cm_q8_residual_stats_plain, grads, 5)
+
+
+class _QkvQ8Dmaj(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, n_heads, head_dim):
+        ctx.shape = (n_heads, head_dim)
+        ctx.save_for_backward(x, w, b)
+        if _on_cpu(x, "qkv_q8_dmaj"):
+            return qkv_q8_dmaj_plain(x, w, b, n_heads, head_dim)
+        out = _launch_qkv(x, w, b, n_heads, head_dim)
+        qkv_q8_dmaj.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        plain = lambda x, w, b: qkv_q8_dmaj_plain(x, w, b, *ctx.shape)
+        return grads_of_plain(ctx, plain, g, 3) + (None, None)
+
+
+def dense_q8(h, w, b, prologue: str = "none") -> torch.Tensor:
+    """h (B, N, K) -> (B, N, D) in h's dtype."""
+    return _DenseQ8.apply(h, w, b, prologue)
+
+
+def dense_q8_residual_stats(h, w, b, res, gamma, prologue: str = "none") -> Stats:
+    """h (B, N, K) -> (out (B, N, D), mean (B, N), var (B, N))."""
+    return _DenseQ8Stats.apply(h, w, b, res, gamma, prologue)
+
+
+def dense_cm_q8_residual_stats(h_t, w, b, res, gamma) -> Stats:
+    """h_t (B, K, N) -> (out (B, N, D), mean (B, N), var (B, N))."""
+    return _DenseCmQ8Stats.apply(h_t, w, b, res, gamma)
+
+
+def qkv_q8_dmaj(x, w, b: Optional[torch.Tensor], n_heads: int,
+                head_dim: int) -> torch.Tensor:
+    """x (B, N, C), w (C, 3C), b (3C,) or None -> (B, 3, M, Dh, N) in x's
+    dtype."""
+    if w.shape[1] != 3 * n_heads * head_dim:
+        raise ValueError(f"qkv_q8_dmaj: w {tuple(w.shape)} is not (C, 3 * "
+                         f"{n_heads} * {head_dim})")
+    return _QkvQ8Dmaj.apply(x, w, b, n_heads, head_dim)
+
+
+dense_q8.launches = 0
+dense_q8_residual_stats.launches = 0
+dense_cm_q8_residual_stats.launches = 0
+qkv_q8_dmaj.launches = 0

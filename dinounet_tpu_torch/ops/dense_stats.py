@@ -92,6 +92,20 @@ def _forward(h, w, b, res, gamma, channel_major: bool, gelu: bool) -> Stats:
     return result
 
 
+def grads_of_plain(ctx, plain, grads, n_inputs: int):
+    """The backward of a kernel op: the gradients of `plain`, recomputed from
+    the tensors the forward saved (its first `n_inputs` inputs, None where
+    an input was None), for the inputs autograd asks for; None elsewhere."""
+    needs = ctx.needs_input_grad[:n_inputs]
+    inputs = [None if t is None else t.detach().requires_grad_(n)
+              for t, n in zip(ctx.saved_tensors, needs)]
+    with torch.enable_grad():
+        outs = plain(*inputs)
+    wanted = [t for t, n in zip(inputs, needs) if n]
+    got = iter(torch.autograd.grad(outs, wanted, grads, allow_unused=True))
+    return tuple(next(got) if n else None for n in needs)
+
+
 class _DenseStats(torch.autograd.Function):
     """The kernel (or plain version) forward; the backward differentiates the
     plain version recomputed from the saved inputs, as the JAX package's
@@ -106,16 +120,11 @@ class _DenseStats(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         channel_major, gelu = ctx.flags
-        needs = ctx.needs_input_grad[:5]
-        inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
-        with torch.enable_grad():
-            if channel_major:
-                outs = dense_cm_residual_stats_plain(*inputs)
-            else:
-                outs = dense_residual_stats_plain(*inputs, gelu)
-        wanted = [t for t, n in zip(inputs, needs) if n]
-        got = iter(torch.autograd.grad(outs, wanted, grads, allow_unused=True))
-        return tuple(next(got) if n else None for n in needs) + (None, None)
+        if channel_major:
+            plain = dense_cm_residual_stats_plain
+        else:
+            plain = lambda *a: dense_residual_stats_plain(*a, gelu)
+        return grads_of_plain(ctx, plain, grads, 5) + (None, None)
 
 
 def dense_residual_stats(h, w, b, res, gamma, apply_gelu: bool = False) -> Stats:

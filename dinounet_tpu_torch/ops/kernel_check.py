@@ -32,6 +32,18 @@ why each is what it is:
 - ``seg_head_cm``: fp32 logits from exact products; the prologue's fused
   multiply-add can flip the bf16 rounding of an activation (one ulp, ~4e-3 of
   it), which moves a logit by ~1e-3 at these weights.
+- ``qkv_q8_dmaj`` / ``dense_q8`` / ``dense_q8_stats`` / ``dense_cm_q8_stats``
+  (the int8 ops): the int8 levels come from the same IEEE divisions and
+  half-to-even roundings, the int32 sums are exact in any order, and the
+  kernels' rescale and epilogue round where the plain versions do (no FMA
+  contraction), so the outputs agree bit for bit (max abs error 0 at every
+  path shape on an H100) and the statistics, sums of the stored rows in
+  another order, within ~4e-7. What can still move an output: a GELU value
+  whose fp32 erf differs by an ulp between the kernel's build and
+  PyTorch's can cross a bf16 edge and move that element by one int8 level,
+  which moves the output by under one bf16 ulp (2^-7 relative at most).
+  Bound atol 1e-5 + rtol 2^-7: a wrong scale, a dropped K step or a
+  misplaced tile moves outputs by O(0.1).
 """
 
 from typing import Callable, Dict, Tuple
@@ -48,6 +60,10 @@ KERNEL_TOLERANCES: Dict[str, Tuple[float, float]] = {  # (atol, rtol)
     "conv3x3_hwbc": (2e-2, 1e-2),
     "transpconv2x2_cm": (2e-2, 1e-2),
     "seg_head_cm": (1e-2, 1e-2),
+    "qkv_q8_dmaj": (1e-5, 2.0 ** -7),
+    "dense_q8": (1e-5, 2.0 ** -7),
+    "dense_q8_stats": (1e-5, 2.0 ** -7),
+    "dense_cm_q8_stats": (1e-5, 2.0 ** -7),
 }
 STATS_TOLERANCE: Tuple[float, float] = (1e-3, 1e-3)
 

@@ -23,6 +23,7 @@ from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
                                                 dense_cm_residual_stats_plain,
                                                 dense_residual_stats,
                                                 dense_residual_stats_plain)
+from dinounet_tpu_torch.ops import dense_q8 as q8
 from dinounet_tpu_torch.ops.kernel_check import (KERNEL_TOLERANCES, STATS_TOLERANCE,
                                                  max_excess)
 from dinounet_tpu_torch.ops.msda import (ms_deform_attn_premapped_backward_plain,
@@ -187,6 +188,67 @@ def test_dense_kernel_matches_plain(dev, channel_major, gelu, B, N, K, D):
         assert max_excess(gt, wt, KERNEL_TOLERANCES[name]) <= 0
 
 
+# the int8 ops: ragged N and D, K not a multiple of 16, and the dinounet_b
+# ViT shapes (fc1, fc2, the attention projection, the qkv)
+@pytest.mark.parametrize("op", ["dense_q8", "dense_q8_stats", "dense_q8_stats_gelu",
+                                "dense_cm_q8_stats"])
+@pytest.mark.parametrize("B,N,K,D", [(2, 21, 40, 24), (2, 130, 72, 136),
+                                     (1, 1029, 768, 3072), (1, 1029, 3072, 768)])
+def test_int8_dense_kernel_matches_plain(dev, op, B, N, K, D):
+    g = torch.Generator().manual_seed(13)
+    bf = torch.bfloat16
+    cm = op == "dense_cm_q8_stats"
+    h = _randn(g, (B, K, N) if cm else (B, N, K), dev).to(bf)
+    w, b = _randn(g, (K, D), dev, K ** -0.5), _randn(g, (D,), dev, 0.1)
+    res, gamma = _randn(g, (B, N, D), dev).to(bf), _randn(g, (D,), dev, 0.5)
+    if op == "dense_q8":
+        got, want = (q8.dense_q8(h, w, b),), (q8.dense_q8_plain(h, w, b),)
+    elif cm:
+        got = q8.dense_cm_q8_residual_stats(h, w, b, res, gamma)
+        want = q8.dense_cm_q8_residual_stats_plain(h, w, b, res, gamma)
+    else:
+        pro = "gelu" if op.endswith("gelu") else "none"
+        got = q8.dense_q8_residual_stats(h, w, b, res, gamma, pro)
+        want = q8.dense_q8_residual_stats_plain(h, w, b, res, gamma, pro)
+    torch.cuda.synchronize()
+    name = "dense_q8_stats" if op.startswith("dense_q8_stats") else op
+    for gt, wt in zip(got, want):
+        assert gt.shape == wt.shape and gt.dtype == wt.dtype
+        assert max_excess(gt, wt, KERNEL_TOLERANCES[name]) <= 0
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("B,N,C,M", [(2, 37, 64, 4), (1, 130, 40, 2), (2, 1029, 768, 12)])
+def test_qkv_q8_dmaj_kernel_matches_plain(dev, bias, B, N, C, M):
+    g = torch.Generator().manual_seed(14)
+    x = _randn(g, (B, N, C), dev).to(torch.bfloat16)
+    w, b = _randn(g, (C, 3 * C), dev, C ** -0.5), _randn(g, (3 * C,), dev, 0.1)
+    b = b if bias else None
+    got = q8.qkv_q8_dmaj(x, w, b, M, C // M)
+    want = q8.qkv_q8_dmaj_plain(x, w, b, M, C // M)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (B, 3, M, C // M, N)
+    assert max_excess(got, want, KERNEL_TOLERANCES["qkv_q8_dmaj"]) <= 0
+
+
+def test_int8_wrapper_grads_match_plain(dev):
+    """The int8 wrappers keep their grad_fn on the card; their backward (the
+    plain version, recomputed) gives the plain version's gradients."""
+    g = torch.Generator().manual_seed(15)
+    bf = torch.bfloat16
+    B, N, K, D = 2, 21, 48, 24
+    args = [_randn(g, (B, N, K), dev).to(bf), _randn(g, (K, D), dev, K ** -0.5),
+            _randn(g, (D,), dev, 0.1), _randn(g, (B, N, D), dev).to(bf),
+            _randn(g, (D,), dev, 0.5)]
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    ref = [a.clone().requires_grad_(True) for a in args]
+    outs = q8.dense_q8_residual_stats(*leaves, "gelu")
+    assert all(o.grad_fn is not None for o in outs)
+    want = _grads(q8.dense_q8_residual_stats_plain(*ref, "gelu"), ref)
+    for gt, wt in zip(_grads(outs, leaves), want):
+        torch.testing.assert_close(gt, wt)
+
+
 def _prologue(g, B, C, dev):
     return ((torch.rand((B, C), generator=g) + 0.5).to(dev),
             _randn(g, (B, C), dev, 0.3))
@@ -306,6 +368,13 @@ def test_launches_are_counted(dev):
     p = (torch.ones((8, 16), device=dev), torch.zeros((8, 16), device=dev))
     conv3x3_cm(x, w, b)
     conv3x3_hwbc(x.permute(2, 3, 0, 1), w, b)
+    h = torch.zeros((1, 8, 16), dtype=torch.bfloat16, device=dev)
+    wq, bq = torch.ones((16, 48), device=dev), torch.zeros(48, device=dev)
+    res = torch.zeros((1, 8, 48), dtype=torch.bfloat16, device=dev)
+    q8.dense_q8(h, wq, bq)
+    q8.dense_q8_residual_stats(h, wq, bq, res, bq, "gelu")
+    q8.dense_cm_q8_residual_stats(h.transpose(1, 2).contiguous(), wq, bq, res, bq)
+    q8.qkv_q8_dmaj(h, wq, bq, 2, 8)
     transpconv2x2_cm(x, torch.zeros((16, 4, 2, 2), device=dev), torch.zeros(4, device=dev))
     seg_head_cm(x, torch.zeros((3, 16, 1, 1), device=dev), torch.zeros(3, device=dev), p)
     torch.cuda.synchronize()
@@ -313,7 +382,8 @@ def test_launches_are_counted(dev):
     assert counts["rope_attention"] == 1
     assert counts["msda_fwd"] == 1 and counts["msda_bwd"] == 1
     assert all(counts[k] == 1 for k in ("conv3x3_cm", "conv3x3_hwbc",
-                                        "transpconv2x2_cm", "seg_head_cm"))
+                                        "transpconv2x2_cm", "seg_head_cm", "qkv_q8_dmaj",
+                                        "dense_q8", "dense_q8_stats", "dense_cm_q8_stats"))
 
 
 def test_bad_inputs_raise(dev):

@@ -195,9 +195,22 @@ def test_row_stats_matches_jax():
 def test_kernel_paths_refuse_other_devices():
     """A wrapper runs its plain version only for CPU tensors; anything else
     goes to the kernel or raises — never a silent fallback."""
+    from dinounet_tpu_torch.ops.dense_q8 import (dense_cm_q8_residual_stats, dense_q8,
+                                                 dense_q8_residual_stats, qkv_q8_dmaj)
+
     meta = torch.empty((1, 3, 1, 64, 8), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError):
         fused_rope_attention_premapped_dmaj(meta, None, None)
+    # the int8 ops: h (1, 8, 16) or h_t (1, 16, 8), w (16, 48)
+    h = torch.empty((1, 8, 16), dtype=torch.bfloat16, device="meta")
+    w, b = torch.empty((16, 48), device="meta"), torch.empty((48,), device="meta")
+    res = torch.empty((1, 8, 48), dtype=torch.bfloat16, device="meta")
+    for call in (lambda: dense_q8(h, w, b),
+                 lambda: dense_q8_residual_stats(h, w, b, res, b, "gelu"),
+                 lambda: dense_cm_q8_residual_stats(h.transpose(1, 2), w, b, res, b),
+                 lambda: qkv_q8_dmaj(h, w, b, 2, 8)):
+        with pytest.raises(ValueError):
+            call()
 
 
 def _grads(fn, leaves):
