@@ -7,9 +7,12 @@ Phases, each printing its own lines; any failure raises and the exit code is
 not 0:
 
 1. build   -- compile the CUDA kernels from dinounet_tpu_torch/csrc/.
-2. kernels -- each of the 13 kernels against its plain PyTorch version on
+2. kernels -- each of the 14 kernels against its plain PyTorch version on
               the card, at the shapes the dinounet_b tile forward gives it
-              (tile batch 8; the MSDA backward at the train step's batch 2),
+              (tile batch 8; the MSDA backward at the train step's batch 2)
+              and those of dinounet_7b (the row-major attention, the
+              Dh-major one at Dh = 128, the MSDA forward at 128 channels a
+              head, the two extractor junctions at D = 4096),
               within its stated tolerance; kernel, plain and library times
               (CUDA events, median of 20) and the bound (the larger of the
               bytes each call must move over 3.35 TB/s and its operations
@@ -47,7 +50,18 @@ not 0:
               the backbone, extractors, SPM, upsampling and decoder
               CUDA-event times per tile batch, beside the default route's.
               The environment is restored after each route.
-6. train   -- a synthetic preprocessed 2-D dataset (6 cases of 640 x 640, a
+6. serve_7b -- dinounet_7b at full width and depth (40 SwiGLU blocks)
+              with seeded random weights drawn on the card (backbone
+              matrices bf16, LayerScale INT8_LAYERSCALE), the same case at
+              tile batch 8: launch counts per tile-batch forward (row-major
+              attention 40, MSDA 6, dense 6 + 6, every other kernel 0),
+              finite fp16 logits, tiles/s, peak memory and layer times; the
+              int8 route (QuantDense) likewise and its parity batch against
+              the card's bf16 logits (INT8_BF16_BOUND, argmax agreement);
+              then the parity tile in bf16 (the kernels) against the same
+              weights in fp32 with the plain versions on the card, TF32
+              off, within PARITY_7B_BOUND (the bf16 model freed first).
+7. train   -- a synthetic preprocessed 2-D dataset (6 cases of 640 x 640, a
               bright disk and a dark ring) in a temporary nnUNet_preprocessed;
               DinoUNetTrainer_b through run.get_trainer_from_args on cuda:0
               (512 x 512 patches, batch 2, bf16, random frozen backbone),
@@ -61,7 +75,7 @@ not 0:
               LEARN_STEPS further steps on the same loader the mean loss of
               the last 10 below that of the first 10. Step time, steps/s and
               peak device memory for information.
-7. train parity -- one train step's loss and trainable gradients on the card
+8. train parity -- one train step's loss and trainable gradients on the card
               (bf16, the kernels) against the CPU (fp32, the plain
               versions): same dinounet_b weights and 256 x 256 batch of 1,
               no augmentation, drop-path 0; relative L2 of the concatenated
@@ -94,8 +108,10 @@ from dinounet_tpu_torch.inference.predictor import nnUNetPredictor
 from dinounet_tpu_torch.models.dinounet import DinoUNet, DinoUNetConfig
 from dinounet_tpu_torch.models.vit import rope_sincos
 from dinounet_tpu_torch.ops import _build
-from dinounet_tpu_torch.ops.attention import (fused_rope_attention_premapped_dmaj,
+from dinounet_tpu_torch.ops.attention import (fused_rope_attention,
+                                              fused_rope_attention_premapped_dmaj,
                                               rope_attention_dmaj_plain,
+                                              rope_attention_plain, rope_tables,
                                               rope_tables_dmaj)
 from dinounet_tpu_torch.ops.conv_hwbc import conv3x3_hwbc, conv3x3_hwbc_plain
 from dinounet_tpu_torch.ops.decoder_tail import (conv3x3_cm, conv3x3_cm_plain,
@@ -140,9 +156,10 @@ INT8_LAYERSCALE = 0.1
 INT8_KERNELS = ("qkv_q8_dmaj", "dense_q8", "dense_q8_stats", "dense_cm_q8_stats")
 INT8_ROUTES = ("serve_int8", "serve_int8_adapter")
 # kernel launches per tile-batch forward of dinounet_b
-PER_FORWARD = {"rope_attention": 12, "dense_cm_stats": 18, "dense_rm_stats": 18,
-               "msda_fwd": 6, "msda_bwd": 0, "conv3x3_cm": 0, "transpconv2x2_cm": 0,
-               "seg_head_cm": 0, "conv3x3_hwbc": 0, **dict.fromkeys(INT8_KERNELS, 0)}
+PER_FORWARD = {"rope_attention": 12, "rope_attention_rm": 0, "dense_cm_stats": 18,
+               "dense_rm_stats": 18, "msda_fwd": 6, "msda_bwd": 0, "conv3x3_cm": 0,
+               "transpconv2x2_cm": 0, "seg_head_cm": 0, "conv3x3_hwbc": 0,
+               **dict.fromkeys(INT8_KERNELS, 0)}
 # the routes, as environment settings, and the launches per tile-batch
 # forward each sets (the others keep PER_FORWARD's). serve_cm: conv3x3_cm 2
 # per decoder stage at 128^2, 256^2, 512^2 and the 2 SPM stem convs at 256^2;
@@ -165,12 +182,30 @@ PER_FORWARD_ROUTE = {
                    "dense_q8_stats": 12, "dense_cm_stats": 6, "dense_rm_stats": 6},
     "serve_int8_adapter": {"qkv_q8_dmaj": 12, "dense_cm_q8_stats": 18, "dense_q8": 12,
                            "dense_q8_stats": 18, "dense_cm_stats": 0, "dense_rm_stats": 0},
+    # dinounet_7b, bf16 or int8: its 40 unfused SwiGLU blocks launch only the
+    # row-major attention (their dense layers are cuBLAS GEMMs, QuantDense's
+    # torch._int_mm in int8); the 6 extractors their MSDA and two junctions
+    **dict.fromkeys(("serve_7b", "serve_7b_int8"), {
+        "rope_attention": 0, "rope_attention_rm": 40, "dense_cm_stats": 6,
+        "dense_rm_stats": 6}),
 }
+SERVE_7B = ("serve_7b", "serve_7b_int8")
+# the dense ops' outputs at the 7B junction shapes: out = res + gamma * y is
+# the sum of two bf16 terms that reach |10| among 176M outputs (the kernel's
+# default bound assumes |4|), and one accumulation-order flip of a term's
+# bf16 rounding moves the output by that term's ulp, 0.0625 below 16,
+# however small the sum; the statistics keep the kernel's bound
+JUNCTION_7B_TOL = (6.25e-2, 1e-2)
+# dinounet_7b, card bf16 (kernels) vs card fp32 (plain versions), relative L2
+# of the parity tile's logits, with the backbone's LayerScale at
+# INT8_LAYERSCALE: the same bound as dinounet_b's
+PARITY_7B_BOUND = 0.05
 # kernel launches per train step: the backbone's 12 blocks (attention, the
 # channel-major attention projection, the row-major fc2); the adapter trains
 # unfused, so its 6 extractors launch only the MSDA forward (twice: the
 # checkpointed interaction blocks run it again in the backward) and backward
-PER_TRAIN_STEP = {"rope_attention": 12, "dense_cm_stats": 12, "dense_rm_stats": 12,
+PER_TRAIN_STEP = {"rope_attention": 12, "rope_attention_rm": 0, "dense_cm_stats": 12,
+                  "dense_rm_stats": 12,
                   "msda_fwd": 12, "msda_bwd": 6, "conv3x3_cm": 0, "transpconv2x2_cm": 0,
                   "seg_head_cm": 0, "conv3x3_hwbc": 0, **dict.fromkeys(INT8_KERNELS, 0)}
 TRAIN_ITERS, TRAIN_EPOCHS, VAL_ITERS, LEARN_STEPS = 5, 2, 2, 40
@@ -190,6 +225,8 @@ TRAIN_LOSS_BOUND = 0.02
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "rope_attention": ("dinounet_tpu_torch/csrc/rope_attention.cu",
                        "dinounet_tpu/ops/attention_pallas.py:110"),
+    "rope_attention_rm": ("dinounet_tpu_torch/csrc/rope_attention.cu",
+                          "dinounet_tpu/ops/attention_pallas.py:39"),
     "dense_cm_stats": ("dinounet_tpu_torch/csrc/dense_stats.cu",
                        "dinounet_tpu/ops/dense_stats_pallas.py:241"),
     "dense_rm_stats": ("dinounet_tpu_torch/csrc/dense_stats.cu",
@@ -365,25 +402,55 @@ def phase_kernels(dev) -> dict:
         return torch.randn(shape, generator=g, device=dev) * scale
 
     results = {}
-    # attention: ViT-B, 12 heads of 64 over 5 + 32 * 32 tokens; library:
-    # scaled_dot_product_attention on the rotated q, k and v
-    N, M, Dh = 1029, 12, 64
-    qkv = randn(B, 3, M, Dh, N).to(bf)
-    sin, cos = rope_sincos(32, 32, Dh, device=dev)
-    sin = torch.cat([torch.zeros((5, Dh), device=dev), sin])
-    cos = torch.cat([torch.ones((5, Dh), device=dev), cos])
-    tables = rope_tables_dmaj(sin, cos, N, Dh, dev)
+    # attention: ViT-B, 12 heads of 64 over 5 + 32 * 32 tokens; then the same
+    # Dh-major kernel at Dh = 128 (the flash loop it shares with the
+    # row-major one); library: scaled_dot_product_attention on the rotated
+    # q, k and v
+    N = 1029
 
-    def rotated(x):
+    def vit_tables(Dh):
+        """A 32 x 32 patch grid's RoPE tables with the 5 prefix rows."""
+        sin, cos = rope_sincos(32, 32, Dh, device=dev)
+        return (torch.cat([torch.zeros((5, Dh), device=dev), sin]),
+                torch.cat([torch.ones((5, Dh), device=dev), cos]))
+
+    for Bq, M, Dh in ((B, 12, 64), (2, 32, 128)):
+        qkv = randn(Bq, 3, M, Dh, N).to(bf)
+        sin, cos = vit_tables(Dh)
+        tables = rope_tables_dmaj(sin, cos, N, Dh, dev)
+
+        def rotated(x):
+            xf = x.float()
+            r = xf * tables[1] + torch.roll(xf, Dh // 2, dims=-2) * tables[0]
+            return r.to(bf).transpose(-1, -2).contiguous()  # (B, M, N, Dh)
+
+        q, k = rotated(qkv[:, 0]), rotated(qkv[:, 1])
+        v = qkv[:, 2].transpose(-1, -2).contiguous()
+        r = _compare(
+            "rope_attention", f"qkv {tuple(qkv.shape)}",
+            lambda: fused_rope_attention_premapped_dmaj(qkv, sin, cos),
+            lambda: rope_attention_dmaj_plain(qkv, *tables),
+            (qkv, sin, cos), 4.0 * Bq * M * N * N * Dh, BF16_FLOP_S,
+            lambda: F.scaled_dot_product_attention(q, k, v))
+        results.setdefault("rope_attention", r)
+
+    # the row-major attention of dinounet_7b's SwiGLU blocks: 32 heads of 128
+    M, Dh = 32, 128
+    qkv = randn(B, N, 3, M, Dh).to(bf)
+    sin, cos = vit_tables(Dh)
+    sin_eff, cos_f = rope_tables(sin, cos, N, Dh, dev)
+
+    def rotated_rm(x):  # (B, N, M, Dh) -> rotated (B, M, N, Dh)
         xf = x.float()
-        r = xf * tables[1] + torch.roll(xf, Dh // 2, dims=-2) * tables[0]
-        return r.to(bf).transpose(-1, -2).contiguous()  # (B, M, N, Dh)
+        r = xf * cos_f[:, None] + torch.roll(xf, Dh // 2, dims=-1) * sin_eff[:, None]
+        return r.to(bf).transpose(1, 2).contiguous()
 
-    q, k, v = rotated(qkv[:, 0]), rotated(qkv[:, 1]), qkv[:, 2].transpose(-1, -2).contiguous()
-    results["rope_attention"] = _compare(
-        "rope_attention", f"qkv {tuple(qkv.shape)}",
-        lambda: fused_rope_attention_premapped_dmaj(qkv, sin, cos),
-        lambda: rope_attention_dmaj_plain(qkv, *tables),
+    q, k = rotated_rm(qkv[:, :, 0]), rotated_rm(qkv[:, :, 1])
+    v = qkv[:, :, 2].transpose(1, 2).contiguous()
+    results["rope_attention_rm"] = _compare(
+        "rope_attention_rm", f"qkv {tuple(qkv.shape)}",
+        lambda: fused_rope_attention(qkv, sin, cos),
+        lambda: rope_attention_plain(qkv, sin_eff, cos_f),
         (qkv, sin, cos), 4.0 * B * M * N * N * Dh, BF16_FLOP_S,
         lambda: F.scaled_dot_product_attention(q, k, v))
 
@@ -412,20 +479,51 @@ def phase_kernels(dev) -> dict:
                      (h, w, b, res, gamma), 2.0 * B * N * K * D, BF16_FLOP_S,
                      lambda: torch.matmul(h, wb))
         results.setdefault("dense_rm_stats", r)
+    # dinounet_7b's extractor junctions, D = 4096: the MSDA output projection
+    # (K = 2048, channel-major) and the ConvFFN fc2 (K = 1024, GELU)
+    D7, N7 = 4096, 5376
+    for K, cm in ((2048, True), (1024, False)):
+        h = randn(B, K, N7).to(bf) if cm else randn(B, N7, K).to(bf)
+        w, b = randn(K, D7, scale=K ** -0.5), randn(D7, scale=0.1)
+        res, gamma = randn(B, N7, D7).to(bf), randn(D7, scale=0.5)
+        wb = w.to(bf)
+        name = "dense_cm_stats" if cm else "dense_rm_stats"
+        tols = [JUNCTION_7B_TOL] + [KERNEL_TOLERANCES[name]] * 2
+        if cm:
+            ht = h.transpose(1, 2)
+            _compare(name, f"7B msda output proj K={K} N={N7} D={D7}",
+                     lambda: dense_cm_residual_stats(h, w, b, res, gamma),
+                     lambda: dense_cm_residual_stats_plain(h, w, b, res, gamma),
+                     (h, w, b, res, gamma), 2.0 * B * N7 * K * D7, BF16_FLOP_S,
+                     lambda: torch.matmul(ht, wb), tols)
+        else:
+            _compare(name, f"7B convffn fc2 +GELU K={K} N={N7} D={D7}",
+                     lambda: dense_residual_stats(h, w, b, res, gamma, apply_gelu=True),
+                     lambda: dense_residual_stats_plain(h, w, b, res, gamma, True),
+                     (h, w, b, res, gamma), 2.0 * B * N7 * K * D7, BF16_FLOP_S,
+                     lambda: torch.matmul(h, wb), tols)
+        del h, w, res
 
-    # MSDA: 16 heads of 24 channels over the 32 x 32 ViT grid, 5376 queries
-    # around the adapter's reference grid, 4 points; no library op computes
-    # it. Operations: 4 corners x 2 FLOP per channel and point (fp32 FMA).
-    Mq, Dv, Hv, P, Lq = 16, 24, 32, 4, 5376
-    v = randn(B, Mq, Dv, Hv * Hv).to(bf)
-    off = randn(B, Mq, 2 * P, Lq, scale=2.0).to(bf)
-    logits = randn(B, Mq, P, Lq).to(bf)
+    # MSDA: 16 heads over the 32 x 32 ViT grid, 5376 queries around the
+    # adapter's reference grid, 4 points: 24 channels a head (dinounet_b),
+    # then 128 (dinounet_7b, the kernel's 32-channel slices); no library op
+    # computes it. Operations: 4 corners x 2 FLOP per channel and point
+    # (fp32 FMA).
+    Mq, Hv, P, Lq = 16, 32, 4, 5376
     base = torch.rand((2 * P, Lq), generator=g, device=dev) * Hv - 0.5
-    results["msda_fwd"] = _compare(
-        "msda_fwd", f"value {tuple(v.shape)} Lq={Lq}",
-        lambda: ms_deform_attn_premapped_fused(v, ((Hv, Hv),), off, logits, base),
-        lambda: ms_deform_attn_premapped_fused_plain(v, ((Hv, Hv),), off, logits, base),
-        (v, off, logits, base), 8.0 * B * Mq * Lq * P * Dv, FP32_FLOP_S)
+    for Dv in (24, 128):
+        v = randn(B, Mq, Dv, Hv * Hv).to(bf)
+        off = randn(B, Mq, 2 * P, Lq, scale=2.0).to(bf)
+        logits = randn(B, Mq, P, Lq).to(bf)
+        r = _compare(
+            "msda_fwd", f"value {tuple(v.shape)} Lq={Lq}",
+            lambda: ms_deform_attn_premapped_fused(v, ((Hv, Hv),), off, logits, base),
+            lambda: ms_deform_attn_premapped_fused_plain(v, ((Hv, Hv),), off, logits, base),
+            (v, off, logits, base), 8.0 * B * Mq * Lq * P * Dv, FP32_FLOP_S)
+        results.setdefault("msda_fwd", r)
+        if Dv == 24:
+            v24, off24, logits24 = v, off, logits
+    v, off, logits, Dv = v24, off24, logits24, 24
 
     # MSDA backward at the train step's shapes (batch 2): the prepped
     # coordinates and weights of the forward's inputs, an fp32 cotangent.
@@ -593,7 +691,7 @@ def phase_serve(dev, model: DinoUNet, path: str = "serve") -> dict:
                                     DATASET_JSON, "nnUNetTrainer", None)
     case = np.random.default_rng(0).standard_normal(CASE).astype(np.float32)
     n_tiles, n_batches = 16, 2
-    tag = f"[{path}]" if path == "serve" else f"[serve routes: {path}]"
+    tag = f"[{path}]" if path in ("serve",) + SERVE_7B else f"[serve routes: {path}]"
 
     _build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -620,7 +718,7 @@ def phase_serve(dev, model: DinoUNet, path: str = "serve") -> dict:
         predictor.predict_logits_from_preprocessed_data(case)
         rates.append(n_tiles / (time.perf_counter() - t0))
     log(f"{tag} tiles/s over 3 repeats: {', '.join(f'{r:.2f}' for r in rates)} "
-        f"(median {sorted(rates)[1]:.2f}); peak device memory "
+        f"(median {sorted(rates)[1]:.2f}; tile batch {TILE_BATCH}); peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     return counts
 
@@ -748,6 +846,152 @@ def phase_route_parity(dev, model: DinoUNet, tile, want, path: str,
             f"agreement {agree:.4%} of {card_stock[:, 0].numel()} pixels")
         if not rel8 <= INT8_BF16_BOUND:
             raise AssertionError(f"{path}: int8 vs bf16 {rel8} over {INT8_BF16_BOUND}")
+    return rel
+
+
+def build_model_7b(dev) -> DinoUNet:
+    """dinounet_7b at full width and depth (40 SwiGLU blocks) with seeded
+    random weights drawn on the card, the backbone's matrices held in bf16;
+    the backbone's LayerScale at INT8_LAYERSCALE, so that the backbone's
+    residual branches (and the kernels' error in them) reach the logits."""
+    pm = PlansManager(PLANS)
+    arch = pm.get_configuration("2d").network_arch_init_kwargs
+    cfg = DinoUNetConfig.from_plans_arch(arch, N_CLASSES, model_name="dinounet_7b")
+    t0 = time.perf_counter()
+    model = DinoUNet.random_on(cfg, dev, seed=0).eval()
+    backbone = model.encoder.dinov3_adapter.backbone
+    with torch.no_grad():
+        for blk in backbone.blocks:
+            blk.ls1.gamma.fill_(INT8_LAYERSCALE)
+            blk.ls2.gamma.fill_(INT8_LAYERSCALE)
+    torch.cuda.synchronize()
+    n_bb = sum(p.numel() for p in backbone.parameters())
+    n_all = sum(p.numel() for p in model.parameters())
+    log(f"[serve_7b] dinounet_7b built on the card in {time.perf_counter() - t0:.1f} s: "
+        f"backbone {n_bb / 1e9:.3f}e9 parameters ({_nbytes(*backbone.parameters()) / 2**30:.2f} "
+        f"GiB, matrices bf16), adapter + FAPM + decoder {(n_all - n_bb) / 1e6:.1f}e6 "
+        f"(fp32); {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated")
+    return model
+
+
+# kernel-name substrings of each device-time family of a forward, first match
+# wins (cuDNN's implicit-GEMM convs before the GEMMs; cuBLAS's Hopper GEMMs
+# are named nvjet_*)
+FAMILIES = (("port attention", ("rope_attention", "rope_prep")),
+            ("port MSDA", ("msda_fwd",)),
+            ("port dense + stats", ("dense_residual", "row_stats")),
+            ("cuDNN conv", ("fprop", "cudnn", "conv2d", "convolve", "xmma")),
+            ("cuBLAS GEMM", ("nvjet", "gemm", "cutlass")),
+            ("elementwise + reductions", ("elementwise", "reduce", "Reduce")),
+            ("copies", ("copy", "Copy", "Memcpy", "Memset")))
+
+
+def phase_profile(dev, model: DinoUNet, path: str) -> None:
+    """Device time of one tile-batch forward by kernel family
+    (torch.profiler, after a warm-up) against the forward's CUDA-event time
+    taken outside the profiler: the device's busy and idle shares."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (TILE_BATCH, 1, PATCH, PATCH)).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        model(x)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        model(x)
+        end.record()
+        torch.cuda.synchronize()
+        wall = start.elapsed_time(end)
+        times = device_times(lambda: model(x), iters=1)
+    parts = {name: 0.0 for name, _ in FAMILIES}
+    parts["other"] = 0.0
+    for kernel, ms in times.items():
+        family = next((name for name, keys in FAMILIES
+                       if any(k in kernel for k in keys)), "other")
+        parts[family] += ms
+    busy = sum(parts.values())
+    log(f"[profile: {path}] one tile-batch forward: {wall:.3f} ms by CUDA events; "
+        f"device busy {busy:.3f} ms ({busy / wall:.1%}, idle {1 - busy / wall:.1%}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+
+
+def phase_serve_7b(dev, model: DinoUNet, tile) -> tuple:
+    """The 7B served (launch counts, logits, tiles/s, layer times), then the
+    parity batch in bf16 and with the int8 mode on: int8 vs bf16 relative
+    L2 and argmax agreement. Returns the counts of both paths and the bf16
+    logits of the parity tile."""
+    counts = {"serve_7b": phase_serve(dev, model, "serve_7b")}
+    phase_layer_times(dev, model, "serve_7b", iters=3)
+    phase_profile(dev, model, "serve_7b")
+    batch = parity_batch(dev, tile)
+    card_bf16 = card_logits(model, batch)
+    with route_env(ROUTES["serve_int8"]):
+        counts["serve_7b_int8"] = phase_serve(dev, model, "serve_7b_int8")
+        phase_layer_times(dev, model, "serve_7b_int8", iters=3)
+        card_int8 = card_logits(model, batch)
+    rel8 = rel_l2(card_int8, card_bf16)
+    agree = float((card_int8.argmax(1) == card_bf16.argmax(1)).float().mean())
+    log(f"[parity: serve_7b_int8] the batch of {TILE_BATCH} tiles, card int8 vs card "
+        f"bf16: relative L2 {rel8:.4e} (bound {INT8_BF16_BOUND}), argmax agreement "
+        f"{agree:.4%} of {card_bf16[:, 0].numel()} pixels")
+    if not rel8 <= INT8_BF16_BOUND:
+        raise AssertionError(f"serve_7b_int8: int8 vs bf16 {rel8} over {INT8_BF16_BOUND}")
+    return counts, card_bf16[:1]
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The kernel ops the 7B path calls swapped for their plain versions,
+    which run on any device: the fp32 reference of the 7B parity tile runs
+    on the card (the wrappers take only bf16 there)."""
+    import dinounet_tpu_torch.models.adapter as adapter_mod
+    import dinounet_tpu_torch.models.vit as vit_mod
+
+    def attention(qkv, sin, cos):
+        return rope_attention_plain(qkv, *rope_tables(sin, cos, qkv.shape[1],
+                                                      qkv.shape[4], qkv.device))
+
+    def dense_rm(h, w, b, res, gamma, apply_gelu=False):
+        return dense_residual_stats_plain(h, w, b, res, gamma, apply_gelu)
+
+    swaps = {(vit_mod, "fused_rope_attention"): attention,
+             (adapter_mod, "ms_deform_attn_premapped_fused"):
+                 ms_deform_attn_premapped_fused_plain,
+             (adapter_mod, "dense_cm_residual_stats"): dense_cm_residual_stats_plain,
+             (adapter_mod, "dense_residual_stats"): dense_rm}
+    saved = {key: getattr(*key) for key in swaps}
+    for (mod, name), fn in swaps.items():
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def phase_parity_7b(dev, cfg: DinoUNetConfig, state: dict, tile, got) -> float:
+    """The parity tile's card bf16 logits `got` (the kernels) against the
+    same weights (`state`, on the host) in fp32 on the card with the plain
+    versions, TF32 off."""
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        ref = DinoUNet(dataclasses.replace(cfg, dtype="float32")).eval()
+    ref.load_state_dict(state)
+    build_s = time.perf_counter() - t0
+    _build.reset_launch_counts()
+    with plain_versions(), torch.inference_mode():
+        t0 = time.perf_counter()
+        want = ref(tile.to(dev)).float().cpu()
+        fwd_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the plain 7B reference launched kernels: {counts}")
+    rel = rel_l2(got, want)
+    log(f"[parity: serve_7b] 512x512 tile, card bf16 (kernels) vs card fp32 (plain "
+        f"versions, TF32 off; built in {build_s:.1f} s, forward {fwd_s:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB): relative L2 error "
+        f"{rel:.4e} (bound {PARITY_7B_BOUND}); max abs {float((got - want).abs().max()):.4e} "
+        f"of max |ref| {float(want.abs().max()):.4e}")
+    if not rel <= PARITY_7B_BOUND:
+        raise AssertionError(f"7B parity {rel} over {PARITY_7B_BOUND}")
     return rel
 
 
@@ -937,6 +1181,17 @@ def main() -> int:
                     f"({cpu_s:.1f} s)")
             phase_route_parity(dev, model, tile, route_want, path, card_stock)
     del model
+    torch.cuda.empty_cache()
+    model7 = build_model_7b(dev)
+    counts_7b, got_7b = phase_serve_7b(dev, model7, tile)
+    counts.update(counts_7b)
+    cfg7 = model7.cfg
+    state7 = {k: v.cpu() for k, v in model7.state_dict().items()}
+    del model7
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    phase_parity_7b(dev, cfg7, state7, tile, got_7b)
+    del state7
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         _train_env(root)

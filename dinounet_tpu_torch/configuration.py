@@ -85,7 +85,8 @@ def use_decoder_hwbc(x: torch.Tensor) -> bool:
 
 def vit_int8() -> bool:
     """DINOUNET_TPU_VIT_INT8 == "1" (default "0"): the backbone's qkv,
-    attention output projection, fc1 and fc2 as w8a8 ops."""
+    attention output projection, fc1 and fc2 as w8a8 ops (the SwiGLU
+    blocks' qkv, proj, w1, w2 and w3 as QuantDense)."""
     return os.environ.get("DINOUNET_TPU_VIT_INT8", "0") == "1"
 
 

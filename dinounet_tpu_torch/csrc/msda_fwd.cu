@@ -9,7 +9,8 @@
 //   base   (2P, Lq) fp32          reference point * map size - 0.5
 //   out    (B, M, D, Lq) bf16     out[:, q] = sum_p softmax_p * bilinear(v, x_p, y_p)
 // with zero padding outside the H x W map (grid_sample, align_corners=False).
-// One level only (L = 1), D <= 64, P <= 16.
+// One level only (L = 1), P <= 16; D up to 64 in one block, wider heads in
+// 32-channel slices (below).
 //
 // What bounds it on an H100: gathers. Each query reads 4 corners x P points x D
 // channels at data-dependent positions -- 4 * 4 * 24 values per query per head
@@ -17,13 +18,21 @@
 // tensor-core roofline and, from device memory, scattered 2-byte reads. The
 // TPU kernel turned the gather into a dense one-hot matrix on the MXU because
 // a TPU has no fast gather; that multiplies the work by S and is not carried
-// over. Here one block takes one (b, head, 256-query tile) and stages the
-// head's whole D x S value map in shared memory (24 x 1024 bf16 = 48 KB for
-// dinounet_b), so every gather hits shared memory; each thread owns one query,
-// keeps its D fp32 accumulators in registers, takes the P-way softmax in fp32
-// and writes its output column with stores that are coalesced across the warp.
-// Offsets, logits and outputs stream through once. The value map is re-read
-// from L2 by each of the ceil(Lq / 256) query tiles of a head.
+// over. Here one block takes one (b, head, channel slice, 256-query tile) and
+// stages its slice of the head's value map in shared memory, so every gather
+// hits shared memory; each thread owns one query, keeps the slice's fp32
+// accumulators in registers, takes the P-way softmax in fp32 and writes its
+// output column with stores that are coalesced across the warp. A head of D
+// <= 64 channels is one slice (24 x 1024 bf16 = 48 KB for dinounet_b). A
+// wider head -- dinounet_7b's adapter has D = 2048 / 16 = 128 -- would need
+// 256 KB of shared memory (over the 227 KB a block may have) and D registers
+// of accumulators a thread, so it is cut into 32-channel slices across
+// blocks: 64 KB of value map a block at S = 1024 (three blocks an SM), 32
+// accumulators a thread, and each slice's block recomputes its queries'
+// coordinates and P-way softmax (a few dozen FLOPs against the 4 * P * 32
+// FMAs it gathers). Offsets and logits are then read once per slice (from L2
+// after the first), the outputs once. The value map is re-read from L2 by
+// each of the ceil(Lq / 256) query tiles of a head.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,23 +43,32 @@ namespace {
 
 constexpr int kQueries = 256;   // threads per block, one query each
 constexpr int kMaxPoints = 16;
+constexpr int kMaxWhole = 64;   // the widest head one block takes whole
+constexpr int kSlice = 32;      // channels a block of a wider head
 
-template <int DMAX>
+// kSliced: blockIdx.y = head * n_slices + slice, the block's channels
+// [d0, d0 + dc), dc <= DMAX. Otherwise blockIdx.y is the head and the block
+// takes all D <= DMAX channels: a separate instance, since the slice
+// arithmetic costs registers (one block less an SM at D = 24, 29 % slower)
+template <int DMAX, bool kSliced>
 __global__ void __launch_bounds__(kQueries)
 msda_fwd_kernel(const __nv_bfloat16* __restrict__ value,
                 const __nv_bfloat16* __restrict__ off,
                 const __nv_bfloat16* __restrict__ logits,
                 const float* __restrict__ base,
                 __nv_bfloat16* __restrict__ out,
-                int M, int D, int H, int W, int P, int Lq) {
-  extern __shared__ __nv_bfloat16 v_s[];  // [S][D]: one position's channels adjacent
+                int M, int D, int n_slices, int H, int W, int P, int Lq) {
+  extern __shared__ __nv_bfloat16 v_s[];  // [S][dc]: one position's channels adjacent
   const int S = H * W;
-  const size_t bm = (size_t)blockIdx.z * M + blockIdx.y;
-  const __nv_bfloat16* v_g = value + bm * D * S;
-  for (int i = threadIdx.x; i < D * S; i += blockDim.x) {
+  const int m = kSliced ? blockIdx.y / n_slices : blockIdx.y;
+  const int d0 = kSliced ? (blockIdx.y - m * n_slices) * DMAX : 0;
+  const int dc = kSliced ? (D - d0 < DMAX ? D - d0 : DMAX) : D;
+  const size_t bm = (size_t)blockIdx.z * M + m;
+  const __nv_bfloat16* v_g = value + (bm * D + d0) * S;
+  for (int i = threadIdx.x; i < dc * S; i += blockDim.x) {
     const int d = i / S;
     const int s = i - d * S;
-    v_s[s * D + d] = v_g[i];
+    v_s[s * dc + d] = v_g[i];
   }
   __syncthreads();
 
@@ -107,38 +125,39 @@ msda_fwd_kernel(const __nv_bfloat16* __restrict__ value,
         const float wy = dy ? fy : 1.f - fy;
         const float wx = dx ? fx : 1.f - fx;
         const float wt = w_p * (wy * wx);
-        const __nv_bfloat16* vp = v_s + (yy * W + xx) * D;
+        const __nv_bfloat16* vp = v_s + (yy * W + xx) * dc;
 #pragma unroll
         for (int d = 0; d < DMAX; ++d) {
-          if (d < D) acc[d] = fmaf(wt, __bfloat162float(vp[d]), acc[d]);
+          if (d < dc) acc[d] = fmaf(wt, __bfloat162float(vp[d]), acc[d]);
         }
       }
     }
   }
 
-  __nv_bfloat16* o = out + bm * D * Lq + q;
+  __nv_bfloat16* o = out + (bm * D + d0) * Lq + q;
 #pragma unroll
   for (int d = 0; d < DMAX; ++d) {
-    if (d < D) o[(size_t)d * Lq] = __float2bfloat16(acc[d]);
+    if (d < dc) o[(size_t)d * Lq] = __float2bfloat16(acc[d]);
   }
 }
 
-template <int DMAX>
+template <int DMAX, bool kSliced>
 int launch(const void* value, const void* off, const void* logits,
            const void* base, void* out, int B, int M, int D, int H, int W,
            int P, int Lq, cudaStream_t stream) {
-  const size_t smem = (size_t)D * H * W * sizeof(__nv_bfloat16);
+  const int n_slices = kSliced ? (D + DMAX - 1) / DMAX : 1;
+  const size_t smem = (size_t)(kSliced ? DMAX : D) * H * W * sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(
-      msda_fwd_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      msda_fwd_kernel<DMAX, kSliced>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Lq + kQueries - 1) / kQueries, M, B);
-  msda_fwd_kernel<DMAX><<<grid, kQueries, smem, stream>>>(
+  const dim3 grid((Lq + kQueries - 1) / kQueries, M * n_slices, B);
+  msda_fwd_kernel<DMAX, kSliced><<<grid, kQueries, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(value),
       static_cast<const __nv_bfloat16*>(off),
       static_cast<const __nv_bfloat16*>(logits),
       static_cast<const float*>(base), static_cast<__nv_bfloat16*>(out),
-      M, D, H, W, P, Lq);
+      M, D, n_slices, H, W, P, Lq);
   return (int)cudaGetLastError();
 }
 
@@ -148,10 +167,14 @@ extern "C" int msda_fwd_fused(const void* value, const void* off,
                               const void* logits, const void* base, void* out,
                               int B, int M, int D, int H, int W, int P, int Lq,
                               void* stream) {
-  if (D < 1 || D > 64 || P < 1 || P > kMaxPoints || B < 1 || M < 1 || Lq < 1)
+  if (D < 1 || P < 1 || P > kMaxPoints || B < 1 || M < 1 || Lq < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 16) return launch<16>(value, off, logits, base, out, B, M, D, H, W, P, Lq, s);
-  if (D <= 32) return launch<32>(value, off, logits, base, out, B, M, D, H, W, P, Lq, s);
-  return launch<64>(value, off, logits, base, out, B, M, D, H, W, P, Lq, s);
+  if (D <= 16)
+    return launch<16, false>(value, off, logits, base, out, B, M, D, H, W, P, Lq, s);
+  if (D <= 32)
+    return launch<32, false>(value, off, logits, base, out, B, M, D, H, W, P, Lq, s);
+  if (D <= kMaxWhole)
+    return launch<kMaxWhole, false>(value, off, logits, base, out, B, M, D, H, W, P, Lq, s);
+  return launch<kSlice, true>(value, off, logits, base, out, B, M, D, H, W, P, Lq, s);
 }

@@ -5,7 +5,12 @@ tree of ``dinounet_tpu.models.dinounet.DinoUNet`` (numpy arrays, or anything
 ``np.asarray`` reads) and returns the port's ``DinoUNet`` state_dict. The
 port's names are the reference torch model's, the ones the JAX package's
 torch -> flax converters read, so the same dict also stands for a published
-checkpoint. Three layout changes:
+checkpoint. The backbone may come in either of the JAX package's block
+layouts: unrolled (``block{i}/...``) or scanned (``blocks_scan/block/...``,
+every leaf with a leading depth axis: the tree its ``nn.scan`` builds at
+depth >= ``vit_scan_threshold()``, which is the ViT-7B's), unstacked here
+into ``blocks.{i}.*``; the port itself loops over its blocks. Three layout
+changes:
 
   Dense          kernel (in, out)          -> weight (out, in)
   Conv           kernel (kh, kw, Ci, Co)   -> weight (Co, Ci, kh, kw)
@@ -73,6 +78,19 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def _unstack_scan(tree: Mapping) -> Mapping:
+    """A backbone tree in the scanned layout -> the unrolled one (the tree
+    itself when it is unrolled already)."""
+    if "blocks_scan" not in tree:
+        return tree
+    stacked = _flatten(tree["blocks_scan"]["block"])
+    depth = next(iter(stacked.values())).shape[0]
+    out = {k: v for k, v in tree.items() if k != "blocks_scan"}
+    for i in range(depth):
+        out[f"block{i}"] = {path: leaf[i] for path, leaf in stacked.items()}
+    return out
+
+
 def _torch_name(top: str, path: str) -> str:
     """flax path below `top` (e.g. "block3/attn/qkv/kernel") -> torch name."""
     prefix, rules = _RULES[top]
@@ -104,6 +122,8 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     sd = {}
     for collection in ("params", "batch_stats"):
         for top, tree in variables.get(collection, {}).items():
+            if top == "backbone":
+                tree = _unstack_scan(tree)
             for path, leaf in _flatten(tree).items():
                 name = _torch_name(top, path)
                 sd[name] = torch.from_numpy(

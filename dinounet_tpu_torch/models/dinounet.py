@@ -128,9 +128,25 @@ class DinoUNet(nn.Module):
 
     def init_weights(self, seed: int) -> "DinoUNet":
         """Draw every parameter as the JAX package's initializers do, from a
-        torch.Generator seeded with `seed` (random weights for serving tests)."""
-        init_module(self, torch.Generator().manual_seed(seed))
+        torch.Generator on the parameters' device seeded with `seed` (random
+        weights for serving tests)."""
+        device = next(self.parameters()).device
+        init_module(self, torch.Generator(device=device).manual_seed(seed))
         return self
+
+    @classmethod
+    def random_on(cls, cfg: DinoUNetConfig, device, seed: int) -> "DinoUNet":
+        """A model with random weights built on `device`: constructed there,
+        the frozen backbone's matrices held at the compute dtype
+        (``DinoViT.hold_weights_``), then drawn by ``init_weights`` from a
+        generator there. No fp32 copy of the backbone exists on the host,
+        nor on the device after construction (the 7B's would take 27 GB).
+        The same draws as ``init_weights`` on that device's generator, not
+        the CPU's."""
+        with torch.device(device):
+            model = cls(cfg)
+        model.encoder.dinov3_adapter.backbone.hold_weights_(model.compute_dtype)
+        return model.init_weights(seed)
 
     def forward(self, x: torch.Tensor):
         C = x.shape[1]

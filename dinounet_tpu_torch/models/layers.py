@@ -28,10 +28,23 @@ from dinounet_tpu_torch.ops.decoder_tail import _pick_stripe, transpconv2x2_cm
 _TRUNC_STD = 0.87962566103423978
 
 
+def _draw_fp32(t: torch.Tensor, fill: Callable[[torch.Tensor], None]) -> None:
+    """Run the in-place draw `fill` on t, or, for a tensor held in a narrower
+    dtype (a frozen backbone at its serving dtype), on an fp32 tensor of its
+    shape that is then rounded into t: a draw in bf16 would be coarse."""
+    with torch.no_grad():
+        if t.dtype == torch.float32:
+            fill(t)
+        else:
+            full = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+            fill(full)
+            t.copy_(full)
+
+
 def trunc_normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> None:
     """Normal(0, std) truncated to +-2 std (flax initializers.truncated_normal)."""
-    with torch.no_grad():
-        nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+    _draw_fp32(t, lambda u: nn.init.trunc_normal_(u, 0.0, std, -2.0 * std, 2.0 * std,
+                                                  generator=gen))
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
@@ -43,8 +56,7 @@ def kaiming_fan_out_normal_(t: torch.Tensor, fan_out: int,
                             gen: torch.Generator) -> None:
     """The reference's conv init, normal(0, sqrt(2 / fan_out)) (flax
     variance_scaling(2, "fan_out", "normal"), fan_out = kh * kw * C_out)."""
-    with torch.no_grad():
-        t.normal_(0.0, math.sqrt(2.0 / fan_out), generator=gen)
+    _draw_fp32(t, lambda u: u.normal_(0.0, math.sqrt(2.0 / fan_out), generator=gen))
 
 
 def init_module(module: nn.Module, gen: torch.Generator) -> None:

@@ -1,23 +1,41 @@
 """DINOv3 Vision Transformer backbone (frozen, inference), PyTorch.
 
-Counterpart of ``dinounet_tpu/models/vit.py`` on its stats-threaded path, the
-one the serving slice runs: one entry statistics pass, then in every block
-the attention output projection and fc2 run as fused dense + LayerScale
-residual + next-LayerNorm-statistics ops (``ops/dense_stats.py``), and the
-attention itself as the fused RoPE attention op (``ops/attention.py``) over
-the Dh-major QKV layout. Axial RoPE applies to the patch tokens; the cls and
-storage tokens carry identity rows (sin 0, cos 1) in the tables. Parameter
-names are the reference's (``blocks.N.attn.qkv.weight``, ``blocks.N.ls1.gamma``,
-...). The SwiGLU FFN (ViT-7B) is not ported yet.
+Counterpart of ``dinounet_tpu/models/vit.py``, on the two paths the JAX
+package runs by default. The mlp configs (ViT-S/B/L) take its stats-threaded
+path: one entry statistics pass, then in every block the attention output
+projection and fc2 run as fused dense + LayerScale residual +
+next-LayerNorm-statistics ops (``ops/dense_stats.py``), and the attention
+itself as the fused RoPE attention op (``ops/attention.py``) over the
+Dh-major QKV layout. The SwiGLU config (ViT-7B) takes its unfused path
+(``vit.py:512-520``), since the gated FFN has no single dense + residual
+tail: each LayerNorm computes its own one-pass statistics, the qkv
+projection feeds the row-major fused RoPE attention op
+(``ops/attention.py::fused_rope_attention``), and every projection is a
+plain dense layer rounded as flax's ``nn.Dense(dtype=bf16)`` rounds (the
+product to the compute dtype, then the bias added in it), the FFN
+``w3(silu(w1 x) * w2 x)``, the LayerScale residuals in the compute dtype.
+The JAX package runs the 40 blocks of the 7B as one ``lax.scan``; the port
+loops (``models/convert.py`` reads either parameter layout). Axial RoPE
+applies to the patch tokens; the cls and storage tokens carry identity rows
+(sin 0, cos 1) in the tables. Parameter names are the reference's
+(``blocks.N.attn.qkv.weight``, ``blocks.N.mlp.w1.weight``,
+``blocks.N.ls1.gamma``, ...).
 
 In the int8 serving mode (``configuration.vit_int8``, as
-``dinounet_tpu/models/vit.py:276-323,436-452``) the same chain runs its four
-projections as w8a8 ops (``ops/dense_q8.py``): the qkv straight into the
-Dh-major layout (bf16 with ``DINOUNET_TPU_INT8_QKV=0``), the attention output
-projection channel-major with the residual and statistics, fc1 plain, fc2
-with the GELU prologue, the residual and statistics; the attention stays
-bf16. The weights are quantized when applied, so the parameters (and
+``dinounet_tpu/models/vit.py:186-226,276-323,436-452``) the stats-threaded
+chain runs its four projections as w8a8 ops (``ops/dense_q8.py``): the qkv
+straight into the Dh-major layout (bf16 with ``DINOUNET_TPU_INT8_QKV=0``),
+the attention output projection channel-major with the residual and
+statistics, fc1 plain, fc2 with the GELU prologue, the residual and
+statistics. The unfused SwiGLU blocks run qkv, proj, w1, w2 and w3 as
+``QuantDense`` (``ops/dense_q8.py::quant_dense``). The attention stays bf16
+in both. The weights are quantized when applied, so the parameters (and
 ``models/convert.py``) are the same in both modes.
+
+``DinoViT.hold_weights_`` keeps the frozen backbone's matrices at the
+compute dtype (the vectors stay fp32), as the JAX package's bench holds the
+7B (``bench.py:83-97``): every use rounds a weight to the compute dtype
+anyway, so the results are the same and no per-call cast happens.
 """
 
 import dataclasses
@@ -25,14 +43,17 @@ import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from dinounet_tpu_torch.configuration import COMPUTE_DTYPE, int8_qkv, vit_int8
 from dinounet_tpu_torch.models.layers import (Linear, lecun_normal_,
                                               trunc_normal_)
-from dinounet_tpu_torch.ops.attention import fused_rope_attention_premapped_dmaj
+from dinounet_tpu_torch.ops.attention import (fused_rope_attention,
+                                              fused_rope_attention_premapped_dmaj)
 from dinounet_tpu_torch.ops.dense_q8 import (dense_cm_q8_residual_stats, dense_q8,
-                                             dense_q8_residual_stats, qkv_q8_dmaj)
+                                             dense_q8_residual_stats, qkv_q8_dmaj,
+                                             quant_dense)
 from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
                                                 dense_residual_stats, row_stats)
 
@@ -150,6 +171,18 @@ class PatchEmbed(nn.Module):
         return (y.float() + self.proj.bias).to(cdt)
 
 
+def backbone_dense(layer: Linear, x: torch.Tensor) -> torch.Tensor:
+    """A dense layer of the unfused blocks as the JAX package's
+    ``_backbone_dense`` applies it: flax ``nn.Dense(dtype)`` (the product
+    rounded to the compute dtype, then the bias added in it), or
+    ``QuantDense`` in the int8 serving mode."""
+    cdt = layer.compute_dtype
+    if vit_int8():
+        return quant_dense(x, layer.weight, layer.bias, cdt)
+    y = F.linear(x.to(cdt), layer.weight.to(cdt))
+    return y if layer.bias is None else y + layer.bias.to(cdt)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype):
         super().__init__()
@@ -174,6 +207,15 @@ class Attention(nn.Module):
         return dense(o_t.reshape(B, C, N), self.proj.weight.t(), bias, residual,
                      ls_gamma)
 
+    def unfused(self, x, rope):
+        """x: normed (B, N, C); returns proj(attn(x)) (the residual is the
+        block's): the qkv projection, the row-major fused RoPE attention,
+        the output projection."""
+        B, N, C = x.shape
+        M = self.num_heads
+        qkv = backbone_dense(self.qkv, x).view(B, N, 3, M, C // M)
+        return backbone_dense(self.proj, fused_rope_attention(qkv, *rope).reshape(B, N, C))
+
 
 class Mlp(nn.Module):
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype):
@@ -194,20 +236,46 @@ class Mlp(nn.Module):
                                     residual, ls_gamma, apply_gelu=True)
 
 
+class SwiGLU(nn.Module):
+    """w3(silu(w1 x) * w2 x), each product rounded to the compute dtype as
+    the JAX package's silu (x * sigmoid(x)) and gate are."""
+
+    def __init__(self, cfg: ViTConfig, dtype: torch.dtype):
+        super().__init__()
+        E, hidden = cfg.embed_dim, cfg.ffn_hidden
+        self.w1 = Linear(E, hidden, bias=cfg.ffn_bias, dtype=dtype)
+        self.w2 = Linear(E, hidden, bias=cfg.ffn_bias, dtype=dtype)
+        self.w3 = Linear(hidden, E, bias=cfg.ffn_bias, dtype=dtype)
+
+    def forward(self, x):
+        x1 = backbone_dense(self.w1, x)
+        x2 = backbone_dense(self.w2, x)
+        return backbone_dense(self.w3, x1 * torch.sigmoid(x1) * x2)
+
+
 class Block(nn.Module):
-    """Pre-norm attention and MLP, each with a LayerScale residual."""
+    """Pre-norm attention and FFN, each with a LayerScale residual: the
+    stats-threaded chain for the mlp configs, the unfused block for SwiGLU."""
 
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype):
         super().__init__()
         C = cfg.embed_dim
+        self.stats_threaded = cfg.ffn_layer == "mlp"
         self.norm1 = LayerNormFp32(C, cfg.norm_eps)
         self.attn = Attention(cfg, dtype)
         self.ls1 = LayerScale(C, cfg.layerscale_init)
         self.norm2 = LayerNormFp32(C, cfg.norm_eps)
-        self.mlp = Mlp(cfg, dtype)
+        self.mlp = Mlp(cfg, dtype) if self.stats_threaded else SwiGLU(cfg, dtype)
         self.ls2 = LayerScale(C, cfg.layerscale_init)
 
-    def forward(self, x, rope, stats):
+    def forward(self, x, rope, stats=None):
+        """Chain: (x, stats) -> (x, the next LayerNorm's stats). Unfused:
+        x -> x."""
+        if not self.stats_threaded:
+            y = self.attn.unfused(self.norm1(x), rope)
+            x = x + y * self.ls1.gamma.to(y.dtype)
+            y = self.mlp(self.norm2(x))
+            return x + y * self.ls2.gamma.to(y.dtype)
         y = self.norm1(x, stats)
         x2, mu2, var2 = self.attn(y, rope, x, self.ls1.gamma)
         y2 = self.norm2(x2, (mu2, var2))
@@ -221,9 +289,6 @@ class DinoViT(nn.Module):
 
     def __init__(self, cfg: ViTConfig, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if cfg.ffn_layer != "mlp":
-            raise NotImplementedError(
-                "the SwiGLU FFN (ViT-7B) is not ported yet; mlp configs only")
         dtype = dtype or getattr(torch, cfg.dtype)
         self.cfg = cfg
         self.compute_dtype = dtype
@@ -237,6 +302,16 @@ class DinoViT(nn.Module):
     def init_params(self, gen):
         trunc_normal_(self.cls_token, 0.02, gen)
         trunc_normal_(self.storage_tokens, 0.02, gen)
+
+    def hold_weights_(self, dtype: torch.dtype) -> "DinoViT":
+        """Store every parameter of two or more dims (the matrices, the patch
+        conv, the prefix tokens) in `dtype`; the vectors (norms, biases,
+        LayerScale) stay as they are. For a frozen backbone at its serving
+        dtype: the 7B's matrices take 13.5 GB in bf16 instead of 27 in fp32."""
+        for p in self.parameters():
+            if p.dim() >= 2:
+                p.data = p.data.to(dtype)
+        return self
 
     def forward(self, x: torch.Tensor,
                 take_indices: Sequence[int]) -> List[Tuple[torch.Tensor, torch.Tensor]]:
@@ -255,8 +330,15 @@ class DinoViT(nn.Module):
         cos = torch.cat([torch.ones((np_, cos.shape[1]), device=x.device), cos])
 
         take = set(int(i) for i in take_indices)
-        stats = row_stats(tokens)
         outputs = []
+        if cfg.ffn_layer != "mlp":  # unfused blocks, each norm its own statistics
+            for i, blk in enumerate(self.blocks):
+                tokens = blk(tokens, (sin, cos))
+                if i in take:
+                    normed = self.norm(tokens)
+                    outputs.append((normed[:, np_:], normed[:, 0]))
+            return outputs
+        stats = row_stats(tokens)
         for i, blk in enumerate(self.blocks):
             tokens, stats = blk(tokens, (sin, cos), stats)
             if i in take:

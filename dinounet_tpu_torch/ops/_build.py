@@ -42,6 +42,8 @@ _SIGNATURES = {
     "msda_bwd": [_P] * 9 + [_I] * 7 + [_P],
     # qkv, sin_eff_t, cos_t, scratch, out, B, M, Dh, N, scale, stream
     "rope_attention_dmaj": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
+    # qkv, sin_eff, cos, scratch, out, B, M, Dh, N, scale, stream
+    "rope_attention_rowmajor": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
     # h, w, b, res, gamma, out, mu, var, B, N, K, D, channel_major, gelu, stream
     "dense_residual_stats": [_P] * 8 + [_I] * 6 + [_P],
     # x, x2, c1, c2, x strides (b, c, h, w), x2 strides, w, bias, s, t, slope,
@@ -154,7 +156,8 @@ def stream_of(device) -> int:
 
 
 def _wrappers():
-    from dinounet_tpu_torch.ops.attention import fused_rope_attention_premapped_dmaj
+    from dinounet_tpu_torch.ops.attention import (fused_rope_attention,
+                                                  fused_rope_attention_premapped_dmaj)
     from dinounet_tpu_torch.ops.conv_hwbc import conv3x3_hwbc
     from dinounet_tpu_torch.ops.decoder_tail import (conv3x3_cm, seg_head_cm,
                                                      transpconv2x2_cm)
@@ -167,6 +170,7 @@ def _wrappers():
 
     return {
         "rope_attention": fused_rope_attention_premapped_dmaj,
+        "rope_attention_rm": fused_rope_attention,
         "dense_cm_stats": dense_cm_residual_stats,
         "dense_rm_stats": dense_residual_stats,
         "msda_fwd": ms_deform_attn_premapped_fused,

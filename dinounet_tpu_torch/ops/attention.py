@@ -1,13 +1,25 @@
-"""Fused RoPE + multi-head self-attention over the Dh-major layout.
+"""Fused RoPE + multi-head self-attention, in two layouts.
 
-Counterpart of ``dinounet_tpu/ops/attention_pallas.py::
-fused_rope_attention_premapped_dmaj``: qkv_t (B, 3, M, Dh, N) in, (B, M, Dh, N)
-out. For a CUDA tensor the wrapper launches ``csrc/rope_attention.cu`` (which
-replaces the TPU kernel ``_kernel_pm_dmaj``; its header says what bounds it
-and how it is built); for a CPU tensor it runs
-``rope_attention_dmaj_plain``, the same function in plain PyTorch with the TPU
-kernel's rounding points. On every device the op is differentiable with
-respect to qkv_t (see ``_RopeAttention``).
+Counterparts of two functions of ``dinounet_tpu/ops/attention_pallas.py``:
+
+- ``fused_rope_attention_premapped_dmaj``: qkv_t (B, 3, M, Dh, N) in,
+  (B, M, Dh, N) out, the Dh-major layout of the stats-threaded ViT chain
+  (the mlp configs). Its TPU kernel is ``_kernel_pm_dmaj``.
+- ``fused_rope_attention``: qkv (B, N, 3, M, Dh) in, (B, N, M, Dh) out, the
+  row-major layout of the unfused blocks (the SwiGLU ViT-7B, Dh = 128). Its
+  TPU kernel is ``_kernel``.
+
+For a CUDA tensor each wrapper launches ``csrc/rope_attention.cu`` (one flash
+loop for both layouts; its header says what bounds it and how it is built);
+for a CPU tensor it runs its plain version, the same function in plain
+PyTorch with the TPU kernel's rounding points: RoPE in fp32 on the
+sign-folded tables, q scaled by Dh^-1/2 before its rounding to the compute
+dtype, fp32 scores, exp(s - rowmax) rounded to the compute dtype, PV in
+fp32, divided by the fp32 sum of the rounded probabilities (the JAX
+package's ``_xla_reference*`` scale the scores instead and normalise before
+PV, within the JAX suite's tolerance of the kernel, tests/test_fused_attention.py).
+Any other device raises. On every device each op is differentiable with
+respect to the qkv input (see ``_RopeAttention``).
 """
 
 from typing import Optional, Tuple
@@ -16,24 +28,32 @@ import torch
 
 from dinounet_tpu_torch.ops import _build
 
+KERNEL_HEAD_DIMS = (64, 128)
+
+
+def rope_tables(sin: Optional[torch.Tensor], cos: Optional[torch.Tensor],
+                N: int, Dh: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, Dh) RoPE tables -> fp32 (sin_eff, cos) (N, Dh) with rotate-half's
+    sign folded into sin; identity tables when sin is None."""
+    if sin is None:
+        return (torch.zeros((N, Dh), dtype=torch.float32, device=device),
+                torch.ones((N, Dh), dtype=torch.float32, device=device))
+    half = Dh // 2
+    sin_eff = torch.cat([-sin[:, :half], sin[:, half:]], dim=-1).float()
+    return sin_eff.contiguous(), cos.float().contiguous()
+
 
 def rope_tables_dmaj(sin: Optional[torch.Tensor], cos: Optional[torch.Tensor],
                      N: int, Dh: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(N, Dh) RoPE tables -> transposed (Dh, N) fp32 tables with
-    rotate-half's sign folded into sin; identity tables when sin is None."""
-    if sin is None:
-        return (torch.zeros((Dh, N), dtype=torch.float32, device=device),
-                torch.ones((Dh, N), dtype=torch.float32, device=device))
-    half = Dh // 2
-    sin_eff = torch.cat([-sin[:, :half], sin[:, half:]], dim=-1).float()
-    return sin_eff.t().contiguous(), cos.float().t().contiguous()
+    """The tables of ``rope_tables``, transposed to (Dh, N)."""
+    sin_eff, cos_f = rope_tables(sin, cos, N, Dh, device)
+    return sin_eff.t().contiguous(), cos_f.t().contiguous()
 
 
 def rope_attention_dmaj_plain(qkv_t: torch.Tensor, sin_eff_t: torch.Tensor,
                               cos_t: torch.Tensor) -> torch.Tensor:
-    """RoPE in fp32, q scaled by Dh^-1/2 before rounding to qkv's dtype,
-    fp32 scores, exp(s - rowmax) rounded to qkv's dtype, PV in fp32, divided
-    by the fp32 sum of the rounded probabilities."""
+    """The Dh-major op: qkv_t (B, 3, M, Dh, N), tables (Dh, N) -> (B, M,
+    Dh, N) in qkv_t's dtype."""
     Dh = qkv_t.shape[3]
     cdt = qkv_t.dtype
     q, k, v = qkv_t[:, 0], qkv_t[:, 1], qkv_t[:, 2]  # (B, M, Dh, N)
@@ -54,51 +74,93 @@ def rope_attention_dmaj_plain(qkv_t: torch.Tensor, sin_eff_t: torch.Tensor,
     return (pv / denom[:, :, None, :]).to(cdt)
 
 
-def _forward(qkv_t: torch.Tensor, sin_eff_t: torch.Tensor,
-             cos_t: torch.Tensor) -> torch.Tensor:
-    B, _, M, Dh, N = qkv_t.shape
-    if qkv_t.device.type == "cpu":
-        return rope_attention_dmaj_plain(qkv_t, sin_eff_t, cos_t)
-    if qkv_t.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {qkv_t.device}")
-    if Dh not in (64, 128):
-        raise ValueError(f"the attention kernel takes Dh 64 or 128, got {Dh}")
-    _build.check_inputs(
-        "fused_rope_attention_premapped_dmaj", qkv_t.device,
-        qkv_t=(qkv_t, torch.bfloat16, (B, 3, M, Dh, N)),
-        sin_eff_t=(sin_eff_t, torch.float32, (Dh, N)),
-        cos_t=(cos_t, torch.float32, (Dh, N)))
-    out = torch.empty((B, M, Dh, N), dtype=torch.bfloat16, device=qkv_t.device)
-    # rotated q, k and v, zero-padded to whole 64-token tiles (the kernel's
-    # pre-pass writes it; see csrc/rope_attention.cu)
-    scratch = torch.empty((3, B, M, Dh, -(-N // 64) * 64), dtype=torch.bfloat16,
-                          device=qkv_t.device)
-    err = _build.lib().rope_attention_dmaj(
-        qkv_t.data_ptr(), sin_eff_t.data_ptr(), cos_t.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), B, M, Dh, N, Dh ** -0.5,
-        _build.stream_of(qkv_t.device))
-    _build.check(err, "rope_attention_dmaj")
-    fused_rope_attention_premapped_dmaj.launches += 1
+def rope_attention_plain(qkv: torch.Tensor, sin_eff: torch.Tensor,
+                         cos: torch.Tensor) -> torch.Tensor:
+    """The row-major op: qkv (B, N, 3, M, Dh), tables (N, Dh) -> (B, N, M,
+    Dh) in qkv's dtype."""
+    Dh = qkv.shape[4]
+    cdt = qkv.dtype
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, N, M, Dh)
+
+    def rope(x, mul=None):
+        xf = x.float()
+        r = xf * cos[:, None] + torch.roll(xf, Dh // 2, dims=-1) * sin_eff[:, None]
+        if mul is not None:
+            r = r * mul
+        return r.to(cdt)
+
+    q = rope(q, Dh ** -0.5)
+    k = rope(k)
+    s = torch.einsum("bnmd,bkmd->bmnk", q.float(), k.float())
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True)).to(cdt)
+    denom = e.float().sum(dim=-1)  # (B, M, N)
+    pv = torch.einsum("bmnk,bkmd->bnmd", e.float(), v.float())
+    return (pv / denom.transpose(1, 2)[..., None]).to(cdt)
+
+
+def _launch(row_major: bool, qkv: torch.Tensor, sin_eff, cos) -> torch.Tensor:
+    """One launch of the kernel entry of either layout."""
+    if row_major:
+        op, entry = "fused_rope_attention", "rope_attention_rowmajor"
+        B, N, _, M, Dh = qkv.shape
+        layout, tables, out_shape = (B, N, 3, M, Dh), (N, Dh), (B, N, M, Dh)
+    else:
+        op, entry = "fused_rope_attention_premapped_dmaj", "rope_attention_dmaj"
+        B, _, M, Dh, N = qkv.shape
+        layout, tables, out_shape = (B, 3, M, Dh, N), (Dh, N), (B, M, Dh, N)
+    if Dh not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{op}: the kernel takes Dh in {KERNEL_HEAD_DIMS}, got {Dh}")
+    _build.check_inputs(op, qkv.device, qkv=(qkv, torch.bfloat16, layout),
+                        sin_eff=(sin_eff, torch.float32, tables),
+                        cos=(cos, torch.float32, tables))
+    if row_major and qkv.data_ptr() % 16:
+        raise ValueError(f"{op}: the kernel reads qkv in 16-byte vectors; its "
+                         "data must start on a 16-byte boundary")
+    out = torch.empty(out_shape, dtype=torch.bfloat16, device=qkv.device)
+    # rotated q, k and v in the kernel's tile layout, zero-padded to whole
+    # 64-token tiles (its pre-pass writes it; see csrc/rope_attention.cu)
+    npad = -(-N // 64) * 64
+    scratch = torch.empty((3, B, M, npad, Dh) if row_major else (3, B, M, Dh, npad),
+                          dtype=torch.bfloat16, device=qkv.device)
+    err = getattr(_build.lib(), entry)(
+        qkv.data_ptr(), sin_eff.data_ptr(), cos.data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), B, M, Dh, N, Dh ** -0.5, _build.stream_of(qkv.device))
+    _build.check(err, entry)
+    return out
+
+
+def _forward(qkv, sin_eff, cos, row_major: bool) -> torch.Tensor:
+    if qkv.device.type == "cpu":
+        plain = rope_attention_plain if row_major else rope_attention_dmaj_plain
+        return plain(qkv, sin_eff, cos)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {qkv.device}")
+    out = _launch(row_major, qkv, sin_eff, cos)
+    wrapper = fused_rope_attention if row_major else fused_rope_attention_premapped_dmaj
+    wrapper.launches += 1
     return out
 
 
 class _RopeAttention(torch.autograd.Function):
-    """The kernel (or plain version) forward; the backward differentiates the
-    plain version recomputed from the saved qkv, as the JAX package's custom
-    VJP differentiates its reference formulation. The tables are constants."""
+    """The kernel (or plain version) forward of either layout; the backward
+    differentiates the plain version recomputed from the saved qkv, as the
+    JAX package's custom VJPs differentiate their reference formulation.
+    The tables are constants."""
 
     @staticmethod
-    def forward(ctx, qkv_t, sin_eff_t, cos_t):
-        ctx.save_for_backward(qkv_t, sin_eff_t, cos_t)
-        return _forward(qkv_t, sin_eff_t, cos_t)
+    def forward(ctx, qkv, sin_eff, cos, row_major: bool):
+        ctx.row_major = row_major
+        ctx.save_for_backward(qkv, sin_eff, cos)
+        return _forward(qkv, sin_eff, cos, row_major)
 
     @staticmethod
     def backward(ctx, g):
-        qkv_t, sin_eff_t, cos_t = ctx.saved_tensors
-        qkv = qkv_t.detach().requires_grad_(True)
+        qkv, sin_eff, cos = ctx.saved_tensors
+        plain = rope_attention_plain if ctx.row_major else rope_attention_dmaj_plain
+        leaf = qkv.detach().requires_grad_(True)
         with torch.enable_grad():
-            out = rope_attention_dmaj_plain(qkv, sin_eff_t, cos_t)
-        return torch.autograd.grad(out, qkv, g)[0], None, None
+            out = plain(leaf, sin_eff, cos)
+        return torch.autograd.grad(out, leaf, g)[0], None, None, None
 
 
 def fused_rope_attention_premapped_dmaj(
@@ -111,7 +173,21 @@ def fused_rope_attention_premapped_dmaj(
     if three != 3:
         raise ValueError(f"qkv_t must be (B, 3, M, Dh, N), got {tuple(qkv_t.shape)}")
     sin_eff_t, cos_t = rope_tables_dmaj(sin, cos, N, Dh, qkv_t.device)
-    return _RopeAttention.apply(qkv_t, sin_eff_t, cos_t)
+    return _RopeAttention.apply(qkv_t, sin_eff_t, cos_t, False)
+
+
+def fused_rope_attention(qkv: torch.Tensor, sin: Optional[torch.Tensor],
+                         cos: Optional[torch.Tensor]) -> torch.Tensor:
+    """qkv (B, N, 3, M, Dh), the fused qkv projection reshaped; sin/cos
+    (N, Dh) fp32 RoPE tables with identity rows for the prefix tokens, or
+    None for no RoPE. Returns (B, N, M, Dh) in qkv's dtype, differentiable
+    with respect to qkv."""
+    B, N, three, M, Dh = qkv.shape
+    if three != 3:
+        raise ValueError(f"qkv must be (B, N, 3, M, Dh), got {tuple(qkv.shape)}")
+    sin_eff, cos_f = rope_tables(sin, cos, N, Dh, qkv.device)
+    return _RopeAttention.apply(qkv, sin_eff, cos_f, True)
 
 
 fused_rope_attention_premapped_dmaj.launches = 0
+fused_rope_attention.launches = 0

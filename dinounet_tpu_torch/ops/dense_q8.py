@@ -14,7 +14,11 @@ channels of a token), an exact int32 product, and the fp32 rescale
 - ``dense_cm_q8_residual_stats``: the same from a channel-major h_t
   (B, K, N) (the attention and MSDA output projections);
 - ``qkv_q8_dmaj``: x (B, N, C) -> the Dh-major (B, 3, M, Dh, N) qkv that
-  ``ops/attention.py`` reads.
+  ``ops/attention.py`` reads;
+- ``quant_dense``: the unfused linear of the SwiGLU backbone (the JAX
+  ``QuantDense``), whose int8 product is a plain matrix product in the JAX
+  package too (XLA's ``dot_general``): ``torch._int_mm`` on a CUDA device,
+  no kernel of the port and no launch count.
 
 w is (K, D) as in the JAX package (a float parameter; quantized here), b
 and gamma (D,). For CUDA tensors the first three launch
@@ -125,6 +129,28 @@ def qkv_q8_dmaj_plain(x, w, b: Optional[torch.Tensor], n_heads: int,
     if b is not None:
         y = y + b.float().reshape(1, 3 * M * Dh, 1)
     return y.to(x.dtype).reshape(B, 3, M, Dh, N)
+
+
+def quant_dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                dtype: torch.dtype) -> torch.Tensor:
+    """``QuantDense`` (``dinounet_tpu/models/vit.py:186-216``): x (..., K) ->
+    (..., D) in `dtype`, with weight (D, K) in the torch layout (quantized
+    per output channel from its fp32 values, on every call) and bias (D,) or
+    None. The int32 product is ``torch._int_mm`` on a CUDA device and an
+    exact float64 product elsewhere; then ``(acc * a) * ws + b`` in fp32 and
+    one rounding to `dtype`."""
+    K, D = x.shape[-1], weight.shape[0]
+    wq, ws = _quantize(weight.float(), 1)  # (D, K), (D, 1)
+    q, a = _quantize(x.float(), -1)  # (..., K), (..., 1)
+    rows = q.reshape(-1, K)
+    if x.device.type == "cuda":
+        acc = torch._int_mm(rows.to(torch.int8), wq.to(torch.int8).t()).float()
+    else:
+        acc = _exact_matmul("nk,dk->nd", rows, wq)
+    y = acc.reshape(*x.shape[:-1], D) * a * ws.reshape(D)
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(dtype)
 
 
 # ----------------------------------------------------------------- kernels

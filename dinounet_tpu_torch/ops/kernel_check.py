@@ -12,9 +12,10 @@ why each is what it is:
   to run; ga, gx, gy sum 4 corners x D channels). fp32 rounding of such sums
   stays near 1e-5 of their terms' magnitude (O(1) here); 1e-3 still catches
   a wrong corner, weight or sign, which moves outputs by O(0.1).
-- ``rope_attention``: the kernel's online softmax rounds exp(s - running max)
-  to bf16 where the plain version rounds exp(s - row max), so probabilities
-  differ by up to a bf16 rounding (0.4%) each, on top of the bf16 output.
+- ``rope_attention`` / ``rope_attention_rm`` (both layouts, one flash loop):
+  the kernel's online softmax rounds exp(s - running max) to bf16 where the
+  plain version rounds exp(s - row max), so probabilities differ by up to a
+  bf16 rounding (0.4%) each, on top of the bf16 output.
 - ``dense_rm_stats`` / ``dense_cm_stats``: the fp32 accumulator is rounded to
   bf16 and then four bf16 ops follow; one accumulation-order difference can
   move the output by a bf16 ulp of the residual stream (|out| up to ~4 here,
@@ -54,6 +55,7 @@ KERNEL_TOLERANCES: Dict[str, Tuple[float, float]] = {  # (atol, rtol)
     "msda_fwd": (1e-2, 1e-2),
     "msda_bwd": (1e-3, 1e-3),
     "rope_attention": (2e-2, 2e-2),
+    "rope_attention_rm": (2e-2, 2e-2),
     "dense_rm_stats": (2e-2, 1e-2),
     "dense_cm_stats": (2e-2, 1e-2),
     "conv3x3_cm": (2e-2, 1e-2),

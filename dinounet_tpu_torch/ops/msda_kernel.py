@@ -18,7 +18,11 @@ g_logits = s * (g_s - sum_p g_s * s), as ``_premapped_fused_bwd`` does. The
 base grid is built from constant reference points and gets no gradient.
 
 The kernels take a single level (L = 1: the adapter samples the one ViT patch
-grid), D <= 64 channels per head and at most 16 points. The forward takes
+grid) and at most 16 points, and up to ``MAX_D`` = 128 channels per head
+(dinounet_7b's adapter heads; above 64 the forward kernel splits a head
+into 32-channel slices across blocks). The backward also needs a head's
+whole value map and gradient in shared memory (``MAX_SMEM``: 28
+channels at S = 1024). The forward takes
 bf16 value / offsets / logits and an fp32 base grid and returns bf16; the
 backward takes the bf16 value map and fp32 coordinates, weights and cotangent
 and returns fp32 gradients.
@@ -33,12 +37,14 @@ from dinounet_tpu_torch.ops.msda import (ms_deform_attn_premapped_backward_plain
                                          ms_deform_attn_premapped_fused_plain,
                                          premapped_fused_prep)
 
-MAX_D = 64
+MAX_D = 128
 MAX_POINTS = 16
-# the backward block keeps the head's bf16 value map and an fp32 gv partial
-# in shared memory (6 bytes per position and channel) and stages 512
-# queries' fp32 cotangents (2 KB per channel), within an SM's 227 KB
-MAX_BWD_SMEM = 232448
+# the shared memory a block may have (227 KB). The forward block stages one
+# head's bf16 value map, or a 32-channel slice of a head wider than 64
+# channels; the backward block keeps the head's bf16 value map and an fp32
+# gv partial (6 bytes per position and channel) and stages 512 queries'
+# fp32 cotangents (2 KB per channel)
+MAX_SMEM = 232448
 
 
 def _single_level(op: str, value_t, spatial_shapes, P: int):
@@ -64,6 +70,10 @@ def _forward(value_t, spatial_shapes, off, logits, base) -> torch.Tensor:
     P, Lq = logits.shape[2], logits.shape[3]
     H, W = _single_level("ms_deform_attn_premapped_fused", value_t,
                          spatial_shapes, P)
+    smem = 2 * (D if D <= 64 else 32) * S
+    if smem > MAX_SMEM:
+        raise ValueError(f"MSDA forward kernel: a {D} x {S} head needs {smem} "
+                         f"bytes of shared memory a block, over {MAX_SMEM}")
     bf16 = torch.bfloat16
     _build.check_inputs(
         "ms_deform_attn_premapped_fused", value_t.device,
@@ -97,9 +107,9 @@ def ms_deform_attn_premapped_backward(
     H, W = _single_level("ms_deform_attn_premapped_backward", value_t,
                          spatial_shapes, P)
     smem = 6 * D * S + 2048 * D
-    if smem > MAX_BWD_SMEM:
+    if smem > MAX_SMEM:
         raise ValueError(f"MSDA backward kernel: a {D} x {S} head needs "
-                         f"{smem} bytes of shared memory, over {MAX_BWD_SMEM}")
+                         f"{smem} bytes of shared memory, over {MAX_SMEM}")
     f32 = torch.float32
     lane = (B, M, P, Lq)
     _build.check_inputs(

@@ -11,8 +11,10 @@ The published DINOv3 ``.pth`` backbones load in a later slice; until then a
 trainer whose checkpoint file is missing goes on with a randomly initialised
 frozen backbone and says so in its log, as the JAX trainer does, and one
 whose file is present raises rather than train from the wrong weights.
-``DinoUNetTrainer_7b`` raises: its SwiGLU backbone and the row-major
-attention kernel are not ported yet.
+``DinoUNetTrainer_7b`` raises: the 7B serves (its SwiGLU backbone and the
+row-major attention kernel are ported), but its adapter's deformable
+attention has 128 channels a head, wider than the MSDA backward kernel
+takes (``ops/msda_kernel.py``).
 """
 
 import os
@@ -83,6 +85,7 @@ class DinoUNetTrainer_7b(DinoUNetTrainer):
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            "DinoUNetTrainer_7b waits for the SwiGLU backbone and the row-major "
-            "attention kernel (Pallas #9), a later slice of the port")
+            "DinoUNetTrainer_7b waits for the MSDA backward at 128 channels a "
+            "head (the 7B adapter's), a later slice of the port; dinounet_7b "
+            "serves through nnUNetPredictor")
 

@@ -16,8 +16,10 @@ from dinounet_tpu_torch.ops.decoder_tail import (conv3x3_cm, conv3x3_cm_plain,
                                                  seg_head_cm, seg_head_cm_plain,
                                                  transpconv2x2_cm,
                                                  transpconv2x2_cm_plain)
-from dinounet_tpu_torch.ops.attention import (fused_rope_attention_premapped_dmaj,
+from dinounet_tpu_torch.ops.attention import (fused_rope_attention,
+                                              fused_rope_attention_premapped_dmaj,
                                               rope_attention_dmaj_plain,
+                                              rope_attention_plain, rope_tables,
                                               rope_tables_dmaj)
 from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
                                                 dense_cm_residual_stats_plain,
@@ -48,8 +50,12 @@ def _randn(gen, shape, dev, scale=1.0):
     return (torch.randn(shape, generator=gen) * scale).to(dev)
 
 
+# D above 64 splits into 32-channel slices: a ragged last slice (80), and
+# dinounet_7b's adapter heads (128)
 @pytest.mark.parametrize("B,M,D,H,W,P,Lq", [(2, 3, 8, 5, 7, 4, 37),
-                                            (1, 16, 24, 32, 32, 4, 5376)])
+                                            (1, 16, 24, 32, 32, 4, 5376),
+                                            (2, 3, 80, 6, 9, 4, 300),
+                                            (1, 16, 128, 32, 32, 4, 5376)])
 def test_msda_kernel_matches_plain(dev, B, M, D, H, W, P, Lq):
     g = torch.Generator().manual_seed(0)
     bf = torch.bfloat16
@@ -159,6 +165,49 @@ def test_attention_kernel_matches_plain(dev, B, M, Dh, N):
     want = rope_attention_dmaj_plain(qkv, *rope_tables_dmaj(sin, cos, N, Dh, dev))
     torch.cuda.synchronize()
     assert max_excess(got, want, KERNEL_TOLERANCES["rope_attention"]) <= 0
+
+
+@pytest.mark.parametrize("B,N,M,Dh", [(2, 37, 2, 128), (1, 130, 3, 64),
+                                      (1, 1029, 4, 128)])
+def test_rowmajor_attention_kernel_matches_plain(dev, B, N, M, Dh):
+    g = torch.Generator().manual_seed(16)
+    qkv = _randn(g, (B, N, 3, M, Dh), dev).to(torch.bfloat16)
+    ang = torch.rand((N, Dh), generator=g) * 6.0
+    sin, cos = torch.sin(ang).to(dev), torch.cos(ang).to(dev)
+    got = fused_rope_attention(qkv, sin, cos)
+    want = rope_attention_plain(qkv, *rope_tables(sin, cos, N, Dh, dev))
+    torch.cuda.synchronize()
+    assert got.shape == (B, N, M, Dh)
+    assert max_excess(got, want, KERNEL_TOLERANCES["rope_attention_rm"]) <= 0
+    # no RoPE: identity tables
+    got = fused_rope_attention(qkv, None, None)
+    want = rope_attention_plain(qkv, *rope_tables(None, None, N, Dh, dev))
+    torch.cuda.synchronize()
+    assert max_excess(got, want, KERNEL_TOLERANCES["rope_attention_rm"]) <= 0
+
+
+def test_rowmajor_attention_wrapper_grads_match_plain(dev):
+    g = torch.Generator().manual_seed(17)
+    qkv = _randn(g, (1, 70, 3, 2, 128), dev).to(torch.bfloat16)
+    ang = torch.rand((70, 128), generator=g) * 6.0
+    sin, cos = torch.sin(ang).to(dev), torch.cos(ang).to(dev)
+    leaf = qkv.clone().requires_grad_(True)
+    out = fused_rope_attention(leaf, sin, cos)
+    assert out.grad_fn is not None
+    ref = qkv.clone().requires_grad_(True)
+    want = _grads(rope_attention_plain(ref, *rope_tables(sin, cos, 70, 128, dev)), [ref])
+    torch.testing.assert_close(_grads(out, [leaf])[0], want[0])
+
+
+def test_quant_dense_int_mm_equals_the_exact_product(dev):
+    """QuantDense's int8 product on the card (torch._int_mm) equals the
+    CPU's exact float64 one: the same bf16 output bit for bit."""
+    g = torch.Generator().manual_seed(18)
+    x = _randn(g, (2, 37, 256), dev).to(torch.bfloat16)
+    w, b = _randn(g, (96, 256), dev, 256 ** -0.5), _randn(g, (96,), dev, 0.1)
+    got = q8.quant_dense(x, w, b, torch.bfloat16)
+    want = q8.quant_dense(x.cpu(), w.cpu(), b.cpu(), torch.bfloat16)
+    assert torch.equal(got.cpu(), want)
 
 
 # the channel-major op has no GELU prologue
@@ -360,6 +409,7 @@ def test_launches_are_counted(dev):
     _build.reset_launch_counts()
     qkv = torch.zeros((1, 3, 1, 64, 8), dtype=torch.bfloat16, device=dev)
     fused_rope_attention_premapped_dmaj(qkv, None, None)
+    fused_rope_attention(qkv.permute(0, 4, 1, 2, 3).contiguous(), None, None)
     v, off, logits, base = _msda_case(8, 1, 1, 8, 4, 4, 2, 9, dev)
     v.requires_grad_(True)
     ms_deform_attn_premapped_fused(v, ((4, 4),), off, logits, base).sum().backward()
@@ -379,7 +429,7 @@ def test_launches_are_counted(dev):
     seg_head_cm(x, torch.zeros((3, 16, 1, 1), device=dev), torch.zeros(3, device=dev), p)
     torch.cuda.synchronize()
     counts = _build.launch_counts()
-    assert counts["rope_attention"] == 1
+    assert counts["rope_attention"] == 1 and counts["rope_attention_rm"] == 1
     assert counts["msda_fwd"] == 1 and counts["msda_bwd"] == 1
     assert all(counts[k] == 1 for k in ("conv3x3_cm", "conv3x3_hwbc",
                                         "transpconv2x2_cm", "seg_head_cm", "qkv_q8_dmaj",
@@ -393,3 +443,8 @@ def test_bad_inputs_raise(dev):
     qkv64 = torch.zeros((1, 3, 1, 64, 8), dtype=torch.float32, device=dev)
     with pytest.raises(ValueError):
         fused_rope_attention_premapped_dmaj(qkv64, None, None)  # fp32
+    with pytest.raises(ValueError):
+        fused_rope_attention(torch.zeros((1, 8, 3, 1, 48), dtype=torch.bfloat16,
+                                         device=dev), None, None)  # Dh 48
+    with pytest.raises(ValueError):
+        fused_rope_attention(qkv64.permute(0, 4, 1, 2, 3).contiguous(), None, None)

@@ -198,9 +198,13 @@ def test_kernel_paths_refuse_other_devices():
     from dinounet_tpu_torch.ops.dense_q8 import (dense_cm_q8_residual_stats, dense_q8,
                                                  dense_q8_residual_stats, qkv_q8_dmaj)
 
+    from dinounet_tpu_torch.ops.attention import fused_rope_attention
+
     meta = torch.empty((1, 3, 1, 64, 8), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError):
         fused_rope_attention_premapped_dmaj(meta, None, None)
+    with pytest.raises(ValueError):
+        fused_rope_attention(meta.permute(0, 4, 1, 2, 3), None, None)
     # the int8 ops: h (1, 8, 16) or h_t (1, 16, 8), w (16, 48)
     h = torch.empty((1, 8, 16), dtype=torch.bfloat16, device="meta")
     w, b = torch.empty((16, 48), device="meta"), torch.empty((48,), device="meta")
