@@ -7,12 +7,15 @@ Phases, each printing its own lines; any failure raises and the exit code is
 not 0:
 
 1. build   -- compile the CUDA kernels from dinounet_tpu_torch/csrc/.
-2. kernels -- each of the 14 kernels against its plain PyTorch version on
+2. kernels -- each of the 17 kernels against its plain PyTorch version on
               the card, at the shapes the dinounet_b tile forward gives it
-              (tile batch 8; the MSDA backward at the train step's batch 2)
-              and those of dinounet_7b (the row-major attention, the
-              Dh-major one at Dh = 128, the MSDA forward at 128 channels a
-              head, the two extractor junctions at D = 4096),
+              (tile batch 8; the MSDA backward at the train step's batch 2;
+              the prepped-input MSDA forward also over two levels) and
+              those of dinounet_7b (the row-major attention, the Dh-major
+              one at Dh = 128, the MSDA forward at 128 channels a head, the
+              two extractor junctions at D = 4096); the MSDA backward also
+              at dinounet_l's and the 7B's train shapes and at a 1024^2
+              patch, the MSDA forward at D = 32 on a 1024^2 patch; each
               within its stated tolerance; kernel, plain and library times
               (CUDA events, median of 20) and the bound (the larger of the
               bytes each call must move over 3.35 TB/s and its operations
@@ -34,14 +37,15 @@ not 0:
               weights: relative L2 error of the logits <= PARITY_BOUND.
 5. serve routes -- the same case served again with each route on (ROUTES:
               the channel-major decoder chain, upsampling and SPM stem; the
-              HWBC decoder stages; the int8 serving mode, backbone only and
-              with the adapter's junctions): launch counts per tile-batch
-              forward (PER_FORWARD_ROUTE sets the counts a route changes),
-              finite fp16 logits, and the parity tile (in a batch of 8, as
-              the HWBC stages need) against CPU fp32 logits within
+              HWBC decoder stages; the MSDA prep outside the kernel; the
+              merged MSDA projection; the (B, 3, M, N, Dh) attention layout;
+              the int8 serving mode, backbone only, with the adapter's
+              junctions, and with the ndh layout): launch counts per
+              tile-batch forward (PER_FORWARD_ROUTE sets the counts a route
+              changes), finite fp16 logits, and the parity tile (in a batch
+              of 8, as the HWBC stages need) against CPU fp32 logits within
               PARITY_BOUND: the stock model's for the conv routes, the same
-              weights with the int8 mode on (the plain versions) for the int8
-              routes. The int8 routes' batch is also held against the card's
+              weights under the route (the plain versions) for the others. The int8 routes' batch is also held against the card's
               stock bf16 logits: relative L2 within INT8_BF16_BOUND, and the
               share of pixels whose argmax agrees. The int8 routes run last,
               with the backbone's LayerScale set to INT8_LAYERSCALE (at the
@@ -74,7 +78,12 @@ not 0:
               loaded back by a fresh trainer with equal weights, and over
               LEARN_STEPS further steps on the same loader the mean loss of
               the last 10 below that of the first 10. Step time, steps/s and
-              peak device memory for information.
+              peak device memory for information. Then ROUTE_STEPS steps of
+              a fresh DinoUNetTrainer_b under DINOUNET_TPU_MSDA_PREP=xla and
+              of a fresh DinoUNetTrainer_l (ViT-L, 16 adapter heads of 32
+              channels): finite losses and the launches of each step
+              (PER_TRAIN_STEP_XLA, PER_TRAIN_STEP_L), step time and peak
+              memory for information.
 8. train parity -- one train step's loss and trainable gradients on the card
               (bf16, the kernels) against the CPU (fp32, the plain
               versions): same dinounet_b weights and 256 x 256 batch of 1,
@@ -86,7 +95,7 @@ not 0:
               as it was.
 
 Then the card's name and power limit, one JSON line of kernel results
-(launches: the counts of the serve path, each route's and the train path),
+(launches: the counts of the serve path, each route's and the train paths),
 and as the last line {"ok": true, "device": {...}}. Without a CUDA device the
 script raises before printing any result.
 """
@@ -109,8 +118,10 @@ from dinounet_tpu_torch.models.dinounet import DinoUNet, DinoUNetConfig
 from dinounet_tpu_torch.models.vit import rope_sincos
 from dinounet_tpu_torch.ops import _build
 from dinounet_tpu_torch.ops.attention import (fused_rope_attention,
+                                              fused_rope_attention_premapped,
                                               fused_rope_attention_premapped_dmaj,
                                               rope_attention_dmaj_plain,
+                                              rope_attention_ndh_plain,
                                               rope_attention_plain, rope_tables,
                                               rope_tables_dmaj)
 from dinounet_tpu_torch.ops.conv_hwbc import conv3x3_hwbc, conv3x3_hwbc_plain
@@ -131,10 +142,14 @@ from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
 from dinounet_tpu_torch.ops.kernel_check import (KERNEL_TOLERANCES, STATS_TOLERANCE,
                                                  max_abs_err, max_excess, median_ms)
 from dinounet_tpu_torch.ops.msda import (ms_deform_attn_premapped_backward_plain,
+                                         ms_deform_attn_premapped_fused_merged_plain,
                                          ms_deform_attn_premapped_fused_plain,
+                                         ms_deform_attn_premapped_plain,
                                          premapped_fused_prep)
-from dinounet_tpu_torch.ops.msda_kernel import (ms_deform_attn_premapped_backward,
-                                                ms_deform_attn_premapped_fused)
+from dinounet_tpu_torch.ops.msda_kernel import (ms_deform_attn_premapped,
+                                                ms_deform_attn_premapped_backward,
+                                                ms_deform_attn_premapped_fused,
+                                                ms_deform_attn_premapped_fused_merged)
 from dinounet_tpu_torch.run import get_trainer_from_args
 from dinounet_tpu_torch.training.losses import dc_and_ce_loss
 from dinounet_tpu_torch.training.trainer import clip_and_step, sgd_nesterov
@@ -154,11 +169,16 @@ PARITY_BOUND = 0.05
 INT8_BF16_BOUND = 0.1
 INT8_LAYERSCALE = 0.1
 INT8_KERNELS = ("qkv_q8_dmaj", "dense_q8", "dense_q8_stats", "dense_cm_q8_stats")
-INT8_ROUTES = ("serve_int8", "serve_int8_adapter")
+INT8_ROUTES = ("serve_int8", "serve_int8_adapter", "serve_int8_ndh")
+# the routes that swap a kernel of the model's own ops (the MSDA prep, the
+# merged projection, the attention layout): their parity tile is held
+# against the CPU fp32 plain versions under the same route
+OP_ROUTES = ("serve_msda_xla", "serve_msda_merged", "serve_ndh")
 # kernel launches per tile-batch forward of dinounet_b
-PER_FORWARD = {"rope_attention": 12, "rope_attention_rm": 0, "dense_cm_stats": 18,
-               "dense_rm_stats": 18, "msda_fwd": 6, "msda_bwd": 0, "conv3x3_cm": 0,
-               "transpconv2x2_cm": 0, "seg_head_cm": 0, "conv3x3_hwbc": 0,
+PER_FORWARD = {"rope_attention": 12, "rope_attention_rm": 0, "rope_attention_ndh": 0,
+               "dense_cm_stats": 18, "dense_rm_stats": 18, "msda_fwd": 6,
+               "msda_fwd_premapped": 0, "msda_fwd_merged": 0, "msda_bwd": 0,
+               "conv3x3_cm": 0, "transpconv2x2_cm": 0, "seg_head_cm": 0, "conv3x3_hwbc": 0,
                **dict.fromkeys(INT8_KERNELS, 0)}
 # the routes, as environment settings, and the launches per tile-batch
 # forward each sets (the others keep PER_FORWARD's). serve_cm: conv3x3_cm 2
@@ -168,12 +188,20 @@ PER_FORWARD = {"rope_attention": 12, "rope_attention_rm": 0, "dense_cm_stats": 1
 # 64-channel stage at 256^2 and the 32-channel stage at 512^2, 2 convs each
 # (the 128-channel stage is not eligible). serve_int8: the 12 blocks' qkv,
 # attention projection, fc1 and fc2 in int8, the 6 extractors' junctions
-# bf16; serve_int8_adapter: those junctions in int8 too.
+# bf16; serve_int8_adapter: those junctions in int8 too. serve_msda_xla and
+# serve_msda_merged: the 6 extractors' MSDA through the prepped-input and
+# the merged-buffer kernels; serve_ndh: the 12 blocks' attention over the
+# (B, 3, M, N, Dh) layout, serve_int8_ndh with the int8 qkv into it (plain
+# PyTorch, no kernel).
 ROUTES = {
     "serve_cm": {"DINOUNET_TPU_DECODER_TAIL": "pallas", "DINOUNET_TPU_SPM_CM": "pallas"},
     "serve_hwbc": {"DINOUNET_TPU_DECODER_HWBC": "auto", "DINOUNET_TPU_DECODER_TAIL": "jax"},
+    "serve_msda_xla": {"DINOUNET_TPU_MSDA_PREP": "xla"},
+    "serve_msda_merged": {"DINOUNET_TPU_MSDA_MERGED_PROJ": "1"},
+    "serve_ndh": {"DINOUNET_TPU_ATTN_LAYOUT": "ndh"},
     "serve_int8": {"DINOUNET_TPU_VIT_INT8": "1"},
     "serve_int8_adapter": {"DINOUNET_TPU_VIT_INT8": "1", "DINOUNET_TPU_INT8_ADAPTER": "1"},
+    "serve_int8_ndh": {"DINOUNET_TPU_VIT_INT8": "1", "DINOUNET_TPU_ATTN_LAYOUT": "ndh"},
 }
 PER_FORWARD_ROUTE = {
     "serve_cm": {"conv3x3_cm": 8, "transpconv2x2_cm": 11, "seg_head_cm": 1},
@@ -182,6 +210,12 @@ PER_FORWARD_ROUTE = {
                    "dense_q8_stats": 12, "dense_cm_stats": 6, "dense_rm_stats": 6},
     "serve_int8_adapter": {"qkv_q8_dmaj": 12, "dense_cm_q8_stats": 18, "dense_q8": 12,
                            "dense_q8_stats": 18, "dense_cm_stats": 0, "dense_rm_stats": 0},
+    "serve_msda_xla": {"msda_fwd": 0, "msda_fwd_premapped": 6},
+    "serve_msda_merged": {"msda_fwd": 0, "msda_fwd_merged": 6},
+    "serve_ndh": {"rope_attention": 0, "rope_attention_ndh": 12},
+    "serve_int8_ndh": {"dense_cm_q8_stats": 12, "dense_q8": 12, "dense_q8_stats": 12,
+                       "dense_cm_stats": 6, "dense_rm_stats": 6, "rope_attention": 0,
+                       "rope_attention_ndh": 12},
     # dinounet_7b, bf16 or int8: its 40 unfused SwiGLU blocks launch only the
     # row-major attention (their dense layers are cuBLAS GEMMs, QuantDense's
     # torch._int_mm in int8); the 6 extractors their MSDA and two junctions
@@ -204,11 +238,16 @@ PARITY_7B_BOUND = 0.05
 # channel-major attention projection, the row-major fc2); the adapter trains
 # unfused, so its 6 extractors launch only the MSDA forward (twice: the
 # checkpointed interaction blocks run it again in the backward) and backward
-PER_TRAIN_STEP = {"rope_attention": 12, "rope_attention_rm": 0, "dense_cm_stats": 12,
-                  "dense_rm_stats": 12,
-                  "msda_fwd": 12, "msda_bwd": 6, "conv3x3_cm": 0, "transpconv2x2_cm": 0,
-                  "seg_head_cm": 0, "conv3x3_hwbc": 0, **dict.fromkeys(INT8_KERNELS, 0)}
-TRAIN_ITERS, TRAIN_EPOCHS, VAL_ITERS, LEARN_STEPS = 5, 2, 2, 40
+PER_TRAIN_STEP = {**dict.fromkeys(PER_FORWARD, 0), "rope_attention": 12,
+                  "dense_cm_stats": 12, "dense_rm_stats": 12, "msda_fwd": 12, "msda_bwd": 6}
+# DinoUNetTrainer_l: the ViT-L's 24 blocks, the adapter's 16 heads of 32
+# channels (the MSDA backward's device-memory instance); DinoUNetTrainer_b
+# under DINOUNET_TPU_MSDA_PREP=xla: the prepped-input forward in place of
+# the fused one
+PER_TRAIN_STEP_L = {**PER_TRAIN_STEP, "rope_attention": 24, "dense_cm_stats": 24,
+                    "dense_rm_stats": 24}
+PER_TRAIN_STEP_XLA = {**PER_TRAIN_STEP, "msda_fwd": 0, "msda_fwd_premapped": 12}
+TRAIN_ITERS, TRAIN_EPOCHS, VAL_ITERS, LEARN_STEPS, ROUTE_STEPS = 5, 2, 2, 40, 5
 TRAIN_DATASET = "Dataset998_SmokeTrain"
 # one train step, card bf16 (kernels) vs CPU fp32 (plain versions), relative
 # L2. bf16 keeps 8 significant bits and the ~60 layers of forward and
@@ -235,6 +274,12 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                  "dinounet_tpu/ops/msda_pallas.py:251"),
     "msda_bwd": ("dinounet_tpu_torch/csrc/msda_bwd.cu",
                  "dinounet_tpu/ops/msda_pallas.py:582"),
+    "msda_fwd_premapped": ("dinounet_tpu_torch/csrc/msda_fwd_premapped.cu",
+                           "dinounet_tpu/ops/msda_pallas.py:104"),
+    "msda_fwd_merged": ("dinounet_tpu_torch/csrc/msda_fwd.cu",
+                        "dinounet_tpu/ops/msda_pallas.py:274"),
+    "rope_attention_ndh": ("dinounet_tpu_torch/csrc/rope_attention.cu",
+                           "dinounet_tpu/ops/attention_pallas.py:73"),
     "conv3x3_cm": ("dinounet_tpu_torch/csrc/conv3x3_stats.cu",
                    "dinounet_tpu/ops/decoder_tail_pallas.py:141"),
     "transpconv2x2_cm": ("dinounet_tpu_torch/csrc/transpconv2x2.cu",
@@ -328,11 +373,12 @@ def _log_int8_breakdown(name, shape_desc, kernel_fn, event_ms) -> None:
 
 
 def _compare(name, shape_desc, kernel_fn, plain_fn, inputs, flops, peak,
-             library_fn=None, tols=None, library_label="library"):
+             library_fn=None, tols=None, library_label="library", plain_iters=20):
     """Kernel vs plain version on the same inputs; `inputs` are the tensors
     the function reads (each counted once in the bound, with the outputs);
-    `tols` optionally one (atol, rtol) per output (default: the kernel's).
-    An int8 op's device time is also broken down."""
+    `tols` optionally one (atol, rtol) per output (default: the kernel's);
+    the plain version timed over `plain_iters` calls. An int8 op's device
+    time is also broken down."""
     got, want = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
@@ -343,7 +389,7 @@ def _compare(name, shape_desc, kernel_fn, plain_fn, inputs, flops, peak,
     rel = max(max_abs_err(g, w) / max(float(w.float().abs().max()), 1e-30)
               for g, w in zip(got, want))
     bound_ms, bound_by = _bound(_nbytes(*inputs, *got), flops, peak)
-    ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn)
+    ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn, iters=plain_iters)
     library_ms = median_ms(library_fn) if library_fn is not None else None
     lib_txt = f", {library_label} {library_ms:.4f} ms" if library_ms is not None else ""
     log(f"[kernels] {name} {shape_desc}: max abs err {err:.3e} (max rel "
@@ -433,6 +479,15 @@ def phase_kernels(dev) -> dict:
             (qkv, sin, cos), 4.0 * Bq * M * N * N * Dh, BF16_FLOP_S,
             lambda: F.scaled_dot_product_attention(q, k, v))
         results.setdefault("rope_attention", r)
+        if Dh == 64:  # the same qkv in the (B, 3, M, N, Dh) layout
+            qkv_ndh = qkv.transpose(-1, -2).contiguous()
+            tables_ndh = rope_tables(sin, cos, N, Dh, dev)
+            results["rope_attention_ndh"] = _compare(
+                "rope_attention_ndh", f"qkv {tuple(qkv_ndh.shape)}",
+                lambda: fused_rope_attention_premapped(qkv_ndh, sin, cos),
+                lambda: rope_attention_ndh_plain(qkv_ndh, *tables_ndh),
+                (qkv_ndh, sin, cos), 4.0 * Bq * M * N * N * Dh, BF16_FLOP_S,
+                lambda: F.scaled_dot_product_attention(q, k, v))
 
     # the row-major attention of dinounet_7b's SwiGLU blocks: 32 heads of 128
     M, Dh = 32, 128
@@ -524,6 +579,33 @@ def phase_kernels(dev) -> dict:
         if Dv == 24:
             v24, off24, logits24 = v, off, logits
     v, off, logits, Dv = v24, off24, logits24, 24
+    flops = 8.0 * B * Mq * Lq * P * Dv
+    # the merged-projection forward (#6) on the same inputs, packed
+    packed = torch.cat([off, logits], dim=2)
+    results["msda_fwd_merged"] = _compare(
+        "msda_fwd_merged", f"value {tuple(v.shape)} packed {tuple(packed.shape)}",
+        lambda: ms_deform_attn_premapped_fused_merged(v, ((Hv, Hv),), packed, base),
+        lambda: ms_deform_attn_premapped_fused_merged_plain(v, ((Hv, Hv),), packed, base),
+        (v, packed, base), flops, FP32_FLOP_S)
+    # the prepped-input forward (#5) on the same inputs' coordinates and
+    # weights, then over two levels (the map and a 16 x 16 one, 4 points
+    # each; coordinates past every edge)
+    xs, ys, aw = (t.contiguous() for t in premapped_fused_prep(off, logits, base))
+    results["msda_fwd_premapped"] = _compare(
+        "msda_fwd_premapped", f"value {tuple(v.shape)} L=1 Lq={Lq}",
+        lambda: ms_deform_attn_premapped(v, ((Hv, Hv),), xs, ys, aw),
+        lambda: ms_deform_attn_premapped_plain(v, ((Hv, Hv),), xs, ys, aw),
+        (v, xs, ys, aw), flops, FP32_FLOP_S)
+    shapes2 = ((Hv, Hv), (Hv // 2, Hv // 2))
+    v2 = torch.cat([v, randn(B, Mq, Dv, (Hv // 2) ** 2).to(bf)], dim=3).contiguous()
+    xs2 = torch.cat([xs, torch.rand((B, Mq, P, Lq), generator=g, device=dev) * 20 - 2], 2)
+    ys2 = torch.cat([ys, torch.rand((B, Mq, P, Lq), generator=g, device=dev) * 20 - 2], 2)
+    aw2 = torch.softmax(randn(B, Mq, 2 * P, Lq), dim=2)
+    _compare("msda_fwd_premapped", f"value {tuple(v2.shape)} L=2 Lq={Lq}",
+             lambda: ms_deform_attn_premapped(v2, shapes2, xs2, ys2, aw2),
+             lambda: ms_deform_attn_premapped_plain(v2, shapes2, xs2, ys2, aw2),
+             (v2, xs2, ys2, aw2), 2 * flops, FP32_FLOP_S)
+    del v2, xs2, ys2, aw2
 
     # MSDA backward at the train step's shapes (batch 2): the prepped
     # coordinates and weights of the forward's inputs, an fp32 cotangent.
@@ -539,6 +621,34 @@ def phase_kernels(dev) -> dict:
         lambda: ms_deform_attn_premapped_backward(vt, ((Hv, Hv),), xs, ys, aw, cot),
         lambda: ms_deform_attn_premapped_backward_plain(vt, ((Hv, Hv),), xs, ys, aw, cot),
         (vt, xs, ys, aw, cot), 32.0 * Bt * Mq * Lq * P * Dv, FP32_FLOP_S)
+    # the widened MSDA kernels at shapes their first versions refused: the
+    # backward at dinounet_l's train shape (16 heads of 32), the 7B's (of
+    # 128) and at a 1024^2 patch (a 64 x 64 map, 21504 queries), all on its
+    # device-memory instance; the fused forward at D 32 on that map (its
+    # token-major copy). Plain versions timed over 3 calls
+    for Dw, Hw, Bw, what in ((32, Hv, Bt, "dinounet_l train"), (128, Hv, Bt, "dinounet_7b train"),
+                             (Dv, 2 * Hv, Bt, "1024^2 patch"), (32, 2 * Hv, B, "1024^2 patch")):
+        Lw, Sw = 21 * (Hw // 2) ** 2, Hw * Hw
+        vw = randn(Bw, Mq, Dw, Sw).to(bf)
+        bw = torch.rand((2 * P, Lw), generator=g, device=dev) * Hw - 0.5
+        ow, lw = randn(Bw, Mq, 2 * P, Lw, scale=2.0).to(bf), randn(Bw, Mq, P, Lw).to(bf)
+        if Bw == Bt:
+            xw, yw, aww = (t.contiguous() for t in premapped_fused_prep(ow, lw, bw))
+            cw = randn(Bw, Mq, Dw, Lw)
+            _compare("msda_bwd", f"{what} value {tuple(vw.shape)} Lq={Lw}",
+                     lambda: ms_deform_attn_premapped_backward(vw, ((Hw, Hw),), xw, yw, aww, cw),
+                     lambda: ms_deform_attn_premapped_backward_plain(
+                         vw, ((Hw, Hw),), xw, yw, aww, cw),
+                     (vw, xw, yw, aww, cw), 32.0 * Bw * Mq * Lw * P * Dw, FP32_FLOP_S,
+                     plain_iters=3)
+            del xw, yw, aww, cw
+        else:
+            _compare("msda_fwd", f"{what} value {tuple(vw.shape)} Lq={Lw}",
+                     lambda: ms_deform_attn_premapped_fused(vw, ((Hw, Hw),), ow, lw, bw),
+                     lambda: ms_deform_attn_premapped_fused_plain(vw, ((Hw, Hw),), ow, lw, bw),
+                     (vw, ow, lw, bw), 8.0 * Bw * Mq * Lw * P * Dw, FP32_FLOP_S,
+                     plain_iters=3)
+        del vw, ow, lw
 
     # the decoder/SPM conv family at the dinounet_b serve shapes (tile batch
     # 8, 512^2 tiles). The first of each kernel's shapes is the one its JSON
@@ -821,8 +931,8 @@ def phase_route_parity(dev, model: DinoUNet, tile, want, path: str,
                        card_stock) -> float:
     """The parity batch on the card with the route on; its first tile
     against `want`, the CPU fp32 logits (of the stock model for a conv
-    route, with the int8 mode on for an int8 route); the batch must launch
-    the route's kernels. An int8 route's batch is also held against
+    route, under the route for the others); the batch must launch the
+    route's kernels. An int8 route's batch is also held against
     `card_stock`, the stock bf16 logits of the same batch on the card."""
     _build.reset_launch_counts()
     got_batch = card_logits(model, parity_batch(dev, tile))
@@ -832,7 +942,7 @@ def phase_route_parity(dev, model: DinoUNet, tile, want, path: str,
             raise AssertionError(f"{path} parity batch launched {counts}")
     got = got_batch[:1]
     rel = rel_l2(got, want)
-    ref = "int8 plain versions" if path in INT8_ROUTES else "stock"
+    ref = "plain versions under the route" if path in INT8_ROUTES + OP_ROUTES else "stock"
     log(f"[parity: {path}] 512x512 tile, card bf16 with the route vs CPU fp32 "
         f"{ref}: relative L2 error {rel:.4e} (bound {PARITY_BOUND}); max abs "
         f"{float((got - want).abs().max()):.4e}")
@@ -1083,6 +1193,38 @@ def phase_train(dev) -> dict:
     return counts
 
 
+def phase_train_steps(dev, trainer_name: str, path: str, per_step: dict) -> dict:
+    """A fresh trainer on the synthetic dataset under the current
+    environment: ROUTE_STEPS train steps after its set-up, finite losses,
+    the launches of the steps (`per_step` each). Step time for
+    information."""
+    trainer = get_trainer_from_args(TRAIN_DATASET, "2d", 0, trainer_name, device=dev)
+    trainer.seed = 0
+    t0 = time.perf_counter()
+    trainer.on_train_start()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(ROUTE_STEPS):
+        batch = trainer.dataloader_train.generate_train_batch()
+        t1 = time.perf_counter()
+        losses.append(float(trainer.train_step_host(batch)))  # synchronises
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    counts = _build.launch_counts()
+    want = {k: ROUTE_STEPS * n for k, n in per_step.items()}
+    log(f"[{path}] {trainer_name}: set-up {setup_s:.1f} s, {ROUTE_STEPS} steps of batch "
+        f"2 x {PATCH}^2, losses {[round(x, 4) for x in losses]}; step ms "
+        f"{', '.join(f'{t:.1f}' for t in step_ms)} (median of the last "
+        f"{ROUTE_STEPS - 1} {float(np.median(step_ms[1:])):.1f}); peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {counts}")
+    if counts != want:
+        raise AssertionError(f"{path}: kernel launches {counts}, the steps make {want}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{path}: losses {losses}")
+    return counts
+
+
 def phase_train_parity(dev) -> None:
     pm = PlansManager(PLANS)
     arch = pm.get_configuration("2d").network_arch_init_kwargs
@@ -1175,10 +1317,9 @@ def main() -> int:
             counts[path] = phase_serve(dev, model, path)
             phase_layer_times(dev, model, path)
             route_want = want
-            if path in INT8_ROUTES:
+            if path in INT8_ROUTES + OP_ROUTES:
                 route_want, cpu_s = cpu_logits(model, tile)
-                log(f"[parity: {path}] CPU fp32 logits with the int8 mode on "
-                    f"({cpu_s:.1f} s)")
+                log(f"[parity: {path}] CPU fp32 logits under the route ({cpu_s:.1f} s)")
             phase_route_parity(dev, model, tile, route_want, path, card_stock)
     del model
     torch.cuda.empty_cache()
@@ -1196,6 +1337,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         _train_env(root)
         counts["train"] = phase_train(dev)
+        with route_env({"DINOUNET_TPU_MSDA_PREP": "xla"}):
+            counts["train_msda_xla"] = phase_train_steps(
+                dev, "DinoUNetTrainer_b", "train_msda_xla", PER_TRAIN_STEP_XLA)
+        counts["train_l"] = phase_train_steps(dev, "DinoUNetTrainer_l", "train_l",
+                                              PER_TRAIN_STEP_L)
     phase_train_parity(dev)
 
     log(card_line())

@@ -1,11 +1,12 @@
 """Global settings of the port.
 
 The compute dtype of the model, the device-memory budget of the
-sliding-window accumulators, the three inference-only conv routes and the
-int8 serving mode. The JAX package's switches that only choose between TPU
-formulations of the same math have no counterpart here: the port keeps one
-formulation per op (``DINOUNET_TPU_INT8_QKV_IMPL``, for one, picks between
-two TPU formulations of the int8 qkv that give the same numbers).
+sliding-window accumulators, the three inference-only conv routes, the
+three MSDA and attention routes and the int8 serving mode. The JAX
+package's other switches that only choose between TPU formulations of the
+same math have no counterpart here (``DINOUNET_TPU_INT8_QKV_IMPL``, for
+one, picks between two TPU formulations of the int8 qkv that give the same
+numbers).
 
 The routes read the JAX package's environment variables, at call time, with
 its value logic (``dinounet_tpu/configuration.py:271-292,355-368,426-448``):
@@ -14,6 +15,17 @@ the route on any device, where an op on a CPU tensor runs its plain version
 and one on a CUDA tensor launches its kernel; "auto" takes it only for CUDA
 tensors, as the JAX package's "auto" takes it only on a TPU. A module in
 train mode never takes a route.
+
+Three more routes choose among formulations whose TPU kernels the port has
+each ported, and apply in train mode too, as the JAX package consults them
+on its premapped path in training as well
+(``dinounet_tpu/configuration.py:49-62,87-109,204-221``):
+``DINOUNET_TPU_MSDA_PREP=xla`` does the MSDA prep (fp32 offsets plus the
+base grid, the point softmax) in PyTorch and samples with the prepped-input
+kernel; ``DINOUNET_TPU_MSDA_MERGED_PROJ=1`` (with the fused prep) emits the
+offsets and logits from one merged projection into one packed buffer;
+``DINOUNET_TPU_ATTN_LAYOUT=ndh`` runs the stats-threaded ViT's attention
+over the (B, 3, M, N, Dh) qkv layout.
 
 The int8 serving mode reads the JAX package's variables, at call time, with
 its value logic (``dinounet_tpu/configuration.py:112-156``), and is off by
@@ -81,6 +93,28 @@ def use_decoder_hwbc(x: torch.Tensor) -> bool:
     if mode == "auto":
         return x.is_cuda
     return True
+
+
+def msda_fused_prep() -> bool:
+    """DINOUNET_TPU_MSDA_PREP == "fused" (the default; "xla" or any other
+    value turns it off): the MSDA kernel takes the raw bf16 offsets and
+    logits and does the base add and the point softmax itself."""
+    return os.environ.get("DINOUNET_TPU_MSDA_PREP", "fused") == "fused"
+
+
+def msda_merged_proj() -> bool:
+    """DINOUNET_TPU_MSDA_MERGED_PROJ == "1" (default "0"): one projection
+    emits the offsets and logits into one packed buffer. The adapter
+    consults it only with msda_fused_prep()."""
+    return os.environ.get("DINOUNET_TPU_MSDA_MERGED_PROJ", "0") == "1"
+
+
+def attn_premapped_layout() -> str:
+    """DINOUNET_TPU_ATTN_LAYOUT in {"dmaj", "ndh"} (default "dmaj"; any
+    other value reads as "dmaj"): the qkv layout of the stats-threaded
+    ViT's attention, (B, 3, M, Dh, N) or (B, 3, M, N, Dh)."""
+    impl = os.environ.get("DINOUNET_TPU_ATTN_LAYOUT", "dmaj")
+    return impl if impl in ("ndh", "dmaj") else "dmaj"
 
 
 def vit_int8() -> bool:

@@ -1,7 +1,7 @@
-// Fused RoPE + multi-head self-attention, for sm_90a, in two layouts.
+// Fused RoPE + multi-head self-attention, for sm_90a, in three layouts.
 //
-// Replaces two TPU kernels of dinounet_tpu/ops/attention_pallas.py, which
-// compute the same function over two layouts:
+// Replaces three TPU kernels of dinounet_tpu/ops/attention_pallas.py, which
+// compute the same function over three layouts:
 //   _kernel_pm_dmaj (fused_rope_attention_premapped_dmaj), the Dh-major
 //     layout of the stats-threaded ViT chain (ViT-S/B/L, Dh = 64):
 //       qkv   (B, 3, M, Dh, N) bf16 -> out (B, M, Dh, N) bf16
@@ -9,6 +9,10 @@
 //   _kernel (fused_rope_attention), the row-major layout of the unfused
 //     blocks (the SwiGLU ViT-7B, Dh = 128):
 //       qkv   (B, N, 3, M, Dh) bf16 -> out (B, N, M, Dh) bf16
+//       sin, cos (N, Dh) fp32
+//   _kernel_pm (fused_rope_attention_premapped), the (B, 3, M, N, Dh) layout
+//     the stats-threaded chain takes with DINOUNET_TPU_ATTN_LAYOUT=ndh:
+//       qkv   (B, 3, M, N, Dh) bf16 -> out (B, M, Dh, N) bf16
 //       sin, cos (N, Dh) fp32
 // out = softmax(q k^T / sqrt(Dh)) v per (b, head). RoPE runs in fp32 on
 // tables with rotate-half's sign folded into sin (identity entries -- sin 0,
@@ -33,10 +37,15 @@
 // planes for the Dh-major input, token-major rows for the row-major one, so
 // the pre-pass reads and writes contiguous rows in both), and the next key
 // tile is prefetched into registers while the current one is multiplied.
-// One flash loop serves both layouts (the template flag RM): the tiles keep
-// their scratch layout in shared memory and the WMMA fragments (bf16 x bf16
-// -> fp32, 16 x 16 x 16) read them column- or row-major as each product
-// needs; only the epilogue's store differs. Four warps each own 16 query
+// The (B, 3, M, N, Dh) layout holds each (b, part, head) as a contiguous
+// (N, Dh) plane, so its pre-pass reads those rows in 16-byte vectors and
+// writes the token-major scratch of the row-major layout, and its epilogue
+// stores channel-major as the Dh-major layout does. One flash loop serves
+// all three (the template parameter Layout; token-major tiles for the
+// row-major and (N, Dh) inputs): the tiles keep their scratch layout in
+// shared memory and the WMMA fragments (bf16 x bf16 -> fp32, 16 x 16 x 16)
+// read them column- or row-major as each product needs; only the pre-pass
+// and the epilogue's store differ, each instance compiled for its own. Four warps each own 16 query
 // rows. The output accumulator is an fp32 tile in shared memory that each
 // warp rescales by its rows' alpha and then accumulates p v into directly
 // (WMMA accumulator load, multiply-add, store), so no separate p v buffer
@@ -65,6 +74,9 @@ constexpr int kLdP = kTile + 8;  // bf16 probability tile row pitch (elements)
 constexpr int kLdS = kTile + 4;  // fp32 score tile row pitch
 
 constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
+
+// the qkv layout: (B, 3, M, Dh, N), (B, N, 3, M, Dh) or (B, 3, M, N, Dh)
+enum Layout { kDmaj, kRowMajor, kNdh };
 
 // shared-memory plan of one block; q, k and v tiles in the scratch layout:
 // Dh-major [d][token] (pitch kTile + 8) or token-major [token][d] (pitch
@@ -120,9 +132,10 @@ __global__ void rope_prep_dmaj_kernel(const __nv_bfloat16* __restrict__ qkv,
   }
 }
 
-// row-major pre-pass: scratch (3, B, M, Npad, Dh), the same values; each
-// thread takes 8 adjacent channels of one token (16-byte reads and writes)
-template <int DH>
+// token-major pre-pass of the row-major and (N, Dh) layouts (NDH): scratch
+// (3, B, M, Npad, Dh), the same values; each thread takes 8 adjacent channels
+// of one token (16-byte reads and writes)
+template <int DH, bool NDH>
 __global__ void rope_prep_rowmajor_kernel(const __nv_bfloat16* __restrict__ qkv,
                                           const float* __restrict__ sin_t,
                                           const float* __restrict__ cos_t,
@@ -142,8 +155,9 @@ __global__ void rope_prep_rowmajor_kernel(const __nv_bfloat16* __restrict__ qkv,
     const int which = (int)(r / B);  // 0 q, 1 k, 2 v
     uint4 y = make_uint4(0u, 0u, 0u, 0u);
     if (n < N) {
-      const __nv_bfloat16* row = qkv + (((size_t)b * N + n) * 3 + which) * M * DH
-                                 + (size_t)m * DH;
+      const __nv_bfloat16* row =
+          NDH ? qkv + ((((size_t)b * 3 + which) * M + m) * N + n) * DH
+              : qkv + (((size_t)b * N + n) * 3 + which) * M * DH + (size_t)m * DH;
       const uint4 xv = *reinterpret_cast<const uint4*>(row + d0);
       if (which == 2) {
         y = xv;
@@ -197,11 +211,12 @@ struct TileRegs {
   }
 };
 
-template <int DH, bool RM>
+template <int DH, Layout kLayout>
 __global__ void __launch_bounds__(kThreads)
 rope_attention_kernel(const __nv_bfloat16* __restrict__ scratch,
                       __nv_bfloat16* __restrict__ out, int B, int M, int N,
                       int Npad) {
+  constexpr bool RM = kLayout != kDmaj;  // token-major tiles
   using L = Smem<DH, RM>;
   constexpr int kLdT = L::kLdT;
   constexpr int kLdO = L::kLdO;
@@ -344,7 +359,7 @@ rope_attention_kernel(const __nv_bfloat16* __restrict__ scratch,
     }
   }
 
-  if (RM) {  // (B, N, M, Dh): one token's Dh channels adjacent
+  if (kLayout == kRowMajor) {  // (B, N, M, Dh): one token's Dh channels adjacent
     for (int i = threadIdx.x; i < kTile * DH; i += kThreads) {
       const int j = i / DH;
       const int d = i - j * DH;
@@ -364,9 +379,10 @@ rope_attention_kernel(const __nv_bfloat16* __restrict__ scratch,
   }
 }
 
-template <int DH, bool RM>
+template <int DH, Layout kLayout>
 int launch(const void* qkv, const void* sin_t, const void* cos_t, void* scratch,
            void* out, int B, int M, int N, float scale, cudaStream_t stream) {
+  constexpr bool RM = kLayout != kDmaj;
   const int Npad = (N + kTile - 1) / kTile * kTile;
   const size_t items = (size_t)3 * B * M * DH * Npad / (RM ? 8 : 1);
   const int prep_blocks = (int)((items + 255) / 256 < 8192 ? (items + 255) / 256 : 8192);
@@ -375,34 +391,34 @@ int launch(const void* qkv, const void* sin_t, const void* cos_t, void* scratch,
   const float* c = static_cast<const float*>(cos_t);
   __nv_bfloat16* sc = static_cast<__nv_bfloat16*>(scratch);
   if (RM)
-    rope_prep_rowmajor_kernel<DH><<<prep_blocks, 256, 0, stream>>>(x, s, c, sc, B, M,
-                                                                   N, Npad, scale);
+    rope_prep_rowmajor_kernel<DH, kLayout == kNdh><<<prep_blocks, 256, 0, stream>>>(
+        x, s, c, sc, B, M, N, Npad, scale);
   else
     rope_prep_dmaj_kernel<<<prep_blocks, 256, 0, stream>>>(x, s, c, sc, B, M, DH, N,
                                                            Npad, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t smem = Smem<DH, RM>::bytes;
-  err = cudaFuncSetAttribute(rope_attention_kernel<DH, RM>,
+  err = cudaFuncSetAttribute(rope_attention_kernel<DH, kLayout>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(rope_attention_kernel<DH, RM>,
+  err = cudaFuncSetAttribute(rope_attention_kernel<DH, kLayout>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(Npad / kTile, M, B);
-  rope_attention_kernel<DH, RM><<<grid, kThreads, smem, stream>>>(
+  rope_attention_kernel<DH, kLayout><<<grid, kThreads, smem, stream>>>(
       sc, static_cast<__nv_bfloat16*>(out), B, M, N, Npad);
   return (int)cudaGetLastError();
 }
 
-template <bool RM>
+template <Layout kLayout>
 int dispatch(const void* qkv, const void* sin_t, const void* cos_t, void* scratch,
              void* out, int B, int M, int Dh, int N, float scale, void* stream) {
   if (B < 1 || M < 1 || N < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Dh == 64) return launch<64, RM>(qkv, sin_t, cos_t, scratch, out, B, M, N, scale, s);
-  if (Dh == 128) return launch<128, RM>(qkv, sin_t, cos_t, scratch, out, B, M, N, scale, s);
+  if (Dh == 64) return launch<64, kLayout>(qkv, sin_t, cos_t, scratch, out, B, M, N, scale, s);
+  if (Dh == 128) return launch<128, kLayout>(qkv, sin_t, cos_t, scratch, out, B, M, N, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -414,7 +430,7 @@ extern "C" int rope_attention_dmaj(const void* qkv, const void* sin_t,
                                    const void* cos_t, void* scratch, void* out,
                                    int B, int M, int Dh, int N, float scale,
                                    void* stream) {
-  return dispatch<false>(qkv, sin_t, cos_t, scratch, out, B, M, Dh, N, scale, stream);
+  return dispatch<kDmaj>(qkv, sin_t, cos_t, scratch, out, B, M, Dh, N, scale, stream);
 }
 
 // row-major: sin/cos (N, Dh); scratch (3, B, M, ceil(N / 64) * 64, Dh) bf16,
@@ -422,5 +438,13 @@ extern "C" int rope_attention_dmaj(const void* qkv, const void* sin_t,
 extern "C" int rope_attention_rowmajor(const void* qkv, const void* sin, const void* cos,
                                        void* scratch, void* out, int B, int M, int Dh,
                                        int N, float scale, void* stream) {
-  return dispatch<true>(qkv, sin, cos, scratch, out, B, M, Dh, N, scale, stream);
+  return dispatch<kRowMajor>(qkv, sin, cos, scratch, out, B, M, Dh, N, scale, stream);
+}
+
+// (N, Dh) planes: qkv (B, 3, M, N, Dh), sin/cos (N, Dh), out (B, M, Dh, N);
+// scratch (3, B, M, ceil(N / 64) * 64, Dh) bf16, allocated by the caller
+extern "C" int rope_attention_ndh(const void* qkv, const void* sin, const void* cos,
+                                  void* scratch, void* out, int B, int M, int Dh, int N,
+                                  float scale, void* stream) {
+  return dispatch<kNdh>(qkv, sin, cos, scratch, out, B, M, Dh, N, scale, stream);
 }

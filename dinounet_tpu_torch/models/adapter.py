@@ -1,12 +1,18 @@
 """ViT-Adapter (DINOv3_Adapter), PyTorch.
 
 Counterpart of ``dinounet_tpu/models/adapter.py``. The deformable attention
-always runs in the premapped fused-prep form (the projections emit the
-kernel's channel-major layouts, the kernel does the offset base add and the
-point softmax, ``ops/msda_kernel.py``; differentiable, its backward is the
-MSDA backward kernel). In eval mode (serving, validation) both residual
-junctions of every extractor run as fused dense + residual + LayerNorm
-statistics ops, the statistics threaded from one extractor to the next. In
+runs in the premapped form, its three variants chosen as the JAX package
+chooses them (``adapter.py:227-318``), in train and eval mode alike: by
+default the fused prep (the projections emit the kernel's channel-major
+layouts, the kernel does the offset base add and the point softmax); with
+``DINOUNET_TPU_MSDA_MERGED_PROJ=1`` the same kernel over one packed buffer
+that a merged offsets + logits projection emits; with
+``DINOUNET_TPU_MSDA_PREP=xla`` the prep in PyTorch and the sampling kernel
+that takes fp32 coordinates and weights (``ops/msda_kernel.py``; each
+differentiable, its backward the MSDA backward kernel). In eval mode
+(serving, validation) both residual junctions of every extractor run as
+fused dense + residual + LayerNorm statistics ops, the statistics threaded
+from one extractor to the next. In
 train mode the extractors run unfused, as the JAX package's train path does
 (``adapter.py:440-461``): plain output projections, an exact GELU before the
 ConvFFN's fc2, a drop-path on the ConvFFN branch, and every interaction block
@@ -32,7 +38,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from dinounet_tpu_torch.configuration import adapter_int8, use_spm_cm
+from dinounet_tpu_torch.configuration import (adapter_int8, msda_fused_prep,
+                                              msda_merged_proj, use_spm_cm)
 from dinounet_tpu_torch.models.layers import (BatchNorm, Conv2d, Linear,
                                               TransposedConv, bilinear_resize)
 from dinounet_tpu_torch.models.vit import DinoViT, LayerNormFp32
@@ -41,7 +48,9 @@ from dinounet_tpu_torch.ops.dense_q8 import (dense_cm_q8_residual_stats,
                                              dense_q8_residual_stats)
 from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
                                                 dense_residual_stats)
-from dinounet_tpu_torch.ops.msda_kernel import ms_deform_attn_premapped_fused
+from dinounet_tpu_torch.ops.msda_kernel import (ms_deform_attn_premapped,
+                                                ms_deform_attn_premapped_fused,
+                                                ms_deform_attn_premapped_fused_merged)
 
 
 def reference_points_for_grids(grids: Sequence[Tuple[int, int]],
@@ -106,11 +115,11 @@ class MSDeformAttn(nn.Module):
         if reference_points.shape[0] != 1 or reference_points.shape[2] != 1:
             raise ValueError("premapped MSDA requires batch-constant level-0 "
                              f"reference points, got {tuple(reference_points.shape)}")
-        v_t = self.value_proj(value_tokens).view(B, S, M, D).permute(0, 2, 3, 1)
-        off = self.sampling_offsets(query).view(B, Lq, M, 2 * LP).permute(0, 2, 3, 1)
-        logits = self.attention_weights(query).view(B, Lq, M, LP).permute(0, 2, 3, 1)
+        v_t = self.value_proj(value_tokens).view(B, S, M, D).permute(0, 2, 3, 1).contiguous()
+        shapes = tuple(value_spatial_shapes)
 
-        # pixel space: unnormalize(ref + off / size) = ref * size - 0.5 + off
+        # pixel space: unnormalize(ref + off / size) = ref * size - 0.5 + off;
+        # rows 2r / 2r + 1 = x / y of point r
         sizes = torch.tensor([[w, h] for (h, w) in value_spatial_shapes],
                              dtype=torch.float32, device=query.device)  # (L, 2)
         ref = reference_points[0, :, 0]  # (Lq, 2) normalized (x, y)
@@ -118,9 +127,30 @@ class MSDeformAttn(nn.Module):
         base = base[:, None].expand(L, P, Lq, 2).permute(0, 1, 3, 2)
         base = base.reshape(2 * LP, Lq).contiguous()
 
-        return ms_deform_attn_premapped_fused(
-            v_t.contiguous(), tuple(value_spatial_shapes), off.contiguous(),
-            logits.contiguous(), base)
+        fused = msda_fused_prep()
+        if fused and msda_merged_proj():
+            # one projection for both: the two weights interleaved per head
+            # (its 2LP offset rows, then its LP logit rows), the packed
+            # buffer emitted channel-major by one product
+            cdt = self.sampling_offsets.compute_dtype
+            so, aw = self.sampling_offsets, self.attention_weights
+            w = torch.cat([so.weight.view(M, 2 * LP, C), aw.weight.view(M, LP, C)], 1)
+            b = torch.cat([so.bias.view(M, 2 * LP), aw.bias.view(M, LP)], 1)
+            packed = torch.matmul(w.reshape(M * 3 * LP, C).to(cdt),
+                                  query.to(cdt).transpose(1, 2))
+            packed = packed + b.reshape(M * 3 * LP, 1).to(cdt)
+            return ms_deform_attn_premapped_fused_merged(
+                v_t, shapes, packed.view(B, M, 3 * LP, Lq), base)
+        off = self.sampling_offsets(query).view(B, Lq, M, 2 * LP).permute(0, 2, 3, 1)
+        logits = self.attention_weights(query).view(B, Lq, M, LP).permute(0, 2, 3, 1)
+        if fused:
+            return ms_deform_attn_premapped_fused(v_t, shapes, off.contiguous(),
+                                                  logits.contiguous(), base)
+        # the prep in fp32 here: base add, softmax over the L*P points
+        coords = off.float() + base
+        aw = torch.softmax(logits.float(), dim=2)
+        return ms_deform_attn_premapped(v_t, shapes, coords[:, :, 0::2].contiguous(),
+                                        coords[:, :, 1::2].contiguous(), aw.contiguous())
 
     def forward(self, query, reference_points, value_tokens,
                 value_spatial_shapes: Sequence[Tuple[int, int]], residual=None):

@@ -6,7 +6,9 @@ path: one entry statistics pass, then in every block the attention output
 projection and fc2 run as fused dense + LayerScale residual +
 next-LayerNorm-statistics ops (``ops/dense_stats.py``), and the attention
 itself as the fused RoPE attention op (``ops/attention.py``) over the
-Dh-major QKV layout. The SwiGLU config (ViT-7B) takes its unfused path
+Dh-major QKV layout, or with ``DINOUNET_TPU_ATTN_LAYOUT=ndh``
+(``configuration.attn_premapped_layout``, ``vit.py:324-360``) over the
+(B, 3, M, N, Dh) layout. The SwiGLU config (ViT-7B) takes its unfused path
 (``vit.py:512-520``), since the gated FFN has no single dense + residual
 tail: each LayerNorm computes its own one-pass statistics, the qkv
 projection feeds the row-major fused RoPE attention op
@@ -24,7 +26,7 @@ applies to the patch tokens; the cls and storage tokens carry identity rows
 In the int8 serving mode (``configuration.vit_int8``, as
 ``dinounet_tpu/models/vit.py:186-226,276-323,436-452``) the stats-threaded
 chain runs its four projections as w8a8 ops (``ops/dense_q8.py``): the qkv
-straight into the Dh-major layout (bf16 with ``DINOUNET_TPU_INT8_QKV=0``),
+straight into the attention's layout (bf16 with ``DINOUNET_TPU_INT8_QKV=0``),
 the attention output projection channel-major with the residual and
 statistics, fc1 plain, fc2 with the GELU prologue, the residual and
 statistics. The unfused SwiGLU blocks run qkv, proj, w1, w2 and w3 as
@@ -46,14 +48,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dinounet_tpu_torch.configuration import COMPUTE_DTYPE, int8_qkv, vit_int8
+from dinounet_tpu_torch.configuration import (COMPUTE_DTYPE, attn_premapped_layout,
+                                              int8_qkv, vit_int8)
 from dinounet_tpu_torch.models.layers import (Linear, lecun_normal_,
                                               trunc_normal_)
 from dinounet_tpu_torch.ops.attention import (fused_rope_attention,
+                                              fused_rope_attention_premapped,
                                               fused_rope_attention_premapped_dmaj)
 from dinounet_tpu_torch.ops.dense_q8 import (dense_cm_q8_residual_stats, dense_q8,
                                              dense_q8_residual_stats, qkv_q8_dmaj,
-                                             quant_dense)
+                                             qkv_q8_premapped, quant_dense)
 from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
                                                 dense_residual_stats, row_stats)
 
@@ -193,15 +197,24 @@ class Attention(nn.Module):
 
     def forward(self, x, rope, residual, ls_gamma):
         """x: normed (B, N, C); returns (residual + gamma * proj(attn(x)),
-        mean, var) with the next LayerNorm's statistics."""
+        mean, var) with the next LayerNorm's statistics. The qkv projection
+        emits the attention's layout, (B, 3, M, Dh, N) or with
+        ``attn_premapped_layout() == "ndh"`` (B, 3, M, N, Dh)."""
         B, N, C = x.shape
         M = self.num_heads
         int8 = vit_int8()
-        if int8 and int8_qkv():
-            qkv = qkv_q8_dmaj(x, self.qkv.weight.t(), self.qkv.bias, M, C // M)
+        if attn_premapped_layout() == "ndh":
+            if int8 and int8_qkv():
+                qkv = qkv_q8_premapped(x, self.qkv.weight.t(), self.qkv.bias, M, C // M)
+            else:
+                qkv = self.qkv(x).view(B, N, 3, M, C // M).permute(0, 2, 3, 1, 4)
+            o_t = fused_rope_attention_premapped(qkv.contiguous(), *rope)
         else:
-            qkv = self.qkv(x).view(B, N, 3, M, C // M).permute(0, 2, 3, 4, 1)
-        o_t = fused_rope_attention_premapped_dmaj(qkv.contiguous(), *rope)
+            if int8 and int8_qkv():
+                qkv = qkv_q8_dmaj(x, self.qkv.weight.t(), self.qkv.bias, M, C // M)
+            else:
+                qkv = self.qkv(x).view(B, N, 3, M, C // M).permute(0, 2, 3, 4, 1)
+            o_t = fused_rope_attention_premapped_dmaj(qkv.contiguous(), *rope)
         bias = self.proj.bias if self.proj.bias is not None else torch.zeros_like(ls_gamma)
         dense = dense_cm_q8_residual_stats if int8 else dense_cm_residual_stats
         return dense(o_t.reshape(B, C, N), self.proj.weight.t(), bias, residual,

@@ -1,7 +1,8 @@
 """Builds and loads the port's CUDA kernels; reads and resets their launch counts.
 
 The kernels under ``dinounet_tpu_torch/csrc/`` are compiled on first use by
-``nvcc``, one process per source started together, and linked into one
+``nvcc``, one process per source started together (each one's seconds
+head its part of ``ptxas.log``), and linked into one
 shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
 headers, so the build takes seconds). The library goes
 to ``build/dinounet_tpu_torch/<hash>/`` at the repository root, keyed by a
@@ -21,29 +22,39 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "dinounet_tpu_torch"
-SOURCES = ("msda_fwd.cu", "msda_bwd.cu", "rope_attention.cu", "dense_stats.cu",
-           "conv3x3_stats.cu", "transpconv2x2.cu", "seg_head.cu", "dense_q8.cu",
-           "qkv_q8_dmaj.cu")
-HEADERS = ("int8_gemm.cuh",)
+SOURCES = ("msda_fwd.cu", "msda_fwd_premapped.cu", "msda_bwd.cu", "rope_attention.cu",
+           "dense_stats.cu", "conv3x3_stats.cu", "transpconv2x2.cu", "seg_head.cu",
+           "dense_q8.cu", "qkv_q8_dmaj.cu")
+HEADERS = ("int8_gemm.cuh", "msda_common.cuh", "msda_fwd.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# C signatures: every pointer and the stream as c_void_p, sizes as c_int.
+# C signatures: every pointer and the stream as c_void_p, sizes as c_int, a
+# level table (H_0, W_0, H_1, W_1, ...) as a pointer to host ints.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LEVELS = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    # value, off, logits, base, out, B, M, D, H, W, P, Lq, stream
-    "msda_fwd_fused": [_P] * 5 + [_I] * 7 + [_P],
-    # value, xs, ys, aw, g, gv, ga, gx, gy, B, M, D, H, W, P, Lq, stream
-    "msda_bwd": [_P] * 9 + [_I] * 7 + [_P],
+    # value, scratch, off, logits, base, out, B, M, D, H, W, P, Lq, stream
+    "msda_fwd_fused": [_P] * 6 + [_I] * 7 + [_P],
+    # value, scratch, packed, base, out, B, M, D, H, W, P, Lq, stream
+    "msda_fwd_merged": [_P] * 5 + [_I] * 7 + [_P],
+    # value, scratch, xs, ys, aw, out, B, M, D, shapes, L, P, Lq, value_fp32, stream
+    "msda_fwd_premapped": [_P] * 6 + [_I] * 3 + [_LEVELS] + [_I] * 4 + [_P],
+    # value, v_scratch, xs, ys, aw, g, gv, gv_scratch, ga, gx, gy, B, M, D,
+    # shapes, L, P, Lq, value_fp32, stream
+    "msda_bwd": [_P] * 11 + [_I] * 3 + [_LEVELS] + [_I] * 4 + [_P],
     # qkv, sin_eff_t, cos_t, scratch, out, B, M, Dh, N, scale, stream
     "rope_attention_dmaj": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
-    # qkv, sin_eff, cos, scratch, out, B, M, Dh, N, scale, stream
+    # qkv, sin_eff, cos, scratch, out, B, M, Dh, N, scale, stream (both)
     "rope_attention_rowmajor": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
+    "rope_attention_ndh": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
     # h, w, b, res, gamma, out, mu, var, B, N, K, D, channel_major, gelu, stream
     "dense_residual_stats": [_P] * 8 + [_I] * 6 + [_P],
     # x, x2, c1, c2, x strides (b, c, h, w), x2 strides, w, bias, s, t, slope,
@@ -94,14 +105,21 @@ def _compile(out: Path) -> None:
     work = Path(tempfile.mkdtemp(dir=out.parent))
     try:
         objs = [work / (Path(s).stem + ".o") for s in SOURCES]
-        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
-                                   str(CSRC / s)], stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for s, o in zip(SOURCES, objs)]
-        logs = [p.communicate()[0] for p in procs]
-        for s, p, log in zip(SOURCES, procs, logs):
+
+        def nvcc(source, obj):
+            t0 = time.perf_counter()
+            p = subprocess.run([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                                str(CSRC / source)], stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True)
+            return p, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            runs = list(pool.map(nvcc, SOURCES, objs))
+        logs = []
+        for s, (p, secs) in zip(SOURCES, runs):
             if p.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n{log}")
+                raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n{p.stdout}")
+            logs.append(f"== {s}: nvcc {secs:.1f} s\n{p.stdout}")
         lib_tmp = work / out.name
         link = subprocess.run([_nvcc(), "-shared", "-o", str(lib_tmp),
                                *map(str, objs)], capture_output=True, text=True)
@@ -149,6 +167,13 @@ def check_inputs(op: str, device, **specs) -> None:
                 f"on {t.device} (contiguous={t.is_contiguous()})")
 
 
+def levels(spatial_shapes):
+    """The level table of the MSDA entries: (H_0, W_0, H_1, W_1, ...) as a
+    ctypes int array."""
+    flat = [int(n) for hw in spatial_shapes for n in hw]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
 def stream_of(device) -> int:
     import torch
 
@@ -157,6 +182,7 @@ def stream_of(device) -> int:
 
 def _wrappers():
     from dinounet_tpu_torch.ops.attention import (fused_rope_attention,
+                                                  fused_rope_attention_premapped,
                                                   fused_rope_attention_premapped_dmaj)
     from dinounet_tpu_torch.ops.conv_hwbc import conv3x3_hwbc
     from dinounet_tpu_torch.ops.decoder_tail import (conv3x3_cm, seg_head_cm,
@@ -165,8 +191,9 @@ def _wrappers():
                                                  dense_q8_residual_stats, qkv_q8_dmaj)
     from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
                                                     dense_residual_stats)
-    from dinounet_tpu_torch.ops.msda_kernel import (ms_deform_attn_premapped_backward,
-                                                    ms_deform_attn_premapped_fused)
+    from dinounet_tpu_torch.ops.msda_kernel import (
+        ms_deform_attn_premapped, ms_deform_attn_premapped_backward,
+        ms_deform_attn_premapped_fused, ms_deform_attn_premapped_fused_merged)
 
     return {
         "rope_attention": fused_rope_attention_premapped_dmaj,
@@ -175,6 +202,9 @@ def _wrappers():
         "dense_rm_stats": dense_residual_stats,
         "msda_fwd": ms_deform_attn_premapped_fused,
         "msda_bwd": ms_deform_attn_premapped_backward,
+        "msda_fwd_premapped": ms_deform_attn_premapped,
+        "msda_fwd_merged": ms_deform_attn_premapped_fused_merged,
+        "rope_attention_ndh": fused_rope_attention_premapped,
         "conv3x3_cm": conv3x3_cm,
         "transpconv2x2_cm": transpconv2x2_cm,
         "seg_head_cm": seg_head_cm,

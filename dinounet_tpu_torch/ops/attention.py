@@ -1,16 +1,19 @@
-"""Fused RoPE + multi-head self-attention, in two layouts.
+"""Fused RoPE + multi-head self-attention, in three layouts.
 
-Counterparts of two functions of ``dinounet_tpu/ops/attention_pallas.py``:
+Counterparts of three functions of ``dinounet_tpu/ops/attention_pallas.py``:
 
 - ``fused_rope_attention_premapped_dmaj``: qkv_t (B, 3, M, Dh, N) in,
   (B, M, Dh, N) out, the Dh-major layout of the stats-threaded ViT chain
   (the mlp configs). Its TPU kernel is ``_kernel_pm_dmaj``.
+- ``fused_rope_attention_premapped``: qkv_t (B, 3, M, N, Dh) in, (B, M, Dh,
+  N) out, the layout the same chain takes with
+  ``DINOUNET_TPU_ATTN_LAYOUT=ndh``. Its TPU kernel is ``_kernel_pm``.
 - ``fused_rope_attention``: qkv (B, N, 3, M, Dh) in, (B, N, M, Dh) out, the
   row-major layout of the unfused blocks (the SwiGLU ViT-7B, Dh = 128). Its
   TPU kernel is ``_kernel``.
 
 For a CUDA tensor each wrapper launches ``csrc/rope_attention.cu`` (one flash
-loop for both layouts; its header says what bounds it and how it is built);
+loop for the three layouts; its header says what bounds it and how it is built);
 for a CPU tensor it runs its plain version, the same function in plain
 PyTorch with the TPU kernel's rounding points: RoPE in fp32 on the
 sign-folded tables, q scaled by Dh^-1/2 before its rounding to the compute
@@ -74,6 +77,30 @@ def rope_attention_dmaj_plain(qkv_t: torch.Tensor, sin_eff_t: torch.Tensor,
     return (pv / denom[:, :, None, :]).to(cdt)
 
 
+def rope_attention_ndh_plain(qkv_t: torch.Tensor, sin_eff: torch.Tensor,
+                             cos: torch.Tensor) -> torch.Tensor:
+    """The (N, Dh)-plane op: qkv_t (B, 3, M, N, Dh), tables (N, Dh) -> (B, M,
+    Dh, N) in qkv_t's dtype."""
+    Dh = qkv_t.shape[4]
+    cdt = qkv_t.dtype
+    q, k, v = qkv_t[:, 0], qkv_t[:, 1], qkv_t[:, 2]  # (B, M, N, Dh)
+
+    def rope(x, mul=None):
+        xf = x.float()
+        r = xf * cos + torch.roll(xf, Dh // 2, dims=-1) * sin_eff
+        if mul is not None:
+            r = r * mul
+        return r.to(cdt)
+
+    q = rope(q, Dh ** -0.5)
+    k = rope(k)
+    s = torch.einsum("bmnd,bmkd->bmnk", q.float(), k.float())
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True)).to(cdt)
+    denom = e.float().sum(dim=-1)  # (B, M, N)
+    pv = torch.einsum("bmkd,bmnk->bmdn", v.float(), e.float())
+    return (pv / denom[:, :, None, :]).to(cdt)
+
+
 def rope_attention_plain(qkv: torch.Tensor, sin_eff: torch.Tensor,
                          cos: torch.Tensor) -> torch.Tensor:
     """The row-major op: qkv (B, N, 3, M, Dh), tables (N, Dh) -> (B, N, M,
@@ -98,29 +125,41 @@ def rope_attention_plain(qkv: torch.Tensor, sin_eff: torch.Tensor,
     return (pv / denom.transpose(1, 2)[..., None]).to(cdt)
 
 
-def _launch(row_major: bool, qkv: torch.Tensor, sin_eff, cos) -> torch.Tensor:
-    """One launch of the kernel entry of either layout."""
-    if row_major:
-        op, entry = "fused_rope_attention", "rope_attention_rowmajor"
+# layout -> (the wrapper's name, the kernel entry, the plain version)
+_LAYOUTS = {"dmaj": ("fused_rope_attention_premapped_dmaj", "rope_attention_dmaj",
+                     rope_attention_dmaj_plain),
+            "ndh": ("fused_rope_attention_premapped", "rope_attention_ndh",
+                    rope_attention_ndh_plain),
+            "rowmajor": ("fused_rope_attention", "rope_attention_rowmajor",
+                         rope_attention_plain)}
+
+
+def _launch(layout: str, qkv: torch.Tensor, sin_eff, cos) -> torch.Tensor:
+    """One launch of the kernel entry of `layout`."""
+    op, entry, _ = _LAYOUTS[layout]
+    if layout == "rowmajor":
         B, N, _, M, Dh = qkv.shape
-        layout, tables, out_shape = (B, N, 3, M, Dh), (N, Dh), (B, N, M, Dh)
+        shape, tables, out_shape = (B, N, 3, M, Dh), (N, Dh), (B, N, M, Dh)
+    elif layout == "ndh":
+        B, _, M, N, Dh = qkv.shape
+        shape, tables, out_shape = (B, 3, M, N, Dh), (N, Dh), (B, M, Dh, N)
     else:
-        op, entry = "fused_rope_attention_premapped_dmaj", "rope_attention_dmaj"
         B, _, M, Dh, N = qkv.shape
-        layout, tables, out_shape = (B, 3, M, Dh, N), (Dh, N), (B, M, Dh, N)
+        shape, tables, out_shape = (B, 3, M, Dh, N), (Dh, N), (B, M, Dh, N)
     if Dh not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{op}: the kernel takes Dh in {KERNEL_HEAD_DIMS}, got {Dh}")
-    _build.check_inputs(op, qkv.device, qkv=(qkv, torch.bfloat16, layout),
+    _build.check_inputs(op, qkv.device, qkv=(qkv, torch.bfloat16, shape),
                         sin_eff=(sin_eff, torch.float32, tables),
                         cos=(cos, torch.float32, tables))
-    if row_major and qkv.data_ptr() % 16:
+    token_major = layout != "dmaj"
+    if token_major and qkv.data_ptr() % 16:
         raise ValueError(f"{op}: the kernel reads qkv in 16-byte vectors; its "
                          "data must start on a 16-byte boundary")
     out = torch.empty(out_shape, dtype=torch.bfloat16, device=qkv.device)
     # rotated q, k and v in the kernel's tile layout, zero-padded to whole
     # 64-token tiles (its pre-pass writes it; see csrc/rope_attention.cu)
     npad = -(-N // 64) * 64
-    scratch = torch.empty((3, B, M, npad, Dh) if row_major else (3, B, M, Dh, npad),
+    scratch = torch.empty((3, B, M, npad, Dh) if token_major else (3, B, M, Dh, npad),
                           dtype=torch.bfloat16, device=qkv.device)
     err = getattr(_build.lib(), entry)(
         qkv.data_ptr(), sin_eff.data_ptr(), cos.data_ptr(), scratch.data_ptr(),
@@ -129,37 +168,34 @@ def _launch(row_major: bool, qkv: torch.Tensor, sin_eff, cos) -> torch.Tensor:
     return out
 
 
-def _forward(qkv, sin_eff, cos, row_major: bool) -> torch.Tensor:
+def _forward(qkv, sin_eff, cos, layout: str) -> torch.Tensor:
     if qkv.device.type == "cpu":
-        plain = rope_attention_plain if row_major else rope_attention_dmaj_plain
-        return plain(qkv, sin_eff, cos)
+        return _LAYOUTS[layout][2](qkv, sin_eff, cos)
     if qkv.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {qkv.device}")
-    out = _launch(row_major, qkv, sin_eff, cos)
-    wrapper = fused_rope_attention if row_major else fused_rope_attention_premapped_dmaj
-    wrapper.launches += 1
+    out = _launch(layout, qkv, sin_eff, cos)
+    _WRAPPERS[layout].launches += 1
     return out
 
 
 class _RopeAttention(torch.autograd.Function):
-    """The kernel (or plain version) forward of either layout; the backward
+    """The kernel (or plain version) forward of a layout; the backward
     differentiates the plain version recomputed from the saved qkv, as the
     JAX package's custom VJPs differentiate their reference formulation.
     The tables are constants."""
 
     @staticmethod
-    def forward(ctx, qkv, sin_eff, cos, row_major: bool):
-        ctx.row_major = row_major
+    def forward(ctx, qkv, sin_eff, cos, layout: str):
+        ctx.layout = layout
         ctx.save_for_backward(qkv, sin_eff, cos)
-        return _forward(qkv, sin_eff, cos, row_major)
+        return _forward(qkv, sin_eff, cos, layout)
 
     @staticmethod
     def backward(ctx, g):
         qkv, sin_eff, cos = ctx.saved_tensors
-        plain = rope_attention_plain if ctx.row_major else rope_attention_dmaj_plain
         leaf = qkv.detach().requires_grad_(True)
         with torch.enable_grad():
-            out = plain(leaf, sin_eff, cos)
+            out = _LAYOUTS[ctx.layout][2](leaf, sin_eff, cos)
         return torch.autograd.grad(out, leaf, g)[0], None, None, None
 
 
@@ -173,7 +209,20 @@ def fused_rope_attention_premapped_dmaj(
     if three != 3:
         raise ValueError(f"qkv_t must be (B, 3, M, Dh, N), got {tuple(qkv_t.shape)}")
     sin_eff_t, cos_t = rope_tables_dmaj(sin, cos, N, Dh, qkv_t.device)
-    return _RopeAttention.apply(qkv_t, sin_eff_t, cos_t, False)
+    return _RopeAttention.apply(qkv_t, sin_eff_t, cos_t, "dmaj")
+
+
+def fused_rope_attention_premapped(
+        qkv_t: torch.Tensor, sin: Optional[torch.Tensor],
+        cos: Optional[torch.Tensor]) -> torch.Tensor:
+    """qkv_t (B, 3, M, N, Dh); sin/cos (N, Dh) fp32 RoPE tables with identity
+    rows for the prefix tokens, or None for no RoPE. Returns (B, M, Dh, N),
+    differentiable with respect to qkv_t."""
+    B, three, M, N, Dh = qkv_t.shape
+    if three != 3:
+        raise ValueError(f"qkv_t must be (B, 3, M, N, Dh), got {tuple(qkv_t.shape)}")
+    sin_eff, cos_f = rope_tables(sin, cos, N, Dh, qkv_t.device)
+    return _RopeAttention.apply(qkv_t, sin_eff, cos_f, "ndh")
 
 
 def fused_rope_attention(qkv: torch.Tensor, sin: Optional[torch.Tensor],
@@ -186,8 +235,11 @@ def fused_rope_attention(qkv: torch.Tensor, sin: Optional[torch.Tensor],
     if three != 3:
         raise ValueError(f"qkv must be (B, N, 3, M, Dh), got {tuple(qkv.shape)}")
     sin_eff, cos_f = rope_tables(sin, cos, N, Dh, qkv.device)
-    return _RopeAttention.apply(qkv, sin_eff, cos_f, True)
+    return _RopeAttention.apply(qkv, sin_eff, cos_f, "rowmajor")
 
 
+_WRAPPERS = {"dmaj": fused_rope_attention_premapped_dmaj,
+             "ndh": fused_rope_attention_premapped, "rowmajor": fused_rope_attention}
 fused_rope_attention_premapped_dmaj.launches = 0
+fused_rope_attention_premapped.launches = 0
 fused_rope_attention.launches = 0

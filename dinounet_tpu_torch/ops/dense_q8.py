@@ -15,6 +15,9 @@ channels of a token), an exact int32 product, and the fp32 rescale
   (B, K, N) (the attention and MSDA output projections);
 - ``qkv_q8_dmaj``: x (B, N, C) -> the Dh-major (B, 3, M, Dh, N) qkv that
   ``ops/attention.py`` reads;
+- ``qkv_q8_premapped``: the same into the (B, 3, M, N, Dh) layout of
+  ``DINOUNET_TPU_ATTN_LAYOUT=ndh``, an XLA einsum in the JAX package too, so
+  plain PyTorch here like ``quant_dense``;
 - ``quant_dense``: the unfused linear of the SwiGLU backbone (the JAX
   ``QuantDense``), whose int8 product is a plain matrix product in the JAX
   package too (XLA's ``dot_general``): ``torch._int_mm`` on a CUDA device,
@@ -131,6 +134,35 @@ def qkv_q8_dmaj_plain(x, w, b: Optional[torch.Tensor], n_heads: int,
     return y.to(x.dtype).reshape(B, 3, M, Dh, N)
 
 
+def _int8_product(rows: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """(n, K) @ (K, D) of integer-valued float tensors, exact, as fp32:
+    ``torch._int_mm`` on a CUDA device (on the (D, K) weight's transposed
+    view, as cuBLAS takes it), an exact float64 product elsewhere."""
+    if rows.device.type == "cuda":
+        w_dk = wq.t().to(torch.int8).contiguous()
+        return torch._int_mm(rows.to(torch.int8), w_dk.t()).float()
+    return _exact_matmul("nk,kd->nd", rows, wq)
+
+
+def qkv_q8_premapped(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                     n_heads: int, head_dim: int) -> torch.Tensor:
+    """``dense_q8_pallas.qkv_q8_premapped``: x (B, N, C), w (C, 3C), b (3C,)
+    or None -> the (B, 3, M, N, Dh) qkv in x's dtype, ``(acc * a) * ws + b``
+    in fp32 and one rounding. Not differentiable (the backbone is frozen)."""
+    B, N, C = x.shape
+    M, Dh = n_heads, head_dim
+    if w.shape[1] != 3 * M * Dh:
+        raise ValueError(f"qkv_q8_premapped: w {tuple(w.shape)} is not (C, 3 * "
+                         f"{M} * {Dh})")
+    wq, ws = _quantize(w, 0)  # (C, 3C), (1, 3C)
+    q, a = _quantize(x.float(), -1)  # (B, N, C), (B, N, 1)
+    acc = _int8_product(q.reshape(-1, C), wq).view(B, N, 3, M, Dh)
+    y = acc * a.view(B, N, 1, 1, 1) * ws.float().view(3, M, Dh)
+    if b is not None:
+        y = y + b.float().view(3, M, Dh)
+    return y.to(x.dtype).permute(0, 2, 3, 1, 4).contiguous()
+
+
 def quant_dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
                 dtype: torch.dtype) -> torch.Tensor:
     """``QuantDense`` (``dinounet_tpu/models/vit.py:186-216``): x (..., K) ->
@@ -142,11 +174,7 @@ def quant_dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tens
     K, D = x.shape[-1], weight.shape[0]
     wq, ws = _quantize(weight.float(), 1)  # (D, K), (D, 1)
     q, a = _quantize(x.float(), -1)  # (..., K), (..., 1)
-    rows = q.reshape(-1, K)
-    if x.device.type == "cuda":
-        acc = torch._int_mm(rows.to(torch.int8), wq.to(torch.int8).t()).float()
-    else:
-        acc = _exact_matmul("nk,dk->nd", rows, wq)
+    acc = _int8_product(q.reshape(-1, K), wq.t())
     y = acc.reshape(*x.shape[:-1], D) * a * ws.reshape(D)
     if bias is not None:
         y = y + bias.float()

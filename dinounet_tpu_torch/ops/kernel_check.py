@@ -4,15 +4,20 @@ A kernel output ``got`` agrees with the plain output ``want`` where
 |got - want| <= atol + rtol * |want| everywhere. The bounds per kernel, and
 why each is what it is:
 
-- ``msda_fwd``: both accumulate in fp32 in another order and round the result
-  to bf16 (2^-8 relative); outputs are O(1) weighted means of the value map.
+- ``msda_fwd`` / ``msda_fwd_merged`` / ``msda_fwd_premapped`` (a bf16 map):
+  both accumulate in fp32 in another order and round the result to bf16
+  (2^-8 relative); outputs are O(1) weighted means of the value map. Over an
+  fp32 map the premapped kernel's output is fp32, within 1e-5.
 - ``msda_bwd``: all four outputs are fp32 from the same fp32 coordinates and
-  bf16 values; they differ only in summation order (gv sums a few hundred
-  corner terms per position, in an order the kernel's atomics change from run
-  to run; ga, gx, gy sum 4 corners x D channels). fp32 rounding of such sums
-  stays near 1e-5 of their terms' magnitude (O(1) here); 1e-3 still catches
-  a wrong corner, weight or sign, which moves outputs by O(0.1).
-- ``rope_attention`` / ``rope_attention_rm`` (both layouts, one flash loop):
+  values; they differ only in summation order (gv sums a few hundred corner
+  terms per position, in an order the kernel's atomics change from run to
+  run -- the shared-memory instance's block partials and the global
+  instance's adds into device memory alike; ga, gx, gy sum 4 corners x D
+  channels). fp32 rounding of such sums stays near 1e-5 of their terms'
+  magnitude (O(1) here); 1e-3 still catches a wrong corner, weight, level or
+  sign, which moves outputs by O(0.1).
+- ``rope_attention`` / ``rope_attention_rm`` / ``rope_attention_ndh`` (the
+  three layouts, one flash loop):
   the kernel's online softmax rounds exp(s - running max) to bf16 where the
   plain version rounds exp(s - row max), so probabilities differ by up to a
   bf16 rounding (0.4%) each, on top of the bf16 output.
@@ -53,9 +58,12 @@ import torch
 
 KERNEL_TOLERANCES: Dict[str, Tuple[float, float]] = {  # (atol, rtol)
     "msda_fwd": (1e-2, 1e-2),
+    "msda_fwd_merged": (1e-2, 1e-2),
+    "msda_fwd_premapped": (1e-2, 1e-2),
     "msda_bwd": (1e-3, 1e-3),
     "rope_attention": (2e-2, 2e-2),
     "rope_attention_rm": (2e-2, 2e-2),
+    "rope_attention_ndh": (2e-2, 2e-2),
     "dense_rm_stats": (2e-2, 1e-2),
     "dense_cm_stats": (2e-2, 1e-2),
     "conv3x3_cm": (2e-2, 1e-2),

@@ -17,7 +17,13 @@ in the kernel-native layouts:
 with zero padding outside the map, as ``F.grid_sample(bilinear, zeros,
 align_corners=False)``. Returns (B, M, D, Lq) in value_t's dtype, accumulated
 in fp32. This is the CPU path of ``ops/msda_kernel.py`` and the reference the
-CUDA kernel is held against.
+CUDA kernel is held against. It is ``premapped_fused_prep`` followed by
+``ms_deform_attn_premapped_plain``, the sampling with the prep done outside
+(``_forward_premapped``), which also serves the reference-layout
+``ms_deform_attn_core_plain`` (``dinounet_tpu/ops/msda.py::
+ms_deform_attn_core``) after ``reference_layout_prep``;
+``ms_deform_attn_premapped_fused_merged_plain`` takes the offsets and logits
+from one packed buffer.
 
 ``ms_deform_attn_premapped_backward_plain`` is the backward the JAX package's
 ``_backward_premapped`` computes from the prepped coordinates and weights
@@ -63,12 +69,34 @@ def ms_deform_attn_premapped_fused_plain(
         off: torch.Tensor, logits: torch.Tensor,
         base: torch.Tensor) -> torch.Tensor:
     """See the module docstring."""
+    return ms_deform_attn_premapped_plain(value_t, spatial_shapes,
+                                          *premapped_fused_prep(off, logits, base))
+
+
+def ms_deform_attn_premapped_fused_merged_plain(
+        value_t: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+        packed: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
+    """The fused function over one packed (B, M, 3*L*P, Lq) buffer
+    (``msda_pallas.ms_deform_attn_pallas_premapped_fused_merged``): rows
+    [0, 2LP) of each head are the raw offsets, rows [2LP, 3LP) the logits."""
+    LP2 = 2 * packed.shape[2] // 3
+    return ms_deform_attn_premapped_fused_plain(value_t, spatial_shapes, packed[:, :, :LP2],
+                                                packed[:, :, LP2:], base)
+
+
+def ms_deform_attn_premapped_plain(
+        value_t: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+        xs: torch.Tensor, ys: torch.Tensor, aw: torch.Tensor) -> torch.Tensor:
+    """The sampling with the prep done outside (``msda_pallas.
+    _forward_premapped``): value_t (B, M, D, S); xs, ys (B, M, L*P, Lq) pixel
+    coordinates and aw (B, M, L*P, Lq) point weights, fp32. Returns (B, M,
+    D, Lq) in value_t's dtype, accumulated in fp32."""
     B, M, D, S = value_t.shape
-    LP, Lq = logits.shape[2], logits.shape[3]
+    LP, Lq = xs.shape[2], xs.shape[3]
     P = LP // len(spatial_shapes)
     _check_positions(S, spatial_shapes)
-    xs, ys, attn = premapped_fused_prep(off, logits, base)
     v = value_t.float()
+    xs, ys, aw = xs.float(), ys.float(), aw.float()
     out = torch.zeros((B, M, D, Lq), dtype=torch.float32, device=v.device)
     start = 0
     for lvl, (H, W) in enumerate(spatial_shapes):
@@ -76,9 +104,46 @@ def ms_deform_attn_premapped_fused_plain(
         for p in range(P):
             r = lvl * P + p
             out += (_bilinear_sample(v_l, xs[:, :, r], ys[:, :, r], H, W)
-                    * attn[:, :, r, None, :])
+                    * aw[:, :, r, None, :])
         start += H * W
     return out.to(value_t.dtype)
+
+
+def reference_layout_prep(value: torch.Tensor,
+                          spatial_shapes: Sequence[Tuple[int, int]],
+                          sampling_locations: torch.Tensor,
+                          attention_weights: torch.Tensor):
+    """The reference layouts -> the premapped ones, as ``msda_pallas.
+    _pallas_forward`` prepares them: value (B, S, M, D) -> (B, M, D, S);
+    normalized locations (B, Lq, M, L, P, 2) -> fp32 pixel coordinates xs,
+    ys (B, M, L*P, Lq) (loc * (W_l, H_l) - 0.5); weights (B, Lq, M, L, P)
+    -> fp32 aw (B, M, L*P, Lq)."""
+    B, S, M, D = value.shape
+    _, Lq, _, L, P, _ = sampling_locations.shape
+    sizes = torch.tensor([[w, h] for (h, w) in spatial_shapes], dtype=torch.float32,
+                         device=value.device)  # (L, 2) = (W_l, H_l)
+    unnorm = sampling_locations.float() * sizes[:, None, :] - 0.5
+    xs = unnorm[..., 0].permute(0, 2, 3, 4, 1).reshape(B, M, L * P, Lq)
+    ys = unnorm[..., 1].permute(0, 2, 3, 4, 1).reshape(B, M, L * P, Lq)
+    aw = attention_weights.float().permute(0, 2, 3, 4, 1).reshape(B, M, L * P, Lq)
+    return value.permute(0, 2, 3, 1), xs, ys, aw
+
+
+def ms_deform_attn_core_plain(value: torch.Tensor,
+                              spatial_shapes: Sequence[Tuple[int, int]],
+                              sampling_locations: torch.Tensor,
+                              attention_weights: torch.Tensor) -> torch.Tensor:
+    """The reference-layout function (``dinounet_tpu/ops/msda.py::
+    ms_deform_attn_core``): value (B, S, M, D), sampling_locations
+    (B, Lq, M, L, P, 2) normalized (x, y) in [0, 1], attention_weights
+    (B, Lq, M, L, P) softmaxed over L*P -> (B, Lq, M*D) in value's dtype,
+    accumulated in fp32."""
+    B, S, M, D = value.shape
+    Lq = sampling_locations.shape[1]
+    v_t, xs, ys, aw = reference_layout_prep(value, spatial_shapes,
+                                            sampling_locations, attention_weights)
+    out = ms_deform_attn_premapped_plain(v_t, spatial_shapes, xs, ys, aw)
+    return out.permute(0, 3, 1, 2).reshape(B, Lq, M * D)
 
 
 def _check_positions(S: int, spatial_shapes: Sequence[Tuple[int, int]]) -> None:

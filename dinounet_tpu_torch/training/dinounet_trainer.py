@@ -11,10 +11,13 @@ The published DINOv3 ``.pth`` backbones load in a later slice; until then a
 trainer whose checkpoint file is missing goes on with a randomly initialised
 frozen backbone and says so in its log, as the JAX trainer does, and one
 whose file is present raises rather than train from the wrong weights.
-``DinoUNetTrainer_7b`` raises: the 7B serves (its SwiGLU backbone and the
-row-major attention kernel are ported), but its adapter's deformable
-attention has 128 channels a head, wider than the MSDA backward kernel
-takes (``ops/msda_kernel.py``).
+``DinoUNetTrainer_7b`` raises. Its kernels are all ported (the MSDA
+backward takes the adapter's 128 channels a head), but the trainer builds
+its network on the host in fp32 and moves it whole to the device: 27 GB of
+host memory for the 6.7e9 backbone parameters, and the frozen backbone held
+in fp32 on the card. Training the 7B waits for a trainer that builds the
+network on the card with the frozen backbone's matrices held in bf16, as
+``DinoUNet.random_on`` and ``DinoViT.hold_weights_`` do for serving.
 """
 
 import os
@@ -85,7 +88,8 @@ class DinoUNetTrainer_7b(DinoUNetTrainer):
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            "DinoUNetTrainer_7b waits for the MSDA backward at 128 channels a "
-            "head (the 7B adapter's), a later slice of the port; dinounet_7b "
-            "serves through nnUNetPredictor")
+            "DinoUNetTrainer_7b waits for a trainer that builds dinounet_7b on "
+            "the device with its frozen backbone held in bf16: this one builds "
+            "the network on the host in fp32 (27 GB for the backbone) and moves "
+            "it whole; dinounet_7b serves through nnUNetPredictor")
 

@@ -17,8 +17,10 @@ from dinounet_tpu_torch.ops.decoder_tail import (conv3x3_cm, conv3x3_cm_plain,
                                                  transpconv2x2_cm,
                                                  transpconv2x2_cm_plain)
 from dinounet_tpu_torch.ops.attention import (fused_rope_attention,
+                                              fused_rope_attention_premapped,
                                               fused_rope_attention_premapped_dmaj,
                                               rope_attention_dmaj_plain,
+                                              rope_attention_ndh_plain,
                                               rope_attention_plain, rope_tables,
                                               rope_tables_dmaj)
 from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
@@ -28,11 +30,17 @@ from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
 from dinounet_tpu_torch.ops import dense_q8 as q8
 from dinounet_tpu_torch.ops.kernel_check import (KERNEL_TOLERANCES, STATS_TOLERANCE,
                                                  max_excess)
-from dinounet_tpu_torch.ops.msda import (ms_deform_attn_premapped_backward_plain,
+from dinounet_tpu_torch.ops.msda import (ms_deform_attn_core_plain,
+                                         ms_deform_attn_premapped_backward_plain,
+                                         ms_deform_attn_premapped_fused_merged_plain,
                                          ms_deform_attn_premapped_fused_plain,
+                                         ms_deform_attn_premapped_plain,
                                          premapped_fused_prep)
-from dinounet_tpu_torch.ops.msda_kernel import (ms_deform_attn_premapped_backward,
-                                                ms_deform_attn_premapped_fused)
+from dinounet_tpu_torch.ops.msda_kernel import (ms_deform_attn,
+                                                ms_deform_attn_premapped,
+                                                ms_deform_attn_premapped_backward,
+                                                ms_deform_attn_premapped_fused,
+                                                ms_deform_attn_premapped_fused_merged)
 
 pytestmark = pytest.mark.cuda
 
@@ -51,11 +59,15 @@ def _randn(gen, shape, dev, scale=1.0):
 
 
 # D above 64 splits into 32-channel slices: a ragged last slice (80), and
-# dinounet_7b's adapter heads (128)
-@pytest.mark.parametrize("B,M,D,H,W,P,Lq", [(2, 3, 8, 5, 7, 4, 37),
-                                            (1, 16, 24, 32, 32, 4, 5376),
-                                            (2, 3, 80, 6, 9, 4, 300),
-                                            (1, 16, 128, 32, 32, 4, 5376)])
+# dinounet_7b's adapter heads (128); maps over the shared memory a block
+# has (a 1024^2 patch, S = 4096) go through the global-gather instances
+MSDA_FWD_SHAPES = [(2, 3, 8, 5, 7, 4, 37), (1, 16, 24, 32, 32, 4, 5376),
+                   (2, 3, 80, 6, 9, 4, 300), (1, 16, 128, 32, 32, 4, 5376),
+                   (1, 4, 32, 64, 64, 4, 700), (1, 2, 128, 64, 64, 4, 300),
+                   (1, 2, 24, 64, 64, 4, 300)]
+
+
+@pytest.mark.parametrize("B,M,D,H,W,P,Lq", MSDA_FWD_SHAPES)
 def test_msda_kernel_matches_plain(dev, B, M, D, H, W, P, Lq):
     g = torch.Generator().manual_seed(0)
     bf = torch.bfloat16
@@ -79,15 +91,77 @@ def _msda_case(seed, B, M, D, H, W, P, Lq, dev):
     return v, off, logits, base
 
 
+@pytest.mark.parametrize("B,M,D,H,W,P,Lq", MSDA_FWD_SHAPES)
+def test_msda_merged_kernel_matches_plain(dev, B, M, D, H, W, P, Lq):
+    v, off, logits, base = _msda_case(19, B, M, D, H, W, P, Lq, dev)
+    packed = torch.cat([off, logits], dim=2)
+    got = ms_deform_attn_premapped_fused_merged(v, ((H, W),), packed, base)
+    want = ms_deform_attn_premapped_fused_merged_plain(v, ((H, W),), packed, base)
+    torch.cuda.synchronize()
+    assert max_excess(got, want, KERNEL_TOLERANCES["msda_fwd_merged"]) <= 0
+
+
+def _prepped_case(seed, B, M, D, shapes, P, Lq, dev, dtype=torch.bfloat16):
+    """A value map over `shapes` and fp32 pixel coordinates reaching past
+    every edge of their level, softmaxed weights."""
+    g = torch.Generator().manual_seed(seed)
+    S, L = sum(h * w for h, w in shapes), len(shapes)
+    v = _randn(g, (B, M, D, S), dev).to(dtype)
+    xs, ys = torch.empty((B, M, L * P, Lq)), torch.empty((B, M, L * P, Lq))
+    for lvl, (h, w) in enumerate(shapes):
+        rows = slice(lvl * P, (lvl + 1) * P)
+        xs[:, :, rows] = torch.rand((B, M, P, Lq), generator=g) * (w + 4) - 2.5
+        ys[:, :, rows] = torch.rand((B, M, P, Lq), generator=g) * (h + 4) - 2.5
+    aw = torch.softmax(torch.randn((B, M, L * P, Lq), generator=g), dim=2)
+    return v, xs.to(dev), ys.to(dev), aw.to(dev)
+
+
+# one and two levels, ragged Lq, bf16 and fp32 maps, a map over the shared
+# memory a block has, heads over 64 channels
+PREPPED_SHAPES = [(2, 3, 8, ((5, 7),), 4, 37), (1, 16, 24, ((32, 32),), 4, 5376),
+                  (2, 3, 16, ((8, 16), (4, 8)), 2, 333), (1, 4, 32, ((64, 64),), 4, 700),
+                  (1, 2, 96, ((12, 12), (6, 6)), 3, 130)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,M,D,shapes,P,Lq", PREPPED_SHAPES)
+def test_msda_premapped_kernel_matches_plain(dev, dtype, B, M, D, shapes, P, Lq):
+    v, xs, ys, aw = _prepped_case(20, B, M, D, shapes, P, Lq, dev, dtype)
+    got = ms_deform_attn_premapped(v, shapes, xs, ys, aw)
+    want = ms_deform_attn_premapped_plain(v, shapes, xs, ys, aw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    tol = KERNEL_TOLERANCES["msda_fwd_premapped"] if dtype == torch.bfloat16 else (1e-5, 1e-5)
+    assert max_excess(got, want, tol) <= 0
+
+
 @pytest.mark.parametrize("B,M,D,H,W,P,Lq", [(2, 3, 8, 5, 7, 4, 37),
                                             (1, 2, 33, 6, 6, 3, 700),
-                                            (2, 16, 24, 32, 32, 4, 5376)])
+                                            (2, 16, 24, 32, 32, 4, 5376),
+                                            (2, 16, 32, 32, 32, 4, 5376),   # dinounet_l
+                                            (1, 4, 128, 32, 32, 4, 700),    # the 7B
+                                            (1, 2, 24, 64, 64, 4, 500),     # S = 4096
+                                            (1, 2, 100, 7, 9, 2, 65)])
 def test_msda_backward_kernel_matches_plain(dev, B, M, D, H, W, P, Lq):
     v, off, logits, base = _msda_case(3, B, M, D, H, W, P, Lq, dev)
     xs, ys, aw = (t.contiguous() for t in premapped_fused_prep(off, logits, base))
     cot = torch.randn((B, M, D, Lq), generator=torch.Generator().manual_seed(4)).to(dev)
     got = ms_deform_attn_premapped_backward(v, ((H, W),), xs, ys, aw, cot)
     want = ms_deform_attn_premapped_backward_plain(v, ((H, W),), xs, ys, aw, cot)
+    torch.cuda.synchronize()
+    for gt, wt in zip(got, want):
+        assert max_excess(gt, wt, KERNEL_TOLERANCES["msda_bwd"]) <= 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,M,D,shapes,P,Lq", PREPPED_SHAPES)
+def test_msda_backward_kernel_levels_match_plain(dev, dtype, B, M, D, shapes, P, Lq):
+    """The backward over several levels and an fp32 map (the reference-layout
+    entry's), prepped coordinates past every edge."""
+    v, xs, ys, aw = _prepped_case(21, B, M, D, shapes, P, Lq, dev, dtype)
+    cot = torch.randn((B, M, D, Lq), generator=torch.Generator().manual_seed(22)).to(dev)
+    got = ms_deform_attn_premapped_backward(v, shapes, xs, ys, aw, cot)
+    want = ms_deform_attn_premapped_backward_plain(v, shapes, xs, ys, aw, cot)
     torch.cuda.synchronize()
     for gt, wt in zip(got, want):
         assert max_excess(gt, wt, KERNEL_TOLERANCES["msda_bwd"]) <= 0
@@ -117,6 +191,46 @@ def test_msda_wrapper_grads_match_plain(dev):
     for gt, wt in zip(got, want):
         # both round the bf16 gradients from fp32 sums taken in another order
         assert max_excess(gt, wt, (2e-2, 2e-2)) <= 0
+
+
+def test_msda_merged_and_premapped_wrapper_grads_match_plain(dev):
+    """The merged, premapped and reference-layout wrappers keep their
+    grad_fn on the card; their gradients (the backward kernel) match
+    autograd of the plain forwards."""
+    v, off, logits, base = _msda_case(23, 2, 4, 24, 12, 12, 4, 333, dev)
+    packed = torch.cat([off, logits], dim=2)
+    leaves = [t.clone().requires_grad_(True) for t in (v, packed)]
+    out = ms_deform_attn_premapped_fused_merged(leaves[0], ((12, 12),), leaves[1], base)
+    assert out.grad_fn is not None
+    ref = [t.clone().requires_grad_(True) for t in (v, packed)]
+    want = _grads(ms_deform_attn_premapped_fused_merged_plain(ref[0], ((12, 12),), ref[1],
+                                                              base), ref)
+    for gt, wt in zip(_grads(out, leaves), want):
+        assert max_excess(gt, wt, (2e-2, 2e-2)) <= 0
+
+    shapes = ((8, 16), (4, 8))
+    v, xs, ys, aw = _prepped_case(24, 2, 3, 16, shapes, 2, 100, dev, torch.float32)
+    leaves = [t.clone().requires_grad_(True) for t in (v, xs, ys, aw)]
+    ref = [t.clone().requires_grad_(True) for t in (v, xs, ys, aw)]
+    got = _grads(ms_deform_attn_premapped(leaves[0], shapes, *leaves[1:]), leaves)
+    want = _grads(ms_deform_attn_premapped_plain(ref[0], shapes, *ref[1:]), ref)
+    for gt, wt in zip(got, want):
+        # fp32 throughout: the sums differ in order (and gv by the atomics)
+        assert max_excess(gt, wt, (1e-3, 1e-3)) <= 0
+
+    # the reference layouts: value (B, S, M, D), normalized locations
+    B, Lq, M, D, P = 2, 100, 3, 16, 2
+    g = torch.Generator().manual_seed(25)
+    value = _randn(g, (B, 160, M, D), dev)
+    loc = (torch.rand((B, Lq, M, 2, P, 2), generator=g) * 1.2 - 0.1).to(dev)
+    attn = torch.softmax(torch.randn((B, Lq, M, 2 * P), generator=g), -1).view(
+        B, Lq, M, 2, P).to(dev)
+    leaves = [t.clone().requires_grad_(True) for t in (value, loc, attn)]
+    ref = [t.clone().requires_grad_(True) for t in (value, loc, attn)]
+    got = _grads(ms_deform_attn(leaves[0], shapes, *leaves[1:]), leaves)
+    want = _grads(ms_deform_attn_core_plain(ref[0], shapes, *ref[1:]), ref)
+    for gt, wt in zip(got, want):
+        assert max_excess(gt, wt, (1e-3, 1e-3)) <= 0
 
 
 def test_attention_and_dense_wrapper_grads_match_plain(dev):
@@ -167,6 +281,21 @@ def test_attention_kernel_matches_plain(dev, B, M, Dh, N):
     assert max_excess(got, want, KERNEL_TOLERANCES["rope_attention"]) <= 0
 
 
+@pytest.mark.parametrize("B,M,N,Dh", [(2, 2, 37, 64), (1, 3, 130, 128),
+                                      (1, 12, 1029, 64)])
+def test_ndh_attention_kernel_matches_plain(dev, B, M, N, Dh):
+    g = torch.Generator().manual_seed(26)
+    qkv = _randn(g, (B, 3, M, N, Dh), dev).to(torch.bfloat16)
+    ang = torch.rand((N, Dh), generator=g) * 6.0
+    sin, cos = torch.sin(ang).to(dev), torch.cos(ang).to(dev)
+    for tables in ((sin, cos), (None, None)):  # with RoPE and without
+        got = fused_rope_attention_premapped(qkv, *tables)
+        want = rope_attention_ndh_plain(qkv, *rope_tables(*tables, N, Dh, dev))
+        torch.cuda.synchronize()
+        assert got.shape == (B, M, Dh, N)
+        assert max_excess(got, want, KERNEL_TOLERANCES["rope_attention_ndh"]) <= 0
+
+
 @pytest.mark.parametrize("B,N,M,Dh", [(2, 37, 2, 128), (1, 130, 3, 64),
                                       (1, 1029, 4, 128)])
 def test_rowmajor_attention_kernel_matches_plain(dev, B, N, M, Dh):
@@ -200,14 +329,19 @@ def test_rowmajor_attention_wrapper_grads_match_plain(dev):
 
 
 def test_quant_dense_int_mm_equals_the_exact_product(dev):
-    """QuantDense's int8 product on the card (torch._int_mm) equals the
-    CPU's exact float64 one: the same bf16 output bit for bit."""
+    """QuantDense's and the ndh qkv's int8 product on the card
+    (torch._int_mm) equals the CPU's exact float64 one: the same bf16 output
+    bit for bit."""
     g = torch.Generator().manual_seed(18)
     x = _randn(g, (2, 37, 256), dev).to(torch.bfloat16)
     w, b = _randn(g, (96, 256), dev, 256 ** -0.5), _randn(g, (96,), dev, 0.1)
     got = q8.quant_dense(x, w, b, torch.bfloat16)
     want = q8.quant_dense(x.cpu(), w.cpu(), b.cpu(), torch.bfloat16)
     assert torch.equal(got.cpu(), want)
+    w3, b3 = _randn(g, (256, 768), dev, 256 ** -0.5), _randn(g, (768,), dev, 0.1)
+    got = q8.qkv_q8_premapped(x, w3, b3, 4, 64)
+    want = q8.qkv_q8_premapped(x.cpu(), w3.cpu(), b3.cpu(), 4, 64)
+    assert got.shape == (2, 3, 4, 37, 64) and torch.equal(got.cpu(), want)
 
 
 # the channel-major op has no GELU prologue
@@ -410,9 +544,14 @@ def test_launches_are_counted(dev):
     qkv = torch.zeros((1, 3, 1, 64, 8), dtype=torch.bfloat16, device=dev)
     fused_rope_attention_premapped_dmaj(qkv, None, None)
     fused_rope_attention(qkv.permute(0, 4, 1, 2, 3).contiguous(), None, None)
+    fused_rope_attention_premapped(qkv.transpose(3, 4).contiguous(), None, None)
     v, off, logits, base = _msda_case(8, 1, 1, 8, 4, 4, 2, 9, dev)
     v.requires_grad_(True)
     ms_deform_attn_premapped_fused(v, ((4, 4),), off, logits, base).sum().backward()
+    ms_deform_attn_premapped_fused_merged(v.detach(), ((4, 4),),
+                                          torch.cat([off, logits], 2), base)
+    xs, ys, aw = (t.contiguous() for t in premapped_fused_prep(off, logits, base))
+    ms_deform_attn_premapped(v.detach(), ((4, 4),), xs, ys, aw)
     x = torch.zeros((8, 16, 4, 128), dtype=torch.bfloat16, device=dev)
     w, b = torch.zeros((16, 16, 3, 3), device=dev), torch.zeros(16, device=dev)
     p = (torch.ones((8, 16), device=dev), torch.zeros((8, 16), device=dev))
@@ -430,7 +569,9 @@ def test_launches_are_counted(dev):
     torch.cuda.synchronize()
     counts = _build.launch_counts()
     assert counts["rope_attention"] == 1 and counts["rope_attention_rm"] == 1
+    assert counts["rope_attention_ndh"] == 1
     assert counts["msda_fwd"] == 1 and counts["msda_bwd"] == 1
+    assert counts["msda_fwd_merged"] == 1 and counts["msda_fwd_premapped"] == 1
     assert all(counts[k] == 1 for k in ("conv3x3_cm", "conv3x3_hwbc",
                                         "transpconv2x2_cm", "seg_head_cm", "qkv_q8_dmaj",
                                         "dense_q8", "dense_q8_stats", "dense_cm_q8_stats"))
