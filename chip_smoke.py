@@ -15,8 +15,11 @@ not 0:
               one at Dh = 128, the MSDA forward at 128 channels a head, the
               two extractor junctions at D = 4096); the MSDA backward also
               at dinounet_l's and the 7B's train shapes and at a 1024^2
-              patch, the MSDA forward at D = 32 on a 1024^2 patch; each
-              within its stated tolerance; kernel, plain and library times
+              patch, the MSDA forward at D = 32 on a 1024^2 patch, the
+              Dh-major and row-major attention on a 1024^2 patch's 4101
+              tokens (each attention case also prints its TFLOP/s and
+              SDPA's); each within its stated tolerance; kernel, plain and
+              library times
               (CUDA events, median of 20) and the bound (the larger of the
               bytes each call must move over 3.35 TB/s and its operations
               over the peak rate of their type: bf16 or int8 tensor cores,
@@ -448,21 +451,38 @@ def phase_kernels(dev) -> dict:
         return torch.randn(shape, generator=g, device=dev) * scale
 
     results = {}
-    # attention: ViT-B, 12 heads of 64 over 5 + 32 * 32 tokens; then the same
-    # Dh-major kernel at Dh = 128 (the flash loop it shares with the
-    # row-major one); library: scaled_dot_product_attention on the rotated
-    # q, k and v
-    N = 1029
+    # attention: ViT-B, 12 heads of 64 over 5 + 32 * 32 tokens (a 512^2
+    # tile); the same Dh-major kernel at Dh = 128 (the flash loop it shares
+    # with the row-major one); both layouts again on a 1024^2 patch's
+    # 5 + 64 * 64 tokens. Library: scaled_dot_product_attention on the
+    # rotated q, k and v. Each case also prints its rate: 4 B M N^2 Dh FLOP
+    # over the kernel's time, and over SDPA's
 
-    def vit_tables(Dh):
-        """A 32 x 32 patch grid's RoPE tables with the 5 prefix rows."""
-        sin, cos = rope_sincos(32, 32, Dh, device=dev)
+    def vit_tables(Dh, side):
+        """A side x side patch grid's RoPE tables with the 5 prefix rows."""
+        sin, cos = rope_sincos(side, side, Dh, device=dev)
         return (torch.cat([torch.zeros((5, Dh), device=dev), sin]),
                 torch.cat([torch.ones((5, Dh), device=dev), cos]))
 
-    for Bq, M, Dh in ((B, 12, 64), (2, 32, 128)):
+    def log_rate(name, N, flops, r, kernel_fn):
+        """The case's rates, and its device time split by the profiler into
+        the RoPE pre-pass and the flash loop (the loop's own rate beside)."""
+        prep = loop = 0.0
+        for kernel, ms in device_times(kernel_fn).items():
+            if "rope_prep" in kernel:
+                prep += ms
+            elif "rope_attention_kernel" in kernel:
+                loop += ms
+        log(f"[kernels] {name} N={N}: {flops / r['ms'] / 1e9:.1f} TFLOP/s "
+            f"({r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms = "
+            f"{BF16_FLOP_S / 1e12:.0f} TFLOP/s; SDPA {r['library_ms']:.4f} ms = "
+            f"{flops / r['library_ms'] / 1e9:.1f} TFLOP/s); device time: pre-pass "
+            f"{prep:.4f} ms, loop {loop:.4f} ms = {flops / max(loop, 1e-9) / 1e9:.1f} TFLOP/s")
+
+    for Bq, M, Dh, side in ((B, 12, 64, 32), (2, 32, 128, 32), (2, 12, 64, 64)):
+        N = 5 + side * side
         qkv = randn(Bq, 3, M, Dh, N).to(bf)
-        sin, cos = vit_tables(Dh)
+        sin, cos = vit_tables(Dh, side)
         tables = rope_tables_dmaj(sin, cos, N, Dh, dev)
 
         def rotated(x):
@@ -472,42 +492,56 @@ def phase_kernels(dev) -> dict:
 
         q, k = rotated(qkv[:, 0]), rotated(qkv[:, 1])
         v = qkv[:, 2].transpose(-1, -2).contiguous()
+        flops = 4.0 * Bq * M * N * N * Dh
         r = _compare(
             "rope_attention", f"qkv {tuple(qkv.shape)}",
             lambda: fused_rope_attention_premapped_dmaj(qkv, sin, cos),
             lambda: rope_attention_dmaj_plain(qkv, *tables),
-            (qkv, sin, cos), 4.0 * Bq * M * N * N * Dh, BF16_FLOP_S,
+            (qkv, sin, cos), flops, BF16_FLOP_S,
             lambda: F.scaled_dot_product_attention(q, k, v))
+        log_rate("rope_attention", N, flops, r,
+                 lambda: fused_rope_attention_premapped_dmaj(qkv, sin, cos))
         results.setdefault("rope_attention", r)
-        if Dh == 64:  # the same qkv in the (B, 3, M, N, Dh) layout
+        if Bq == B:  # the same qkv in the (B, 3, M, N, Dh) layout
             qkv_ndh = qkv.transpose(-1, -2).contiguous()
             tables_ndh = rope_tables(sin, cos, N, Dh, dev)
             results["rope_attention_ndh"] = _compare(
                 "rope_attention_ndh", f"qkv {tuple(qkv_ndh.shape)}",
                 lambda: fused_rope_attention_premapped(qkv_ndh, sin, cos),
                 lambda: rope_attention_ndh_plain(qkv_ndh, *tables_ndh),
-                (qkv_ndh, sin, cos), 4.0 * Bq * M * N * N * Dh, BF16_FLOP_S,
+                (qkv_ndh, sin, cos), flops, BF16_FLOP_S,
                 lambda: F.scaled_dot_product_attention(q, k, v))
+            log_rate("rope_attention_ndh", N, flops, results["rope_attention_ndh"],
+                     lambda: fused_rope_attention_premapped(qkv_ndh, sin, cos))
+        del qkv, q, k, v
 
-    # the row-major attention of dinounet_7b's SwiGLU blocks: 32 heads of 128
+    # the row-major attention of dinounet_7b's SwiGLU blocks: 32 heads of 128,
+    # at the tile batch on a 512^2 tile and at batch 2 on a 1024^2 patch
     M, Dh = 32, 128
-    qkv = randn(B, N, 3, M, Dh).to(bf)
-    sin, cos = vit_tables(Dh)
-    sin_eff, cos_f = rope_tables(sin, cos, N, Dh, dev)
+    for Bq, side in ((B, 32), (2, 64)):
+        N = 5 + side * side
+        qkv = randn(Bq, N, 3, M, Dh).to(bf)
+        sin, cos = vit_tables(Dh, side)
+        sin_eff, cos_f = rope_tables(sin, cos, N, Dh, dev)
 
-    def rotated_rm(x):  # (B, N, M, Dh) -> rotated (B, M, N, Dh)
-        xf = x.float()
-        r = xf * cos_f[:, None] + torch.roll(xf, Dh // 2, dims=-1) * sin_eff[:, None]
-        return r.to(bf).transpose(1, 2).contiguous()
+        def rotated_rm(x):  # (B, N, M, Dh) -> rotated (B, M, N, Dh)
+            xf = x.float()
+            r = xf * cos_f[:, None] + torch.roll(xf, Dh // 2, dims=-1) * sin_eff[:, None]
+            return r.to(bf).transpose(1, 2).contiguous()
 
-    q, k = rotated_rm(qkv[:, :, 0]), rotated_rm(qkv[:, :, 1])
-    v = qkv[:, :, 2].transpose(1, 2).contiguous()
-    results["rope_attention_rm"] = _compare(
-        "rope_attention_rm", f"qkv {tuple(qkv.shape)}",
-        lambda: fused_rope_attention(qkv, sin, cos),
-        lambda: rope_attention_plain(qkv, sin_eff, cos_f),
-        (qkv, sin, cos), 4.0 * B * M * N * N * Dh, BF16_FLOP_S,
-        lambda: F.scaled_dot_product_attention(q, k, v))
+        q, k = rotated_rm(qkv[:, :, 0]), rotated_rm(qkv[:, :, 1])
+        v = qkv[:, :, 2].transpose(1, 2).contiguous()
+        flops = 4.0 * Bq * M * N * N * Dh
+        r = _compare(
+            "rope_attention_rm", f"qkv {tuple(qkv.shape)}",
+            lambda: fused_rope_attention(qkv, sin, cos),
+            lambda: rope_attention_plain(qkv, sin_eff, cos_f),
+            (qkv, sin, cos), flops, BF16_FLOP_S,
+            lambda: F.scaled_dot_product_attention(q, k, v),
+            plain_iters=20 if side == 32 else 3)
+        log_rate("rope_attention_rm", N, flops, r, lambda: fused_rope_attention(qkv, sin, cos))
+        results.setdefault("rope_attention_rm", r)
+        del qkv, q, k, v
 
     # dense + residual + stats: (K, N) of the ViT and of the adapter, D = 768;
     # library: the cuBLAS GEMM alone (a lower yardstick: no epilogue)

@@ -50,9 +50,9 @@ _SIGNATURES = {
     # value, v_scratch, xs, ys, aw, g, gv, gv_scratch, ga, gx, gy, B, M, D,
     # shapes, L, P, Lq, value_fp32, stream
     "msda_bwd": [_P] * 11 + [_I] * 3 + [_LEVELS] + [_I] * 4 + [_P],
-    # qkv, sin_eff_t, cos_t, scratch, out, B, M, Dh, N, scale, stream
+    # qkv, sin, cos ((N, Dh) fp32, or both null), scratch, out, B, M, Dh, N,
+    # scale, stream (the three layouts)
     "rope_attention_dmaj": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
-    # qkv, sin_eff, cos, scratch, out, B, M, Dh, N, scale, stream (both)
     "rope_attention_rowmajor": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
     "rope_attention_ndh": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
     # h, w, b, res, gamma, out, mu, var, B, N, K, D, channel_major, gelu, stream

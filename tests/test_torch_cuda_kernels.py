@@ -268,21 +268,29 @@ def test_attention_and_dense_wrapper_grads_match_plain(dev):
             torch.testing.assert_close(gt, wt)
 
 
-@pytest.mark.parametrize("B,M,Dh,N", [(2, 2, 64, 37), (1, 3, 128, 130),
-                                      (1, 12, 64, 1029)])
+# the attention kernel's edges: its query tile and ring stage are 128 tokens
+# (two consumer warpgroups of 64 rows), so N crosses a warpgroup, a tile
+# and a stage at 64, 128 and 129; 1029 is dinounet_b's and the 7B's N
+ATTENTION_NS = [1, 63, 64, 65, 127, 128, 129, 1029]
+
+
+@pytest.mark.parametrize("N", ATTENTION_NS)
+@pytest.mark.parametrize("B,M,Dh", [(2, 2, 64), (1, 3, 128)])
 def test_attention_kernel_matches_plain(dev, B, M, Dh, N):
     g = torch.Generator().manual_seed(1)
     qkv = _randn(g, (B, 3, M, Dh, N), dev).to(torch.bfloat16)
     ang = torch.rand((N, Dh), generator=g) * 6.0
     sin, cos = torch.sin(ang).to(dev), torch.cos(ang).to(dev)
-    got = fused_rope_attention_premapped_dmaj(qkv, sin, cos)
-    want = rope_attention_dmaj_plain(qkv, *rope_tables_dmaj(sin, cos, N, Dh, dev))
-    torch.cuda.synchronize()
-    assert max_excess(got, want, KERNEL_TOLERANCES["rope_attention"]) <= 0
+    for tables in ((sin, cos), (None, None)):  # with RoPE and without
+        got = fused_rope_attention_premapped_dmaj(qkv, *tables)
+        want = rope_attention_dmaj_plain(qkv, *rope_tables_dmaj(*tables, N, Dh, dev))
+        torch.cuda.synchronize()
+        assert got.shape == (B, M, Dh, N)
+        assert max_excess(got, want, KERNEL_TOLERANCES["rope_attention"]) <= 0
 
 
-@pytest.mark.parametrize("B,M,N,Dh", [(2, 2, 37, 64), (1, 3, 130, 128),
-                                      (1, 12, 1029, 64)])
+@pytest.mark.parametrize("N", ATTENTION_NS)
+@pytest.mark.parametrize("B,M,Dh", [(2, 2, 64), (1, 3, 128)])
 def test_ndh_attention_kernel_matches_plain(dev, B, M, N, Dh):
     g = torch.Generator().manual_seed(26)
     qkv = _randn(g, (B, 3, M, N, Dh), dev).to(torch.bfloat16)
@@ -296,8 +304,8 @@ def test_ndh_attention_kernel_matches_plain(dev, B, M, N, Dh):
         assert max_excess(got, want, KERNEL_TOLERANCES["rope_attention_ndh"]) <= 0
 
 
-@pytest.mark.parametrize("B,N,M,Dh", [(2, 37, 2, 128), (1, 130, 3, 64),
-                                      (1, 1029, 4, 128)])
+@pytest.mark.parametrize("N", ATTENTION_NS)
+@pytest.mark.parametrize("B,M,Dh", [(2, 2, 128), (1, 3, 64)])
 def test_rowmajor_attention_kernel_matches_plain(dev, B, N, M, Dh):
     g = torch.Generator().manual_seed(16)
     qkv = _randn(g, (B, N, 3, M, Dh), dev).to(torch.bfloat16)
