@@ -543,54 +543,62 @@ def phase_kernels(dev) -> dict:
         results.setdefault("rope_attention_rm", r)
         del qkv, q, k, v
 
-    # dense + residual + stats: (K, N) of the ViT and of the adapter, D = 768;
-    # library: the cuBLAS GEMM alone (a lower yardstick: no epilogue)
-    D = 768
-    for K, N, where in ((768, 1029, "vit proj"), (384, 5376, "msda output proj")):
-        h = randn(B, K, N).to(bf)
-        w, b = randn(K, D, scale=K ** -0.5), randn(D, scale=0.1)
+    # dense + residual + stats: (K, N) of the ViT and of the adapter, D = 768,
+    # then dinounet_7b's extractor junctions, D = 4096: the MSDA output
+    # projection (K = 2048, channel-major) and the ConvFFN fc2 (K = 1024,
+    # GELU). The weight is an fp32 Linear's (D, K) storage passed as its
+    # transpose, as the models pass it. Library: the cuBLAS GEMM alone (a
+    # lower yardstick: no epilogue). Each case also prints its rates and its
+    # device time split by the profiler
+
+    def log_dense(name, desc, r, kernel_fn, flops, nbytes):
+        """TFLOP/s and GB/s by event time against the bound, and the device
+        time split into the GEMM, the GELU pre-pass, a statistics pass and the
+        wrapper's PyTorch ops (the weight's cast to bf16)."""
+        parts = {"gemm": 0.0, "gelu pre-pass": 0.0, "statistics pass": 0.0,
+                 "weight cast": 0.0}
+        for kernel, ms in device_times(kernel_fn).items():
+            part = ("gelu pre-pass" if "gelu_prepass" in kernel
+                    else "statistics pass" if "row_stats" in kernel
+                    else "gemm" if "dense_" in kernel else "weight cast")
+            parts[part] += ms
+        busy = sum(parts.values())
+        log(f"[kernels] {name} {desc}: {flops / r['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{nbytes / r['ms'] / 1e6:.1f} GB/s by event time ({r['ms']:.4f} ms; bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f} % "
+            f"of it; cuBLAS GEMM alone {r['library_ms']:.4f} ms); device time "
+            f"{busy:.4f} ms (" + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+            + f") = {flops / busy / 1e9:.1f} TFLOP/s, {nbytes / busy / 1e6:.1f} GB/s")
+
+    D7 = 4096
+    for K, N, D, cm, where in ((768, 1029, 768, True, "vit proj"),
+                               (384, 5376, 768, True, "msda output proj"),
+                               (3072, 1029, 768, False, "vit fc2 +GELU"),
+                               (192, 5376, 768, False, "convffn fc2 +GELU"),
+                               (2048, 5376, 4096, True, "7B msda output proj"),
+                               (1024, 5376, 4096, False, "7B convffn fc2 +GELU")):
+        h = randn(B, K, N).to(bf) if cm else randn(B, N, K).to(bf)
+        w, b = randn(D, K, scale=K ** -0.5).t(), randn(D, scale=0.1)
         res, gamma = randn(B, N, D).to(bf), randn(D, scale=0.5)
-        wb, ht = w.to(bf), h.transpose(1, 2)
-        r = _compare("dense_cm_stats", f"{where} K={K} N={N}",
-                     lambda: dense_cm_residual_stats(h, w, b, res, gamma),
-                     lambda: dense_cm_residual_stats_plain(h, w, b, res, gamma),
-                     (h, w, b, res, gamma), 2.0 * B * N * K * D, BF16_FLOP_S,
-                     lambda: torch.matmul(ht, wb))
-        results.setdefault("dense_cm_stats", r)
-    for K, N, where in ((3072, 1029, "vit fc2"), (192, 5376, "convffn fc2")):
-        h = randn(B, N, K).to(bf)
-        w, b = randn(K, D, scale=K ** -0.5), randn(D, scale=0.1)
-        res, gamma = randn(B, N, D).to(bf), randn(D, scale=0.5)
-        wb = w.to(bf)
-        r = _compare("dense_rm_stats", f"{where} +GELU K={K} N={N}",
-                     lambda: dense_residual_stats(h, w, b, res, gamma, apply_gelu=True),
-                     lambda: dense_residual_stats_plain(h, w, b, res, gamma, True),
-                     (h, w, b, res, gamma), 2.0 * B * N * K * D, BF16_FLOP_S,
-                     lambda: torch.matmul(h, wb))
-        results.setdefault("dense_rm_stats", r)
-    # dinounet_7b's extractor junctions, D = 4096: the MSDA output projection
-    # (K = 2048, channel-major) and the ConvFFN fc2 (K = 1024, GELU)
-    D7, N7 = 4096, 5376
-    for K, cm in ((2048, True), (1024, False)):
-        h = randn(B, K, N7).to(bf) if cm else randn(B, N7, K).to(bf)
-        w, b = randn(K, D7, scale=K ** -0.5), randn(D7, scale=0.1)
-        res, gamma = randn(B, N7, D7).to(bf), randn(D7, scale=0.5)
-        wb = w.to(bf)
+        wb, hl = w.to(bf), (h.transpose(1, 2) if cm else h)
         name = "dense_cm_stats" if cm else "dense_rm_stats"
-        tols = [JUNCTION_7B_TOL] + [KERNEL_TOLERANCES[name]] * 2
         if cm:
-            ht = h.transpose(1, 2)
-            _compare(name, f"7B msda output proj K={K} N={N7} D={D7}",
-                     lambda: dense_cm_residual_stats(h, w, b, res, gamma),
-                     lambda: dense_cm_residual_stats_plain(h, w, b, res, gamma),
-                     (h, w, b, res, gamma), 2.0 * B * N7 * K * D7, BF16_FLOP_S,
-                     lambda: torch.matmul(ht, wb), tols)
+            kernel_fn = lambda: dense_cm_residual_stats(h, w, b, res, gamma)
+            plain_fn = lambda: dense_cm_residual_stats_plain(h, w, b, res, gamma)
         else:
-            _compare(name, f"7B convffn fc2 +GELU K={K} N={N7} D={D7}",
-                     lambda: dense_residual_stats(h, w, b, res, gamma, apply_gelu=True),
-                     lambda: dense_residual_stats_plain(h, w, b, res, gamma, True),
-                     (h, w, b, res, gamma), 2.0 * B * N7 * K * D7, BF16_FLOP_S,
-                     lambda: torch.matmul(h, wb), tols)
+            kernel_fn = lambda: dense_residual_stats(h, w, b, res, gamma, apply_gelu=True)
+            plain_fn = lambda: dense_residual_stats_plain(h, w, b, res, gamma, True)
+        # the 7B junctions' outputs within JUNCTION_7B_TOL, the statistics
+        # within the kernel's own
+        tols = [JUNCTION_7B_TOL] + [KERNEL_TOLERANCES[name]] * 2 if D == D7 else None
+        flops = 2.0 * B * N * K * D
+        desc = f"{where} K={K} N={N} D={D}"
+        r = _compare(name, desc, kernel_fn, plain_fn, (h, w, b, res, gamma), flops,
+                     BF16_FLOP_S, lambda: torch.matmul(hl, wb), tols)
+        log_dense(name, desc, r, kernel_fn, flops,
+                  _nbytes(h, w, b, res, gamma) + B * N * (2 * D + 8))
+        if D != D7:
+            results.setdefault(name, r)
         del h, w, res
 
     # MSDA: 16 heads over the 32 x 32 ViT grid, 5376 queries around the
@@ -1023,7 +1031,7 @@ def build_model_7b(dev) -> DinoUNet:
 # are named nvjet_*)
 FAMILIES = (("port attention", ("rope_attention", "rope_prep")),
             ("port MSDA", ("msda_fwd",)),
-            ("port dense + stats", ("dense_residual", "row_stats")),
+            ("port dense + stats", ("dense_stats_kernel", "gelu_prepass")),
             ("cuDNN conv", ("fprop", "cudnn", "conv2d", "convolve", "xmma")),
             ("cuBLAS GEMM", ("nvjet", "gemm", "cutlass")),
             ("elementwise + reductions", ("elementwise", "reduce", "Reduce")),

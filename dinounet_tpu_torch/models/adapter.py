@@ -92,6 +92,8 @@ class MSDeformAttn(nn.Module):
         self.attention_weights = Linear(d_model, n_heads * n_levels * n_points,
                                         dtype=dtype)
         self.output_proj = Linear(self.d_value, d_model, dtype=dtype)
+        # the residual junction's LayerScale: none, ones for the fused op
+        self.register_buffer("ones", torch.ones(d_model), persistent=False)
 
     def init_params(self, gen):
         # runs after the Linears' own init (module order): zero kernels, grid bias
@@ -164,11 +166,9 @@ class MSDeformAttn(nn.Module):
         B, M, D, Lq = out_t.shape
         if residual is None:
             return self.output_proj(out_t.reshape(B, M * D, Lq).transpose(1, 2))
-        C = query.shape[2]
-        ones = torch.ones(C, dtype=torch.float32, device=query.device)
         dense = dense_cm_q8_residual_stats if adapter_int8() else dense_cm_residual_stats
         return dense(out_t.reshape(B, M * D, Lq), self.output_proj.weight.t(),
-                     self.output_proj.bias, residual, ones)
+                     self.output_proj.bias, residual, self.ones)
 
 
 class DWConvMS(nn.Module):
@@ -203,17 +203,18 @@ class ConvFFN(nn.Module):
         self.fc1 = Linear(dim, hidden, dtype=dtype)
         self.dwconv = DWConvMS(hidden, dtype)
         self.fc2 = Linear(hidden, dim, dtype=dtype)
+        # the residual junction's LayerScale: none, ones for the fused op
+        self.register_buffer("ones", torch.ones(dim), persistent=False)
 
     def forward(self, x, H: int, W: int, residual=None):
         h = self.dwconv(self.fc1(x), H, W)
         if residual is None:
             return self.fc2(F.gelu(h))
-        ones = torch.ones(residual.shape[-1], dtype=torch.float32, device=x.device)
         if adapter_int8():
             return dense_q8_residual_stats(h, self.fc2.weight.t(), self.fc2.bias,
-                                           residual, ones, prologue="gelu")
+                                           residual, self.ones, prologue="gelu")
         return dense_residual_stats(h, self.fc2.weight.t(), self.fc2.bias,
-                                    residual, ones, apply_gelu=True)
+                                    residual, self.ones, apply_gelu=True)
 
 
 def drop_path_keep(batch: int, rate: float,

@@ -32,7 +32,7 @@ BUILD_ROOT = _PKG.parent / "build" / "dinounet_tpu_torch"
 SOURCES = ("msda_fwd.cu", "msda_fwd_premapped.cu", "msda_bwd.cu", "rope_attention.cu",
            "dense_stats.cu", "conv3x3_stats.cu", "transpconv2x2.cu", "seg_head.cu",
            "dense_q8.cu", "qkv_q8_dmaj.cu")
-HEADERS = ("int8_gemm.cuh", "msda_common.cuh", "msda_fwd.cuh")
+HEADERS = ("hopper_common.cuh", "int8_gemm.cuh", "msda_common.cuh", "msda_fwd.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -55,8 +55,9 @@ _SIGNATURES = {
     "rope_attention_dmaj": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
     "rope_attention_rowmajor": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
     "rope_attention_ndh": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
-    # h, w, b, res, gamma, out, mu, var, B, N, K, D, channel_major, gelu, stream
-    "dense_residual_stats": [_P] * 8 + [_I] * 6 + [_P],
+    # h, wt (D, K), b, res, gamma, out, mu, var, scratch (gelu(h) or null), B, N,
+    # K, D, channel_major, gelu, stream
+    "dense_residual_stats": [_P] * 9 + [_I] * 6 + [_P],
     # x, x2, c1, c2, x strides (b, c, h, w), x2 strides, w, bias, s, t, slope,
     # y, y strides, sum, ssq, B, H, W, Cout, stream
     "conv3x3_stats": [_P] * 2 + [_I] * 10 + [_P] * 4 + [_F, _P] + [_I] * 4

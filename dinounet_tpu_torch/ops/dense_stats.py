@@ -10,8 +10,11 @@ exact-erf GELU on h; ``dense_cm_residual_stats`` takes it channel-major
 (B, K, N). w is (K, D) as in the JAX package, b and gamma (D,). For CUDA
 tensors both launch ``csrc/dense_stats.cu`` (which replaces the TPU kernels
 ``_kernel`` and ``_cm_kernel``; its header says what bounds it and how it is
-built); for CPU tensors they run the plain versions below, which round where
-the JAX package's ``_reference`` / ``_cm_reference`` round. Both are
+built), which reads the weight as ``nn.Linear`` stores it, (D, K): the
+models pass ``Linear.weight.t()``, whose transpose is that storage, so a
+bf16 weight reaches the kernel without a copy; for CPU tensors they run
+the plain versions below, which round where the JAX package's
+``_reference`` / ``_cm_reference`` round. Both are
 differentiable on every device: the backward differentiates the plain
 version (see ``_DenseStats``). ``row_stats`` (the entry statistics of the
 chain) stays plain PyTorch on every device.
@@ -54,6 +57,11 @@ def dense_cm_residual_stats_plain(h_t, w, b, res, gamma) -> Stats:
     return _epilogue(acc, b, res, gamma, h_t.dtype)
 
 
+def _as(t: torch.Tensor, dtype) -> torch.Tensor:
+    """t itself where it is already contiguous and of `dtype`, else a copy."""
+    return t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous()
+
+
 def _launch(h, w, b, res, gamma, channel_major: bool, gelu: bool, op: str) -> Stats:
     if channel_major:
         B, K, N = h.shape
@@ -62,18 +70,20 @@ def _launch(h, w, b, res, gamma, channel_major: bool, gelu: bool, op: str) -> St
     D = w.shape[1]
     dev = h.device
     bf16, f32 = torch.bfloat16, torch.float32
-    w = w.to(bf16).contiguous()
-    b = b.to(f32).contiguous()
-    gamma = gamma.to(f32).contiguous()
-    _build.check_inputs(op, dev, h=(h, bf16, h.shape), w=(w, bf16, (K, D)),
+    # the kernel reads the weight as (D, K): a bf16 Linear.weight.t() is
+    # passed as the Linear's own storage, anything else copied
+    wt, b, gamma = _as(w.t(), bf16), _as(b, f32), _as(gamma, f32)
+    _build.check_inputs(op, dev, h=(h, bf16, h.shape), w=(wt, bf16, (D, K)),
                         b=(b, f32, (D,)), res=(res, bf16, (B, N, D)),
                         gamma=(gamma, f32, (D,)))
     out = torch.empty((B, N, D), dtype=bf16, device=dev)
     mu = torch.empty((B, N), dtype=f32, device=dev)
     var = torch.empty((B, N), dtype=f32, device=dev)
+    scratch = torch.empty_like(h) if gelu else None  # gelu(h), the GEMM's A
     err = _build.lib().dense_residual_stats(
-        h.data_ptr(), w.data_ptr(), b.data_ptr(), res.data_ptr(),
+        h.data_ptr(), wt.data_ptr(), b.data_ptr(), res.data_ptr(),
         gamma.data_ptr(), out.data_ptr(), mu.data_ptr(), var.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
         B, N, K, D, int(channel_major), int(gelu), _build.stream_of(dev))
     _build.check(err, op)
     return out, mu, var

@@ -1,6 +1,6 @@
 """A/B timing of kernels of the port across checkouts, on one card.
 
-    python3 kernel_ab.py <checkout>
+    python3 kernel_ab.py <checkout> [row ...]
 
 Times, with the `dinounet_tpu_torch` package of <checkout> (a directory
 holding one, e.g. a `git archive` of another commit), at dinounet_b's shapes:
@@ -10,11 +10,17 @@ tokens, tile batch 8), the row-major attention #9 that shares #2's flash
 loop (dinounet_7b's 32 heads of 128, tile batch 8), the MSDA backward #7 at
 the train step's batch 2, and where the checkout has them the MSDA forward
 with the prep done outside #5, the merged-projection MSDA forward #6 and the
-(B, 3, M, N, Dh) attention #8 at dinounet_b's shapes. For each: the wrapper's event time (median of 50
+(B, 3, M, N, Dh) attention #8 at dinounet_b's shapes; and the dense +
+residual + statistics kernels #3 (channel-major) and #4 (row-major, GELU) at
+the six shapes of the path (tile batch 8): the ViT attention projection and
+fc2, the adapter's MSDA output projection and ConvFFN fc2 at D = 768, and
+dinounet_7b's two junctions at D = 4096, each fed an fp32 `Linear.weight.t()`
+as the models feed it. For each: the wrapper's event time (median of 50
 synchronised calls) and the device time of one launch (CUDA events around
 50 back-to-back calls). Prints one JSON line (null for a kernel the
 checkout lacks). Compare two checkouts within one machine, in turns: A, B,
-B, A.
+B, A. Row names after the checkout time those rows alone (the others print
+null), so that a row can be timed without the rows before it.
 """
 import json
 import sys
@@ -44,12 +50,12 @@ def _time(fn) -> dict:
     return {"event_median_ms": ev[25], "back_to_back_ms": a.elapsed_time(b) / 50}
 
 
-def main(checkout: str) -> None:
+def main(checkout: str, only=()) -> None:
     sys.path.insert(0, checkout)
     import torch
 
     from dinounet_tpu_torch.ops import _build
-    from dinounet_tpu_torch.ops import attention, msda_kernel
+    from dinounet_tpu_torch.ops import attention, dense_stats, msda_kernel
     from dinounet_tpu_torch.ops.msda import premapped_fused_prep
 
     dev = torch.device("cuda", 0)
@@ -93,16 +99,38 @@ def main(checkout: str) -> None:
     if hasattr(attention, "fused_rope_attention_premapped"):
         calls["rope_attention_ndh_dh64"] = lambda: attention.fused_rope_attention_premapped(
             qkv_ndh, sin, cos)
+    # #3 / #4: (name, channel-major, K, N, D)
+    for name, cm, K, N, D in (("dense_cm_vit_proj", True, 768, 1029, 768),
+                              ("dense_cm_msda_proj", True, 384, 5376, 768),
+                              ("dense_rm_vit_fc2", False, 3072, 1029, 768),
+                              ("dense_rm_convffn_fc2", False, 192, 5376, 768),
+                              ("dense_cm_7b_msda_proj", True, 2048, 5376, 4096),
+                              ("dense_rm_7b_convffn_fc2", False, 1024, 5376, 4096)):
+        h = torch.randn((8, K, N) if cm else (8, N, K), generator=g, device=dev).to(bf)
+        lin_w = torch.randn((D, K), generator=g, device=dev) * K ** -0.5
+        bias, gamma = (torch.randn((D,), generator=g, device=dev) * 0.1 for _ in range(2))
+        res = torch.randn((8, N, D), generator=g, device=dev).to(bf)
+        if cm:
+            calls[name] = (lambda h=h, w=lin_w.t(), bias=bias, res=res, gamma=gamma:
+                           dense_stats.dense_cm_residual_stats(h, w, bias, res, gamma))
+        else:
+            calls[name] = (lambda h=h, w=lin_w.t(), bias=bias, res=res, gamma=gamma:
+                           dense_stats.dense_residual_stats(h, w, bias, res, gamma,
+                                                            apply_gelu=True))
     out = {"checkout": checkout}
     # the MSDA kernels first: timed after a run of the attention kernels they
     # have read 2-3 % slower with their own code unchanged, a state the
-    # attention leaves behind rather than the MSDA kernels' own time
+    # attention leaves behind rather than the MSDA kernels' own time; the
+    # dense kernels between the two
     for name in ("msda_fwd_d24", "msda_bwd_d24_train", "msda_fwd_premapped_d24",
-                 "msda_fwd_merged_d24", "rope_attention_dh64", "rope_attention_ndh_dh64",
+                 "msda_fwd_merged_d24", "dense_cm_vit_proj", "dense_cm_msda_proj",
+                 "dense_rm_vit_fc2", "dense_rm_convffn_fc2", "dense_cm_7b_msda_proj",
+                 "dense_rm_7b_convffn_fc2", "rope_attention_dh64", "rope_attention_ndh_dh64",
                  "rope_attention_rm_dh128"):
-        out[name] = _time(calls[name]) if name in calls else None
+        wanted = name in calls and (not only or name in only)
+        out[name] = _time(calls[name]) if wanted else None
     print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], sys.argv[2:])

@@ -379,6 +379,49 @@ def test_dense_kernel_matches_plain(dev, channel_major, gelu, B, N, K, D):
         assert max_excess(gt, wt, KERNEL_TOLERANCES[name]) <= 0
 
 
+# the dense kernel's edges: a block takes 64 rows (128 where that still
+# fills two waves: the last two shapes), a ring stage 64 channels of K, a
+# pass 256 (or 128) features of D; A arrives through TMA where its rows are
+# 16-byte aligned (K, or N channel-major, a multiple of 8) and through the
+# producer's shifted windows elsewhere (N = 1029 channel-major, K = 37)
+DENSE_EDGE_SHAPES = [(1, 1029, 768, 768), (1, 5376, 384, 768),  # the model's N
+                     (2, 1, 40, 24), (2, 63, 37, 136), (2, 65, 64, 264),
+                     (1, 127, 72, 136), (1, 129, 3072, 264),  # K 3072: the ring wraps
+                     (1, 300, 128, 4096),
+                     (1, 33793, 192, 264), (8, 4232, 40, 136)]
+
+
+@pytest.mark.parametrize("weight", ["kd", "linear"])
+@pytest.mark.parametrize("layout", ["rm", "rm_gelu", "cm"])
+@pytest.mark.parametrize("B,N,K,D", DENSE_EDGE_SHAPES)
+def test_dense_kernel_edges_match_plain(dev, B, N, K, D, layout, weight):
+    """w as a contiguous fp32 (K, D) tensor (copied to the kernel's (D, K)
+    bf16) or as a bf16 Linear weight's transpose (read in place)."""
+    g = torch.Generator().manual_seed(3)
+    bf = torch.bfloat16
+    cm = layout == "cm"
+    h = _randn(g, (B, K, N) if cm else (B, N, K), dev).to(bf)
+    w = _randn(g, (K, D), dev, K ** -0.5)
+    if weight == "linear":
+        w = w.t().contiguous().to(bf).t()
+    b = _randn(g, (D,), dev, 0.1)
+    res = _randn(g, (B, N, D), dev).to(bf)
+    gamma = _randn(g, (D,), dev, 0.5)
+    if cm:
+        got = dense_cm_residual_stats(h, w, b, res, gamma)
+        want = dense_cm_residual_stats_plain(h, w, b, res, gamma)
+        name = "dense_cm_stats"
+    else:
+        gelu = layout == "rm_gelu"
+        got = dense_residual_stats(h, w, b, res, gamma, apply_gelu=gelu)
+        want = dense_residual_stats_plain(h, w, b, res, gamma, gelu)
+        name = "dense_rm_stats"
+    torch.cuda.synchronize()
+    for gt, wt in zip(got, want):
+        assert gt.shape == wt.shape
+        assert max_excess(gt, wt, KERNEL_TOLERANCES[name]) <= 0
+
+
 # the int8 ops: ragged N and D, K not a multiple of 16, and the dinounet_b
 # ViT shapes (fc1, fc2, the attention projection, the qkv)
 @pytest.mark.parametrize("op", ["dense_q8", "dense_q8_stats", "dense_q8_stats_gelu",
