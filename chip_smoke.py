@@ -6,7 +6,8 @@ NVIDIA card.
 Phases, each printing its own lines; any failure raises and the exit code is
 not 0:
 
-1. build   -- compile the CUDA kernels from dinounet_tpu_torch/csrc/.
+1. build   -- compile the CUDA kernels from dinounet_tpu_torch/csrc/; the
+              registers and spills of dense_q8.cu's kernels from ptxas.log.
 2. kernels -- each of the 17 kernels against its plain PyTorch version on
               the card, at the shapes the dinounet_b tile forward gives it
               (tile batch 8; the MSDA backward at the train step's batch 2;
@@ -28,6 +29,14 @@ not 0:
               channels-last bf16, no prologue or statistics), for the int8
               ops torch._int_mm on the pre-quantized operands (the int8 GEMM
               alone), timed as a yardstick and never called by the port.
+              The int8 ops' bound counts their weight's cached int8 levels
+              and scales (quantized once, not per call); each also prints
+              TOPS and GB/s, its device time split into the quantize pass
+              and the GEMM (a call must launch those two and nothing else),
+              and the weight's one-time quantization; without the GELU
+              their outputs must equal the plain versions' bit for bit, and
+              dense_q8_stats / dense_cm_q8_stats are also held at edge
+              shapes.
 3. serve   -- dinounet_b at full width with seeded random weights, behind the
               port's nnUNetPredictor (2d, 512 x 512 patches, step 0.5, tile
               batch 8, bf16): one 1 x 1280 x 1280 case = 16 tiles in 2
@@ -107,6 +116,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -132,12 +142,12 @@ from dinounet_tpu_torch.ops.decoder_tail import (conv3x3_cm, conv3x3_cm_plain,
                                                  seg_head_cm, seg_head_cm_plain,
                                                  transpconv2x2_cm,
                                                  transpconv2x2_cm_plain)
-from dinounet_tpu_torch.ops.dense_q8 import (dense_cm_q8_residual_stats,
+from dinounet_tpu_torch.ops.dense_q8 import (CACHE_ATTR, dense_cm_q8_residual_stats,
                                              dense_cm_q8_residual_stats_plain, dense_q8,
                                              dense_q8_plain, dense_q8_residual_stats,
                                              dense_q8_residual_stats_plain, qkv_q8_dmaj,
-                                             qkv_q8_dmaj_plain, quantize_act_cm,
-                                             quantize_weight)
+                                             qkv_q8_dmaj_plain, quantize_act_tokens,
+                                             quantize_weight_dk, quantized_weight)
 from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
                                                 dense_cm_residual_stats_plain,
                                                 dense_residual_stats,
@@ -332,6 +342,28 @@ def phase_build() -> None:
     _build.lib()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s "
         f"({_build.library_path().parent})")
+    ptxas_report("dense_q8.cu", {"q8_gemm_stats_kernel": "q8_gemm_stats_kernel",
+                                 "quant_cm_kernel": "quant_cm_kernel",
+                                 "quant_rows_kernel (GELU)": "quant_rows_kernelILb1",
+                                 "quant_rows_kernel": "quant_rows_kernelILb0"})
+
+
+def ptxas_report(source: str, kernels: dict) -> None:
+    """Registers and spills of `source`'s kernels (display name -> a
+    substring of the mangled name), from the build's ptxas.log."""
+    text = (_build.library_path().parent / "ptxas.log").read_text()
+    part = text.split(f"== {source}:", 1)[1].split("\n== ", 1)[0]
+    for entry in part.split("Compiling entry function '")[1:]:
+        mangled = entry.split("'", 1)[0]
+        for name, key in kernels.items():
+            if key not in mangled:
+                continue
+            regs = re.search(r"Used (\d+) registers", entry)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+            log(f"[build] {source} {name}: "
+                f"{regs.group(1) if regs else 'not reported'} registers, spills "
+                + (f"{spill.group(1)} B stored, {spill.group(2)} B loaded" if spill
+                   else "not reported"))
 
 
 def _nbytes(*tensors) -> int:
@@ -345,9 +377,9 @@ def _bound(nbytes: int, flops: float, peak: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_times(fn, iters: int = 5) -> dict:
-    """Device time (ms) per call of fn, by kernel name, from torch.profiler's
-    CUDA activity over `iters` calls after a warm-up."""
+def device_launches(fn, iters: int = 5) -> dict:
+    """Device time (ms) and launches per call of fn, by kernel name, from
+    torch.profiler's CUDA activity over `iters` calls after a warm-up."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -356,38 +388,58 @@ def device_times(fn, iters: int = 5) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
-            if e.self_device_time_total > 0}
+    return {e.key: (e.self_device_time_total / 1e3 / iters, e.count / iters)
+            for e in prof.key_averages() if e.self_device_time_total > 0}
 
 
-def _log_int8_breakdown(name, shape_desc, kernel_fn, event_ms) -> None:
-    """An int8 wrapper's device time split into its three kernels and the
-    PyTorch ops that quantize the weight; the rest of the event time is the
+def device_times(fn, iters: int = 5) -> dict:
+    """Device time (ms) per call of fn, by kernel name."""
+    return {k: ms for k, (ms, _) in device_launches(fn, iters).items()}
+
+
+def _log_int8_breakdown(name, shape_desc, kernel_fn, event_ms, w, ops, nbytes) -> None:
+    """An int8 wrapper's device time a call, split into its two launches,
+    the quantize pass and the GEMM: anything else it launches (a PyTorch op
+    quantizing the weight again, a statistics pass) fails the run. Then the
+    one-time quantization of the weight (the cache's fill, by CUDA events),
+    and the rates by device time; the rest of the event time is the
     host's."""
-    parts = {"gemm": 0.0, "quantize": 0.0, "row stats": 0.0, "weight quantization": 0.0}
-    for kernel, ms in device_times(kernel_fn).items():
-        part = ("gemm" if "gemm_kernel" in kernel else "quantize" if "quant_" in kernel
-                else "row stats" if "row_stats" in kernel else "weight quantization")
-        parts[part] += ms
-    busy = sum(parts.values())
+    parts = {"quantize pass": [0.0, 0.0], "gemm": [0.0, 0.0], "other": [0.0, 0.0]}
+    for kernel, (ms, n) in device_launches(kernel_fn).items():
+        part = ("quantize pass" if "quant_" in kernel else "gemm" if "gemm" in kernel
+                else "other")
+        parts[part][0] += ms
+        parts[part][1] += n
+    if any(n != want for (_, n), want in zip(parts.values(), (1, 1, 0))):
+        raise AssertionError(f"{name} {shape_desc}: launches a call {parts}, not one "
+                             "quantize pass and one GEMM")
+    busy = sum(ms for ms, _ in parts.values())
+    once_ms = median_ms(lambda: quantize_weight_dk(w), iters=5)
     log(f"[kernels] {name} {shape_desc}: device time {busy:.4f} ms a call ("
-        + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
-        + f"), {event_ms - busy:.4f} ms of the {event_ms:.4f} ms event time idle")
+        + ", ".join(f"{k} {v[0]:.4f}" for k, v in parts.items() if k != "other")
+        + f"; 2 launches, nothing else) = {ops / busy / 1e9:.1f} TOPS, "
+        f"{nbytes / busy / 1e6:.1f} GB/s; {event_ms - busy:.4f} ms of the "
+        f"{event_ms:.4f} ms event time idle; the weight's one-time quantization "
+        f"{once_ms:.4f} ms (not a call's)")
 
 
 def _compare(name, shape_desc, kernel_fn, plain_fn, inputs, flops, peak,
-             library_fn=None, tols=None, library_label="library", plain_iters=20):
+             library_fn=None, tols=None, library_label="library", plain_iters=20,
+             exact=False):
     """Kernel vs plain version on the same inputs; `inputs` are the tensors
     the function reads (each counted once in the bound, with the outputs);
     `tols` optionally one (atol, rtol) per output (default: the kernel's);
-    the plain version timed over `plain_iters` calls. An int8 op's device
-    time is also broken down."""
+    `exact`: the first output must equal the plain one bit for bit; the
+    plain version timed over `plain_iters` calls."""
     got, want = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     tols = tols or [KERNEL_TOLERANCES[name]] * len(got)
     excess = max(max_excess(g, w, tol) for g, w, tol in zip(got, want, tols))
+    if exact and not torch.equal(got[0], want[0]):
+        raise AssertionError(f"{name} {shape_desc}: output differs from the plain "
+                             f"version's (max abs {max_abs_err(got[0], want[0])})")
     err = max(max_abs_err(g, w) for g, w in zip(got, want))
     rel = max(max_abs_err(g, w) / max(float(w.float().abs().max()), 1e-30)
               for g, w in zip(got, want))
@@ -402,8 +454,6 @@ def _compare(name, shape_desc, kernel_fn, plain_fn, inputs, flops, peak,
     if not excess <= 0:
         raise AssertionError(f"{name} {shape_desc}: kernel disagrees with its "
                              f"plain version (excess {excess})")
-    if name in INT8_KERNELS:
-        _log_int8_breakdown(name, shape_desc, kernel_fn, ms)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
 
@@ -763,53 +813,89 @@ def phase_kernels(dev) -> dict:
         (x, w, b, *p), 2.0 * B * H * H * C * K, FP32_FLOP_S,
         lambda: F.conv2d(xl, wl), library_label=CUDNN_LABEL)
 
-    # the int8 serving mode's w8a8 ops at the same shapes. The bound counts
-    # the fp32 weight the wrapper is given (it quantizes it on every call).
+    # the int8 serving mode's w8a8 ops at the path's shapes, each fed an fp32
+    # Linear weight's transpose as the models feed it. The weight is
+    # quantized once (ops/dense_q8.py keeps its int8 levels on the tensor),
+    # so the bound counts the cached int8 (D, Kpad) weight and its fp32
+    # scales, not the fp32 weight, beside h, b, res, gamma and the outputs.
     # Library: torch._int_mm on the pre-quantized operands, the int8 GEMM
-    # alone (no quantization, rescale or epilogue)
-    def int_mm(x_tokens_major, w):
-        """x (B, N, K) -> the (B * N, K) int8 rows; w (K, D) -> the int8
-        (D, K) weight; _int_mm of the rows and the weight's transposed view."""
-        xq = quantize_act_cm(x_tokens_major.transpose(1, 2))[0].transpose(1, 2)
-        xq = xq.reshape(-1, xq.shape[-1]).contiguous()
-        wq = quantize_weight(w)[0].t().contiguous()
-        return lambda: torch._int_mm(xq, wq.t())
+    # alone (no quantization, rescale or epilogue). Without the GELU the
+    # outputs equal the plain versions' bit for bit
+    def int8_case(name, desc, kernel_fn, plain_fn, h, w, rest, ops, channel_major=False,
+                  exact=True):
+        wq, ws = quantized_weight(w)
+        xq = quantize_act_tokens(h, channel_major)[0]
+        r = _compare(name, desc, kernel_fn, plain_fn, (h, wq, ws, *rest), ops, INT8_OP_S,
+                     lambda: torch._int_mm(xq, wq.t()), library_label=INT8MM_LABEL,
+                     exact=exact)
+        out = kernel_fn()
+        nbytes = _nbytes(h, wq, ws, *rest, *(out if isinstance(out, tuple) else (out,)))
+        log(f"[kernels] {name} {desc}: {ops / r['ms'] / 1e9:.1f} TOPS, "
+            f"{nbytes / r['ms'] / 1e6:.1f} GB/s by event time ({r['ms']:.4f} ms; bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f} % "
+            f"of it; _int_mm alone {r['library_ms']:.4f} ms)")
+        _log_int8_breakdown(name, desc, kernel_fn, r["ms"], w, ops, nbytes)
+        return r
 
-    C, N = 768, 1029
+    def linear_t(K, D):
+        """An fp32 Linear weight (D, K) as its (K, D) transpose."""
+        return randn(D, K, scale=K ** -0.5).t()
+
+    C, N, D = 768, 1029, 768
     x = randn(B, N, C).to(bf)
-    w, b = randn(C, 3 * C, scale=C ** -0.5), randn(3 * C, scale=0.1)
-    results["qkv_q8_dmaj"] = _compare(
+    w, b = linear_t(C, 3 * C), randn(3 * C, scale=0.1)
+    results["qkv_q8_dmaj"] = int8_case(
         "qkv_q8_dmaj", f"x {tuple(x.shape)} -> ({B}, 3, 12, 64, {N})",
         lambda: qkv_q8_dmaj(x, w, b, 12, 64), lambda: qkv_q8_dmaj_plain(x, w, b, 12, 64),
-        (x, w, b), 2.0 * B * N * C * 3 * C, INT8_OP_S, int_mm(x, w),
-        library_label=INT8MM_LABEL)
+        x, w, (b,), 2.0 * B * N * C * 3 * C)
     for K, N, where in ((768, 1029, "vit proj"), (384, 5376, "msda output proj")):
         h = randn(B, K, N).to(bf)
-        w, b = randn(K, D, scale=K ** -0.5), randn(D, scale=0.1)
+        w, b = linear_t(K, D), randn(D, scale=0.1)
         res, gamma = randn(B, N, D).to(bf), randn(D, scale=0.5)
-        r = _compare("dense_cm_q8_stats", f"{where} K={K} N={N}",
-                     lambda: dense_cm_q8_residual_stats(h, w, b, res, gamma),
-                     lambda: dense_cm_q8_residual_stats_plain(h, w, b, res, gamma),
-                     (h, w, b, res, gamma), 2.0 * B * N * K * D, INT8_OP_S,
-                     int_mm(h.transpose(1, 2), w), library_label=INT8MM_LABEL)
+        r = int8_case("dense_cm_q8_stats", f"{where} K={K} N={N}",
+                      lambda: dense_cm_q8_residual_stats(h, w, b, res, gamma),
+                      lambda: dense_cm_q8_residual_stats_plain(h, w, b, res, gamma),
+                      h, w, (b, res, gamma), 2.0 * B * N * K * D, channel_major=True)
         results.setdefault("dense_cm_q8_stats", r)
     K, N, Dff = 768, 1029, 3072
     h = randn(B, N, K).to(bf)
-    w, b = randn(K, Dff, scale=K ** -0.5), randn(Dff, scale=0.1)
-    results["dense_q8"] = _compare(
+    w, b = linear_t(K, Dff), randn(Dff, scale=0.1)
+    results["dense_q8"] = int8_case(
         "dense_q8", f"vit fc1 K={K} D={Dff} N={N}", lambda: dense_q8(h, w, b),
-        lambda: dense_q8_plain(h, w, b), (h, w, b), 2.0 * B * N * K * Dff, INT8_OP_S,
-        int_mm(h, w), library_label=INT8MM_LABEL)
+        lambda: dense_q8_plain(h, w, b), h, w, (b,), 2.0 * B * N * K * Dff)
     for K, N, where in ((3072, 1029, "vit fc2"), (192, 5376, "convffn fc2")):
         h = randn(B, N, K).to(bf)
-        w, b = randn(K, D, scale=K ** -0.5), randn(D, scale=0.1)
+        w, b = linear_t(K, D), randn(D, scale=0.1)
         res, gamma = randn(B, N, D).to(bf), randn(D, scale=0.5)
-        r = _compare("dense_q8_stats", f"{where} +GELU K={K} N={N}",
-                     lambda: dense_q8_residual_stats(h, w, b, res, gamma, "gelu"),
-                     lambda: dense_q8_residual_stats_plain(h, w, b, res, gamma, "gelu"),
-                     (h, w, b, res, gamma), 2.0 * B * N * K * D, INT8_OP_S,
-                     int_mm(h, w), library_label=INT8MM_LABEL)
+        r = int8_case("dense_q8_stats", f"{where} +GELU K={K} N={N}",
+                      lambda: dense_q8_residual_stats(h, w, b, res, gamma, "gelu"),
+                      lambda: dense_q8_residual_stats_plain(h, w, b, res, gamma, "gelu"),
+                      h, w, (b, res, gamma), 2.0 * B * N * K * D, exact=False)
         results.setdefault("dense_q8_stats", r)
+    # #11 and #12 at the card tests' edge shapes (not timed): rows not a
+    # multiple of the GEMM's 64, D not one of its 256-feature pass, K not a
+    # multiple of 16, 32 or 128 (37 not even one of 8)
+    for Be, Ne, Ke, De in ((2, 21, 40, 24), (2, 130, 72, 136), (2, 100, 48, 264),
+                           (2, 64, 37, 136), (3, 65, 200, 136)):
+        for name in ("dense_q8_stats", "dense_cm_q8_stats"):
+            cm = name == "dense_cm_q8_stats"
+            h = randn(*((Be, Ke, Ne) if cm else (Be, Ne, Ke))).to(bf)
+            w, b = linear_t(Ke, De), randn(De, scale=0.1)
+            res, gamma = randn(Be, Ne, De).to(bf), randn(De, scale=0.5)
+            if cm:
+                got = dense_cm_q8_residual_stats(h, w, b, res, gamma)
+                want = dense_cm_q8_residual_stats_plain(h, w, b, res, gamma)
+            else:
+                got = dense_q8_residual_stats(h, w, b, res, gamma, "gelu")
+                want = dense_q8_residual_stats_plain(h, w, b, res, gamma, "gelu")
+            torch.cuda.synchronize()
+            excess = max(max_excess(g_, w_, KERNEL_TOLERANCES[name])
+                         for g_, w_ in zip(got, want))
+            if not excess <= 0 or (cm and not torch.equal(got[0], want[0])):
+                raise AssertionError(f"{name} B={Be} N={Ne} K={Ke} D={De}: kernel "
+                                     f"disagrees with its plain version (excess {excess})")
+    log("[kernels] dense_q8_stats (+GELU) and dense_cm_q8_stats at 5 edge shapes (N 21-130, "
+        "K 37-200, D 24-264): within their tolerances, dense_cm_q8_stats's out bit-equal")
     return results
 
 
@@ -921,6 +1007,14 @@ def phase_layer_times(dev, model: DinoUNet, path: str, iters: int = 5) -> dict:
         f"events, mean of "
         f"{iters}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
     return ms
+
+
+def log_int8_cache(model: DinoUNet, tag: str) -> None:
+    """The int8 levels and scales kept on the model's weights (quantized
+    once, on the first int8 forward) and their device memory."""
+    entries = [getattr(p, CACHE_ATTR) for p in model.parameters() if hasattr(p, CACHE_ATTR)]
+    log(f"{tag} int8 weights cached on the card: {len(entries)} matrices, "
+        f"{sum(_nbytes(wq, ws) for _, wq, ws in entries) / 2**20:.1f} MiB")
 
 
 def cpu_logits(model: DinoUNet, tile):
@@ -1077,6 +1171,7 @@ def phase_serve_7b(dev, model: DinoUNet, tile) -> tuple:
     card_bf16 = card_logits(model, batch)
     with route_env(ROUTES["serve_int8"]):
         counts["serve_7b_int8"] = phase_serve(dev, model, "serve_7b_int8")
+        log_int8_cache(model, "[serve_7b_int8]")
         phase_layer_times(dev, model, "serve_7b_int8", iters=3)
         card_int8 = card_logits(model, batch)
     rel8 = rel_l2(card_int8, card_bf16)
@@ -1357,6 +1452,8 @@ def main() -> int:
             card_stock = card_logits(model, parity_batch(dev, tile))
         with route_env(settings):
             counts[path] = phase_serve(dev, model, path)
+            if path in INT8_ROUTES:
+                log_int8_cache(model, f"[serve routes: {path}]")
             phase_layer_times(dev, model, path)
             route_want = want
             if path in INT8_ROUTES + OP_ROUTES:

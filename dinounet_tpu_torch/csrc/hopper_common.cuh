@@ -1,7 +1,7 @@
 // Building blocks of the port's Hopper (sm_90a) kernels: mbarriers with a
 // watchdog, TMA loads, wgmma descriptors and products, and
 // cuTensorMapEncodeTiled, reached through the CUDA runtime. Shared by
-// rope_attention.cu and dense_stats.cu; everything here has internal
+// rope_attention.cu, dense_stats.cu and dense_q8.cu; everything here has internal
 // linkage, so each source gets its own copy.
 #pragma once
 
@@ -112,11 +112,17 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[K]) {
 #pragma unroll
   for (int i = 0; i < K; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
+template <int K>
+__device__ __forceinline__ void fence_regs(int (&r)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
 // wgmma descriptor of a 128-byte-swizzled operand in shared memory: start
 // address, leading and stride byte offsets (16-byte units), layout SW128.
 // K-major (rows of 64 bf16 along K): lbo 16, sbo 1024 (8-row groups), a
-// 16-deep K step 32 bytes into the row. MN-major (rows of 64 bf16 along M
+// 16-deep K step 32 bytes into the row; int8 the same with 128 values a row
+// and a 32-deep K step. MN-major (rows of 64 bf16 along M
 // or N, one row a K index): lbo the distance between 64-wide panels, sbo
 // 1024, a 16-deep K step 16 rows further.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
@@ -154,6 +160,33 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA));
+}
+
+// d (64 x 128 int32) = a (64 x 32 int8) b (32 x 128 int8) [+ d], both operands
+// K-major in shared memory (the only layout the integer products take)
+__device__ __forceinline__ void wgmma_ss_n128_s8(int (&d)[64], uint64_t a, uint64_t b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // d (64 x 64 fp32) += a (64 x 16, bf16 pairs in registers) b (16 x 64, MN-major in
@@ -227,20 +260,31 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a bf16 tensor map of `rank` dims (innermost first; strides in bytes of
-// dims 1.. ) read in boxes of `box` elements with the 128-byte swizzle
-// (the box's innermost extent 64 elements, one swizzle row); elements past
-// an edge arrive as zeros. 0 or a cudaError_t.
-inline int bf16_sw128_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                          const cuuint64_t* strides, const cuuint32_t* box) {
+// a tensor map of `rank` dims (innermost first; strides in bytes of dims
+// 1..) read in boxes of `box` elements with the 128-byte swizzle (the box's
+// innermost extent one swizzle row: 64 bf16 or 128 bytes); elements past an
+// edge arrive as zeros. 0 or a cudaError_t.
+inline int sw128_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                     const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint32_t steps[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                            dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides, box, steps,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+inline int bf16_sw128_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                          const cuuint64_t* strides, const cuuint32_t* box) {
+  return sw128_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box);
+}
+
+// int8 operands: bytes (the copy does not look at the values)
+inline int s8_sw128_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                        const cuuint64_t* strides, const cuuint32_t* box) {
+  return sw128_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, rank, dims, strides, box);
 }
 
 // set a kernel's dynamic shared-memory size once a device

@@ -1,6 +1,7 @@
 // The int8 pieces shared by dense_q8.cu and qkv_q8_dmaj.cu, for sm_90a:
-// per-token symmetric quantization passes and one int8 tensor-core GEMM
-// with the w8a8 rescale epilogues.
+// the per-token symmetric quantization of row-major activations, and the
+// int8 tensor-core GEMM of the plain and qkv projections (dense_q8 and
+// qkv_q8_dmaj) with their w8a8 rescale epilogues.
 //
 // Arithmetic, as the JAX package's dense_q8_pallas.py and its references:
 //   scale a = max(max|x|, 1e-12) / 127             IEEE division (__fdiv_rn)
@@ -11,6 +12,10 @@
 // into an FMA: the kernels then round exactly where the plain PyTorch
 // versions do, and differ from them only where erff and PyTorch's erf
 // differ in the GELU prologue.
+//
+// The weights arrive quantized once (ops/dense_q8.py caches them on the
+// weight tensor): wq (D, Kpad) int8, K contiguous and padded with zeros to
+// a multiple of 16, the layout nn.Linear stores; ws (D,) fp32.
 //
 // The GEMM: C[m][n] = sum_k A[m][k] B[k][n] per batch (blockIdx.z), each
 // operand row- or column-major in device memory. A block computes a 64 x 128
@@ -36,6 +41,8 @@
 
 #include <type_traits>
 
+#include "hopper_common.cuh"
+
 namespace {
 
 namespace q8 {
@@ -48,23 +55,17 @@ constexpr int kBK = 64;    // reduction step
 constexpr int kThreads = 256;
 constexpr int kLdC = kBN + 4;
 
-// epilogues: rows are tokens and columns features (the dense ops), with or
-// without the LayerScale residual; or rows are features and columns tokens
-// (the qkv projection's transposed, token-fast output)
-enum Epilogue { kPlain = 0, kResidual = 1, kTokenColumns = 2 };
+// epilogues: rows are tokens and columns features (the plain dense op), or
+// rows are features and columns tokens (the qkv projection's transposed,
+// token-fast output)
+enum Epilogue { kPlain = 0, kTokenColumns = 1 };
 
 struct EpilogueArgs {
   const float* a;             // per-token activation scales
   const float* ws;            // per-feature weight scales
   const float* bias;          // per-feature bias (fp32)
-  const __nv_bfloat16* res;   // kResidual: residual, laid out as out
-  const float* gamma;         // kResidual: LayerScale
   __nv_bfloat16* out;         // (batch, rows, columns) row-major
 };
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 __device__ __forceinline__ float gelu_exact(float x) {
   return x * 0.5f * (1.f + erff(x * 0.70710678118654752f));
@@ -79,63 +80,80 @@ __device__ __forceinline__ int8_t quantize(float v, float a) {
   return (int8_t)(int)fminf(fmaxf(q, -127.f), 127.f);
 }
 
-// Row-major x (rows, K) bf16, optionally through the exact GELU rounded to
-// bf16 (the JAX prologue's rounding point) -> xq (rows, ldq) int8, zero in
-// columns K..ldq-1, and one scale a per row. One warp per row, two passes
-// over the row (the maximum, then the levels).
-template <bool kGelu>
-__global__ void quant_rows_kernel(const __nv_bfloat16* __restrict__ x, int rows,
-                                  int K, int8_t* __restrict__ xq, int ldq,
-                                  float* __restrict__ scale) {
-  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const __nv_bfloat16* xr = x + (size_t)row * K;
-  auto value = [&](int k) {
-    const float v = __bfloat162float(xr[k]);
-    return kGelu ? bf16_round(gelu_exact(v)) : v;
-  };
-  float m = 0.f;
-  for (int k = lane; k < K; k += 32) m = fmaxf(m, fabsf(value(k)));
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  const float a = quant_scale(m);
-  int8_t* qr = xq + (size_t)row * ldq;
-  for (int k = lane; k < ldq; k += 32) qr[k] = k < K ? quantize(value(k), a) : 0;
-  if (lane == 0) scale[row] = a;
+// four levels packed into a 32-bit word, the first in the low byte
+__device__ __forceinline__ uint32_t pack4(float a, float v0, float v1, float v2, float v3) {
+  return (uint32_t)(uint8_t)quantize(v0, a) | (uint32_t)(uint8_t)quantize(v1, a) << 8 |
+         (uint32_t)(uint8_t)quantize(v2, a) << 16 | (uint32_t)(uint8_t)quantize(v3, a) << 24;
 }
 
-// Channel-major x (B, K, N) bf16 -> xq (B, K, ldq) int8, zero in tokens
-// N..ldq-1, and one scale per (b, token) in scale[b * N + n]. A block takes
-// 32 tokens (threadIdx.x, coalesced) and splits K over 8 thread rows.
-constexpr int kColTokens = 32;
-constexpr int kColSplit = 8;
+// 16 levels of the 16 bf16 in (lo, hi) as one 16-byte vector
+__device__ __forceinline__ uint4 quantize16(uint4 lo, uint4 hi, float a) {
+  const __nv_bfloat16* l = reinterpret_cast<const __nv_bfloat16*>(&lo);
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&hi);
+  auto f = [](const __nv_bfloat16* e, int i) { return __bfloat162float(e[i]); };
+  return make_uint4(pack4(a, f(l, 0), f(l, 1), f(l, 2), f(l, 3)),
+                    pack4(a, f(l, 4), f(l, 5), f(l, 6), f(l, 7)),
+                    pack4(a, f(h, 0), f(h, 1), f(h, 2), f(h, 3)),
+                    pack4(a, f(h, 4), f(h, 5), f(h, 6), f(h, 7)));
+}
 
-__global__ void quant_cols_kernel(const __nv_bfloat16* __restrict__ x, int K, int N,
-                                  int8_t* __restrict__ xq, int ldq,
-                                  float* __restrict__ scale) {
-  __shared__ float part[kColSplit][kColTokens];
-  const int b = blockIdx.y;
-  const int n = blockIdx.x * kColTokens + threadIdx.x;
-  const int ty = threadIdx.y;
-  const __nv_bfloat16* xb = x + (size_t)b * K * N;
-  int8_t* qb = xq + (size_t)b * K * ldq;
+// Row-major x (rows, K) bf16, optionally through the exact GELU rounded to
+// bf16 (the JAX prologue's rounding point) -> xq (rows, ldq) int8, ldq =
+// pad16(K), zero in columns K..ldq-1, and one scale a per row. A row is
+// split into 16-element chunks taken by G = 2^lanes_log2 lanes (the power of
+// two at or above the chunk count, at most 32); a block holds
+// blockDim.x / G rows. A lane reads its chunks once (16-byte loads where
+// `vec`: K % 8 == 0 and x 16-byte aligned), applies the GELU once per
+// element, keeps the bf16 values in shared memory ([row][ldq] bf16) and
+// takes their maximum; the maxima meet by shuffles within the G lanes; the
+// lane then writes its chunks' levels as 16-byte stores.
+template <bool kGelu>
+__global__ void __launch_bounds__(256)
+quant_rows_kernel(const __nv_bfloat16* __restrict__ x, int rows, int K,
+                  int8_t* __restrict__ xq, int ldq, float* __restrict__ scale, int vec,
+                  int lanes_log2) {
+  extern __shared__ __align__(16) unsigned char quant_rows_smem[];
+  const int G = 1 << lanes_log2;
+  const int sub = threadIdx.x & (G - 1), rloc = threadIdx.x >> lanes_log2;
+  const int row = blockIdx.x * (blockDim.x >> lanes_log2) + rloc;
+  const bool live = row < rows;
+  uint4* buf = reinterpret_cast<uint4*>(quant_rows_smem) + (size_t)rloc * (ldq / 8);
+  const int chunks = ldq / 16;
   float m = 0.f;
-  if (n < N)
-    for (int k = ty; k < K; k += kColSplit)
-      m = fmaxf(m, fabsf(__bfloat162float(xb[(size_t)k * N + n])));
-  part[ty][threadIdx.x] = m;
-  __syncthreads();
-  m = 0.f;
+  if (live) {
+    const __nv_bfloat16* xr = x + (size_t)row * K;
+#pragma unroll 4
+    for (int c = sub; c < chunks; c += G) {
+      uint4 v[2];
 #pragma unroll
-  for (int i = 0; i < kColSplit; ++i) m = fmaxf(m, part[i][threadIdx.x]);
-  if (n >= ldq) return;
+      for (int half = 0; half < 2; ++half) {
+        const int k0 = 16 * c + 8 * half;
+        v[half] = make_uint4(0u, 0u, 0u, 0u);
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v[half]);
+        if (vec && k0 + 8 <= K) {
+          v[half] = __ldg(reinterpret_cast<const uint4*>(xr + k0));
+        } else {
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            if (k0 + u < K) e[u] = xr[k0 + u];
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          if (kGelu) e[u] = __float2bfloat16(gelu_exact(__bfloat162float(e[u])));
+          m = fmaxf(m, fabsf(__bfloat162float(e[u])));
+        }
+        buf[2 * c + half] = v[half];
+      }
+    }
+  }
+  for (int off = G / 2; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if (!live) return;
   const float a = quant_scale(m);
-  for (int k = ty; k < K; k += kColSplit)
-    qb[(size_t)k * ldq + n] =
-        n < N ? quantize(__bfloat162float(xb[(size_t)k * N + n]), a) : 0;
-  if (ty == 0 && n < N) scale[(size_t)b * N + n] = a;
+  int8_t* qr = xq + (size_t)row * ldq;
+  for (int c = sub; c < chunks; c += G)
+    *reinterpret_cast<uint4*>(qr + 16 * c) = quantize16(buf[2 * c], buf[2 * c + 1], a);
+  if (sub == 0) scale[row] = a;
 }
 
 // 16 consecutive int8 values: one 16-byte load when all are in range and the
@@ -259,39 +277,8 @@ gemm_kernel(const int8_t* __restrict__ A, long long a_batch, int lda, bool a_vec
     } else {
       const float y = __fadd_rn(__fmul_rn(__fmul_rn(f, ep.a[(size_t)z * M + m]), ep.ws[n]),
                                 ep.bias[n]);
-      if (kEpi == kResidual) {
-        const float ly = bf16_round(__fmul_rn(bf16_round(y), bf16_round(ep.gamma[n])));
-        ep.out[o] = __float2bfloat16(__fadd_rn(__bfloat162float(ep.res[o]), ly));
-      } else {
-        ep.out[o] = __float2bfloat16(y);
-      }
+      ep.out[o] = __float2bfloat16(y);
     }
-  }
-}
-
-// One warp per stored row: mean and variance over its D values, in fp32.
-__global__ void row_stats_kernel(const __nv_bfloat16* __restrict__ x,
-                                 float* __restrict__ mu, float* __restrict__ var,
-                                 int rows, int D) {
-  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const __nv_bfloat16* xr = x + (size_t)row * D;
-  float s = 0.f, s2 = 0.f;
-  for (int d = lane; d < D; d += 32) {
-    const float v = __bfloat162float(xr[d]);
-    s += v;
-    s2 += v * v;
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    s += __shfl_xor_sync(0xffffffffu, s, off);
-    s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-  }
-  if (lane == 0) {
-    const float m = s / D;
-    mu[row] = m;
-    var[row] = fmaxf(s2 / D - m * m, 0.f);
   }
 }
 
@@ -312,21 +299,37 @@ cudaError_t launch_gemm(const int8_t* A, long long a_batch, int lda,
   return cudaGetLastError();
 }
 
-inline cudaError_t launch_quant_rows(const void* x, int rows, int K, void* xq, int ldq,
-                                     void* scale, bool gelu, cudaStream_t stream) {
-  constexpr int kRowsPerBlock = 8;
-  const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+inline int pad16(int n) { return (n + 15) / 16 * 16; }
+
+// the row pass over x (rows, K) into xq (rows, pad16(K)) and scale (rows):
+// blocks of up to 256 threads, as many rows as 48 KB of staged rows hold
+inline cudaError_t launch_quant_rows(const void* x, int rows, int K, void* xq, void* scale,
+                                     bool gelu, cudaStream_t stream) {
+  constexpr int kMaxSmem = 232448;  // the opt-in limit of a block
+  const int ldq = pad16(K);
+  const int row_bytes = ldq * 2;
+  if (row_bytes > kMaxSmem) return cudaErrorInvalidValue;
+  int lanes_log2 = 0;
+  while ((1 << lanes_log2) < 32 && (1 << lanes_log2) < ldq / 16) ++lanes_log2;
+  const int per_block = max(1, min(256 >> lanes_log2, 49152 / row_bytes));
+  const int blocks = (rows + per_block - 1) / per_block;
+  const int threads = per_block << lanes_log2, smem = per_block * row_bytes;
   auto* xp = static_cast<const __nv_bfloat16*>(x);
   auto* qp = static_cast<int8_t*>(xq);
   auto* sp = static_cast<float*>(scale);
+  const int vec = K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  static unsigned long long ready[2] = {0, 0};  // one bit a device, an instance
+  cudaError_t err = gelu ? set_smem_once(quant_rows_kernel<true>, kMaxSmem, &ready[1])
+                         : set_smem_once(quant_rows_kernel<false>, kMaxSmem, &ready[0]);
+  if (err != cudaSuccess) return err;
   if (gelu)
-    quant_rows_kernel<true><<<blocks, 32 * kRowsPerBlock, 0, stream>>>(xp, rows, K, qp, ldq, sp);
+    quant_rows_kernel<true><<<blocks, threads, smem, stream>>>(xp, rows, K, qp, ldq, sp, vec,
+                                                              lanes_log2);
   else
-    quant_rows_kernel<false><<<blocks, 32 * kRowsPerBlock, 0, stream>>>(xp, rows, K, qp, ldq, sp);
+    quant_rows_kernel<false><<<blocks, threads, smem, stream>>>(xp, rows, K, qp, ldq, sp, vec,
+                                                               lanes_log2);
   return cudaGetLastError();
 }
-
-inline int pad16(int n) { return (n + 15) / 16 * 16; }
 
 }  // namespace q8
 

@@ -66,10 +66,12 @@ _SIGNATURES = {
     "transpconv2x2": [_P] + [_I] * 4 + [_P] * 4 + [_F, _P] + [_I] * 5 + [_P],
     # x, w, bias, s, t, slope, out, B, C, HW, K, stream
     "seg_head": [_P] * 5 + [_F, _P] + [_I] * 4 + [_P],
-    # h, wq, ws, b, res, gamma, xq, a, out, mu, var, B, N, K, D,
+    # h, wq (D, Kpad), ws, b, res, gamma, xq, a, out, mu, var, B, N, K, D,
     # channel_major, gelu, residual, stream
     "dense_q8": [_P] * 11 + [_I] * 7 + [_P],
-    # x, wq, ws, bias, xq, a, out, B, N, C, D3, stream
+    # h, xq, a, B, N, K, channel_major, gelu, stream
+    "quantize_act": [_P] * 3 + [_I] * 5 + [_P],
+    # x, wq (3C, Cpad), ws, bias, xq, a, out, B, N, C, D3, stream
     "qkv_q8_dmaj": [_P] * 7 + [_I] * 4 + [_P],
 }
 

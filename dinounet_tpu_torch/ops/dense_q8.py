@@ -2,10 +2,10 @@
 
 Counterparts of ``dinounet_tpu/ops/dense_q8_pallas.py``, with its
 quantization scheme: per-output-channel symmetric int8 weights
-(``quantize_weight``: scale max|w| / 127 over K, quantized on every call),
-per-token symmetric int8 activations (scale max|x| / 127 over the K
-channels of a token), an exact int32 product, and the fp32 rescale
-``(acc * a) * ws + b`` rounded once to the compute dtype:
+(``quantize_weight``: scale max|w| / 127 over K), per-token symmetric int8
+activations (scale max|x| / 127 over the K channels of a token), an exact
+int32 product, and the fp32 rescale ``(acc * a) * ws + b`` rounded once to
+the compute dtype:
 
 - ``dense_q8``: h (B, N, K) -> act(h) @ w + b, (B, N, D) (ViT fc1);
 - ``dense_q8_residual_stats``: h (B, N, K) -> out = res + gamma * (...) and
@@ -23,21 +23,27 @@ channels of a token), an exact int32 product, and the fp32 rescale
   package too (XLA's ``dot_general``): ``torch._int_mm`` on a CUDA device,
   no kernel of the port and no launch count.
 
-w is (K, D) as in the JAX package (a float parameter; quantized here), b
-and gamma (D,). For CUDA tensors the first three launch
+w is (K, D) as in the JAX package (a float parameter, usually a Linear
+weight's transposed view), b and gamma (D,). The JAX package quantizes the
+weight on every call; the backbone is frozen, so here the int8 levels and
+scales are computed once and kept on the weight tensor
+(``quantized_weight``): (D, Kpad) int8 with K contiguous, the layout
+nn.Linear stores and the kernels and ``torch._int_mm`` read, with the same
+levels as ``quantize_weight``. An in-place update of the weight makes the
+next call quantize it again. For CUDA tensors the first three ops launch
 ``csrc/dense_q8.cu`` and the qkv ``csrc/qkv_q8_dmaj.cu`` (which replace the
 TPU kernels ``_q8_kernel``, ``_q8_stats_kernel``, ``_cm_q8_kernel`` and
 ``_qkv_q8_dmaj_kernel``; their headers say what bounds them); for CPU
-tensors they run the plain versions below, which round where the JAX
-package's ``_reference_q8``, ``_reference_q8_stats``,
-``_reference_cm_q8_stats`` and ``qkv_q8_premapped_dmaj`` round: the GELU
-prologue to the compute dtype before quantization, true divisions,
-round-half-to-even, the int32 sums exact (taken in float64, exact below
-2^53; fp32 is not, K * 127^2 reaches 4.9e7 > 2^24), the bias added in fp32
-before the one rounding. Every op is differentiable on every device: the
-backward differentiates the plain version recomputed from the saved inputs,
-as the JAX custom VJPs do (zero through the rounding, exact through the
-scales).
+tensors they run the plain versions below, which quantize the float weight
+themselves and round where the JAX package's ``_reference_q8``,
+``_reference_q8_stats``, ``_reference_cm_q8_stats`` and
+``qkv_q8_premapped_dmaj`` round: the GELU prologue to the compute dtype
+before quantization, true divisions, round-half-to-even, the int32 sums
+exact (taken in float64, exact below 2^53; fp32 is not, K * 127^2 reaches
+4.9e7 > 2^24), the bias added in fp32 before the one rounding. Every op is
+differentiable on every device: the backward differentiates the plain
+version recomputed from the saved float inputs, as the JAX custom VJPs do
+(zero through the rounding, exact through the scales).
 """
 
 from typing import Optional, Tuple
@@ -76,6 +82,78 @@ def quantize_act_cm(h_t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     (B, N, 1)), one scale per token."""
     q, a = _quantize(h_t.float(), 1)
     return q.to(torch.int8), a.transpose(1, 2)
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def quantize_weight_dk(w: torch.Tensor,
+                       dtype: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(K, D) float weight -> (wq int8 (D, Kpad), ws fp32 (D,)): the levels
+    of ``quantize_weight(w)`` (computed in `dtype`, default w's) transposed
+    to K-contiguous rows and padded with zero columns to Kpad = K rounded up
+    to 16. Built outside inference mode and autograd, so the tensors serve
+    calls inside and outside both."""
+    with torch.inference_mode(False), torch.no_grad():
+        q, scale = quantize_weight(w if dtype is None else w.to(dtype))
+        K, D = q.shape
+        wq = q.new_zeros((D, _pad16(K)))
+        wq[:, :K] = q.t()
+        return wq, scale.float()
+
+
+CACHE_ATTR = "_dinounet_q8_weight"
+
+
+def quantized_weight(w: torch.Tensor,
+                     dtype: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``quantize_weight_dk(w, dtype)``, computed once and kept on the tensor
+    that owns w's storage (``w._base`` for a view such as a Linear weight's
+    ``.t()``, else w). The entry is tied to that tensor's version counter,
+    data pointer, dtype and device and to w's shape, strides and offset, so
+    an in-place update (``copy_``, ``fill_``, ``load_state_dict``) or a new
+    ``.data`` quantizes again. An inference tensor keeps no version
+    counter, so its weight is quantized on every call."""
+    base = w if w._base is None else w._base
+    if base.is_inference():
+        return quantize_weight_dk(w, dtype)
+    key = (base._version, base.data_ptr(), base.dtype, base.device, tuple(w.shape),
+           w.stride(), w.storage_offset(), dtype)
+    entry = getattr(base, CACHE_ATTR, None)
+    if entry is None or entry[0] != key:
+        entry = (key, *quantize_weight_dk(w, dtype))
+        setattr(base, CACHE_ATTR, entry)
+    return entry[1], entry[2]
+
+
+def quantize_act_tokens(h: torch.Tensor, channel_major: bool = False,
+                        prologue: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' quantize pass: h (B, N, K) through `prologue`, or a
+    channel-major (B, K, N) -> (xq int8 (B N, Kpad), a fp32 (B N,)), the
+    per-token levels token-major with K padded with zeros to a multiple of
+    16. The plain version for a CPU tensor, the pass of ``csrc/dense_q8.cu``
+    for a CUDA one."""
+    if channel_major and prologue != "none":
+        raise ValueError("quantize_act_tokens: the channel-major pass has no prologue")
+    if channel_major:
+        B, K, N = h.shape
+    else:
+        B, N, K = h.shape
+    if _on_cpu(h, "quantize_act_tokens"):
+        rows = h.transpose(1, 2) if channel_major else h
+        q, a = _quantize(_prologue(prologue, rows), -1)
+        xq = torch.zeros((B * N, _pad16(K)), dtype=torch.int8)
+        xq[:, :K] = q.reshape(B * N, K)
+        return xq, a.reshape(B * N)
+    _build.check_inputs("quantize_act_tokens", h.device, h=(h, torch.bfloat16, h.shape))
+    xq = torch.empty((B * N, _pad16(K)), dtype=torch.int8, device=h.device)
+    a = torch.empty((B * N,), dtype=torch.float32, device=h.device)
+    err = _build.lib().quantize_act(h.data_ptr(), xq.data_ptr(), a.data_ptr(), B, N, K,
+                                    int(channel_major), int(prologue == "gelu"),
+                                    _build.stream_of(h.device))
+    _build.check(err, "quantize_act_tokens")
+    return xq, a
 
 
 def _exact_matmul(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -135,13 +213,14 @@ def qkv_q8_dmaj_plain(x, w, b: Optional[torch.Tensor], n_heads: int,
 
 
 def _int8_product(rows: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """(n, K) @ (K, D) of integer-valued float tensors, exact, as fp32:
-    ``torch._int_mm`` on a CUDA device (on the (D, K) weight's transposed
-    view, as cuBLAS takes it), an exact float64 product elsewhere."""
+    """(n, K) integer-valued float rows times the cached (D, Kpad) int8
+    weight's transpose, exact, as fp32: ``torch._int_mm`` on a CUDA device
+    (on the weight's K-contiguous rows, as cuBLAS takes them), an exact
+    float64 product elsewhere."""
+    w = wq[:, :rows.shape[1]]
     if rows.device.type == "cuda":
-        w_dk = wq.t().to(torch.int8).contiguous()
-        return torch._int_mm(rows.to(torch.int8), w_dk.t()).float()
-    return _exact_matmul("nk,kd->nd", rows, wq)
+        return torch._int_mm(rows.to(torch.int8), w.t()).float()
+    return _exact_matmul("nk,dk->nd", rows, w.float())
 
 
 def qkv_q8_premapped(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
@@ -154,10 +233,10 @@ def qkv_q8_premapped(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]
     if w.shape[1] != 3 * M * Dh:
         raise ValueError(f"qkv_q8_premapped: w {tuple(w.shape)} is not (C, 3 * "
                          f"{M} * {Dh})")
-    wq, ws = _quantize(w, 0)  # (C, 3C), (1, 3C)
+    wq, ws = quantized_weight(w)  # (3C, Cpad), (3C,)
     q, a = _quantize(x.float(), -1)  # (B, N, C), (B, N, 1)
     acc = _int8_product(q.reshape(-1, C), wq).view(B, N, 3, M, Dh)
-    y = acc * a.view(B, N, 1, 1, 1) * ws.float().view(3, M, Dh)
+    y = acc * a.view(B, N, 1, 1, 1) * ws.view(3, M, Dh)
     if b is not None:
         y = y + b.float().view(3, M, Dh)
     return y.to(x.dtype).permute(0, 2, 3, 1, 4).contiguous()
@@ -167,15 +246,15 @@ def quant_dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tens
                 dtype: torch.dtype) -> torch.Tensor:
     """``QuantDense`` (``dinounet_tpu/models/vit.py:186-216``): x (..., K) ->
     (..., D) in `dtype`, with weight (D, K) in the torch layout (quantized
-    per output channel from its fp32 values, on every call) and bias (D,) or
-    None. The int32 product is ``torch._int_mm`` on a CUDA device and an
-    exact float64 product elsewhere; then ``(acc * a) * ws + b`` in fp32 and
-    one rounding to `dtype`."""
+    per output channel from its fp32 values, once: ``quantized_weight``) and
+    bias (D,) or None. The int32 product is ``torch._int_mm`` on a CUDA
+    device and an exact float64 product elsewhere; then ``(acc * a) * ws +
+    b`` in fp32 and one rounding to `dtype`."""
     K, D = x.shape[-1], weight.shape[0]
-    wq, ws = _quantize(weight.float(), 1)  # (D, K), (D, 1)
+    wq, ws = quantized_weight(weight.t(), torch.float32)  # (D, Kpad), (D,)
     q, a = _quantize(x.float(), -1)  # (..., K), (..., 1)
-    acc = _int8_product(q.reshape(-1, K), wq.t())
-    y = acc.reshape(*x.shape[:-1], D) * a * ws.reshape(D)
+    acc = _int8_product(q.reshape(-1, K), wq)
+    y = acc.reshape(*x.shape[:-1], D) * a * ws
     if bias is not None:
         y = y + bias.float()
     return y.to(dtype)
@@ -183,16 +262,17 @@ def quant_dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tens
 
 # ----------------------------------------------------------------- kernels
 
-def _quantized_weight(w, K, D, op):
-    wq, ws = quantize_weight(w)
-    if tuple(wq.shape) != (K, D):
-        raise ValueError(f"{op}: w must be ({K}, {D}), got {tuple(w.shape)}")
-    return wq.contiguous(), ws.float().contiguous()
+def _cached_weight(w, K, op):
+    """The (K, D) weight's cached (wq (D, Kpad), ws (D,))."""
+    if w.dim() != 2 or w.shape[0] != K:
+        raise ValueError(f"{op}: w must be ({K}, D), got {tuple(w.shape)}")
+    return quantized_weight(w)
 
 
 def _launch_dense(h, w, b, res, gamma, channel_major: bool, prologue: str,
                   op: str):
-    """The dense_q8.cu launch: res/gamma None for the plain epilogue (fc1)."""
+    """The dense_q8.cu launches (the quantize pass, then the GEMM): res /
+    gamma None for the plain epilogue (fc1)."""
     if prologue not in PROLOGUES:
         raise ValueError(f"prologue must be one of {PROLOGUES}, got {prologue!r}")
     if channel_major:
@@ -202,21 +282,18 @@ def _launch_dense(h, w, b, res, gamma, channel_major: bool, prologue: str,
     D = w.shape[1]
     dev = h.device
     bf16, f32 = torch.bfloat16, torch.float32
-    wq, ws = _quantized_weight(w, K, D, op)
+    wq, ws = _cached_weight(w, K, op)
     b = b.to(f32).contiguous()
-    specs = dict(h=(h, bf16, h.shape), wq=(wq, torch.int8, (K, D)),
+    specs = dict(h=(h, bf16, h.shape), wq=(wq, torch.int8, (D, _pad16(K))),
                  ws=(ws, f32, (D,)), b=(b, f32, (D,)))
     residual = res is not None
     if residual:
         gamma = gamma.to(f32).contiguous()
         specs.update(res=(res, bf16, (B, N, D)), gamma=(gamma, f32, (D,)))
     _build.check_inputs(op, dev, **specs)
-    # per-token int8 activations and their scales, written by the kernel's
-    # quantize pass: rows padded to 16 bytes along the contiguous dim
-    pad16 = lambda n: -(-n // 16) * 16
-    xq = torch.empty((B, K, pad16(N)) if channel_major else (B, N, pad16(K)),
-                     dtype=torch.int8, device=dev)
-    a = torch.empty((B, N), dtype=f32, device=dev)
+    # the quantize pass's token-major int8 activations and per-token scales
+    xq = torch.empty((B * N, _pad16(K)), dtype=torch.int8, device=dev)
+    a = torch.empty((B * N,), dtype=f32, device=dev)
     out = torch.empty((B, N, D), dtype=bf16, device=dev)
     mu = var = None
     if residual:
@@ -238,13 +315,13 @@ def _launch_qkv(x, w, b, n_heads, head_dim):
     D3 = 3 * n_heads * head_dim
     dev = x.device
     f32 = torch.float32
-    wq, ws = _quantized_weight(w, C, D3, op)
+    wq, ws = _cached_weight(w, C, op)
     b = (torch.zeros((D3,), dtype=f32, device=dev) if b is None
          else b.to(f32).contiguous())
     _build.check_inputs(op, dev, x=(x, torch.bfloat16, (B, N, C)),
-                        wq=(wq, torch.int8, (C, D3)), ws=(ws, f32, (D3,)),
+                        wq=(wq, torch.int8, (D3, _pad16(C))), ws=(ws, f32, (D3,)),
                         b=(b, f32, (D3,)))
-    xq = torch.empty((B, N, -(-C // 16) * 16), dtype=torch.int8, device=dev)
+    xq = torch.empty((B, N, _pad16(C)), dtype=torch.int8, device=dev)
     a = torch.empty((B, N), dtype=f32, device=dev)
     out = torch.empty((B, D3, N), dtype=torch.bfloat16, device=dev)
     err = _build.lib().qkv_q8_dmaj(

@@ -15,8 +15,11 @@ residual + statistics kernels #3 (channel-major) and #4 (row-major, GELU) at
 the six shapes of the path (tile batch 8): the ViT attention projection and
 fc2, the adapter's MSDA output projection and ConvFFN fc2 at D = 768, and
 dinounet_7b's two junctions at D = 4096, each fed an fp32 `Linear.weight.t()`
-as the models feed it. For each: the wrapper's event time (median of 50
-synchronised calls) and the device time of one launch (CUDA events around
+as the models feed it; and the int8 serving mode's kernels at their path
+shapes (tile batch 8), each fed an fp32 `Linear.weight.t()`: #10 the ViT
+fc1, #11 (GELU) the ViT fc2 and the adapter's ConvFFN fc2, #12 the ViT
+attention projection and the adapter's MSDA output projection, #13 the ViT
+qkv. For each: the wrapper's event time (median of 50 synchronised calls) and the device time of one launch (CUDA events around
 50 back-to-back calls). Prints one JSON line (null for a kernel the
 checkout lacks). Compare two checkouts within one machine, in turns: A, B,
 B, A. Row names after the checkout time those rows alone (the others print
@@ -55,7 +58,7 @@ def main(checkout: str, only=()) -> None:
     import torch
 
     from dinounet_tpu_torch.ops import _build
-    from dinounet_tpu_torch.ops import attention, dense_stats, msda_kernel
+    from dinounet_tpu_torch.ops import attention, dense_q8, dense_stats, msda_kernel
     from dinounet_tpu_torch.ops.msda import premapped_fused_prep
 
     dev = torch.device("cuda", 0)
@@ -117,16 +120,37 @@ def main(checkout: str, only=()) -> None:
             calls[name] = (lambda h=h, w=lin_w.t(), bias=bias, res=res, gamma=gamma:
                            dense_stats.dense_residual_stats(h, w, bias, res, gamma,
                                                             apply_gelu=True))
+    # #10-#13: (name, op, K, N, D)
+    for name, op, K, N, D in (("q8_vit_fc1", "dense_q8", 768, 1029, 3072),
+                              ("q8_stats_vit_fc2", "dense_q8_stats", 3072, 1029, 768),
+                              ("q8_stats_convffn_fc2", "dense_q8_stats", 192, 5376, 768),
+                              ("q8_cm_vit_proj", "dense_cm_q8_stats", 768, 1029, 768),
+                              ("q8_cm_msda_proj", "dense_cm_q8_stats", 384, 5376, 768),
+                              ("q8_vit_qkv", "qkv_q8_dmaj", 768, 1029, 2304)):
+        cm = op == "dense_cm_q8_stats"
+        h = torch.randn((8, K, N) if cm else (8, N, K), generator=g, device=dev).to(bf)
+        w = (torch.randn((D, K), generator=g, device=dev) * K ** -0.5).t()
+        bias, gamma = (torch.randn((D,), generator=g, device=dev) * 0.1 for _ in range(2))
+        res = torch.randn((8, N, D), generator=g, device=dev).to(bf)
+        calls[name] = {
+            "dense_q8": lambda h=h, w=w, b=bias: dense_q8.dense_q8(h, w, b),
+            "dense_q8_stats": lambda h=h, w=w, b=bias, r=res, gm=gamma:
+                dense_q8.dense_q8_residual_stats(h, w, b, r, gm, "gelu"),
+            "dense_cm_q8_stats": lambda h=h, w=w, b=bias, r=res, gm=gamma:
+                dense_q8.dense_cm_q8_residual_stats(h, w, b, r, gm),
+            "qkv_q8_dmaj": lambda h=h, w=w, b=bias: dense_q8.qkv_q8_dmaj(h, w, b, 12, 64),
+        }[op]
     out = {"checkout": checkout}
     # the MSDA kernels first: timed after a run of the attention kernels they
     # have read 2-3 % slower with their own code unchanged, a state the
     # attention leaves behind rather than the MSDA kernels' own time; the
-    # dense kernels between the two
+    # dense and int8 kernels between the two
     for name in ("msda_fwd_d24", "msda_bwd_d24_train", "msda_fwd_premapped_d24",
                  "msda_fwd_merged_d24", "dense_cm_vit_proj", "dense_cm_msda_proj",
                  "dense_rm_vit_fc2", "dense_rm_convffn_fc2", "dense_cm_7b_msda_proj",
-                 "dense_rm_7b_convffn_fc2", "rope_attention_dh64", "rope_attention_ndh_dh64",
-                 "rope_attention_rm_dh128"):
+                 "dense_rm_7b_convffn_fc2", "q8_vit_fc1", "q8_stats_vit_fc2",
+                 "q8_stats_convffn_fc2", "q8_cm_vit_proj", "q8_cm_msda_proj", "q8_vit_qkv",
+                 "rope_attention_dh64", "rope_attention_ndh_dh64", "rope_attention_rm_dh128"):
         wanted = name in calls and (not only or name in only)
         out[name] = _time(calls[name]) if wanted else None
     print(json.dumps(out), flush=True)

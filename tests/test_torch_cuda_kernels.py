@@ -341,11 +341,12 @@ def test_quant_dense_int_mm_equals_the_exact_product(dev):
     (torch._int_mm) equals the CPU's exact float64 one: the same bf16 output
     bit for bit."""
     g = torch.Generator().manual_seed(18)
-    x = _randn(g, (2, 37, 256), dev).to(torch.bfloat16)
-    w, b = _randn(g, (96, 256), dev, 256 ** -0.5), _randn(g, (96,), dev, 0.1)
-    got = q8.quant_dense(x, w, b, torch.bfloat16)
-    want = q8.quant_dense(x.cpu(), w.cpu(), b.cpu(), torch.bfloat16)
-    assert torch.equal(got.cpu(), want)
+    for K in (40, 256):  # 40: the cached weight's rows padded to 48
+        x = _randn(g, (2, 37, K), dev).to(torch.bfloat16)
+        w, b = _randn(g, (96, K), dev, K ** -0.5), _randn(g, (96,), dev, 0.1)
+        got = q8.quant_dense(x, w, b, torch.bfloat16)
+        want = q8.quant_dense(x.cpu(), w.cpu(), b.cpu(), torch.bfloat16)
+        assert torch.equal(got.cpu(), want)
     w3, b3 = _randn(g, (256, 768), dev, 256 ** -0.5), _randn(g, (768,), dev, 0.1)
     got = q8.qkv_q8_premapped(x, w3, b3, 4, 64)
     want = q8.qkv_q8_premapped(x.cpu(), w3.cpu(), b3.cpu(), 4, 64)
@@ -422,33 +423,96 @@ def test_dense_kernel_edges_match_plain(dev, B, N, K, D, layout, weight):
         assert max_excess(gt, wt, KERNEL_TOLERANCES[name]) <= 0
 
 
-# the int8 ops: ragged N and D, K not a multiple of 16, and the dinounet_b
-# ViT shapes (fc1, fc2, the attention projection, the qkv)
-@pytest.mark.parametrize("op", ["dense_q8", "dense_q8_stats", "dense_q8_stats_gelu",
-                                "dense_cm_q8_stats"])
-@pytest.mark.parametrize("B,N,K,D", [(2, 21, 40, 24), (2, 130, 72, 136),
-                                     (1, 1029, 768, 3072), (1, 1029, 3072, 768)])
-def test_int8_dense_kernel_matches_plain(dev, op, B, N, K, D):
-    g = torch.Generator().manual_seed(13)
+# the int8 ops: ragged N (not a multiple of the GEMM's 64 rows), D not a
+# multiple of its 256-feature pass (24, 136, 264), K not a multiple of 16,
+# 32 or 128 (37 is not even one of 8: the quantize pass's scalar loads), the
+# dinounet_b ViT shapes (fc1, fc2, the attention projection) and the
+# adapter's (ConvFFN fc2 K 192, MSDA projection K 384, N 5376); the weight
+# as a contiguous (K, D) tensor or as a Linear weight's transpose, as the
+# models pass it. Without the GELU `out` is bit-equal to the plain version
+INT8_SHAPES = [(2, 21, 40, 24), (2, 130, 72, 136), (2, 100, 48, 264), (3, 65, 200, 136),
+               (2, 64, 37, 136), (1, 77, 96, 264), (1, 1029, 768, 3072),
+               (1, 1029, 3072, 768), (1, 5376, 192, 768), (1, 5376, 384, 768)]
+
+
+def _int8_case(g, dev, op, B, N, K, D, weight):
     bf = torch.bfloat16
     cm = op == "dense_cm_q8_stats"
     h = _randn(g, (B, K, N) if cm else (B, N, K), dev).to(bf)
-    w, b = _randn(g, (K, D), dev, K ** -0.5), _randn(g, (D,), dev, 0.1)
+    w = _randn(g, (K, D), dev, K ** -0.5)
+    if weight == "linear":
+        w = torch.nn.Parameter(w.t().contiguous(), requires_grad=False).t()
+    b = _randn(g, (D,), dev, 0.1)
     res, gamma = _randn(g, (B, N, D), dev).to(bf), _randn(g, (D,), dev, 0.5)
+    return h, w, b, res, gamma
+
+
+def _int8_call(op, h, w, b, res, gamma, plain=False):
     if op == "dense_q8":
-        got, want = (q8.dense_q8(h, w, b),), (q8.dense_q8_plain(h, w, b),)
-    elif cm:
-        got = q8.dense_cm_q8_residual_stats(h, w, b, res, gamma)
-        want = q8.dense_cm_q8_residual_stats_plain(h, w, b, res, gamma)
-    else:
-        pro = "gelu" if op.endswith("gelu") else "none"
-        got = q8.dense_q8_residual_stats(h, w, b, res, gamma, pro)
-        want = q8.dense_q8_residual_stats_plain(h, w, b, res, gamma, pro)
+        fn = q8.dense_q8_plain if plain else q8.dense_q8
+        return (fn(h, w, b),)
+    if op == "dense_cm_q8_stats":
+        fn = q8.dense_cm_q8_residual_stats_plain if plain else q8.dense_cm_q8_residual_stats
+        return fn(h, w, b, res, gamma)
+    pro = "gelu" if op.endswith("gelu") else "none"
+    fn = q8.dense_q8_residual_stats_plain if plain else q8.dense_q8_residual_stats
+    return fn(h, w, b, res, gamma, pro)
+
+
+def _check_int8(op, got, want):
     torch.cuda.synchronize()
     name = "dense_q8_stats" if op.startswith("dense_q8_stats") else op
     for gt, wt in zip(got, want):
         assert gt.shape == wt.shape and gt.dtype == wt.dtype
         assert max_excess(gt, wt, KERNEL_TOLERANCES[name]) <= 0
+    if not op.endswith("gelu"):
+        assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("weight", ["kd", "linear"])
+@pytest.mark.parametrize("op", ["dense_q8", "dense_q8_stats", "dense_q8_stats_gelu",
+                                "dense_cm_q8_stats"])
+@pytest.mark.parametrize("B,N,K,D", INT8_SHAPES)
+def test_int8_dense_kernel_matches_plain(dev, op, B, N, K, D, weight):
+    g = torch.Generator().manual_seed(13)
+    args = _int8_case(g, dev, op, B, N, K, D, weight)
+    _check_int8(op, _int8_call(op, *args), _int8_call(op, *args, plain=True))
+
+
+@pytest.mark.parametrize("op", ["dense_q8", "dense_q8_stats_gelu", "dense_cm_q8_stats"])
+def test_int8_dense_kernel_after_weight_update(dev, op):
+    """A repeated call after an in-place update of the weight (as
+    load_state_dict makes one) uses the new weight's levels."""
+    g = torch.Generator().manual_seed(16)
+    h, w, b, res, gamma = _int8_case(g, dev, op, 2, 130, 200, 264, "linear")
+    first = _int8_call(op, h, w, b, res, gamma)
+    with torch.no_grad():
+        w._base.copy_(_randn(g, tuple(w._base.shape), dev, 0.2))
+    got = _int8_call(op, h, w, b, res, gamma)
+    _check_int8(op, got, _int8_call(op, h, w, b, res, gamma, plain=True))
+    assert not torch.equal(got[0], first[0])
+
+
+@pytest.mark.parametrize("channel_major,gelu", [(False, False), (False, True),
+                                                (True, False)])
+@pytest.mark.parametrize("B,N,K", [(2, 21, 40), (2, 130, 37), (1, 1029, 768),
+                                   (1, 5376, 384), (1, 70, 2048)])
+def test_int8_quantize_pass_matches_plain(dev, channel_major, gelu, B, N, K):
+    """The quantize pass's token-major levels and scales equal the plain
+    version's bit for bit (with the GELU: where the kernel's erff and
+    PyTorch's erf agree, a level at most one apart elsewhere)."""
+    g = torch.Generator().manual_seed(17)
+    h = _randn(g, (B, K, N) if channel_major else (B, N, K), dev, 3.0).to(torch.bfloat16)
+    pro = "gelu" if gelu else "none"
+    xq, a = q8.quantize_act_tokens(h, channel_major, pro)
+    torch.cuda.synchronize()
+    want_q, want_a = q8.quantize_act_tokens(h.cpu(), channel_major, pro)
+    assert xq.shape == want_q.shape and a.shape == want_a.shape
+    if gelu:
+        assert (xq.cpu().int() - want_q.int()).abs().max() <= 1
+        torch.testing.assert_close(a.cpu(), want_a, rtol=2.0 ** -7, atol=0)
+    else:
+        assert torch.equal(xq.cpu(), want_q) and torch.equal(a.cpu(), want_a)
 
 
 @pytest.mark.parametrize("bias", [True, False])
