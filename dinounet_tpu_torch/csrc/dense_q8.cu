@@ -28,29 +28,21 @@
 //    memory and writes each token's row of levels as 16-byte stores. The
 //    row-major pass (int8_gemm.cuh) computes the GELU once per element and
 //    keeps the bf16 row in shared memory between the maximum and the levels.
-// 2. With the residual (#11, #12), one GEMM with the epilogue and the
-//    statistics fused, laid out as dense_stats.cu's bf16 kernel: a row tile
-//    of 64 tokens is one block's, which walks all of D in passes of 256
-//    features, so it sums each stored row's values and squares itself, in a
-//    fixed order, with no second pass over out and no atomics. One
-//    producer thread fills
-//    a ring of kStages stages by TMA, each the A rows and the weight rows of
-//    one 128-deep K step (one 128-byte swizzled row of int8 each: four k32
-//    products), ragged rows and K zero-filled by the copy; the quantize
-//    pass's 16-byte row pitch gives every shape a tensor map, N = 1029
-//    included. Two consumer warpgroups run wgmma m64n128k32 s8 x s8 -> s32
-//    with the accumulators in registers; the epilogue rescales them there
-//    ((float(acc) * a) * ws + b with __fmul_rn / __fadd_rn), rounds through
-//    LayerScale, stages a warpgroup's 64 x 128 bf16 tile in shared memory,
-//    then adds the residual and stores out as 16-byte vectors while summing
-//    the rows. An int8 K step moves half the bytes of a bf16 step for the
-//    same products, so L2, which holds the bf16 kernel's 64 x 256 tile to
-//    about a third of the bf16 rate, leaves the int8 products twice the
-//    room.
-//    Without the residual (#10, fc1) the GEMM is int8_gemm.cuh's WMMA kernel.
+// 2. One GEMM, int8_gemm.cuh's s8 wgmma kernel fed by a TMA ring, with the
+//    epilogue fused. With the residual (#11, #12), a row tile of 64 tokens
+//    is one block's, which walks all of D in passes of 256 features, so it
+//    sums each stored row's values and squares itself, in a fixed order,
+//    with no second pass over out and no atomics; the rescale, LayerScale
+//    and residual are applied to the accumulators in registers. An int8 K
+//    step moves half the bytes of a bf16 step for the same products, so L2,
+//    which holds the bf16 kernel's 64 x 256 tile to about a third of the
+//    bf16 rate, leaves the int8 products twice the room. Without the
+//    residual (#10, fc1: K 768, D 3072, the epilogue-heavy shape, 50.6 MB of
+//    bf16 out against 6.3 MB of xq) a block of 128 rows walks a group of
+//    passes, each consumer warpgroup 64 rows x 256 features, and stores
+//    the rescaled tile as 16-byte vectors.
 
 #include <math.h>
-#include <string.h>
 
 #include "int8_gemm.cuh"
 
@@ -164,236 +156,6 @@ cudaError_t launch_quantize(const void* h, int B, int N, int K, int channel_majo
                        : q8::launch_quant_rows(h, B * N, K, xq, a, gelu, s);
 }
 
-// ------------------------------------------- GEMM + epilogue + statistics
-
-constexpr int kStages = 4;     // ring stages
-constexpr int kKStep = 128;    // K a stage: one 128-byte swizzled row of int8
-constexpr int kRows = 64;      // token rows a block
-constexpr int kCols = 256;     // features a pass, 128 a consumer warpgroup
-constexpr int kThreads = 384;  // producer + two consumer warpgroups
-constexpr uint32_t kABytes = kRows * kKStep;
-constexpr uint32_t kWBytes = kCols * kKStep;
-constexpr uint32_t kStageBytes = kABytes + kWBytes;
-constexpr int kLdS = 128 + 8;  // staging pitch (bf16): [64 rows][128 features]
-constexpr uint32_t kStagingBytes = 64 * kLdS * 2;  // a warpgroup's
-// shared-memory plan (byte offsets from a 1024-byte-aligned base)
-constexpr uint32_t kOffStaging = kStages * kStageBytes;
-constexpr uint32_t kOffStats = kOffStaging + 2 * kStagingBytes;  // [2][64 rows][2] fp32
-constexpr uint32_t kOffBars = kOffStats + 2 * 64 * 2 * 4;        // full, then empty, a stage
-constexpr uint32_t kSmemBytes = kOffBars + 16 * kStages + 1024;   // + alignment
-
-struct Args {
-  const float* a;     // (rows) per-token scales
-  const float* ws;    // (D) per-feature weight scales
-  const float* bias;  // (D)
-  const float* gamma;
-  const __nv_bfloat16* res;  // (rows, D)
-  __nv_bfloat16* out;        // (rows, D)
-  float* mu;                 // (rows)
-  float* var;
-  int rows, K, D;
-  int vec;  // res and out rows start 16-byte aligned
-};
-
-__global__ void __launch_bounds__(kThreads, 1)
-q8_gemm_stats_kernel(const __grid_constant__ CUtensorMap a_map,
-                     const __grid_constant__ CUtensorMap w_map, const Args p) {
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  unsigned char* const sbase = smem_raw + (base - raw);
-  const uint32_t full = base + kOffBars, empty = full + 8 * kStages;
-  const int r0 = blockIdx.x * kRows;
-  const int rows_valid = min(kRows, p.rows - r0);
-  const int ktiles = (p.K + kKStep - 1) / kKStep;
-  const int passes = (p.D + kCols - 1) / kCols;
-  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full + 8 * s, 1);     // the producer's expect_tx
-      mbar_init(empty + 8 * s, 256);  // every consumer thread
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (wg == 0) {  // producer: one thread issues every copy
-    if (tid != 0) return;
-    for (int it = 0; it < ktiles * passes; ++it) {
-      const int s = it % kStages;
-      const int pass = it / ktiles;
-      const int k0 = (it - pass * ktiles) * kKStep, d0 = pass * kCols;
-      mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
-      const uint32_t a_dst = base + s * kStageBytes, w_dst = a_dst + kABytes;
-      const uint32_t bar = full + 8 * s;
-      mbar_expect_tx(bar, kStageBytes);
-      tma_load(a_dst, &a_map, k0, r0, bar);
-#pragma unroll
-      for (int j = 0; j < kCols / 128; ++j)
-        tma_load(w_dst + j * 128 * kKStep, &w_map, k0, d0 + 128 * j, bar);
-    }
-    return;
-  }
-
-  const int cw = wg - 1, warp = tid / 32, lane = tid % 32;
-  __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(sbase + kOffStaging + cw * kStagingBytes);
-  const int ar = warp * 16 + lane / 4;     // accumulator rows ar and ar + 8
-  const int vq = tid % 16, rq = tid / 16;  // epilogue: 16-byte run vq of rows rq + 8 i
-  // the per-token scales of the accumulator rows (0 past the last row)
-  const float a0 = ar < rows_valid ? p.a[r0 + ar] : 0.f;
-  const float a1 = ar + 8 < rows_valid ? p.a[r0 + ar + 8] : 0.f;
-  int acc[64];
-  float s1[8], s2[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) s1[i] = s2[i] = 0.f;
-
-  int it = 0;
-  for (int pass = 0; pass < passes; ++pass) {
-    for (int kt = 0; kt < ktiles; ++kt, ++it) {
-      const int s = it % kStages;
-      mbar_wait(full + 8 * s, (it / kStages) & 1);
-      const uint32_t a_tile = base + s * kStageBytes;
-      const uint32_t w_tile = a_tile + kABytes + cw * 128 * kKStep;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kKStep / 32; ++kk)  // 32 int8 of K: 32 bytes into each row
-        wgmma_ss_n128_s8(acc, sw128_desc(a_tile + kk * 32, 16, 1024),
-                         sw128_desc(w_tile + kk * 32, 16, 1024), kt > 0 || kk > 0);
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous step's products are done: free its stage
-      if (kt > 0) mbar_arrive(empty + 8 * ((it - 1) % kStages));
-    }
-    wgmma_wait<0>();
-    fence_regs(acc);
-    mbar_arrive(empty + 8 * ((it - 1) % kStages));
-
-    // rescale, bias and LayerScale on the accumulators: acc[4 j + 2 h + {0, 1}]
-    // is row ar + 8 h, features 8 j + 2 (lane % 4) + {0, 1} of the warpgroup's
-    // 128. At the adapter's K = 192 or 384 the epilogue's instructions, more
-    // than the products, take the GEMM's time: bf16(y) * bf16(gamma) is one
-    // bf16x2 product (exact in fp32, so its one rounding is the plain
-    // version's)
-    const int d_base = pass * kCols + 128 * cw;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int c = 8 * j + 2 * (lane % 4);
-      const int d = d_base + c;
-      const bool in0 = d < p.D, in1 = d + 1 < p.D;
-      const float ws0 = in0 ? p.ws[d] : 0.f, ws1 = in1 ? p.ws[d + 1] : 0.f;
-      const float bb0 = in0 ? p.bias[d] : 0.f, bb1 = in1 ? p.bias[d + 1] : 0.f;
-      const __nv_bfloat162 gg = __floats2bfloat162_rn(in0 ? p.gamma[d] : 0.f,
-                                                      in1 ? p.gamma[d + 1] : 0.f);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float a = h ? a1 : a0;
-        const float y0 = __fadd_rn(
-            __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), a), ws0), bb0);
-        const float y1 = __fadd_rn(
-            __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), a), ws1), bb1);
-        *reinterpret_cast<__nv_bfloat162*>(st + (ar + 8 * h) * kLdS + c) =
-            __hmul2(__floats2bfloat162_rn(y0, y1), gg);
-      }
-    }
-    named_barrier(1 + cw, 128);
-    // + residual, stored; the stored values summed per row. The residual's
-    // 16-byte vectors of all 8 rows are requested before the first is used
-    const int col = d_base + 8 * vq;
-    uint4 rv[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = rq + 8 * i;
-      rv[i] = p.vec && r < rows_valid && col < p.D
-                  ? __ldg(reinterpret_cast<const uint4*>(p.res + (size_t)(r0 + r) * p.D + col))
-                  : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = rq + 8 * i;
-      if (r < rows_valid && col < p.D) {
-        const size_t o = (size_t)(r0 + r) * p.D + col;
-        const uint4 lv = *reinterpret_cast<const uint4*>(st + r * kLdS + 8 * vq);
-        const __nv_bfloat16* l8 = reinterpret_cast<const __nv_bfloat16*>(&lv);
-        if (p.vec) {
-          // res + l as bf16x2 sums: one rounding of the exact sum, which is
-          // the plain version's fp32 sum rounded to bf16 (fp32 carries more
-          // than twice bf16's bits, so rounding to it first changes nothing)
-          __nv_bfloat162* r2 = reinterpret_cast<__nv_bfloat162*>(&rv[i]);
-          const __nv_bfloat162* l2 = reinterpret_cast<const __nv_bfloat162*>(&lv);
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            r2[u] = __hadd2(r2[u], l2[u]);
-            const float2 f = __bfloat1622float2(r2[u]);
-            s1[i] += f.x;
-            s2[i] += f.x * f.x;
-            s1[i] += f.y;
-            s2[i] += f.y * f.y;
-          }
-          *reinterpret_cast<uint4*>(p.out + o) = rv[i];
-        } else {
-          for (int u = 0; u < 8 && col + u < p.D; ++u) {
-            const __nv_bfloat16 ov =
-                __float2bfloat16(__bfloat162float(p.res[o + u]) + __bfloat162float(l8[u]));
-            p.out[o + u] = ov;
-            const float f = __bfloat162float(ov);
-            s1[i] += f;
-            s2[i] += f * f;
-          }
-        }
-      }
-    }
-    named_barrier(1 + cw, 128);  // the staging tile is free for the next pass
-  }
-
-  // row sums: 16 lanes a row, then the block's two warpgroups
-  float* stats = reinterpret_cast<float*>(sbase + kOffStats);  // [2][64 rows][2]
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      s1[i] += __shfl_xor_sync(0xffffffffu, s1[i], off);
-      s2[i] += __shfl_xor_sync(0xffffffffu, s2[i], off);
-    }
-    if (vq == 0) {
-      stats[(cw * 64 + rq + 8 * i) * 2] = s1[i];
-      stats[(cw * 64 + rq + 8 * i) * 2 + 1] = s2[i];
-    }
-  }
-  named_barrier(3, 256);
-  if (cw == 0 && tid < rows_valid) {
-    const float S1 = stats[2 * tid] + stats[2 * (64 + tid)];
-    const float S2 = stats[2 * tid + 1] + stats[2 * (64 + tid) + 1];
-    const float m = S1 / p.D;
-    p.mu[r0 + tid] = m;
-    p.var[r0 + tid] = fmaxf(S2 / p.D - m * m, 0.f);
-  }
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
-// xq (rows, ldq) and wq (D, ldq) int8, both K contiguous
-int launch_gemm_stats(const int8_t* xq, const int8_t* wq, int ldq, const Args& p,
-                      cudaStream_t stream) {
-  CUtensorMap a_map, w_map;
-  memset(&a_map, 0, sizeof(a_map));
-  memset(&w_map, 0, sizeof(w_map));
-  const cuuint64_t strides[1] = {(cuuint64_t)ldq};
-  // (rows, K): boxes of 64 rows x 128 channels; (D, K): 128 features x 128
-  const cuuint64_t a_dims[2] = {(cuuint64_t)p.K, (cuuint64_t)p.rows};
-  const cuuint32_t a_box[2] = {kKStep, kRows};
-  int err = s8_sw128_map(&a_map, xq, 2, a_dims, strides, a_box);
-  if (err != 0) return err;
-  const cuuint64_t w_dims[2] = {(cuuint64_t)p.K, (cuuint64_t)p.D};
-  const cuuint32_t w_box[2] = {kKStep, 128};
-  if ((err = s8_sw128_map(&w_map, wq, 2, w_dims, strides, w_box)) != 0) return err;
-  static unsigned long long ready = 0;  // one bit a device
-  const cudaError_t e = set_smem_once(q8_gemm_stats_kernel, (int)kSmemBytes, &ready);
-  if (e != cudaSuccess) return (int)e;
-  q8_gemm_stats_kernel<<<(p.rows + kRows - 1) / kRows, kThreads, kSmemBytes, stream>>>(
-      a_map, w_map, p);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace q8s
 
 }  // namespace
@@ -420,29 +182,23 @@ extern "C" int dense_q8(const void* h, const void* wq, const void* ws, const voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = q8s::launch_quantize(h, B, N, K, channel_major, gelu, xq, a, s);
   if (err != cudaSuccess) return (int)err;
-  const int ldq = q8::pad16(K);
-  auto* xq8 = static_cast<const int8_t*>(xq);
-  auto* w8 = static_cast<const int8_t*>(wq);
-  if (!residual) {
-    // A = xq (B N, ldq) row-major; B = wq^T, column-major with ld ldq
-    const q8::EpilogueArgs ep{static_cast<const float*>(a), static_cast<const float*>(ws),
-                              static_cast<const float*>(b), static_cast<__nv_bfloat16*>(out)};
-    return (int)q8::launch_gemm<true, false, q8::kPlain>(xq8, 0, ldq, w8, 0, ldq, 1, B * N, D,
-                                                         K, ep, s);
-  }
-  q8s::Args p;
+  q8::Args p = {};
   p.a = static_cast<const float*>(a);
   p.ws = static_cast<const float*>(ws);
   p.bias = static_cast<const float*>(b);
-  p.gamma = static_cast<const float*>(gamma);
-  p.res = static_cast<const __nv_bfloat16*>(res);
   p.out = static_cast<__nv_bfloat16*>(out);
-  p.mu = static_cast<float*>(mu);
-  p.var = static_cast<float*>(var);
   p.rows = B * N;
   p.K = K;
   p.D = D;
-  p.vec = D % 8 == 0 && q8s::aligned16(res) && q8s::aligned16(out);
-  if (!q8s::aligned16(xq) || !q8s::aligned16(wq)) return (int)cudaErrorInvalidValue;
-  return q8s::launch_gemm_stats(xq8, w8, ldq, p, s);
+  const int ldq = q8::pad16(K);
+  if (!residual) {
+    p.vec = D % 8 == 0 && q8::aligned16(out);
+    return q8::launch_gemm<q8::kPlain, q8::kSplitRows>(xq, wq, ldq, p, s);
+  }
+  p.gamma = static_cast<const float*>(gamma);
+  p.res = static_cast<const __nv_bfloat16*>(res);
+  p.mu = static_cast<float*>(mu);
+  p.var = static_cast<float*>(var);
+  p.vec = D % 8 == 0 && q8::aligned16(res) && q8::aligned16(out);
+  return q8::launch_gemm<q8::kStats, q8::kSplitFeatures>(xq, wq, ldq, p, s);
 }

@@ -9,19 +9,26 @@
 //   acc[b, j, n] = sum_c wq[j, c] * xq[b, n, c]
 // i.e. the product Wq^T . Xq^T with tokens as the fast dimension of the
 // output, (B, 3C, N) = (B, 3, M, Dh, N), which ops/attention.py's RoPE
-// attention reads. Arithmetic and the GEMM are in int8_gemm.cuh.
+// attention reads. The arithmetic, the quantize pass and the GEMM are in
+// int8_gemm.cuh.
 //
 // Design. On the TPU the first grid step of each batch quantized x into
 // VMEM scratch and later steps reused it (pl.when(j == 0)); blocks on the
-// card run in no order, so a quantize pass (one warp per token, the scale a
-// max over C = 768 values) writes xq (B, N, Cpad) int8 and the scales first,
-// and the GEMM reads Wq row-major as its A operand and xq column-major as
-// its B operand, both with 16-byte loads.
+// card run in no order, so the row quantize pass (int8_gemm.cuh) writes xq
+// (B N, Cpad) int8 and the scales first, token-major as for dense_q8. The
+// GEMM is int8_gemm.cuh's s8 wgmma kernel with tokens as its M: a block
+// takes 128 tokens of the flattened B N rows and one 256-feature pass of
+// 3C, and the token-column epilogue writes each rescaled tile transposed
+// into (B, 3C, N): a run of tokens within one image (a tile of B N rows can
+// span two images: N = 1029 = 16 * 64 + 5) staged feature-major in shared
+// memory, each feature row shifted by its misalignment in out, then stored
+// as the 16-byte-aligned chunks of out it covers and element by element at
+// its two ends.
 //
 // What bounds it on an H100: at dinounet_b (8 x 1029 tokens, C = 768, 3C =
 // 2304) it moves ~51 MB of bf16 activations for 29 G int8 operations: bytes
 // (~0.015 ms at 3.35 TB/s) over operations (~0.015 ms at 1,979 TOPS), about
-// balanced. This first version uses WMMA, not wgmma, and no TMA.
+// balanced.
 
 #include "int8_gemm.cuh"
 
@@ -31,14 +38,16 @@ extern "C" int qkv_q8_dmaj(const void* x, const void* wq, const void* ws,
   using namespace q8;
   if (B < 1 || N < 1 || C < 1 || D3 < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ldq = pad16(C);
   cudaError_t err = launch_quant_rows(x, B * N, C, xq, a, false, s);
   if (err != cudaSuccess) return (int)err;
-  const EpilogueArgs ep{static_cast<const float*>(a), static_cast<const float*>(ws),
-                        static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out)};
-  // A = Wq (3C x C): wq[j][c] is row-major with ld Cpad; B = Xq^T (C x N):
-  // xq[b][n][c] is column-major with ld Cpad
-  return (int)launch_gemm<true, false, kTokenColumns>(
-      static_cast<const int8_t*>(wq), 0, ldq, static_cast<const int8_t*>(xq),
-      (long long)N * ldq, ldq, B, D3, N, C, ep, s);
+  Args p = {};
+  p.a = static_cast<const float*>(a);
+  p.ws = static_cast<const float*>(ws);
+  p.bias = static_cast<const float*>(bias);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.rows = B * N;
+  p.K = C;
+  p.D = D3;
+  p.N = N;
+  return launch_gemm<kTokenColumns, kSplitRows>(xq, wq, pad16(C), p, s);
 }

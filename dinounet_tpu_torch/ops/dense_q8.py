@@ -33,7 +33,9 @@ levels as ``quantize_weight``. An in-place update of the weight makes the
 next call quantize it again. For CUDA tensors the first three ops launch
 ``csrc/dense_q8.cu`` and the qkv ``csrc/qkv_q8_dmaj.cu`` (which replace the
 TPU kernels ``_q8_kernel``, ``_q8_stats_kernel``, ``_cm_q8_kernel`` and
-``_qkv_q8_dmaj_kernel``; their headers say what bounds them); for CPU
+``_qkv_q8_dmaj_kernel``; their headers say what bounds them): each call a
+quantize pass, then ``csrc/int8_gemm.cuh``'s one s8 ``wgmma`` GEMM with the
+op's epilogue; for CPU
 tensors they run the plain versions below, which quantize the float weight
 themselves and round where the JAX package's ``_reference_q8``,
 ``_reference_q8_stats``, ``_reference_cm_q8_stats`` and
@@ -272,7 +274,8 @@ def _cached_weight(w, K, op):
 def _launch_dense(h, w, b, res, gamma, channel_major: bool, prologue: str,
                   op: str):
     """The dense_q8.cu launches (the quantize pass, then the GEMM): res /
-    gamma None for the plain epilogue (fc1)."""
+    gamma None for the plain epilogue (fc1), else the residual + statistics
+    one."""
     if prologue not in PROLOGUES:
         raise ValueError(f"prologue must be one of {PROLOGUES}, got {prologue!r}")
     if channel_major:
@@ -321,8 +324,10 @@ def _launch_qkv(x, w, b, n_heads, head_dim):
     _build.check_inputs(op, dev, x=(x, torch.bfloat16, (B, N, C)),
                         wq=(wq, torch.int8, (D3, _pad16(C))), ws=(ws, f32, (D3,)),
                         b=(b, f32, (D3,)))
-    xq = torch.empty((B, N, _pad16(C)), dtype=torch.int8, device=dev)
-    a = torch.empty((B, N), dtype=f32, device=dev)
+    # the quantize pass's token-major int8 activations and per-token scales,
+    # as _launch_dense's
+    xq = torch.empty((B * N, _pad16(C)), dtype=torch.int8, device=dev)
+    a = torch.empty((B * N,), dtype=f32, device=dev)
     out = torch.empty((B, D3, N), dtype=torch.bfloat16, device=dev)
     err = _build.lib().qkv_q8_dmaj(
         x.data_ptr(), wq.data_ptr(), ws.data_ptr(), b.data_ptr(), xq.data_ptr(),

@@ -423,16 +423,18 @@ def test_dense_kernel_edges_match_plain(dev, B, N, K, D, layout, weight):
         assert max_excess(gt, wt, KERNEL_TOLERANCES[name]) <= 0
 
 
-# the int8 ops: ragged N (not a multiple of the GEMM's 64 rows), D not a
-# multiple of its 256-feature pass (24, 136, 264), K not a multiple of 16,
-# 32 or 128 (37 is not even one of 8: the quantize pass's scalar loads), the
-# dinounet_b ViT shapes (fc1, fc2, the attention projection) and the
-# adapter's (ConvFFN fc2 K 192, MSDA projection K 384, N 5376); the weight
-# as a contiguous (K, D) tensor or as a Linear weight's transpose, as the
-# models pass it. Without the GELU `out` is bit-equal to the plain version
+# the int8 ops: ragged N (not a multiple of the GEMM's 64- or 128-row tile),
+# D not a multiple of its 256-feature pass (24, 136, 264), K not a multiple
+# of 16, 32 or 128 (37 is not even one of 8: the quantize pass's scalar
+# loads), the dinounet_b ViT shapes (fc1, also at the path's tile batch of
+# 8, fc2, the attention projection) and the adapter's (ConvFFN fc2 K 192,
+# MSDA projection K 384, N 5376); the weight as a contiguous (K, D) tensor
+# or as a Linear weight's transpose, as the models pass it. Without the
+# GELU `out` is bit-equal to the plain version
 INT8_SHAPES = [(2, 21, 40, 24), (2, 130, 72, 136), (2, 100, 48, 264), (3, 65, 200, 136),
                (2, 64, 37, 136), (1, 77, 96, 264), (1, 1029, 768, 3072),
-               (1, 1029, 3072, 768), (1, 5376, 192, 768), (1, 5376, 384, 768)]
+               (8, 1029, 768, 3072), (1, 1029, 3072, 768), (1, 5376, 192, 768),
+               (1, 5376, 384, 768)]
 
 
 def _int8_case(g, dev, op, B, N, K, D, weight):
@@ -448,6 +450,9 @@ def _int8_case(g, dev, op, B, N, K, D, weight):
 
 
 def _int8_call(op, h, w, b, res, gamma, plain=False):
+    if op == "qkv_q8_dmaj":  # w (C, 3C): 4 heads of C / 4
+        fn = q8.qkv_q8_dmaj_plain if plain else q8.qkv_q8_dmaj
+        return (fn(h, w, b, 4, w.shape[1] // 12),)
     if op == "dense_q8":
         fn = q8.dense_q8_plain if plain else q8.dense_q8
         return (fn(h, w, b),)
@@ -479,12 +484,14 @@ def test_int8_dense_kernel_matches_plain(dev, op, B, N, K, D, weight):
     _check_int8(op, _int8_call(op, *args), _int8_call(op, *args, plain=True))
 
 
-@pytest.mark.parametrize("op", ["dense_q8", "dense_q8_stats_gelu", "dense_cm_q8_stats"])
+@pytest.mark.parametrize("op", ["dense_q8", "dense_q8_stats_gelu", "dense_cm_q8_stats",
+                                "qkv_q8_dmaj"])
 def test_int8_dense_kernel_after_weight_update(dev, op):
     """A repeated call after an in-place update of the weight (as
     load_state_dict makes one) uses the new weight's levels."""
     g = torch.Generator().manual_seed(16)
-    h, w, b, res, gamma = _int8_case(g, dev, op, 2, 130, 200, 264, "linear")
+    D = 3 * 200 if op == "qkv_q8_dmaj" else 264
+    h, w, b, res, gamma = _int8_case(g, dev, op, 2, 130, 200, D, "linear")
     first = _int8_call(op, h, w, b, res, gamma)
     with torch.no_grad():
         w._base.copy_(_randn(g, tuple(w._base.shape), dev, 0.2))
@@ -515,18 +522,34 @@ def test_int8_quantize_pass_matches_plain(dev, channel_major, gelu, B, N, K):
         assert torch.equal(xq.cpu(), want_q) and torch.equal(a.cpu(), want_a)
 
 
+# the qkv's GEMM tiles run over the flattened B N tokens: N 63 / 64 / 65 /
+# 129 with B 3 put tile edges inside and across images, N 37 a whole image
+# inside one tile; C 40 and 200 (K neither a multiple of 128 nor of 16
+# before padding, 3C not one of the 256-feature pass); dinounet_b's qkv at
+# one tile and at the path's tile batch of 8
+QKV_SHAPES = [(2, 37, 64, 4), (1, 130, 40, 2), (3, 63, 64, 4), (3, 64, 64, 4),
+              (3, 65, 64, 4), (3, 129, 64, 4), (3, 65, 40, 2), (3, 129, 200, 8),
+              (2, 1029, 768, 12), (8, 1029, 768, 12)]
+
+
+@pytest.mark.parametrize("weight", ["kd", "linear"])
 @pytest.mark.parametrize("bias", [True, False])
-@pytest.mark.parametrize("B,N,C,M", [(2, 37, 64, 4), (1, 130, 40, 2), (2, 1029, 768, 12)])
-def test_qkv_q8_dmaj_kernel_matches_plain(dev, bias, B, N, C, M):
+@pytest.mark.parametrize("B,N,C,M", QKV_SHAPES)
+def test_qkv_q8_dmaj_kernel_matches_plain(dev, bias, B, N, C, M, weight):
+    """Bit-equal to the plain version (the same levels, exact int32 sums,
+    the rescale rounded once where the plain version rounds)."""
     g = torch.Generator().manual_seed(14)
     x = _randn(g, (B, N, C), dev).to(torch.bfloat16)
     w, b = _randn(g, (C, 3 * C), dev, C ** -0.5), _randn(g, (3 * C,), dev, 0.1)
+    if weight == "linear":
+        w = torch.nn.Parameter(w.t().contiguous(), requires_grad=False).t()
     b = b if bias else None
     got = q8.qkv_q8_dmaj(x, w, b, M, C // M)
     want = q8.qkv_q8_dmaj_plain(x, w, b, M, C // M)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (B, 3, M, C // M, N)
     assert max_excess(got, want, KERNEL_TOLERANCES["qkv_q8_dmaj"]) <= 0
+    assert torch.equal(got, want)
 
 
 def test_int8_wrapper_grads_match_plain(dev):

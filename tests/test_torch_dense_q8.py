@@ -194,6 +194,47 @@ def test_qkv_q8_dmaj_matches_pallas_interpret(bias, N):
     np.testing.assert_allclose(_np(got), _np(want), **KERNEL_TOL)
 
 
+# the GEMM's tile edges: B N rows that end inside a 64- or 128-token tile and
+# tiles that span two images (N 65, 129 with B 3); K neither a multiple of
+# 128 nor, for 40 and 200, of 16 before padding; D and 3C not a multiple of
+# the 256-feature pass
+EDGE_ROW_SHAPES = [(3, 65, 40, 24), (3, 129, 200, 136)]  # (B, N, K, D)
+EDGE_QKV_SHAPES = [(3, 65, 40, 2), (3, 129, 200, 8)]  # (B, N, C, M)
+
+
+@pytest.mark.parametrize("shape", EDGE_ROW_SHAPES)
+def test_dense_q8_tile_edges_match_pallas_interpret(shape):
+    """Without the GELU, bit for bit against ``_reference_q8`` (the same
+    levels, exact int32 sums, (acc * a) * ws + b in fp32 rounded once to
+    bf16), and within the JAX package's kernel-vs-reference bound of
+    ``_q8_forward`` in interpret mode, which is not bit-equal to its own
+    reference: its fused fp32 arithmetic moves outputs by fp32 ulps and a
+    few levels across a rounding edge (2 of 4680 outputs off by more than
+    one bf16 ulp at the first shape, 154 of 52632 at the second)."""
+    from dinounet_tpu.ops.dense_q8_pallas import _q8_forward, _reference_q8
+
+    (th, jh), (tw, jw), (tb, jb), _, _ = _dense_case(11, *shape)
+    got = tq8.dense_q8(th, tw, tb)
+    assert got.dtype == torch.bfloat16 and got.shape == shape[:2] + shape[3:]
+    np.testing.assert_array_equal(_np(got), _np(_reference_q8(jh, jw, jb, "none")))
+    want = _q8_forward(jh, jw, jb, "none", True)
+    np.testing.assert_allclose(_np(got), _np(want), **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("shape", EDGE_QKV_SHAPES)
+def test_qkv_q8_dmaj_tile_edges_match_pallas_interpret(shape):
+    """The JAX package's kernel-vs-reference bound, as
+    test_qkv_q8_dmaj_matches_pallas_interpret."""
+    from dinounet_tpu.ops.dense_q8_pallas import qkv_q8_dmaj_fused
+
+    B, N, C, M = shape
+    (tx, jx), (tw, jw), (tb, jb) = _qkv_case(12, B, N, C, "bfloat16")
+    got = tq8.qkv_q8_dmaj(tx, tw, tb, M, C // M)
+    want = qkv_q8_dmaj_fused(jx, jw, jb, M, C // M, interpret=True)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, 3, M, C // M, N)
+    np.testing.assert_allclose(_np(got), _np(want), **KERNEL_TOL)
+
+
 # --------------------------------------- plain versions vs the references
 
 
