@@ -9,7 +9,8 @@ not 0:
 1. build   -- compile the CUDA kernels from dinounet_tpu_torch/csrc/; the
               registers and spills of the int8 kernels (the quantize passes
               and the s8 wgmma GEMM's instances in dense_q8.cu and
-              qkv_q8_dmaj.cu) from ptxas.log.
+              qkv_q8_dmaj.cu) and of the 3x3 conv's four Cout instances
+              (conv3x3_stats.cu) from ptxas.log.
 2. kernels -- each of the 17 kernels against its plain PyTorch version on
               the card, at the shapes the dinounet_b tile forward gives it
               (tile batch 8; the MSDA backward at the train step's batch 2;
@@ -38,7 +39,12 @@ not 0:
               and the weight's one-time quantization; without the GELU
               their outputs must equal the plain versions' bit for bit, and
               qkv_q8_dmaj (tiles across images), dense_q8_stats and
-              dense_cm_q8_stats are also held at edge shapes.
+              dense_cm_q8_stats are also held at edge shapes. Each conv3x3
+              case (the seven of serve_cm, the four of serve_hwbc) also
+              prints its device time a call split into the conv kernel and
+              the memset of the sums (a call must launch those and nothing
+              else: the packed weight is cached) and the weight's one-time
+              pack.
 3. serve   -- dinounet_b at full width with seeded random weights, behind the
               port's nnUNetPredictor (2d, 512 x 512 patches, step 0.5, tile
               batch 8, bf16): one 1 x 1280 x 1280 case = 16 tiles in 2
@@ -141,7 +147,8 @@ from dinounet_tpu_torch.ops.attention import (fused_rope_attention,
                                               rope_tables_dmaj)
 from dinounet_tpu_torch.ops.conv_hwbc import conv3x3_hwbc, conv3x3_hwbc_plain
 from dinounet_tpu_torch.ops.decoder_tail import (conv3x3_cm, conv3x3_cm_plain,
-                                                 seg_head_cm, seg_head_cm_plain,
+                                                 pack_conv_weight, seg_head_cm,
+                                                 seg_head_cm_plain,
                                                  transpconv2x2_cm,
                                                  transpconv2x2_cm_plain)
 from dinounet_tpu_torch.ops.dense_q8 import (CACHE_ATTR, dense_cm_q8_residual_stats,
@@ -352,6 +359,8 @@ def phase_build() -> None:
                                  "quant_rows_kernel (GELU)": "quant_rows_kernelILb1",
                                  "quant_rows_kernel": "quant_rows_kernelILb0"})
     ptxas_report("qkv_q8_dmaj.cu", {"q8_gemm_kernel (token columns)": "q8_gemm_kernelILi2E"})
+    ptxas_report("conv3x3_stats.cu", {f"conv3x3_kernel<{co}>": f"conv3x3_kernelILi{co}E"
+                                      for co in (16, 32, 64, 128)})
 
 
 def ptxas_report(source: str, kernels: dict) -> None:
@@ -433,6 +442,29 @@ def _log_int8_breakdown(name, shape_desc, kernel_fn, event_ms, w, ops, nbytes) -
         + f"; 2 launches, nothing else) = {ops / busy / 1e9:.1f} TOPS, "
         f"{nbytes / busy / 1e6:.1f} GB/s; {event_ms - busy:.4f} ms of the "
         f"{event_ms:.4f} ms event time idle; the weight's one-time quantization "
+        f"{once_ms:.4f} ms (not a call's)")
+
+
+def _log_conv_breakdown(name, shape_desc, kernel_fn, stats, w) -> None:
+    """A conv3x3 wrapper's device time a call, split into the conv kernel
+    and, where it returns statistics, the C entry's memset of the sums.
+    Anything else (the weight packed again, a copy of an input) fails the
+    run. Then the weight's one-time pack (the cache's fill, by CUDA
+    events)."""
+    parts = {"conv kernel": [0.0, 0.0], "sums zeroing": [0.0, 0.0], "other": [0.0, 0.0]}
+    for kernel, (ms, n) in device_launches(kernel_fn).items():
+        part = ("conv kernel" if "conv3x3_kernel" in kernel
+                else "sums zeroing" if "memset" in kernel.lower() else "other")
+        parts[part][0] += ms
+        parts[part][1] += n
+    if [n for _, n in parts.values()] != [1, 1 if stats else 0, 0]:
+        raise AssertionError(f"{name} {shape_desc}: launches a call {parts}, not the conv "
+                             f"kernel{' and the sums memset' if stats else ''} alone")
+    busy = sum(ms for ms, _ in parts.values())
+    once_ms = median_ms(lambda: pack_conv_weight(w), iters=5)
+    log(f"[kernels] {name} {shape_desc}: device time {busy:.4f} ms a call (conv kernel "
+        f"{parts['conv kernel'][0]:.4f}, sums memset {parts['sums zeroing'][0]:.4f}; "
+        "nothing else); the weight's one-time pack "
         f"{once_ms:.4f} ms (not a call's)")
 
 
@@ -777,6 +809,8 @@ def phase_kernels(dev) -> dict:
             lambda: _normalized(conv3x3_cm_plain(x, w, b, p, slope, stats, x2), n),
             (x, x2, w, b, *(p or ())), 2.0 * B * n * 9 * (C1 + C2) * Cout, BF16_FLOP_S,
             _conv_library(x, x2, w, b), tols, CUDNN_LABEL)
+        _log_conv_breakdown("conv3x3_cm", f"{where} ({C1}+{C2} -> {Cout})",
+                            lambda: conv3x3_cm(x, w, b, p, slope, stats, x2), stats, w)
         results.setdefault("conv3x3_cm", r)
     # the HWBC route's convs on (H, W, B, C) views of NCHW maps, as the
     # decoder calls them
@@ -794,6 +828,8 @@ def phase_kernels(dev) -> dict:
             lambda: _normalized(conv3x3_hwbc_plain(xv, w, b, x2v, p, slope), n),
             (x, x2, w, b, *(p or ())), 2.0 * B * n * 9 * (C1 + C2) * Cout, BF16_FLOP_S,
             _conv_library(x, x2, w, b), tols, CUDNN_LABEL)
+        _log_conv_breakdown("conv3x3_hwbc", f"{where} ({C1}+{C2} -> {Cout})",
+                            lambda: conv3x3_hwbc(xv, w, b, x2v, p, slope), True, w)
         results.setdefault("conv3x3_hwbc", r)
     # transposed convs: the decoder's three (with the previous stage's
     # InstanceNorm apply after the first) and LearnableUpsample doublings
@@ -1036,7 +1072,7 @@ def log_int8_cache(model: DinoUNet, tag: str) -> None:
     once, on the first int8 forward) and their device memory."""
     entries = [getattr(p, CACHE_ATTR) for p in model.parameters() if hasattr(p, CACHE_ATTR)]
     log(f"{tag} int8 weights cached on the card: {len(entries)} matrices, "
-        f"{sum(_nbytes(wq, ws) for _, wq, ws in entries) / 2**20:.1f} MiB")
+        f"{sum(_nbytes(wq, ws) for _, (wq, ws) in entries) / 2**20:.1f} MiB")
 
 
 def cpu_logits(model: DinoUNet, tile):

@@ -58,8 +58,8 @@ _SIGNATURES = {
     # h, wt (D, K), b, res, gamma, out, mu, var, scratch (gelu(h) or null), B, N,
     # K, D, channel_major, gelu, stream
     "dense_residual_stats": [_P] * 9 + [_I] * 6 + [_P],
-    # x, x2, c1, c2, x strides (b, c, h, w), x2 strides, w, bias, s, t, slope,
-    # y, y strides, sum, ssq, B, H, W, Cout, stream
+    # x, x2, c1, c2, x strides (b, c, h, w), x2 strides, packed w, bias, s, t,
+    # slope, y, y strides, sum, ssq, B, H, W, Cout, stream
     "conv3x3_stats": [_P] * 2 + [_I] * 10 + [_P] * 4 + [_F, _P] + [_I] * 4
                      + [_P] * 2 + [_I] * 4 + [_P],
     # x, x strides (b, c, h, w), w, bias, s, t, slope, y, B, Cin, H, W, Cout, stream
@@ -175,6 +175,26 @@ def levels(spatial_shapes):
     ctypes int array."""
     flat = [int(n) for hw in spatial_shapes for n in hw]
     return (ctypes.c_int * len(flat))(*flat)
+
+
+def cached_on_storage(w, attr: str, make, *extra):
+    """``make()``, computed once and kept under ``attr`` on the tensor that
+    owns w's storage (``w._base`` for a view such as a Linear weight's
+    ``.t()``, else w). The entry is tied to that tensor's version counter,
+    data pointer, dtype and device, to w's shape, strides and offset, and to
+    ``extra``, so an in-place update (``copy_``, ``fill_``,
+    ``load_state_dict``) or a new ``.data`` makes it again. An inference
+    tensor keeps no version counter: ``make()`` runs on every call."""
+    base = w if w._base is None else w._base
+    if base.is_inference():
+        return make()
+    key = (base._version, base.data_ptr(), base.dtype, base.device, tuple(w.shape),
+           w.stride(), w.storage_offset(), *extra)
+    entry = getattr(base, attr, None)
+    if entry is None or entry[0] != key:
+        entry = (key, make())
+        setattr(base, attr, entry)
+    return entry[1]
 
 
 def stream_of(device) -> int:

@@ -26,9 +26,9 @@ from dinounet_tpu_torch.ops import _build
 
 Prologue = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
-# Cout values the conv kernel is instantiated for (16 output channels a
-# tensor-core fragment, up to eight fragments a warp)
+# Cout values the conv kernel is instantiated for (wgmma widths 16 to 128)
 _CONV_COUT = (16, 32, 64, 128)
+_PACK_ATTR = "_dinounet_conv3x3_packed"
 
 
 def _pick_stripe(h: int, vmem_rows: int = 32) -> Optional[int]:
@@ -120,11 +120,29 @@ def _prologue_ptrs(op, prologue: Prologue, B: int, C: int, dev):
     return (s, t), s.data_ptr(), t.data_ptr()
 
 
+def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) -> the kernel's B operand, (Cin / 8, 9, Cout, 8)
+    bf16: for each group of 8 input channels and tap ky * 3 + kx, Cout rows
+    of that group's 8 weights (16 bytes each), wgmma's no-swizzle K-major
+    layout; the 16 channels of a chunk are one contiguous slice."""
+    cout, cin = w.shape[0], w.shape[1]
+    return (w.to(torch.bfloat16).reshape(cout, cin // 8, 8, 9).permute(1, 3, 0, 2)
+            .contiguous())
+
+
+def packed_conv_weight(w: torch.Tensor) -> torch.Tensor:
+    """``pack_conv_weight(w)``, computed once per weight version and kept on
+    the tensor that owns w's storage (``_build.cached_on_storage``)."""
+    return _build.cached_on_storage(w, _PACK_ATTR, lambda: pack_conv_weight(w))
+
+
 def conv3x3_launch(op: str, x, x2, w, b, prologue: Prologue, slope: float,
                    stats: bool, y) -> Optional[torch.Tensor]:
     """Launch csrc/conv3x3_stats.cu on (B, C, H, W) views of any strides:
     x (and x2, concatenated after it along C), writing y, a (B, Cout, H, W)
-    view. Returns the (2, B, Cout) fp32 sums of y and y^2 with `stats`."""
+    view. Returns the (2, B, Cout) fp32 sums of y and y^2 with `stats`. The
+    weight goes in packed (``packed_conv_weight``, once per weight version);
+    a call is one memset of the sums (the C entry's) and the conv kernel."""
     dev = x.device
     bf16, f32 = torch.bfloat16, torch.float32
     B, C1, H, W = x.shape
@@ -142,15 +160,15 @@ def conv3x3_launch(op: str, x, x2, w, b, prologue: Prologue, slope: float,
     if tuple(w.shape) != (Cout, C1 + C2, 3, 3) or tuple(y.shape) != (B, Cout, H, W):
         raise ValueError(f"{op}: weight {tuple(w.shape)} / output {tuple(y.shape)} "
                          f"do not fit input channels {C1 + C2}")
-    w9 = w.to(bf16).permute(2, 3, 1, 0).contiguous()  # (3, 3, Cin, Cout)
+    wp = packed_conv_weight(w)
     bias = b.to(f32).contiguous()
     _build.check_inputs(op, dev, bias=(bias, f32, (Cout,)))
     _st, ps, pt = _prologue_ptrs(op, prologue, B, C1 + C2, dev)
-    sums = torch.zeros((2, B, Cout), dtype=f32, device=dev) if stats else None
+    sums = torch.empty((2, B, Cout), dtype=f32, device=dev) if stats else None
     s2 = x2.stride() if x2 is not None else (0, 0, 0, 0)
     err = _build.lib().conv3x3_stats(
         x.data_ptr(), 0 if x2 is None else x2.data_ptr(), C1, C2,
-        *x.stride(), *s2, w9.data_ptr(), bias.data_ptr(), ps, pt, float(slope),
+        *x.stride(), *s2, wp.data_ptr(), bias.data_ptr(), ps, pt, float(slope),
         y.data_ptr(), *y.stride(),
         0 if sums is None else sums[0].data_ptr(),
         0 if sums is None else sums[1].data_ptr(),

@@ -117,16 +117,7 @@ def quantized_weight(w: torch.Tensor,
     an in-place update (``copy_``, ``fill_``, ``load_state_dict``) or a new
     ``.data`` quantizes again. An inference tensor keeps no version
     counter, so its weight is quantized on every call."""
-    base = w if w._base is None else w._base
-    if base.is_inference():
-        return quantize_weight_dk(w, dtype)
-    key = (base._version, base.data_ptr(), base.dtype, base.device, tuple(w.shape),
-           w.stride(), w.storage_offset(), dtype)
-    entry = getattr(base, CACHE_ATTR, None)
-    if entry is None or entry[0] != key:
-        entry = (key, *quantize_weight_dk(w, dtype))
-        setattr(base, CACHE_ATTR, entry)
-    return entry[1], entry[2]
+    return _build.cached_on_storage(w, CACHE_ATTR, lambda: quantize_weight_dk(w, dtype), dtype)
 
 
 def quantize_act_tokens(h: torch.Tensor, channel_major: bool = False,

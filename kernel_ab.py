@@ -19,8 +19,13 @@ as the models feed it; and the int8 serving mode's kernels at their path
 shapes (tile batch 8), each fed an fp32 `Linear.weight.t()`: #10 the ViT
 fc1, #11 (GELU) the ViT fc2 and the adapter's ConvFFN fc2, #12 the ViT
 attention projection and the adapter's MSDA output projection, #13 the ViT
-qkv. For each: the wrapper's event time (median of 50 synchronised calls) and the device time of one launch (CUDA events around
-50 back-to-back calls). Prints one JSON line (null for a kernel the
+qkv; and the conv family at the serve routes' shapes (tile batch 8): the
+3x3 conv + statistics #14 at serve_cm's seven (the decoder's conv0 and
+conv1 at 512^2, 256^2 and 128^2, the SPM stem at 256^2), the same kernel as
+#17 at serve_hwbc's four ((H, W, B, C) views of NCHW maps), and the k2s2
+transposed conv #16 at its five. For each: the wrapper's event time
+(median of 50 synchronised calls) and the device time of one launch (CUDA
+events around 50 back-to-back calls). Prints one JSON line (null for a kernel the
 checkout lacks). Compare two checkouts within one machine, in turns: A, B,
 B, A. Row names after the checkout time those rows alone (the others print
 null), so that a row can be timed without the rows before it.
@@ -59,6 +64,8 @@ def main(checkout: str, only=()) -> None:
 
     from dinounet_tpu_torch.ops import _build
     from dinounet_tpu_torch.ops import attention, dense_q8, dense_stats, msda_kernel
+    from dinounet_tpu_torch.ops.conv_hwbc import conv3x3_hwbc
+    from dinounet_tpu_torch.ops.decoder_tail import conv3x3_cm, transpconv2x2_cm
     from dinounet_tpu_torch.ops.msda import premapped_fused_prep
 
     dev = torch.device("cuda", 0)
@@ -140,6 +147,48 @@ def main(checkout: str, only=()) -> None:
                 dense_q8.dense_cm_q8_residual_stats(h, w, b, r, gm),
             "qkv_q8_dmaj": lambda h=h, w=w, b=bias: dense_q8.qkv_q8_dmaj(h, w, b, 12, 64),
         }[op]
+    # #14 / #17: (name, hwbc view, C1, C2, H = W, Cout, prologue, slope, stats)
+    conv_names = []
+    for name, hwbc, C1, C2, H, Cout, pro, slope, stats in (
+            ("conv_cm_conv0_512", False, 32, 32, 512, 32, False, 0.01, True),
+            ("conv_cm_conv1_512", False, 32, 0, 512, 32, True, 0.01, True),
+            ("conv_cm_conv0_256", False, 64, 64, 256, 64, False, 0.01, True),
+            ("conv_cm_conv1_256", False, 64, 0, 256, 64, True, 0.01, True),
+            ("conv_cm_conv0_128", False, 128, 128, 128, 128, False, 0.01, True),
+            ("conv_cm_conv1_128", False, 128, 0, 128, 128, True, 0.01, True),
+            ("conv_cm_spm_256", False, 64, 0, 256, 64, True, 0.0, False),
+            ("conv_hwbc_conv0_512", True, 32, 32, 512, 32, False, 0.01, True),
+            ("conv_hwbc_conv1_512", True, 32, 0, 512, 32, True, 0.01, True),
+            ("conv_hwbc_conv0_256", True, 64, 64, 256, 64, False, 0.01, True),
+            ("conv_hwbc_conv1_256", True, 64, 0, 256, 64, True, 0.01, True)):
+        x = torch.randn((8, C1, H, H), generator=g, device=dev).to(bf)
+        x2 = torch.randn((8, C2, H, H), generator=g, device=dev).to(bf) if C2 else None
+        w = torch.randn((Cout, C1 + C2, 3, 3), generator=g, device=dev) * (9 * (C1 + C2)) ** -0.5
+        b = torch.randn((Cout,), generator=g, device=dev) * 0.1
+        p = ((torch.rand((8, C1 + C2), generator=g, device=dev) + 0.5,
+              torch.randn((8, C1 + C2), generator=g, device=dev) * 0.3) if pro else None)
+        if hwbc:
+            xv = x.permute(2, 3, 0, 1)
+            x2v = None if x2 is None else x2.permute(2, 3, 0, 1)
+            calls[name] = (lambda xv=xv, w=w, b=b, x2v=x2v, p=p, s=slope:
+                           conv3x3_hwbc(xv, w, b, x2v, p, s))
+        else:
+            calls[name] = (lambda x=x, w=w, b=b, p=p, s=slope, st=stats, x2=x2:
+                           conv3x3_cm(x, w, b, p, s, st, x2))
+        conv_names.append(name)
+    # #16: (name, Cin, Cout, H = W, prologue)
+    for name, Cin, Cout, H, pro in (("transpconv_dec_256", 64, 32, 256, True),
+                                    ("transpconv_dec_128", 128, 64, 128, True),
+                                    ("transpconv_dec_64", 256, 128, 64, False),
+                                    ("transpconv_up_256", 32, 32, 256, False),
+                                    ("transpconv_up_32", 256, 256, 32, False)):
+        x = torch.randn((8, Cin, H, H), generator=g, device=dev).to(bf)
+        w = torch.randn((Cin, Cout, 2, 2), generator=g, device=dev) * Cin ** -0.5
+        b = torch.randn((Cout,), generator=g, device=dev) * 0.1
+        p = ((torch.rand((8, Cin), generator=g, device=dev) + 0.5,
+              torch.randn((8, Cin), generator=g, device=dev) * 0.3) if pro else None)
+        calls[name] = lambda x=x, w=w, b=b, p=p: transpconv2x2_cm(x, w, b, p)
+        conv_names.append(name)
     out = {"checkout": checkout}
     # the MSDA kernels first: timed after a run of the attention kernels they
     # have read 2-3 % slower with their own code unchanged, a state the
@@ -150,7 +199,8 @@ def main(checkout: str, only=()) -> None:
                  "dense_rm_vit_fc2", "dense_rm_convffn_fc2", "dense_cm_7b_msda_proj",
                  "dense_rm_7b_convffn_fc2", "q8_vit_fc1", "q8_stats_vit_fc2",
                  "q8_stats_convffn_fc2", "q8_cm_vit_proj", "q8_cm_msda_proj", "q8_vit_qkv",
-                 "rope_attention_dh64", "rope_attention_ndh_dh64", "rope_attention_rm_dh128"):
+                 "rope_attention_dh64", "rope_attention_ndh_dh64", "rope_attention_rm_dh128",
+                 *conv_names):
         wanted = name in calls and (not only or name in only)
         out[name] = _time(calls[name]) if wanted else None
     print(json.dumps(out), flush=True)

@@ -585,24 +585,78 @@ def _check_conv(name, got, want, n):
         assert max_excess(gt / n, wt / n, STATS_TOLERANCE) <= 0
 
 
-# ragged maps (W not a multiple of the 128-pixel tile, odd H), each Cout the
-# kernel takes, two inputs, the prologue, and the SPM form (slope 0, no stats)
-@pytest.mark.parametrize("B,C1,C2,H,W,Cout,pro,slope,stats", [
-    (2, 16, 0, 9, 37, 16, False, 0.01, True),
-    (2, 32, 16, 12, 130, 32, True, 0.01, True),
-    (1, 64, 64, 20, 64, 128, False, 0.01, True),
-    (3, 64, 0, 17, 256, 64, True, 0.0, False),
-])
-def test_conv3x3_cm_kernel_matches_plain(dev, B, C1, C2, H, W, Cout, pro, slope, stats):
-    g = torch.Generator().manual_seed(9)
+def _conv_inputs(g, dev, B, C1, C2, H, W, Cout, pro):
     bf = torch.bfloat16
     x = _randn(g, (B, C1, H, W), dev).to(bf)
     x2 = _randn(g, (B, C2, H, W), dev).to(bf) if C2 else None
     w = _randn(g, (Cout, C1 + C2, 3, 3), dev, (9 * (C1 + C2)) ** -0.5)
     b = _randn(g, (Cout,), dev, 0.1)
     p = _prologue(g, B, C1 + C2, dev) if pro else None
+    return x, x2, w, b, p
+
+
+# ragged maps (W not a multiple of the 128-pixel tile, odd H), each Cout the
+# kernel takes, two inputs, the prologue, and the SPM form (slope 0, no
+# stats); the multi-row tile's edges: H not a multiple of its rows and H 1;
+# W 63, 127, 129 (row strides TMA cannot take: the loader's own loads), 64,
+# 65 and 200 (TMA, a partial second tile); B 3; two inputs of 32 + 16; Cin
+# 256 -> 128 (16 chunks, each with a 37 KB weight slice) on a ragged map, by
+# TMA and by the loader's loads; 450 tiles, more than the persistent grid's
+# blocks, so that each block walks several tiles and images; each Cout with
+# the prologue at slopes 0.01 and 0, with and without statistics
+@pytest.mark.parametrize("B,C1,C2,H,W,Cout,pro,slope,stats", [
+    (2, 16, 0, 9, 37, 16, False, 0.01, True),
+    (2, 32, 16, 12, 130, 32, True, 0.01, True),
+    (1, 64, 64, 20, 64, 128, False, 0.01, True),
+    (3, 64, 0, 17, 256, 64, True, 0.0, False),
+    (2, 16, 0, 1, 64, 16, True, 0.01, True),
+    (1, 32, 0, 1, 129, 128, True, 0.01, True),
+    (1, 32, 0, 5, 63, 32, True, 0.01, True),
+    (2, 32, 0, 6, 64, 32, False, 0.01, True),
+    (1, 16, 16, 7, 65, 64, True, 0.0, True),
+    (2, 64, 0, 3, 127, 64, True, 0.01, True),
+    (1, 32, 32, 9, 129, 128, True, 0.01, True),
+    (3, 32, 16, 7, 200, 32, True, 0.01, True),
+    (1, 256, 0, 11, 129, 128, True, 0.01, True),
+    (1, 128, 128, 6, 200, 128, False, 0.01, True),
+    (2, 16, 0, 300, 260, 16, True, 0.01, True),
+] + [(2, 32, 16, 6, 72, co, True, slope, stats) for co in (16, 32, 64, 128)
+     for slope in (0.01, 0.0) for stats in (True, False)])
+def test_conv3x3_cm_kernel_matches_plain(dev, B, C1, C2, H, W, Cout, pro, slope, stats):
+    g = torch.Generator().manual_seed(9)
+    x, x2, w, b, p = _conv_inputs(g, dev, B, C1, C2, H, W, Cout, pro)
     _check_conv("conv3x3_cm", conv3x3_cm(x, w, b, p, slope, stats, x2),
                 conv3x3_cm_plain(x, w, b, p, slope, stats, x2), H * W)
+
+
+@pytest.mark.parametrize("W", [136, 37])
+def test_conv3x3_cm_kernel_on_channel_slices(dev, W):
+    """Non-contiguous inputs: channel slices x[:, 16:48] and x2[:, 32:48] of
+    larger maps (by TMA at W 136, by the loader's loads at W 37)."""
+    g = torch.Generator().manual_seed(13)
+    B, H, Cout = 2, 10, 32
+    big = _randn(g, (B, 64, H, W), dev).to(torch.bfloat16)
+    x, x2 = big[:, 16:48], big[:, 32:48]
+    assert not x.is_contiguous()
+    w = _randn(g, (Cout, 48, 3, 3), dev, (9 * 48) ** -0.5)
+    b = _randn(g, (Cout,), dev, 0.1)
+    p = _prologue(g, B, 48, dev)
+    _check_conv("conv3x3_cm", conv3x3_cm(x, w, b, p, 0.01, True, x2),
+                conv3x3_cm_plain(x, w, b, p, 0.01, True, x2), H * W)
+
+
+@pytest.mark.parametrize("Cin,Cout", [(64, 32), (256, 128)])
+def test_conv3x3_cm_kernel_after_weight_update(dev, Cin, Cout):
+    """A repeated call after an in-place update of the weight (as
+    load_state_dict makes one) packs the new weight."""
+    g = torch.Generator().manual_seed(14)
+    x, _, w, b, _ = _conv_inputs(g, dev, 2, Cin, 0, 8, 96, Cout, False)
+    first = conv3x3_cm(x, w, b)
+    with torch.no_grad():
+        w.copy_(_randn(g, tuple(w.shape), dev, (9 * Cin) ** -0.5))
+    got = conv3x3_cm(x, w, b)
+    _check_conv("conv3x3_cm", got, conv3x3_cm_plain(x, w, b), 8 * 96)
+    assert not torch.equal(got[0], first[0])
 
 
 @pytest.mark.parametrize("nchw_backed", [False, True])
