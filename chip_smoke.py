@@ -44,7 +44,13 @@ not 0:
               prints its device time a call split into the conv kernel and
               the memset of the sums (a call must launch those and nothing
               else: the packed weight is cached) and the weight's one-time
-              pack.
+              pack. The transposed conv (serve_cm's five shapes) and the
+              three MSDA forwards (#1, #6 and #5 at D = 24, D = 128 and on
+              the 1024^2 patch) likewise print their device time a call
+              split by launch (the kernel; the MSDA token-major copy where
+              the map outgrows shared memory), and a call that launches
+              anything else fails the run. serve_cm also prints the
+              transposed conv's launches a tile-batch forward by shape.
 3. serve   -- dinounet_b at full width with seeded random weights, behind the
               port's nnUNetPredictor (2d, 512 x 512 patches, step 0.5, tile
               batch 8, bf16): one 1 x 1280 x 1280 case = 16 tiles in 2
@@ -72,7 +78,9 @@ not 0:
               init's 1e-5 the backbone's residual branches, and the int8
               error in them, vanish in bf16). Tiles/s, peak memory and
               the backbone, extractors, SPM, upsampling and decoder
-              CUDA-event times per tile batch, beside the default route's.
+              CUDA-event times per tile batch, beside the default route's;
+              for the default route and serve_cm also one forward's device
+              time by kernel family and the device's busy share.
               The environment is restored after each route.
 6. serve_7b -- dinounet_7b at full width and depth (40 SwiGLU blocks)
               with seeded random weights drawn on the card (backbone
@@ -147,8 +155,8 @@ from dinounet_tpu_torch.ops.attention import (fused_rope_attention,
                                               rope_tables_dmaj)
 from dinounet_tpu_torch.ops.conv_hwbc import conv3x3_hwbc, conv3x3_hwbc_plain
 from dinounet_tpu_torch.ops.decoder_tail import (conv3x3_cm, conv3x3_cm_plain,
-                                                 pack_conv_weight, seg_head_cm,
-                                                 seg_head_cm_plain,
+                                                 pack_conv_weight, pack_transpconv_weight,
+                                                 seg_head_cm, seg_head_cm_plain,
                                                  transpconv2x2_cm,
                                                  transpconv2x2_cm_plain)
 from dinounet_tpu_torch.ops.dense_q8 import (CACHE_ATTR, dense_cm_q8_residual_stats,
@@ -404,13 +412,18 @@ def device_launches(fn, iters: int = 5) -> dict:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
         out = {e.key: (e.self_device_time_total / 1e3 / iters, e.count / iters)
-               for e in prof.key_averages() if e.self_device_time_total > 0}
-        if out:
+               for e in events}
+        if events and all(e.count % iters == 0 for e in events):
             return out
-        # a window in which the profiler delivered no device activity at all
-        # (now and then on the card's machine) measured nothing: measure again
-        log(f"[profile] no device activity recorded (window {attempt + 1}); measuring again")
+        # a window in which the profiler delivered no device activity, or the
+        # activity of only some of the calls (a kernel counted 3 times in 5
+        # calls), now and then on the card's machine, measured nothing
+        # whole: measure again (a call that really launches a kernel a
+        # fractional number of times shows it in every window)
+        log(f"[profile] {'partial' if out else 'no'} device activity recorded (window "
+            f"{attempt + 1}); measuring again")
     return out
 
 
@@ -451,21 +464,41 @@ def _log_conv_breakdown(name, shape_desc, kernel_fn, stats, w) -> None:
     Anything else (the weight packed again, a copy of an input) fails the
     run. Then the weight's one-time pack (the cache's fill, by CUDA
     events)."""
-    parts = {"conv kernel": [0.0, 0.0], "sums zeroing": [0.0, 0.0], "other": [0.0, 0.0]}
+    _log_launch_split(name, shape_desc, kernel_fn,
+                      {"conv kernel": "conv3x3_kernel", "sums memset": "Memset"},
+                      {"conv kernel": 1, "sums memset": 1 if stats else 0},
+                      ("the weight's one-time pack", lambda: pack_conv_weight(w)))
+
+
+def _log_launch_split(name, shape_desc, kernel_fn, parts: dict, want: dict,
+                      once=None) -> None:
+    """A wrapper's device time a call, split by the kernels it launches
+    (`parts`: label -> a substring of the kernel's name, first match wins):
+    `want` holds the launches a call must make by label, and any other
+    launch (a weight packed again, a copy of an input) or count fails the
+    run. `once`: (label, fn) of a one-time cost timed beside it (the
+    weight's pack)."""
+    got = {label: [0.0, 0.0] for label in [*parts, "other"]}
     for kernel, (ms, n) in device_launches(kernel_fn).items():
-        part = ("conv kernel" if "conv3x3_kernel" in kernel
-                else "sums zeroing" if "memset" in kernel.lower() else "other")
-        parts[part][0] += ms
-        parts[part][1] += n
-    if [n for _, n in parts.values()] != [1, 1 if stats else 0, 0]:
-        raise AssertionError(f"{name} {shape_desc}: launches a call {parts}, not the conv "
-                             f"kernel{' and the sums memset' if stats else ''} alone")
-    busy = sum(ms for ms, _ in parts.values())
-    once_ms = median_ms(lambda: pack_conv_weight(w), iters=5)
-    log(f"[kernels] {name} {shape_desc}: device time {busy:.4f} ms a call (conv kernel "
-        f"{parts['conv kernel'][0]:.4f}, sums memset {parts['sums zeroing'][0]:.4f}; "
-        "nothing else); the weight's one-time pack "
-        f"{once_ms:.4f} ms (not a call's)")
+        label = next((k for k, key in parts.items() if key.lower() in kernel.lower()),
+                     "other")
+        got[label][0] += ms
+        got[label][1] += n
+    counts = {k: round(v[1], 3) for k, v in got.items()}
+    if counts != {**dict.fromkeys(got, 0), **want}:
+        raise AssertionError(f"{name} {shape_desc}: launches a call {counts}, not {want}")
+    busy = sum(ms for ms, _ in got.values())
+    once_txt = ""
+    if once is not None:
+        once_txt = f"; {once[0]} {median_ms(once[1], iters=5):.4f} ms once (not a call's)"
+    log(f"[kernels] {name} {shape_desc}: device time {busy:.4f} ms a call ("
+        + ", ".join(f"{k} {v[0]:.4f} x{round(v[1])}" for k, v in got.items() if v[1])
+        + f"; nothing else){once_txt}")
+
+
+MSDA_FWD_PARTS = {"gathers": "msda_fwd_fused_kernel", "token-major copy": "transpose_kernel"}
+MSDA_PREMAPPED_PARTS = {"gathers": "msda_fwd_premapped_kernel",
+                        "token-major copy": "transpose_kernel"}
 
 
 def _compare(name, shape_desc, kernel_fn, plain_fn, inputs, flops, peak,
@@ -703,36 +736,63 @@ def phase_kernels(dev) -> dict:
     # (fp32 FMA).
     Mq, Hv, P, Lq = 16, 32, 4, 5376
     base = torch.rand((2 * P, Lq), generator=g, device=dev) * Hv - 0.5
+
+    def msda_forwards(Bw, Dw, Hw, Lw, bw, what, plain_iters=20):
+        """#1, then #6 on the same inputs packed, then #5 on their prepped
+        coordinates and weights; each held against its plain version, its
+        device time split by launch. Returns the inputs and the three results."""
+        vw = randn(Bw, Mq, Dw, Hw * Hw).to(bf)
+        ow, lw = randn(Bw, Mq, 2 * P, Lw, scale=2.0).to(bf), randn(Bw, Mq, P, Lw).to(bf)
+        shapes = ((Hw, Hw),)
+        desc = f"{what}value {tuple(vw.shape)} Lq={Lw}"
+        flops = 8.0 * Bw * Mq * Lw * P * Dw
+        global_copy = 16 * Hw * Hw > 232448  # csrc/msda_fwd.cu stages 8 channels at least
+        r1 = _compare(
+            "msda_fwd", desc,
+            lambda: ms_deform_attn_premapped_fused(vw, shapes, ow, lw, bw),
+            lambda: ms_deform_attn_premapped_fused_plain(vw, shapes, ow, lw, bw),
+            (vw, ow, lw, bw), flops, FP32_FLOP_S, plain_iters=plain_iters)
+        _log_launch_split("msda_fwd", desc,
+                          lambda: ms_deform_attn_premapped_fused(vw, shapes, ow, lw, bw),
+                          MSDA_FWD_PARTS, {"gathers": 1, "token-major copy": int(global_copy)})
+        packed = torch.cat([ow, lw], dim=2)
+        r6 = _compare(
+            "msda_fwd_merged", f"{desc} packed {tuple(packed.shape)}",
+            lambda: ms_deform_attn_premapped_fused_merged(vw, shapes, packed, bw),
+            lambda: ms_deform_attn_premapped_fused_merged_plain(vw, shapes, packed, bw),
+            (vw, packed, bw), flops, FP32_FLOP_S, plain_iters=plain_iters)
+        _log_launch_split("msda_fwd_merged", desc,
+                          lambda: ms_deform_attn_premapped_fused_merged(vw, shapes, packed, bw),
+                          MSDA_FWD_PARTS, {"gathers": 1, "token-major copy": int(global_copy)})
+        del packed
+        xw, yw, aww = (t.contiguous() for t in premapped_fused_prep(ow, lw, bw))
+        r5 = _compare(
+            "msda_fwd_premapped", f"{desc} L=1",
+            lambda: ms_deform_attn_premapped(vw, shapes, xw, yw, aww),
+            lambda: ms_deform_attn_premapped_plain(vw, shapes, xw, yw, aww),
+            (vw, xw, yw, aww), flops, FP32_FLOP_S, plain_iters=plain_iters)
+        # csrc/msda_fwd_premapped.cu stages whole heads of up to 32 channels
+        # or 32-channel slices
+        _log_launch_split("msda_fwd_premapped", desc,
+                          lambda: ms_deform_attn_premapped(vw, shapes, xw, yw, aww),
+                          MSDA_PREMAPPED_PARTS,
+                          {"gathers": 1,
+                           "token-major copy": int(2 * min(Dw, 32) * Hw * Hw > 232448)})
+        del xw, yw, aww
+        return (vw, ow, lw), (r1, r6, r5)
+
     for Dv in (24, 128):
-        v = randn(B, Mq, Dv, Hv * Hv).to(bf)
-        off = randn(B, Mq, 2 * P, Lq, scale=2.0).to(bf)
-        logits = randn(B, Mq, P, Lq).to(bf)
-        r = _compare(
-            "msda_fwd", f"value {tuple(v.shape)} Lq={Lq}",
-            lambda: ms_deform_attn_premapped_fused(v, ((Hv, Hv),), off, logits, base),
-            lambda: ms_deform_attn_premapped_fused_plain(v, ((Hv, Hv),), off, logits, base),
-            (v, off, logits, base), 8.0 * B * Mq * Lq * P * Dv, FP32_FLOP_S)
-        results.setdefault("msda_fwd", r)
+        inputs, rs = msda_forwards(B, Dv, Hv, Lq, base, "")
+        for name, r in zip(("msda_fwd", "msda_fwd_merged", "msda_fwd_premapped"), rs):
+            results.setdefault(name, r)
         if Dv == 24:
-            v24, off24, logits24 = v, off, logits
-    v, off, logits, Dv = v24, off24, logits24, 24
+            v, off, logits = inputs
+        del inputs
+    Dv = 24
     flops = 8.0 * B * Mq * Lq * P * Dv
-    # the merged-projection forward (#6) on the same inputs, packed
-    packed = torch.cat([off, logits], dim=2)
-    results["msda_fwd_merged"] = _compare(
-        "msda_fwd_merged", f"value {tuple(v.shape)} packed {tuple(packed.shape)}",
-        lambda: ms_deform_attn_premapped_fused_merged(v, ((Hv, Hv),), packed, base),
-        lambda: ms_deform_attn_premapped_fused_merged_plain(v, ((Hv, Hv),), packed, base),
-        (v, packed, base), flops, FP32_FLOP_S)
-    # the prepped-input forward (#5) on the same inputs' coordinates and
-    # weights, then over two levels (the map and a 16 x 16 one, 4 points
-    # each; coordinates past every edge)
+    # the prepped-input forward (#5) over two levels (the map and a 16 x 16
+    # one, 4 points each; coordinates past every edge)
     xs, ys, aw = (t.contiguous() for t in premapped_fused_prep(off, logits, base))
-    results["msda_fwd_premapped"] = _compare(
-        "msda_fwd_premapped", f"value {tuple(v.shape)} L=1 Lq={Lq}",
-        lambda: ms_deform_attn_premapped(v, ((Hv, Hv),), xs, ys, aw),
-        lambda: ms_deform_attn_premapped_plain(v, ((Hv, Hv),), xs, ys, aw),
-        (v, xs, ys, aw), flops, FP32_FLOP_S)
     shapes2 = ((Hv, Hv), (Hv // 2, Hv // 2))
     v2 = torch.cat([v, randn(B, Mq, Dv, (Hv // 2) ** 2).to(bf)], dim=3).contiguous()
     xs2 = torch.cat([xs, torch.rand((B, Mq, P, Lq), generator=g, device=dev) * 20 - 2], 2)
@@ -761,8 +821,9 @@ def phase_kernels(dev) -> dict:
     # the widened MSDA kernels at shapes their first versions refused: the
     # backward at dinounet_l's train shape (16 heads of 32), the 7B's (of
     # 128) and at a 1024^2 patch (a 64 x 64 map, 21504 queries), all on its
-    # device-memory instance; the fused forward at D 32 on that map (its
-    # token-major copy). Plain versions timed over 3 calls
+    # device-memory instance; the three forwards at D 32 on that map (#1 and
+    # #6 in 16-channel slices, #5 on its token-major copy). Plain versions
+    # timed over 3 calls
     for Dw, Hw, Bw, what in ((32, Hv, Bt, "dinounet_l train"), (128, Hv, Bt, "dinounet_7b train"),
                              (Dv, 2 * Hv, Bt, "1024^2 patch"), (32, 2 * Hv, B, "1024^2 patch")):
         Lw, Sw = 21 * (Hw // 2) ** 2, Hw * Hw
@@ -780,11 +841,9 @@ def phase_kernels(dev) -> dict:
                      plain_iters=3)
             del xw, yw, aww, cw
         else:
-            _compare("msda_fwd", f"{what} value {tuple(vw.shape)} Lq={Lw}",
-                     lambda: ms_deform_attn_premapped_fused(vw, ((Hw, Hw),), ow, lw, bw),
-                     lambda: ms_deform_attn_premapped_fused_plain(vw, ((Hw, Hw),), ow, lw, bw),
-                     (vw, ow, lw, bw), 8.0 * Bw * Mq * Lw * P * Dw, FP32_FLOP_S,
-                     plain_iters=3)
+            del vw, ow, lw
+            msda_forwards(Bw, Dw, Hw, Lw, bw, f"{what} ", plain_iters=3)
+            continue
         del vw, ow, lw
 
     # the decoder/SPM conv family at the dinounet_b serve shapes (tile batch
@@ -849,6 +908,11 @@ def phase_kernels(dev) -> dict:
             lambda: transpconv2x2_cm(x, w, b, p), lambda: transpconv2x2_cm_plain(x, w, b, p),
             (x, w, b, *(p or ())), 2.0 * B * H * H * Cin * 4 * Cout, BF16_FLOP_S,
             lambda: F.conv_transpose2d(xl, wl, bl, stride=2), library_label=CUDNN_LABEL)
+        _log_launch_split("transpconv2x2_cm", f"{where} ({Cin} -> {Cout})",
+                          lambda: transpconv2x2_cm(x, w, b, p),
+                          {"transpconv kernel": "transpconv2x2_kernel"},
+                          {"transpconv kernel": 1},
+                          ("the weight's pack", lambda: pack_transpconv_weight(w)))
         results.setdefault("transpconv2x2_cm", r)
     # the seg head over the last stage: (8, 32, 512, 512) -> 3 fp32 logits
     C, K, H = 32, N_CLASSES, PATCH
@@ -989,9 +1053,11 @@ def phase_serve(dev, model: DinoUNet, path: str = "serve") -> dict:
     n_tiles, n_batches = 16, 2
     tag = f"[{path}]" if path in ("serve",) + SERVE_7B else f"[serve routes: {path}]"
 
+    shapes = {}
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    logits = predictor.predict_logits_from_preprocessed_data(case)
+    with transpconv_shapes(shapes):
+        logits = predictor.predict_logits_from_preprocessed_data(case)
     first_s = time.perf_counter() - t0
     counts = _build.launch_counts()
     log(f"{tag} first case {first_s:.2f} s; launches {counts}")
@@ -999,6 +1065,13 @@ def phase_serve(dev, model: DinoUNet, path: str = "serve") -> dict:
     want = {k: n * n_batches for k, n in per_forward.items()}
     if counts != want:
         raise AssertionError(f"{path}: kernel launches {counts}, the path makes {want}")
+    if sum(shapes.values()) != counts["transpconv2x2_cm"]:
+        raise AssertionError(f"{path}: transpconv2x2 C calls {shapes}, launches "
+                             f"{counts['transpconv2x2_cm']}")
+    if shapes:
+        log(f"{tag} transpconv2x2_cm launches per tile-batch forward by shape (Cin -> Cout, "
+            "input map, input layout, prologue): " + "; ".join(
+                f"{k} x{n // n_batches}" for k, n in sorted(shapes.items())))
     if logits.shape != (N_CLASSES,) + CASE[1:] or logits.dtype != np.float16:
         raise AssertionError(f"{path}: logits {logits.shape} {logits.dtype}")
     if not np.all(np.isfinite(logits)):
@@ -1017,6 +1090,30 @@ def phase_serve(dev, model: DinoUNet, path: str = "serve") -> dict:
         f"(median {sorted(rates)[1]:.2f}; tile batch {TILE_BATCH}); peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     return counts
+
+
+@contextlib.contextmanager
+def transpconv_shapes(table: dict):
+    """Count the transposed conv's kernel launches in the block by shape:
+    the library's C entry wrapped by a function that notes (Cin -> Cout,
+    H x W, the input's layout, prologue or not) and calls it."""
+    lib = _build.lib()
+    entry = lib.transpconv2x2
+
+    def noted(x, sxb, sxc, sxh, sxw, *rest):
+        ps, B, Cin, H, W, Cout = rest[3], *rest[7:12]
+        layout = ("channel-major" if sxw == 1 else "channels-last" if sxc == 1
+                  else "strided")
+        key = (f"{Cin} -> {Cout}, {H}x{W}, {layout}, "
+               f"{'prologue' if ps else 'no prologue'}")
+        table[key] = table.get(key, 0) + 1
+        return entry(x, sxb, sxc, sxh, sxw, *rest)
+
+    lib.transpconv2x2 = noted
+    try:
+        yield table
+    finally:
+        lib.transpconv2x2 = entry
 
 
 def phase_layer_times(dev, model: DinoUNet, path: str, iters: int = 5) -> dict:
@@ -1183,6 +1280,7 @@ def build_model_7b(dev) -> DinoUNet:
 # are named nvjet_*)
 FAMILIES = (("port attention", ("rope_attention", "rope_prep")),
             ("port MSDA", ("msda_fwd",)),
+            ("port convs", ("conv3x3_kernel", "transpconv2x2_kernel", "seg_head")),
             ("port dense + stats", ("dense_stats_kernel", "gelu_prepass")),
             ("cuDNN conv", ("fprop", "cudnn", "conv2d", "convolve", "xmma")),
             ("cuBLAS GEMM", ("nvjet", "gemm", "cutlass")),
@@ -1499,6 +1597,7 @@ def main() -> int:
     model = build_model()
     counts = {"serve": phase_serve(dev, model)}
     phase_layer_times(dev, model, "serve")
+    phase_profile(dev, model, "serve")
     tile, want = phase_parity(dev, model)
     card_stock = None
     for path, settings in ROUTES.items():
@@ -1513,6 +1612,8 @@ def main() -> int:
             if path in INT8_ROUTES:
                 log_int8_cache(model, f"[serve routes: {path}]")
             phase_layer_times(dev, model, path)
+            if path == "serve_cm":
+                phase_profile(dev, model, path)
             route_want = want
             if path in INT8_ROUTES + OP_ROUTES:
                 route_want, cpu_s = cpu_logits(model, tile)

@@ -14,42 +14,57 @@
 // with zero padding outside the H x W map (grid_sample, align_corners=False).
 // One level (the adapter samples the one ViT patch grid), P <= 16, any D and
 // S. The third forward, #5 (the prep done outside, several levels), is
-// msda_fwd_premapped.cu; the pieces all three share are msda_fwd.cuh.
+// msda_fwd_premapped.cu, on msda_fwd.cuh's first design.
 //
 // What bounds it on an H100: gathers. Each query reads 4 corners x P points x D
 // channels at data-dependent positions -- 4 * 4 * 24 values per query per head
-// at dinounet_b shapes -- and does one FMA per value read, far below the
-// tensor-core roofline and, from device memory, scattered 2-byte reads. The
-// TPU kernels turned the gather into a dense one-hot matrix on the MXU because
-// a TPU has no fast gather; that multiplies the work by S and is not carried
-// over. Here one block takes one (b, head, channel slice, 256-query tile);
-// each thread owns one query, keeps the slice's fp32 accumulators in
-// registers, takes the P-way softmax in fp32 and writes its output column
-// with stores that are coalesced across the warp. The value map is read one
-// of two ways, each its own template instance (kGlobal), so the common one
-// keeps its registers:
-// - staged: the block copies its slice of the head's map into shared memory
-//   as [S][dc] and every gather hits shared memory. A head of D <= 64
-//   channels is one slice (24 x 1024 bf16 = 48 KB for dinounet_b). A wider
-//   head -- dinounet_7b's adapter has D = 2048 / 16 = 128 -- would need 256
-//   KB (over the 227 KB a block may have) and D registers of accumulators a
-//   thread, so it is cut into 32-channel slices across blocks: 64 KB of map
-//   a block at S = 1024 (three blocks an SM), 32 accumulators a thread, and
-//   each slice's block recomputes its queries' coordinates and softmax (a few
-//   dozen FLOPs against the 4 * P * 32 FMAs it gathers). The map is re-read
-//   from L2 by each of the ceil(Lq / 256) query tiles of a head.
-// - global: where the slice does not fit (S above 232448 / (2 * dc): a patch
-//   over 960^2 at D = 32 or 128, over 1104^2 at D = 24), a pre-pass writes a
-//   token-major copy (B, M, S, D) of the map (the caller's scratch) and the
-//   gathers read a corner's dc channels as one contiguous run from it,
-//   through L2 (a head's map is at most 2 MB bf16 at a 1024^2 patch and D =
-//   128; a tile batch's whole value tensor fits the 50 MB L2 up to there).
-// The slice arithmetic costs registers (one block less an SM at D = 24, 29 %
-// slower), so whole heads and sliced heads are separate instances too. #1
-// staged keeps whole heads of up to 16, 32 and 64 channels and unrolls its
-// loop over the points; the other instances (#1 global, #6) take whole heads
-// up to 32 channels and slices above, and keep the point loop rolled, which
-// keeps the build short.
+// at dinounet_b shapes, 528 MB of corner reads a tile batch -- and does one
+// FMA per value read, far below the tensor-core roofline. The TPU kernels
+// turned the gather into a dense one-hot matrix on the MXU because a TPU has
+// no fast gather; that multiplies the work by S and is not carried over. The
+// corners come from shared memory (128 bytes a clock an SM: ~18 us for the
+// 528 MB on 132 SMs), the map staged there once per block; HBM moves the
+// offsets, logits and output, ~50 MB (~15 us).
+//
+// Design:
+// 1. A block takes one (b, head, channel slice) and a contiguous range of its
+//    queries, one thread a query at a time, and walks the range; the host
+//    splits a head's queries into as many ranges as one wave of blocks
+//    holds (the occupancy calculator's blocks an SM times the SMs, over the
+//    heads), so a head's map is staged a few times in all (twice at
+//    dinounet_b's D = 24, tile batch 8), not once per 256 queries. 512
+//    threads a block, at most 64 registers a thread where a thread keeps up
+//    to 32 accumulators (two blocks an SM): the gathers are latency-bound,
+//    and more resident warps hide more of it (kernel_variants.py).
+// 2. Staging: the slice's map is copied into shared memory once, as 16-byte
+//    cells of 8 channels at one position ([channel group][S rounded up to 8]
+//    cells). A warp takes four 8 x 8 tiles (8 channels x 8 positions) at a
+//    time: each lane loads the 4-byte position pair of the matrix fragment
+//    it holds for stmatrix (channel row lane / 4; a row's 16 bytes come from
+//    4 lanes, coalesced), and one stmatrix.trans stores the four tiles
+//    transposed: a stored row is one position's 8 channels, one cell, and a
+//    tile's 8 rows are 8 consecutive cells, so the stores meet no bank
+//    conflict and the transpose takes no registers beyond the fragment.
+// 3. Gathers: a corner's channels are ceil(dc / 8) 16-byte loads, each
+//    unpacked to 8 fp32 and accumulated by FMA into the thread's fp32
+//    accumulators; the coordinate prep and the fp32 P-way softmax are the
+//    first design's.
+// 4. Stores: a thread writes its query's dc channels, 2 bytes each, coalesced
+//    across the warp (consecutive queries).
+// Heads of up to 64 channels are one slice (64 channels x S = 1024: 128 KB).
+// Wider heads -- dinounet_7b's adapter has D = 2048 / 16 = 128 -- and maps
+// whose whole head would not fit (a 1024^2 patch: S = 4096) are cut into
+// slices of up to 32 channels across blocks, as wide as fit (16 channels at
+// S = 4096), each slice recomputing its queries' coordinates and softmax (a
+// few dozen FLOPs against the 4 P dc FMAs it gathers). Only a map of which
+// not even 8 channels fit (S above 14528: a patch over 1920^2) takes the
+// global instance: a pre-pass writes a token-major copy (B, M, S, D) of the
+// map (the caller's scratch) and the gathers read a corner's channels from
+// it through L2, 16 bytes at a time where D allows. #1's whole-head
+// instances unroll the point loop; the others (the slices, the global
+// instance, #6) keep it rolled, which keeps the build short.
+
+#include <stdint.h>
 
 #include "msda_fwd.cuh"
 
@@ -57,110 +72,283 @@ namespace {
 
 using namespace msda;
 
-template <int DMAX, bool kSliced, bool kGlobal, bool kMerged>
-__global__ void __launch_bounds__(kQueries)
+constexpr int kThreads = 512;       // the most threads a block: one query a thread at a time
+constexpr int kSmemMax = 232448;    // the shared memory a block may have
+
+// four 8 x 8 bf16 matrices stored transposed: lane l gives the address of
+// stored row l % 8 of matrix l / 8
+__device__ __forceinline__ void stsm_x4_trans(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
+// the block's slice of its head's map, channel rows v_g[c * S + s] (c < dc),
+// into shared memory as [ceil(dc / 8)][Sp] cells of 8 channels (zero past
+// dc; Sp = S rounded up to 8)
+__device__ __forceinline__ void stage_map(uint4* __restrict__ v_s,
+                                          const __nv_bfloat16* __restrict__ v_g, int dc,
+                                          int ng, int S, int Sp) {
+  int done = 0;  // 8 x 8 tiles (8 channels x 8 positions) staged by stmatrix
+  if ((S & 7) == 0) {
+    // a warp takes 4 tiles of a group: lane l loads the 4-byte pair of
+    // positions 2 (l % 4) of channel row l / 4 of each (the fragment of an
+    // 8 x 8 matrix, rows = channels), and stmatrix stores the matrices
+    // transposed: stored row i is position i's 8 channels, one 16-byte
+    // cell, and the 8 rows of a matrix are 8 consecutive cells
+    const int s8 = S >> 3, tiles = ng * s8;
+    const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+    const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(v_s));
+    done = tiles & ~3;
+    for (int t0 = 4 * (threadIdx.x >> 5); t0 < done; t0 += 4 * nwarps) {
+      uint32_t r[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int t = t0 + m, g = t / s8, s0 = (t - g * s8) * 8, c = 8 * g + lane / 4;
+        r[m] = c < dc ? __ldg(reinterpret_cast<const uint32_t*>(v_g + (size_t)c * S + s0) +
+                              lane % 4)
+                      : 0u;
+      }
+      const int t = t0 + lane / 8, g = t / s8, s0 = (t - g * s8) * 8;
+      stsm_x4_trans(base + (uint32_t)(((size_t)g * Sp + s0 + lane % 8) * 16), r);
+    }
+  }
+  // the rest (S not a multiple of 8, or the last tiles): element by element
+  __nv_bfloat16* v_e = reinterpret_cast<__nv_bfloat16*>(v_s);
+  for (int i = done * 64 + threadIdx.x; i < ng * S * 8; i += blockDim.x) {
+    const int e = i & 7, cell = i >> 3;
+    const int g = cell / S, s = cell - g * S;
+    const int c = 8 * g + e;
+    v_e[((size_t)g * Sp + s) * 8 + e] = c < dc ? v_g[(size_t)c * S + s] : __float2bfloat16(0.f);
+  }
+  __syncthreads();
+}
+
+// acc[8 g + k] += wt * channel 8 g + k of an 8-channel cell
+__device__ __forceinline__ void fma_cell(float* acc, const uint4& u, float wt) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    acc[2 * k] = fmaf(wt, __uint_as_float(w[k] << 16), acc[2 * k]);
+    acc[2 * k + 1] = fmaf(wt, __uint_as_float(w[k] & 0xFFFF0000u), acc[2 * k + 1]);
+  }
+}
+
+// acc += w_p * bilinear(map, x, y) over the slice's channels, for one point
+// on an H x W map: staged cells, or (kGlobal) the token-major copy's rows
+// vt + pos * D (16-byte loads where D and the slice start allow)
+template <int NG, bool kGlobal>
+__device__ __forceinline__ void gather_point(float (&acc)[8 * NG],
+                                             const uint4* __restrict__ v_s,
+                                             const __nv_bfloat16* __restrict__ vt, int D,
+                                             int dc, int ng, int Sp, int H, int W, float x,
+                                             float y, float w_p) {
+  // clamping to one pixel beyond the map keeps the int conversion in range
+  // and leaves every out-of-map corner out of the map
+  x = fminf(fmaxf(x, -2.f), (float)W + 1.f);
+  y = fminf(fmaxf(y, -2.f), (float)H + 1.f);
+  const float x0f = floorf(x);
+  const float y0f = floorf(y);
+  const float fx = x - x0f;
+  const float fy = y - y0f;
+  const int x0 = (int)x0f;
+  const int y0 = (int)y0f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int dy = c >> 1;
+    const int dx = c & 1;
+    const int yy = y0 + dy;
+    const int xx = x0 + dx;
+    if (yy < 0 || yy >= H || xx < 0 || xx >= W) continue;
+    const float wy = dy ? fy : 1.f - fy;
+    const float wx = dx ? fx : 1.f - fx;
+    const float wt = w_p * (wy * wx);
+    const int pos = yy * W + xx;
+    if (kGlobal) {
+      const __nv_bfloat16* vp = vt + (size_t)pos * D;
+      if ((D & 7) == 0) {
+#pragma unroll
+        for (int g = 0; g < NG; ++g)
+          if (g < ng) fma_cell(acc + 8 * g, __ldg(reinterpret_cast<const uint4*>(vp) + g), wt);
+      } else {
+#pragma unroll
+        for (int d = 0; d < 8 * NG; ++d)
+          if (d < dc) acc[d] = fmaf(wt, __bfloat162float(__ldg(vp + d)), acc[d]);
+      }
+    } else {
+      const uint4* cell = v_s + pos;
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+        if (g < ng) fma_cell(acc + 8 * g, cell[(size_t)g * Sp], wt);
+    }
+  }
+}
+
+// one instance: NG 8-channel groups a thread at most; kSliced: blockIdx.y =
+// head * n_slices + slice, channels [slice * sw, slice * sw + sw); kGlobal:
+// value is the token-major copy (B, M, S, D)
+template <int NG, bool kSliced, bool kGlobal, bool kMerged>
+__global__ void __launch_bounds__(kThreads, NG <= 4 ? 2 : 1)
 msda_fwd_fused_kernel(const __nv_bfloat16* __restrict__ value,
                       const __nv_bfloat16* __restrict__ off,
                       const __nv_bfloat16* __restrict__ logits,
                       const float* __restrict__ base,
                       __nv_bfloat16* __restrict__ out,
-                      int M, int D, int n_slices, int H, int W, int P, int Lq) {
-  // #1 staged unrolls its point loops; the other instances keep them
+                      int M, int D, int sw, int n_slices, int H, int W, int P, int Lq,
+                      int q_chunk) {
+  // #1's whole heads unroll their point loops; the other instances keep them
   // rolled, which keeps the build short (the softmax weights then live in
   // local memory)
-  constexpr int kUnroll = kGlobal || kMerged ? 1 : kMaxPoints;
+  constexpr int kUnroll = kGlobal || kMerged || kSliced ? 1 : kMaxPoints;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int S = H * W;
-  const Slice<DMAX, kSliced> sl(D, n_slices);
-  const size_t bm = (size_t)blockIdx.z * M + sl.m;
-  int ld;
-  const __nv_bfloat16* v = slice_map<kGlobal>(
-      value, reinterpret_cast<__nv_bfloat16*>(smem), bm, D, S, sl.d0, sl.dc, &ld);
+  uint4* v_s = reinterpret_cast<uint4*>(smem);
+  const int S = H * W, Sp = (S + 7) & ~7;
+  const int m = kSliced ? blockIdx.y / n_slices : blockIdx.y;
+  const int d0 = kSliced ? (blockIdx.y - m * n_slices) * sw : 0;
+  const int dc = kSliced ? min(sw, D - d0) : D;
+  const int ng = (dc + 7) >> 3;
+  const size_t bm = (size_t)blockIdx.z * M + m;
+  const __nv_bfloat16* vt = value + bm * S * D + d0;  // kGlobal: the token-major rows
+  if (!kGlobal) stage_map(v_s, value + (bm * D + d0) * S, dc, ng, S, Sp);
 
-  const int q = blockIdx.x * kQueries + threadIdx.x;
-  if (q >= Lq) return;  // ragged tail of the query axis
-  // #6: off is the packed buffer, each head's logits 2P rows after its offsets
-  const __nv_bfloat16* off_q = off + bm * (kMerged ? 3 : 2) * P * Lq + q;
-  const __nv_bfloat16* lg_q = kMerged ? off_q + (size_t)2 * P * Lq : logits + bm * P * Lq + q;
+  const int q1 = min(Lq, (int)(blockIdx.x + 1) * q_chunk);
+  for (int q = blockIdx.x * q_chunk + threadIdx.x; q < q1; q += blockDim.x) {
+    // #6: off is the packed buffer, each head's logits 2P rows after its offsets
+    const __nv_bfloat16* off_q = off + bm * (kMerged ? 3 : 2) * P * Lq + q;
+    const __nv_bfloat16* lg_q = kMerged ? off_q + (size_t)2 * P * Lq : logits + bm * P * Lq + q;
 
-  float a[kMaxPoints];
-  float mx = -INFINITY;
+    float a[kMaxPoints];
+    float mx = -INFINITY;
 #pragma unroll kUnroll
-  for (int p = 0; p < kMaxPoints; ++p) {
-    if (p < P) {
-      a[p] = __bfloat162float(lg_q[(size_t)p * Lq]);
-      mx = fmaxf(mx, a[p]);
+    for (int p = 0; p < kMaxPoints; ++p) {
+      if (p < P) {
+        a[p] = __bfloat162float(lg_q[(size_t)p * Lq]);
+        mx = fmaxf(mx, a[p]);
+      }
     }
-  }
-  float sum = 0.f;
+    float sum = 0.f;
 #pragma unroll kUnroll
-  for (int p = 0; p < kMaxPoints; ++p) {
-    if (p < P) {
-      a[p] = expf(a[p] - mx);
-      sum += a[p];
+    for (int p = 0; p < kMaxPoints; ++p) {
+      if (p < P) {
+        a[p] = expf(a[p] - mx);
+        sum += a[p];
+      }
     }
-  }
 
-  float acc[DMAX];
+    float acc[8 * NG];
 #pragma unroll
-  for (int d = 0; d < DMAX; ++d) acc[d] = 0.f;
+    for (int d = 0; d < 8 * NG; ++d) acc[d] = 0.f;
 #pragma unroll kUnroll
-  for (int p = 0; p < kMaxPoints; ++p) {
-    if (p < P) {
-      const float x = __bfloat162float(off_q[(size_t)(2 * p) * Lq]) + base[(size_t)(2 * p) * Lq + q];
-      const float y = __bfloat162float(off_q[(size_t)(2 * p + 1) * Lq]) + base[(size_t)(2 * p + 1) * Lq + q];
-      sample<DMAX, kGlobal>(acc, v, ld, sl.dc, H, W, x, y, a[p] / sum);
+    for (int p = 0; p < kMaxPoints; ++p) {
+      if (p < P) {
+        const float x =
+            __bfloat162float(off_q[(size_t)(2 * p) * Lq]) + base[(size_t)(2 * p) * Lq + q];
+        const float y = __bfloat162float(off_q[(size_t)(2 * p + 1) * Lq]) +
+                        base[(size_t)(2 * p + 1) * Lq + q];
+        gather_point<NG, kGlobal>(acc, v_s, vt, D, dc, ng, Sp, H, W, x, y, a[p] / sum);
+      }
     }
+    __nv_bfloat16* o = out + (bm * D + d0) * Lq + q;
+#pragma unroll
+    for (int d = 0; d < 8 * NG; ++d)
+      if (d < dc) o[(size_t)d * Lq] = __float2bfloat16(acc[d]);
   }
-  store(acc, out + (bm * D + sl.d0) * Lq + q, sl.dc, Lq);
 }
 
-template <int DMAX, bool kSliced, bool kGlobal, bool kMerged>
+int sm_count() {
+  static int count[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  int& n = count[dev & 63];
+  if (n == 0 && cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    n = 0;
+  return n;
+}
+
+// sw: the channels a block (the whole head where not kSliced)
+template <int NG, bool kSliced, bool kGlobal, bool kMerged>
 int launch(const void* value, const void* off, const void* logits, const void* base,
-           void* out, int B, int M, int D, int H, int W, int P, int Lq,
+           void* out, int B, int M, int D, int H, int W, int P, int Lq, int sw,
            cudaStream_t stream) {
-  const Plan<DMAX, kSliced, kGlobal> pl(B, M, D, H * W, Lq, sizeof(__nv_bfloat16));
-  auto kernel = msda_fwd_fused_kernel<DMAX, kSliced, kGlobal, kMerged>;
-  cudaError_t err = allow_smem(kernel, pl.smem);
+  auto kernel = msda_fwd_fused_kernel<NG, kSliced, kGlobal, kMerged>;
+  const int S = H * W;
+  const int n_slices = kSliced ? (D + sw - 1) / sw : 1;
+  const size_t smem = kGlobal ? 0 : (size_t)((sw + 7) / 8) * ((S + 7) & ~7) * 16;
+  const int threads = kThreads;
+  // the attribute and the blocks an SM holds, once an instance and map size
+  static int ready_dev = -1, last_smem = -1, per_sm = 0;  // per_sm of `threads`
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<pl.grid, kQueries, pl.smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(value),
-      static_cast<const __nv_bfloat16*>(off),
-      static_cast<const __nv_bfloat16*>(logits),
-      static_cast<const float*>(base), static_cast<__nv_bfloat16*>(out),
-      M, D, pl.n_slices, H, W, P, Lq);
+  if (ready_dev != dev) {
+    err = allow_smem(kernel, kSmemMax);
+    if (err != cudaSuccess) return (int)err;
+    ready_dev = dev;
+    last_smem = -1;
+  }
+  if (last_smem != (int)smem) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (err != cudaSuccess) return (int)err;
+    last_smem = (int)smem;
+  }
+  // split each head's queries into as many ranges as one wave of blocks holds
+  const long long heads = (long long)B * M * n_slices;
+  const long long room = (long long)(per_sm > 0 ? per_sm : 1) * sm_count();
+  long long ranges = room / heads;
+  const long long most = (Lq + threads - 1) / threads;
+  if (ranges > most) ranges = most;
+  if (ranges < 1) ranges = 1;
+  const int q_chunk = (int)((Lq + ranges - 1) / ranges);
+  const dim3 grid((Lq + q_chunk - 1) / q_chunk, M * n_slices, B);
+  kernel<<<grid, threads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(value), static_cast<const __nv_bfloat16*>(off),
+      static_cast<const __nv_bfloat16*>(logits), static_cast<const float*>(base),
+      static_cast<__nv_bfloat16*>(out), M, D, sw, n_slices, H, W, P, Lq, q_chunk);
   return (int)cudaGetLastError();
 }
 
-// the instance for D (see the header)
-template <bool kGlobal, bool kMerged>
-int dispatch(const void* value, const void* off, const void* logits, const void* base,
-             void* out, int B, int M, int D, int H, int W, int P, int Lq,
-             cudaStream_t s) {
-  if constexpr (!kGlobal && !kMerged) {
-    if (D <= 16)
-      return launch<16, false, false, false>(value, off, logits, base, out, B, M, D, H, W, P, Lq, s);
-    if (D > 32 && D <= kMaxWhole)
-      return launch<kMaxWhole, false, false, false>(value, off, logits, base, out, B, M, D, H, W, P, Lq, s);
-  }
-  if (D <= 32)
-    return launch<32, false, kGlobal, kMerged>(value, off, logits, base, out, B, M, D, H, W, P, Lq, s);
-  return launch<kSlice, true, kGlobal, kMerged>(value, off, logits, base, out, B, M, D, H, W, P, Lq, s);
-}
-
-// scratch null: the staged instance, else the global one over the
-// token-major copy that scratch (B, M, S, D) bf16 receives
+// scratch null: a staged instance (the whole head where it fits in shared
+// memory, else slices of up to 32 channels as wide as fit), else the global
+// one over the token-major copy that scratch (B, M, S, D) bf16 receives
 template <bool kMerged>
 int entry(const void* value, void* scratch, const void* off, const void* logits,
           const void* base, void* out, int B, int M, int D, int H, int W, int P, int Lq,
           void* stream) {
-  if (bad_sizes(B, M, D, P, Lq) || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  if (bad_sizes(B, M, D, P, Lq) || H < 1 || W < 1 || M > 65535 / ((D + 7) / 8) ||
+      B > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (scratch == nullptr)
-    return dispatch<false, kMerged>(value, off, logits, base, out, B, M, D, H, W, P, Lq, s);
-  cudaError_t err = transpose<__nv_bfloat16>(value, scratch, B * M, D, H * W, s);
-  if (err != cudaSuccess) return (int)err;
-  return dispatch<true, kMerged>(scratch, off, logits, base, out, B, M, D, H, W, P, Lq, s);
+  const long long S = (long long)H * W;
+  if (scratch != nullptr) {
+    cudaError_t err = transpose<__nv_bfloat16>(value, scratch, B * M, D, H * W, s);
+    if (err != cudaSuccess) return (int)err;
+    return launch<kSlice / 8, true, true, kMerged>(scratch, off, logits, base, out, B, M, D,
+                                                      H, W, P, Lq, kSlice, s);
+  }
+  const long long fit = kSmemMax / (16 * ((S + 7) & ~7)) * 8;  // channels whose cells fit
+  if (fit < 8) return (int)cudaErrorInvalidValue;  // the caller owes a scratch
+  const int d8 = (D + 7) / 8 * 8;
+  if (d8 <= fit && D <= (kMerged ? 32 : 64)) {
+    if (kMerged || (D > 24 && D <= 32))
+      return launch<4, false, false, kMerged>(value, off, logits, base, out, B, M, D, H, W, P,
+                                              Lq, D, s);
+    if constexpr (!kMerged) {
+      if (D <= 16)
+        return launch<2, false, false, false>(value, off, logits, base, out, B, M, D, H, W, P,
+                                              Lq, D, s);
+      if (D <= 24)
+        return launch<3, false, false, false>(value, off, logits, base, out, B, M, D, H, W, P,
+                                              Lq, D, s);
+      return launch<8, false, false, false>(value, off, logits, base, out, B, M, D, H, W, P,
+                                            Lq, D, s);
+    }
+  }
+  // slices as even as the widest that fits allows, each a multiple of 8
+  const int widest = (int)(fit < kSlice ? fit : kSlice);
+  const int n_slices = (D + widest - 1) / widest;
+  const int sw = ((D + n_slices - 1) / n_slices + 7) / 8 * 8;
+  return launch<kSlice / 8, true, false, kMerged>(value, off, logits, base, out, B, M, D, H,
+                                                     W, P, Lq, sw, s);
 }
 
 }  // namespace

@@ -1,10 +1,10 @@
-// The MSDA forward's shared pieces, for sm_90a: msda_fwd.cu (#1 and #6, the
-// fused prep) and msda_fwd_premapped.cu (#5, the prep done outside) sample
-// the same way. msda_fwd.cu's header says what bounds the forward on an H100
-// and how it is laid out; here are the block's channel slice, where it reads
+// The MSDA forward's first design, for sm_90a, which msda_fwd_premapped.cu
+// (#5, the prep done outside) runs: the block's channel slice, where it reads
 // the value map (staged in shared memory or gathered from a token-major copy
 // in device memory, the template flag kGlobal), the bilinear sample of one
-// point into the slice's fp32 accumulators, and the store.
+// point into the slice's fp32 accumulators, and the store. msda_fwd.cu (#1
+// and #6, the fused prep) takes only kMaxPoints, kSlice, allow_smem and
+// bad_sizes; its header says how its redesign stages and gathers.
 
 #pragma once
 
@@ -16,7 +16,6 @@ namespace msda {
 
 constexpr int kQueries = 256;   // threads per block, one query each
 constexpr int kMaxPoints = 16;  // per level
-constexpr int kMaxWhole = 64;   // the widest head one block takes whole
 constexpr int kSlice = 32;      // channels a block of a wider head
 
 // the block's channel slice: blockIdx.y = head * n_slices + slice when

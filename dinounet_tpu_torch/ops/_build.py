@@ -62,8 +62,9 @@ _SIGNATURES = {
     # slope, y, y strides, sum, ssq, B, H, W, Cout, stream
     "conv3x3_stats": [_P] * 2 + [_I] * 10 + [_P] * 4 + [_F, _P] + [_I] * 4
                      + [_P] * 2 + [_I] * 4 + [_P],
-    # x, x strides (b, c, h, w), w, bias, s, t, slope, y, B, Cin, H, W, Cout, stream
-    "transpconv2x2": [_P] + [_I] * 4 + [_P] * 4 + [_F, _P] + [_I] * 5 + [_P],
+    # x, x strides (b, c, h, w), packed w, npad, bias, s, t, slope, y, B, Cin, H,
+    # W, Cout, stream
+    "transpconv2x2": [_P] + [_I] * 4 + [_P, _I] + [_P] * 3 + [_F, _P] + [_I] * 5 + [_P],
     # x, w, bias, s, t, slope, out, B, C, HW, K, stream
     "seg_head": [_P] * 5 + [_F, _P] + [_I] * 4 + [_P],
     # h, wq (D, Kpad), ws, b, res, gamma, xq, a, out, mu, var, B, N, K, D,

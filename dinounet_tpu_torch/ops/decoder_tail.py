@@ -29,6 +29,11 @@ Prologue = Optional[Tuple[torch.Tensor, torch.Tensor]]
 # Cout values the conv kernel is instantiated for (wgmma widths 16 to 128)
 _CONV_COUT = (16, 32, 64, 128)
 _PACK_ATTR = "_dinounet_conv3x3_packed"
+_TPACK_ATTR = "_dinounet_transpconv_packed"
+_BIAS_ATTR = "_dinounet_bias_f32"
+# the transposed conv kernel's limits (csrc/transpconv2x2.cu: kMaxCin, kMaxCout)
+_TRANSP_MAX_CIN = 512
+_TRANSP_MAX_COUT = 512
 
 
 def _pick_stripe(h: int, vmem_rows: int = 32) -> Optional[int]:
@@ -136,6 +141,53 @@ def packed_conv_weight(w: torch.Tensor) -> torch.Tensor:
     return _build.cached_on_storage(w, _PACK_ATTR, lambda: pack_conv_weight(w))
 
 
+def transpconv_pass_width(cout: int) -> int:
+    """The GEMM columns a pass of csrc/transpconv2x2.cu computes: 128 where
+    the 4 Cout columns fit, else 256 (wgmma's widest)."""
+    return 128 if 4 * cout <= 128 else 256
+
+
+def pack_transpconv_weight(w: torch.Tensor) -> torch.Tensor:
+    """(Cin, Cout, 2, 2) -> the kernel's B operand, (Npad, Cin) bf16: row
+    n = 4 c + 2 p + q holds w[:, c, p, q] (the GEMM's columns in (c, p, q)
+    order, q innermost, so a column pair is one output pixel's two columns),
+    rows past 4 Cout zero up to a multiple of the pass width."""
+    cin, cout = w.shape[0], w.shape[1]
+    nb = transpconv_pass_width(cout)
+    npad = -(-4 * cout // nb) * nb
+    out = torch.zeros((npad, cin), dtype=torch.bfloat16, device=w.device)
+    out[:4 * cout] = w.detach().reshape(cin, 4 * cout).t().to(torch.bfloat16)
+    return out
+
+
+def packed_transpconv_weight(w: torch.Tensor) -> torch.Tensor:
+    """``pack_transpconv_weight(w)``, once per weight version
+    (``_build.cached_on_storage``)."""
+    return _build.cached_on_storage(w, _TPACK_ATTR, lambda: pack_transpconv_weight(w))
+
+
+def transpconv2x2_from_packed(x_cm, packed, b, prologue: Prologue = None,
+                              leaky_slope: float = 0.01):
+    """The kernel's arithmetic on any device, from the packed weight: the
+    per-pixel GEMM x'^T packed^T (fp32 sums of bf16 products), the fp32 bias,
+    one rounding, the columns (c, p, q) scattered to out[c, 2j + p, 2x + q].
+    Reads only the first 4 Cout rows of `packed` (Cout = b's length)."""
+    x = apply_prologue(x_cm, prologue, leaky_slope)
+    B, Cin, H, W = x.shape
+    cout = b.shape[0]
+    y = torch.einsum("bkp,nk->bnp", x.reshape(B, Cin, H * W).float(),
+                     packed[:4 * cout].float())
+    y = y.reshape(B, cout, 2, 2, H, W) + b.float()[None, :, None, None, None, None]
+    return y.permute(0, 1, 4, 2, 5, 3).reshape(B, cout, 2 * H, 2 * W).to(x_cm.dtype)
+
+
+def _bias_f32(b: torch.Tensor) -> torch.Tensor:
+    """b as a contiguous fp32 tensor, converted once per version."""
+    if b.dtype == torch.float32 and b.is_contiguous():
+        return b
+    return _build.cached_on_storage(b, _BIAS_ATTR, lambda: b.detach().float().contiguous())
+
+
 def conv3x3_launch(op: str, x, x2, w, b, prologue: Prologue, slope: float,
                    stats: bool, y) -> Optional[torch.Tensor]:
     """Launch csrc/conv3x3_stats.cu on (B, C, H, W) views of any strides:
@@ -207,7 +259,9 @@ def transpconv2x2_cm(x_cm, w, b, prologue: Prologue = None, leaky_slope: float =
     w: (Cin, Cout, 2, 2) (torch ConvTranspose2d layout); b: (Cout,). The
     kernel runs at every width (the JAX package computes maps with
     W % 128 != 0 outside its kernel, at the same rounding points) and reads x
-    through its strides; the output is contiguous NCHW."""
+    through its strides; the output is contiguous NCHW. The weight goes in
+    packed (``packed_transpconv_weight``) and the bias in fp32, each made
+    once per version."""
     dev = _device_of(x_cm, "transpconv2x2_cm")
     if dev is None:
         return transpconv2x2_cm_plain(x_cm, w, b, prologue, leaky_slope)
@@ -215,20 +269,23 @@ def transpconv2x2_cm(x_cm, w, b, prologue: Prologue = None, leaky_slope: float =
     bf16, f32 = torch.bfloat16, torch.float32
     B, Cin, H, W = x_cm.shape
     Cout = w.shape[1]
-    if Cin % 16 or Cout % 4:
-        raise ValueError(f"{op}: the kernel takes Cin in multiples of 16 and Cout "
-                         f"in multiples of 4; got {Cin} -> {Cout}")
-    wk = w.to(bf16).contiguous()
-    bias = b.to(f32).contiguous()
-    if x_cm.dtype != bf16:
-        raise ValueError(f"{op}: x must be bfloat16, got {x_cm.dtype}")
-    _build.check_inputs(op, dev, w=(wk, bf16, (Cin, Cout, 2, 2)),
-                        bias=(bias, f32, (Cout,)))
+    if (Cin % 16 or Cout % 4 or Cin > _TRANSP_MAX_CIN or Cout > _TRANSP_MAX_COUT
+            or tuple(w.shape) != (Cin, Cout, 2, 2)):
+        raise ValueError(f"{op}: the kernel takes Cin in multiples of 16 up to "
+                         f"{_TRANSP_MAX_CIN} and Cout in multiples of 4 up to "
+                         f"{_TRANSP_MAX_COUT}; got {Cin} -> {Cout}, weight "
+                         f"{tuple(w.shape)}")
+    if x_cm.dtype != bf16 or w.device != dev:
+        raise ValueError(f"{op}: x must be bfloat16 and w on {dev}, got {x_cm.dtype}, "
+                         f"w on {w.device}")
+    wp = packed_transpconv_weight(w)
+    bias = _bias_f32(b)
+    _build.check_inputs(op, dev, bias=(bias, f32, (Cout,)))
     _st, ps, pt = _prologue_ptrs(op, prologue, B, Cin, dev)
     y = torch.empty((B, Cout, 2 * H, 2 * W), dtype=bf16, device=dev)
     err = _build.lib().transpconv2x2(
-        x_cm.data_ptr(), *x_cm.stride(), wk.data_ptr(), bias.data_ptr(), ps, pt,
-        float(leaky_slope),
+        x_cm.data_ptr(), *x_cm.stride(), wp.data_ptr(), wp.shape[0], bias.data_ptr(),
+        ps, pt, float(leaky_slope),
         y.data_ptr(), B, Cin, H, W, Cout, _build.stream_of(dev))
     _build.check(err, op)
     transpconv2x2_cm.launches += 1

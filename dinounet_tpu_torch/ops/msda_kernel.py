@@ -95,13 +95,12 @@ def _check_shapes(op: str, value_t, spatial_shapes, LP: int, max_levels: int) ->
     return P
 
 
-def _fwd_scratch(value_t: torch.Tensor, whole: int) -> Optional[torch.Tensor]:
+def _fwd_scratch(value_t: torch.Tensor, slice_bytes: int) -> Optional[torch.Tensor]:
     """None where a forward block can stage its channel slice of one head's
-    map in shared memory (a whole head of up to `whole` channels, else a
-    32-channel slice); else the token-major (B, M, S, D) copy the kernel
-    writes and gathers from."""
+    map (`slice_bytes`) in shared memory; else the token-major (B, M, S, D)
+    copy the kernel writes and gathers from."""
     B, M, D, S = value_t.shape
-    if value_t.element_size() * (D if D <= whole else _SLICE) * S <= MAX_SMEM:
+    if slice_bytes <= MAX_SMEM:
         return None
     return torch.empty((B, M, S, D), dtype=value_t.dtype, device=value_t.device)
 
@@ -127,8 +126,9 @@ def _forward_fused(value_t, spatial_shapes, off, logits, base, merged: bool):
         specs.update(off=(off, bf16, (B, M, 2 * P, Lq)), logits=(logits, bf16, (B, M, P, Lq)))
     _build.check_inputs(op, value_t.device, **specs)
     out = torch.empty((B, M, D, Lq), dtype=bf16, device=value_t.device)
-    # csrc/msda_fwd.cu: #1 stages whole heads of up to 64 channels, #6 of 32
-    scratch = _fwd_scratch(value_t, 32 if merged else 64)
+    # csrc/msda_fwd.cu stages slices as narrow as 8 channels (16-byte cells of
+    # 8 channels a position)
+    scratch = _fwd_scratch(value_t, 16 * S)
     stream = _build.stream_of(value_t.device)
     if merged:
         err = _build.lib().msda_fwd_merged(
@@ -155,7 +155,9 @@ def _forward_premapped(value_t, spatial_shapes, xs, ys, aw) -> torch.Tensor:
     _build.check_inputs(op, value_t.device, value_t=(value_t, dt, (B, M, D, S)),
                         xs=(xs, f32, lane), ys=(ys, f32, lane), aw=(aw, f32, lane))
     out = torch.empty((B, M, D, Lq), dtype=dt, device=value_t.device)
-    scratch = _fwd_scratch(value_t, 32)
+    # csrc/msda_fwd_premapped.cu stages whole heads of up to 32 channels, else
+    # 32-channel slices
+    scratch = _fwd_scratch(value_t, value_t.element_size() * min(D, _SLICE) * S)
     err = _build.lib().msda_fwd_premapped(
         value_t.data_ptr(), _ptr(scratch), xs.data_ptr(), ys.data_ptr(), aw.data_ptr(),
         out.data_ptr(), B, M, D, _build.levels(spatial_shapes), len(spatial_shapes), P,

@@ -5,12 +5,14 @@
 Times, with the `dinounet_tpu_torch` package of <checkout> (a directory
 holding one, e.g. a `git archive` of another commit), at dinounet_b's shapes:
 the MSDA forward #1 (16 heads of 24 channels over a 32 x 32 map, 5376
-queries, tile batch 8), the Dh-major attention #2 (12 heads of 64, 1029
+queries, tile batch 8; also at dinounet_7b's 128 channels a head and on a
+1024^2 patch's 64 x 64 map, 21504 queries, 32 channels a head), the Dh-major attention #2 (12 heads of 64, 1029
 tokens, tile batch 8), the row-major attention #9 that shares #2's flash
 loop (dinounet_7b's 32 heads of 128, tile batch 8), the MSDA backward #7 at
 the train step's batch 2, and where the checkout has them the MSDA forward
-with the prep done outside #5, the merged-projection MSDA forward #6 and the
-(B, 3, M, N, Dh) attention #8 at dinounet_b's shapes; and the dense +
+with the prep done outside #5, the merged-projection MSDA forward #6 (also
+at #1's two other shapes) and the (B, 3, M, N, Dh) attention #8 at
+dinounet_b's shapes; and the dense +
 residual + statistics kernels #3 (channel-major) and #4 (row-major, GELU) at
 the six shapes of the path (tile batch 8): the ViT attention projection and
 fc2, the adapter's MSDA output projection and ConvFFN fc2 at D = 768, and
@@ -90,6 +92,15 @@ def main(checkout: str, only=()) -> None:
     Bt = 2  # the train step's batch
     cot = torch.randn((Bt, M, D, Lq), generator=g, device=dev)
     vt, xt, yt, at = (t[:Bt].contiguous() for t in (v, xs, ys, aw))
+    # #1 and #6 at dinounet_7b's 128 channels a head and on a 1024^2 patch's
+    # 64 x 64 map (21504 queries, 32 channels a head: dinounet_l's)
+    wide = {}
+    for tag, D_, side, Lq_ in (("d128", 128, Hv, Lq), ("patch1024_d32", 32, 2 * Hv, 21504)):
+        wide[tag] = (torch.randn((B, M, D_, side * side), generator=g, device=dev).to(bf),
+                     ((side, side),),
+                     (torch.randn((B, M, 2 * P, Lq_), generator=g, device=dev) * 2).to(bf),
+                     torch.randn((B, M, P, Lq_), generator=g, device=dev).to(bf),
+                     torch.rand((2 * P, Lq_), generator=g, device=dev) * side - 0.5)
     calls = {
         "msda_fwd_d24": lambda: msda_kernel.ms_deform_attn_premapped_fused(
             v, shapes, off, logits, base),
@@ -106,6 +117,15 @@ def main(checkout: str, only=()) -> None:
     if hasattr(msda_kernel, "ms_deform_attn_premapped_fused_merged"):
         calls["msda_fwd_merged_d24"] = (
             lambda: msda_kernel.ms_deform_attn_premapped_fused_merged(v, shapes, packed, base))
+    for tag, (v_, sh_, off_, lg_, base_) in wide.items():
+        calls[f"msda_fwd_{tag}"] = (lambda v_=v_, sh_=sh_, off_=off_, lg_=lg_, base_=base_:
+                                    msda_kernel.ms_deform_attn_premapped_fused(
+                                        v_, sh_, off_, lg_, base_))
+        if hasattr(msda_kernel, "ms_deform_attn_premapped_fused_merged"):
+            pk_ = torch.cat([off_, lg_], dim=2)
+            calls[f"msda_fwd_merged_{tag}"] = (
+                lambda v_=v_, sh_=sh_, pk_=pk_, base_=base_:
+                msda_kernel.ms_deform_attn_premapped_fused_merged(v_, sh_, pk_, base_))
     if hasattr(attention, "fused_rope_attention_premapped"):
         calls["rope_attention_ndh_dh64"] = lambda: attention.fused_rope_attention_premapped(
             qkv_ndh, sin, cos)
@@ -194,8 +214,9 @@ def main(checkout: str, only=()) -> None:
     # have read 2-3 % slower with their own code unchanged, a state the
     # attention leaves behind rather than the MSDA kernels' own time; the
     # dense and int8 kernels between the two
-    for name in ("msda_fwd_d24", "msda_bwd_d24_train", "msda_fwd_premapped_d24",
-                 "msda_fwd_merged_d24", "dense_cm_vit_proj", "dense_cm_msda_proj",
+    for name in ("msda_fwd_d24", "msda_fwd_d128", "msda_fwd_patch1024_d32",
+                 "msda_bwd_d24_train", "msda_fwd_premapped_d24", "msda_fwd_merged_d24",
+                 "msda_fwd_merged_d128", "msda_fwd_merged_patch1024_d32", "dense_cm_vit_proj", "dense_cm_msda_proj",
                  "dense_rm_vit_fc2", "dense_rm_convffn_fc2", "dense_cm_7b_msda_proj",
                  "dense_rm_7b_convffn_fc2", "q8_vit_fc1", "q8_stats_vit_fc2",
                  "q8_stats_convffn_fc2", "q8_cm_vit_proj", "q8_cm_msda_proj", "q8_vit_qkv",

@@ -48,6 +48,8 @@ OUT = ROOT / "build" / "variants"
 FAMILIES = {
     "int8": (("dense_q8.cu", "qkv_q8_dmaj.cu"), ("dense_q8", "quantize_act", "qkv_q8_dmaj")),
     "conv": (("conv3x3_stats.cu",), ("conv3x3_stats",)),
+    "transpconv": (("transpconv2x2.cu",), ("transpconv2x2",)),
+    "msda": (("msda_fwd.cu",), ("msda_fwd_fused", "msda_fwd_merged")),
 }
 _CONV = "conv3x3_stats.cu"
 # edits of conv3x3_stats.cu that take one phase out (for timing the others)
@@ -105,6 +107,88 @@ _A_LDMATRIX = [
      "          wgmma_fence();\n"
      "          WgmmaRS<kCout>::run(acc[sg], af, bd, c > 0 || tap > 0);")]
 
+_MSDA, _TC, _HC = "msda_fwd.cu", "transpconv2x2.cu", "hopper_common.cuh"
+# the transposed conv's prologue applied by the consumers in registers: the
+# M-major A tile read by ldmatrix.trans (lane l gives the row address of
+# channel row l % 8 of 8 x 8 block l / 8: pixels 16 warp + 8 (l / 8 % 2),
+# channels 8 (l / 16) of the k step, through the 128-byte swizzle),
+# leaky(x s + t) on the fragment, wgmma with A from registers; the producer
+# leaves the TMA box as it is (channel-major inputs; the others as committed)
+_TC_PROLOGUE_IN_REGISTERS = [
+    ("// four 8 x 8 bf16 blocks of a fragment stored transposed:",
+     "template <int N>\nstruct WgmmaRS;\n" + "".join(_wgmma_rs(n) for n in (128, 256))
+     + "__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {\n"
+       '  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\\n"\n'
+       '               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));\n}\n\n'
+       "// four 8 x 8 bf16 blocks of a fragment stored transposed:"),
+    ("  const bool by_threads = pro || a.mode == kModeLoads;",
+     "  const bool by_threads = (pro && !kTransA) || a.mode == kModeLoads;"),
+    ("          const uint32_t bar = (pro ? a_raw : a_full) + 8 * slot;",
+     "          const uint32_t bar = (pro && !kTransA ? a_raw : a_full) + 8 * slot;"),
+    ("        if (pro) {  // the prologue on the staged tile, in place",
+     "        if (pro && !kTransA) {  // the prologue on the staged tile, in place"),
+    ("            const uint64_t ad = kTransA ? sw128_desc(a_chunk + kk * 16 * 128, kBoxBytes, 1024)\n"
+     "                                        : sw128_desc(a_chunk + kk * 32, 16, 1024);\n"
+     "            Mma<NB, kTransA>::run(acc, ad, sw128_desc(w_tile + kk * 32, 16, 1024),\n"
+     "                                  c > 0 || kk > 0);",
+     "            if (kTransA && pro) {\n"
+     "              uint32_t af[4];\n"
+     "              const int i4 = lane / 8, kr = kk * 16 + 8 * (i4 >> 1) + lane % 8;\n"
+     "              ldsm_x4_trans(af, a_chunk + kr * 128 + (((2 * warp + (i4 & 1)) ^ (kr & 7)) * 16));\n"
+     "              const int k0 = c * kKc + kk * 16 + 2 * (lane % 4);\n"
+     "              const float* ps = a.ps + (size_t)t.b * a.Cin + k0;\n"
+     "              const float* pt = a.pt + (size_t)t.b * a.Cin + k0;\n"
+     "              const float s0 = __ldg(ps), s1 = __ldg(ps + 1), s8 = __ldg(ps + 8), s9 = __ldg(ps + 9);\n"
+     "              const float t0 = __ldg(pt), t1 = __ldg(pt + 1), t8 = __ldg(pt + 8), t9 = __ldg(pt + 9);\n"
+     "              af[0] = prologue2(af[0], s0, t0, s1, t1, a.slope);\n"
+     "              af[1] = prologue2(af[1], s0, t0, s1, t1, a.slope);\n"
+     "              af[2] = prologue2(af[2], s8, t8, s9, t9, a.slope);\n"
+     "              af[3] = prologue2(af[3], s8, t8, s9, t9, a.slope);\n"
+     "              wgmma_fence();\n"
+     "              WgmmaRS<NB>::run(acc, af, sw128_desc(w_tile + kk * 32, 16, 1024), c > 0 || kk > 0);\n"
+     "            } else {\n"
+     "            const uint64_t ad = kTransA ? sw128_desc(a_chunk + kk * 16 * 128, kBoxBytes, 1024)\n"
+     "                                        : sw128_desc(a_chunk + kk * 32, 16, 1024);\n"
+     "            Mma<NB, kTransA>::run(acc, ad, sw128_desc(w_tile + kk * 32, 16, 1024),\n"
+     "                                  c > 0 || kk > 0);\n"
+     "            }"),
+]
+# edits of the MSDA forward that take phases out (for timing the others)
+_MSDA_BY_ELEMENTS = [("  if ((S & 7) == 0) {\n    // a warp takes", "  if (false) {\n    // a warp takes")]
+_MSDA_NO_STAGING = _MSDA_BY_ELEMENTS + [(
+    "  for (int i = done * 64 + threadIdx.x; i < ng * S * 8; i += blockDim.x) {",
+    "  for (int i = done * 64 + threadIdx.x; i < 0; i += blockDim.x) {")]
+_MSDA_GATHER = ("        gather_point<NG, kGlobal>(acc, v_s, vt, D, dc, ng, Sp, H, W, x, y, "
+                "a[p] / sum);")
+_MSDA_STORE = "    __nv_bfloat16* o = out + (bm * D + d0) * Lq + q;"
+_MSDA_FOLD = ("    float fold = 0.f;\n#pragma unroll\n    for (int d = 0; d < 8 * NG; ++d) "
+              "fold += acc[d];\n    if (fold != 1234.5f) continue;\n" + _MSDA_STORE)
+_MSDA_STAGING_ONLY = [(
+    "  if (!kGlobal) stage_map(v_s, value + (bm * D + d0) * S, dc, ng, S, Sp);",
+    "  if (!kGlobal) stage_map(v_s, value + (bm * D + d0) * S, dc, ng, S, Sp);\n"
+    "  if (v_s[threadIdx.x & 7].x == 12345u) out[0] = value[0];\n  return;")]
+_MSDA_PREP_ONLY = [(_MSDA_GATHER, "        acc[0] += x + y + a[p] / sum;"),
+                   (_MSDA_STORE, _MSDA_FOLD)]
+_MSDA_NO_STORES = [(_MSDA_STORE, _MSDA_FOLD)]
+_MSDA_NO_GATHERS = [(_MSDA_GATHER, "")]
+# edits of the transposed conv that take one phase out: the input's TMA
+# boxes, the producer's prologue pass, the products, the epilogue
+_TC_NO_TMA = [
+    ('      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "\n'
+     '      "[%0], [%1, {%2, %3, %4}], [%5];\\n" ::"r"(dst),\n'
+     '      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)\n'
+     '      : "memory");', '      "" ::: "memory");'),
+]
+_TC_NO_TMA_TX = [("          mbar_expect_tx(bar, a.kchunks * kChunkBytes);",
+                  "          mbar_arrive(bar);")]
+_TC_NO_TRANSFORM = [("          const float* pt = a.pt + (size_t)t.b * a.Cin;\n"
+                     "          for (int v = tid; v < a.kchunks * 1024; v += 128) {",
+                     "          const float* pt = a.pt + (size_t)t.b * a.Cin;\n"
+                     "          for (int v = tid; v < 0; v += 128) {")]
+_TC_NO_MMA = [("            Mma<NB, kTransA>::run(acc, ad,", "            if (c < 0) Mma<NB, kTransA>::run(acc, ad,")]
+_TC_NO_EPILOGUE = [("      for (int round = 0; round < NB / kRound; ++round) {",
+                    "      for (int round = 0; round < (pass < 0 ? NB / kRound : 0); ++round) {")]
+
 # name -> (family, {file: [(old, new), ...]})
 VARIANTS = {
     "current": ("int8", {}),
@@ -160,6 +244,57 @@ VARIANTS = {
     "conv_transform_only": ("conv", {_CONV: _NO_TMA + _NO_WGMMA + _NO_EPILOGUE}),
     "conv_wgmma_only": ("conv", {_CONV: _NO_TMA + _NO_TRANSFORM + _NO_EPILOGUE}),
     "conv_epilogue_only": ("conv", {_CONV: _NO_TMA + _NO_TRANSFORM + _NO_WGMMA}),
+    "transpconv_current": ("transpconv", {}),
+    # the output stored a 4-byte word a pixel from the staging (no 16-byte rows)
+    "transpconv_word_stores": ("transpconv", {_TC: [
+        ("  a.vec = W % 8 == 0 && aligned16(y);", "  a.vec = 0;")]}),
+    # the prologue applied in registers by the consumers (A by ldmatrix.trans
+    # and wgmma from registers) instead of by the producer on the staged tile
+    "transpconv_prologue_in_registers": ("transpconv", {_TC: _TC_PROLOGUE_IN_REGISTERS}),
+    # no pass groups across blocks at the small maps
+    "transpconv_no_split": ("transpconv", {_TC: [
+        ("  int want = tiles >= sms ? 1 : (int)((sms + tiles - 1) / tiles);", "  int want = 1;")]}),
+    # one staged input tile a block (two where they fit, as committed)
+    "transpconv_one_slot": ("transpconv", {_TC: [
+        ("    a.a_slots = 2 * a.a_slot_bytes + chunks * stage <= room ? 2 : 1;",
+         "    a.a_slots = 1;"),
+        ("    a.a_slots = 2 * a.a_slot_bytes + 2 * stage <= room ? 2 : 1;", "    a.a_slots = 1;")]}),
+    # timing only (outputs wrong): one phase of the kernel alone, the
+    # others' barriers kept
+    "transpconv_tma_only": ("transpconv", {_TC: _TC_NO_TRANSFORM + _TC_NO_MMA + _TC_NO_EPILOGUE}),
+    "transpconv_transform_only": ("transpconv", {_TC: _TC_NO_TMA_TX + _TC_NO_MMA + _TC_NO_EPILOGUE,
+                                                 _HC: _TC_NO_TMA}),
+    "transpconv_mma_only": ("transpconv", {_TC: _TC_NO_TMA_TX + _TC_NO_TRANSFORM + _TC_NO_EPILOGUE,
+                                           _HC: _TC_NO_TMA}),
+    "transpconv_epilogue_only": ("transpconv", {_TC: _TC_NO_TMA_TX + _TC_NO_TRANSFORM + _TC_NO_MMA,
+                                                _HC: _TC_NO_TMA}),
+    "msda_current": ("msda", {}),
+    # 256 threads a block (512 as committed)
+    "msda_threads_256": ("msda", {_MSDA: [("  const int threads = kThreads;",
+                                           "  const int threads = 256;")]}),
+    # no register cap (64 a thread where a thread keeps up to 32 accumulators,
+    # as committed)
+    "msda_regs_uncapped": ("msda", {_MSDA: [("__launch_bounds__(kThreads, NG <= 4 ? 2 : 1)",
+                                             "__launch_bounds__(kThreads)")]}),
+    # the point loop rolled in every instance (#1's whole heads unroll it)
+    "msda_points_rolled": ("msda", {_MSDA: [(
+        "  constexpr int kUnroll = kGlobal || kMerged || kSliced ? 1 : kMaxPoints;",
+        "  constexpr int kUnroll = 1;")]}),
+    # one query range a head: the map staged once a head, fewer blocks
+    "msda_one_range_a_head": ("msda", {_MSDA: [
+        ("  long long ranges = room / heads;", "  long long ranges = 1;")]}),
+    # two waves of query ranges (more, shorter ranges: more staging)
+    "msda_two_waves": ("msda", {_MSDA: [
+        ("  long long ranges = room / heads;", "  long long ranges = 2 * room / heads;")]}),
+    # the staging element by element (2-byte loads and stores) instead of by
+    # stmatrix
+    "msda_staging_by_elements": ("msda", {_MSDA: _MSDA_BY_ELEMENTS}),
+    # timing only (outputs wrong): the forward's phases
+    "msda_no_staging": ("msda", {_MSDA: _MSDA_NO_STAGING}),
+    "msda_staging_only": ("msda", {_MSDA: _MSDA_STAGING_ONLY}),
+    "msda_prep_only": ("msda", {_MSDA: _MSDA_NO_STAGING + _MSDA_PREP_ONLY}),
+    "msda_prep_gathers": ("msda", {_MSDA: _MSDA_NO_STAGING + _MSDA_NO_STORES}),
+    "msda_stores_only": ("msda", {_MSDA: _MSDA_NO_STAGING + _MSDA_NO_GATHERS}),
 }
 
 
@@ -195,7 +330,8 @@ def build(names) -> None:
                 raise RuntimeError(f"nvcc failed on {d.name}/{src}:\n{p.stdout}{p.stderr}")
             for entry in (p.stdout + p.stderr).split("Compiling entry function '")[1:]:
                 kernel = entry.split("'", 1)[0]
-                if "gemm" in kernel or "conv3x3" in kernel:
+                if "gemm" in kernel or "conv3x3" in kernel or "transpconv" in kernel or \
+                        "msda_fwd" in kernel:
                     regs = re.search(r"Used (\d+) registers", entry)
                     spill = re.search(r"(\d+) bytes spill stores", entry)
                     inst = re.search(r"kernelILi(\d+)E", kernel)
@@ -366,11 +502,135 @@ def run_conv(name: str) -> dict:
     return out
 
 
+def _kernels_ms(fn) -> dict:
+    """Device time a call by kernel (the profiler over 20 calls), and one
+    call of 50 back to back (CUDA events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            k = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+            k = k.replace("msda::", "").split("(")[0][:60]
+            out[k] = out.get(k, 0.0) + e.self_device_time_total / 1e3 / 20
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(50):
+        fn()
+    b.record()
+    b.synchronize()
+    out["back_to_back_ms"] = a.elapsed_time(b) / 50
+    return out
+
+
+# transpconv2x2_cm at the serve_cm path shapes: (tag, Cin, Cout, H = W, prologue)
+TRANSPCONV_PATH = (("dec_256", 64, 32, 256, True), ("dec_128", 128, 64, 128, True),
+                   ("dec_64", 256, 128, 64, False), ("up_256", 32, 32, 256, False),
+                   ("up_32", 256, 256, 32, False))
+# and edges: (B, Cin, Cout, H, W, prologue, channels-last)
+TRANSPCONV_EDGES = ((2, 16, 4, 5, 7, False, False), (3, 64, 32, 11, 13, True, False),
+                    (2, 128, 64, 12, 24, True, True), (1, 256, 256, 8, 16, False, False),
+                    (1, 512, 16, 4, 8, True, False), (2, 48, 12, 9, 1, True, False))
+
+
+def run_transpconv(name: str) -> dict:
+    import torch
+
+    from dinounet_tpu_torch.ops.decoder_tail import transpconv2x2_cm, transpconv2x2_cm_plain
+    from dinounet_tpu_torch.ops.kernel_check import KERNEL_TOLERANCES, max_excess
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {"variant": name}
+    ok = True
+    cases = [(t, 8, Cin, Cout, H, H, pro, False) for t, Cin, Cout, H, pro in TRANSPCONV_PATH]
+    cases += [(f"edge_{i}", *e) for i, e in enumerate(TRANSPCONV_EDGES)]
+    for tag, B, Cin, Cout, H, W, pro, cl in cases:
+        try:
+            x = torch.randn((B, Cin, H, W), generator=g, device=dev).to(torch.bfloat16)
+            if cl:
+                x = x.contiguous(memory_format=torch.channels_last)
+            w = torch.randn((Cin, Cout, 2, 2), generator=g, device=dev) * Cin ** -0.5
+            b = torch.randn((Cout,), generator=g, device=dev) * 0.1
+            p = ((torch.rand((B, Cin), generator=g, device=dev) + 0.5,
+                  torch.randn((B, Cin), generator=g, device=dev) * 0.3) if pro else None)
+            fn = lambda: transpconv2x2_cm(x, w, b, p)
+            got, want = fn(), transpconv2x2_cm_plain(x, w, b, p)
+            torch.cuda.synchronize()
+            ok = ok and max_excess(got, want, KERNEL_TOLERANCES["transpconv2x2_cm"]) <= 0
+            if not tag.startswith("edge"):
+                out[tag] = _kernels_ms(fn)
+        except Exception as e:
+            ok = False
+            out[tag] = {"error": str(e).splitlines()[0]}
+    out["agrees"] = ok
+    return out
+
+
+def run_msda(name: str) -> dict:
+    import torch
+
+    from dinounet_tpu_torch.ops.kernel_check import KERNEL_TOLERANCES, max_excess
+    from dinounet_tpu_torch.ops.msda import (ms_deform_attn_premapped_fused_merged_plain,
+                                             ms_deform_attn_premapped_fused_plain)
+    from dinounet_tpu_torch.ops.msda_kernel import (ms_deform_attn_premapped_fused,
+                                                    ms_deform_attn_premapped_fused_merged)
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {"variant": name}
+    ok = True
+    # (tag, B, M, D, map side, P, Lq, merged): dinounet_b's D 24, the 7B's D
+    # 128 (32-channel slices), a 1024^2 patch (S 4096: the token-major copy),
+    # the merged buffer (#6) at D 24; then edges, not timed
+    cases = (("d24", 8, 16, 24, 32, 4, 5376, False), ("d128", 8, 16, 128, 32, 4, 5376, False),
+             ("patch1024_d32", 8, 16, 32, 64, 4, 21504, False),
+             ("merged_d24", 8, 16, 24, 32, 4, 5376, True),
+             ("edge_0", 2, 3, 8, 5, 1, 37, False), ("edge_1", 1, 4, 64, 16, 16, 777, True),
+             ("edge_2", 3, 2, 100, 9, 7, 99, False), ("edge_3", 1, 2, 64, 64, 4, 300, False))
+    for tag, B, M, D, side, P, Lq, merged in cases:
+        try:
+            v = torch.randn((B, M, D, side * side), generator=g, device=dev).to(torch.bfloat16)
+            off = (torch.randn((B, M, 2 * P, Lq), generator=g, device=dev) * 2).to(torch.bfloat16)
+            lg = torch.randn((B, M, P, Lq), generator=g, device=dev).to(torch.bfloat16)
+            base = torch.rand((2 * P, Lq), generator=g, device=dev) * (side + 2) - 1.5
+            shapes = ((side, side),)
+            if merged:
+                packed = torch.cat([off, lg], dim=2)
+                fn = lambda: ms_deform_attn_premapped_fused_merged(v, shapes, packed, base)
+                want = ms_deform_attn_premapped_fused_merged_plain(v, shapes, packed, base)
+                tol = KERNEL_TOLERANCES["msda_fwd_merged"]
+            else:
+                fn = lambda: ms_deform_attn_premapped_fused(v, shapes, off, lg, base)
+                want = ms_deform_attn_premapped_fused_plain(v, shapes, off, lg, base)
+                tol = KERNEL_TOLERANCES["msda_fwd"]
+            got = fn()
+            torch.cuda.synchronize()
+            ok = ok and max_excess(got, want, tol) <= 0
+            if not tag.startswith("edge"):
+                out[tag] = _kernels_ms(fn)
+        except Exception as e:
+            ok = False
+            out[tag] = {"error": str(e).splitlines()[0]}
+    out["agrees"] = ok
+    return out
+
+
 def run(name: str) -> None:
     sys.path.insert(0, str(ROOT))
     _load(name)
     family = VARIANTS[name][0]
-    print(json.dumps(run_int8(name) if family == "int8" else run_conv(name)), flush=True)
+    runner = {"int8": run_int8, "conv": run_conv, "transpconv": run_transpconv,
+              "msda": run_msda}[family]
+    print(json.dumps(runner(name)), flush=True)
 
 
 def main(names) -> None:

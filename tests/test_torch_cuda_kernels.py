@@ -59,12 +59,21 @@ def _randn(gen, shape, dev, scale=1.0):
 
 
 # D above 64 splits into 32-channel slices: a ragged last slice (80), and
-# dinounet_7b's adapter heads (128); maps over the shared memory a block
-# has (a 1024^2 patch, S = 4096) go through the global-gather instances
+# dinounet_7b's adapter heads (128); a head too wide for shared memory at
+# its S (a 1024^2 patch, S = 4096) into narrower slices (16 or 24
+# channels); a map of which not even 8 channels fit (S = 16384) goes
+# through the global-gather instances (D 8: 16-byte corner loads, D 12:
+# element loads). Ragged Lq, P 1 to 16, D 8 to 128, S not a multiple of 8
+# (element-wise staging), points outside the map (the base grid reaches a
+# pixel past every edge, the offsets 2 pixels a sigma)
 MSDA_FWD_SHAPES = [(2, 3, 8, 5, 7, 4, 37), (1, 16, 24, 32, 32, 4, 5376),
                    (2, 3, 80, 6, 9, 4, 300), (1, 16, 128, 32, 32, 4, 5376),
                    (1, 4, 32, 64, 64, 4, 700), (1, 2, 128, 64, 64, 4, 300),
-                   (1, 2, 24, 64, 64, 4, 300)]
+                   (1, 2, 24, 64, 64, 4, 300), (2, 3, 16, 9, 11, 1, 301),
+                   (1, 4, 64, 16, 16, 16, 777), (3, 2, 24, 7, 9, 7, 99),
+                   (1, 2, 64, 64, 64, 4, 300), (1, 2, 8, 128, 128, 4, 200),
+                   (1, 2, 12, 128, 130, 2, 100), (1, 3, 128, 20, 20, 16, 129),
+                   (2, 2, 32, 8, 8, 3, 513)]
 
 
 @pytest.mark.parametrize("B,M,D,H,W,P,Lq", MSDA_FWD_SHAPES)
@@ -683,12 +692,33 @@ def test_conv3x3_hwbc_kernel_matches_plain(dev, nchw_backed):
                 conv3x3_hwbc_plain(x, w1, b), H * W)
 
 
-# Cout 4 (GEMM width 16), ragged W, two 128-column blocks with a partial one,
-# a channels-last input (as the FAPM hands LearnableUpsample its maps)
-@pytest.mark.parametrize("B,Cin,Cout,H,W,pro,cl", [(2, 16, 4, 5, 7, False, False),
-                                                   (2, 64, 32, 16, 130, True, False),
-                                                   (1, 32, 40, 8, 64, True, True),
-                                                   (8, 256, 128, 64, 64, False, False)])
+# Cout 4 (GEMM width 16 in a 128-wide pass), ragged W and pixel tiles (H W
+# not a multiple of the 128-pixel tile, nor of 8: one word a pixel), H 1, W 1,
+# B 3, Cin 16 to 512 (a 512-channel tile leaves room for one staged tile),
+# Cout 4 to 512 (up to 8 passes of 256 columns; a small map's passes split
+# across blocks), the prologue on and off, channels-last inputs (as the FAPM
+# may hand LearnableUpsample its maps; by TMA, and through the producer's own
+# loads where a pixel's channels are not 16-byte aligned), and the path's
+# shapes at tile batch 8
+@pytest.mark.parametrize("B,Cin,Cout,H,W,pro,cl", [
+    (2, 16, 4, 5, 7, False, False),
+    (2, 64, 32, 16, 130, True, False),
+    (1, 32, 40, 8, 64, True, True),
+    (8, 256, 128, 64, 64, False, False),
+    (3, 64, 32, 11, 13, True, False),
+    (1, 32, 8, 1, 200, False, False),
+    (2, 48, 12, 9, 1, True, False),
+    (3, 16, 16, 1, 1, False, False),
+    (2, 128, 64, 12, 24, True, True),
+    (1, 256, 256, 8, 16, False, False),
+    (1, 512, 16, 4, 8, True, False),
+    (1, 64, 512, 4, 4, False, False),
+    (3, 96, 68, 7, 40, True, False),
+    (2, 32, 36, 6, 6, False, True),
+    (8, 64, 32, 256, 256, True, False),
+    (8, 32, 32, 256, 256, False, False),
+    (8, 256, 256, 32, 32, False, False),
+])
 def test_transpconv2x2_kernel_matches_plain(dev, B, Cin, Cout, H, W, pro, cl):
     g = torch.Generator().manual_seed(11)
     x = _randn(g, (B, Cin, H, W), dev).to(torch.bfloat16)
@@ -702,6 +732,51 @@ def test_transpconv2x2_kernel_matches_plain(dev, B, Cin, Cout, H, W, pro, cl):
     torch.cuda.synchronize()
     assert got.shape == want.shape == (B, Cout, 2 * H, 2 * W)
     assert max_excess(got, want, KERNEL_TOLERANCES["transpconv2x2_cm"]) <= 0
+
+
+@pytest.mark.parametrize("view", ["channel_slice", "column_stride", "odd_channels_last"])
+def test_transpconv2x2_kernel_on_views(dev, view):
+    """Non-contiguous inputs: a channel slice of a larger map (TMA), every
+    other column (the producer's own loads), a channels-last slice whose
+    pixels are 36 channels apart (72 bytes: TMA needs 16-byte strides, so
+    the producer's own loads)."""
+    g = torch.Generator().manual_seed(15)
+    B, H, W = 2, 6, 40
+    if view == "channel_slice":
+        x = _randn(g, (B, 64, H, W), dev).to(torch.bfloat16)[:, 16:48]
+    elif view == "column_stride":
+        x = _randn(g, (B, 32, H, 2 * W), dev).to(torch.bfloat16)[..., ::2]
+    else:
+        x = _randn(g, (B, 36, H, W), dev).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)[:, :32]
+    assert not x.is_contiguous()
+    w = _randn(g, (32, 24, 2, 2), dev, 32 ** -0.5)
+    b = _randn(g, (24,), dev, 0.1)
+    p = _prologue(g, B, 32, dev)
+    for pro in (None, p):
+        got, want = transpconv2x2_cm(x, w, b, pro), transpconv2x2_cm_plain(x, w, b, pro)
+        torch.cuda.synchronize()
+        assert max_excess(got, want, KERNEL_TOLERANCES["transpconv2x2_cm"]) <= 0
+
+
+@pytest.mark.parametrize("Cin,Cout", [(64, 32), (256, 128)])
+def test_transpconv2x2_kernel_after_weight_update(dev, Cin, Cout):
+    """A repeated call after an in-place update of the weight (as
+    load_state_dict makes one) packs the new weight; a bf16 bias is
+    converted again after its update."""
+    g = torch.Generator().manual_seed(16)
+    x = _randn(g, (2, Cin, 8, 24), dev).to(torch.bfloat16)
+    w = _randn(g, (Cin, Cout, 2, 2), dev, Cin ** -0.5)
+    b = _randn(g, (Cout,), dev, 0.1).to(torch.bfloat16)
+    first = transpconv2x2_cm(x, w, b)
+    with torch.no_grad():
+        w.copy_(_randn(g, tuple(w.shape), dev, Cin ** -0.5))
+        b.add_(0.5)
+    got = transpconv2x2_cm(x, w, b)
+    torch.cuda.synchronize()
+    assert max_excess(got, transpconv2x2_cm_plain(x, w, b),
+                      KERNEL_TOLERANCES["transpconv2x2_cm"]) <= 0
+    assert not torch.equal(got, first)
 
 
 # H * W not a multiple of 4 (the scalar path), and each class-count template
