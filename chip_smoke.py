@@ -156,6 +156,8 @@ from dinounet_tpu_torch.ops.attention import (fused_rope_attention,
 from dinounet_tpu_torch.ops.conv_hwbc import conv3x3_hwbc, conv3x3_hwbc_plain
 from dinounet_tpu_torch.ops.decoder_tail import (conv3x3_cm, conv3x3_cm_plain,
                                                  pack_conv_weight, pack_transpconv_weight,
+                                                 packed_conv_weight,
+                                                 packed_transpconv_weight,
                                                  seg_head_cm, seg_head_cm_plain,
                                                  transpconv2x2_cm,
                                                  transpconv2x2_cm_plain)
@@ -848,7 +850,10 @@ def phase_kernels(dev) -> dict:
 
     # the decoder/SPM conv family at the dinounet_b serve shapes (tile batch
     # 8, 512^2 tiles). The first of each kernel's shapes is the one its JSON
-    # entry reports.
+    # entry reports. A call reads the weight packed in bf16, made once per
+    # weight version (packed_conv_weight, packed_transpconv_weight), so the
+    # bound counts that, not the fp32 weight, as the int8 cases count the
+    # cached int8 levels
     conv_cases = [  # (where, C1, C2, H, Cout, prologue, slope, stats)
         ("decoder conv0 512^2", 32, 32, 512, 32, False, 0.01, True),
         ("decoder conv1 512^2", 32, 0, 512, 32, True, 0.01, True),
@@ -866,7 +871,8 @@ def phase_kernels(dev) -> dict:
             "conv3x3_cm", f"{where} ({C1}+{C2} -> {Cout})",
             lambda: _normalized(conv3x3_cm(x, w, b, p, slope, stats, x2), n),
             lambda: _normalized(conv3x3_cm_plain(x, w, b, p, slope, stats, x2), n),
-            (x, x2, w, b, *(p or ())), 2.0 * B * n * 9 * (C1 + C2) * Cout, BF16_FLOP_S,
+            (x, x2, packed_conv_weight(w), b, *(p or ())), 2.0 * B * n * 9 * (C1 + C2) * Cout,
+            BF16_FLOP_S,
             _conv_library(x, x2, w, b), tols, CUDNN_LABEL)
         _log_conv_breakdown("conv3x3_cm", f"{where} ({C1}+{C2} -> {Cout})",
                             lambda: conv3x3_cm(x, w, b, p, slope, stats, x2), stats, w)
@@ -885,7 +891,8 @@ def phase_kernels(dev) -> dict:
             "conv3x3_hwbc", f"{where} ({C1}+{C2} -> {Cout})",
             lambda: _normalized(conv3x3_hwbc(xv, w, b, x2v, p, slope), n),
             lambda: _normalized(conv3x3_hwbc_plain(xv, w, b, x2v, p, slope), n),
-            (x, x2, w, b, *(p or ())), 2.0 * B * n * 9 * (C1 + C2) * Cout, BF16_FLOP_S,
+            (x, x2, packed_conv_weight(w), b, *(p or ())), 2.0 * B * n * 9 * (C1 + C2) * Cout,
+            BF16_FLOP_S,
             _conv_library(x, x2, w, b), tols, CUDNN_LABEL)
         _log_conv_breakdown("conv3x3_hwbc", f"{where} ({C1}+{C2} -> {Cout})",
                             lambda: conv3x3_hwbc(xv, w, b, x2v, p, slope), True, w)
@@ -906,7 +913,8 @@ def phase_kernels(dev) -> dict:
         r = _compare(
             "transpconv2x2_cm", f"{where} ({Cin} -> {Cout})",
             lambda: transpconv2x2_cm(x, w, b, p), lambda: transpconv2x2_cm_plain(x, w, b, p),
-            (x, w, b, *(p or ())), 2.0 * B * H * H * Cin * 4 * Cout, BF16_FLOP_S,
+            (x, packed_transpconv_weight(w), b, *(p or ())), 2.0 * B * H * H * Cin * 4 * Cout,
+            BF16_FLOP_S,
             lambda: F.conv_transpose2d(xl, wl, bl, stride=2), library_label=CUDNN_LABEL)
         _log_launch_split("transpconv2x2_cm", f"{where} ({Cin} -> {Cout})",
                           lambda: transpconv2x2_cm(x, w, b, p),

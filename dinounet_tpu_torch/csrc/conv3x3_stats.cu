@@ -186,26 +186,7 @@ struct Wgmma<64> {
 template <>
 struct Wgmma<128> {
   static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(acc));
+    wgmma_ss_n128<0>(d, a, b, acc);
   }
 };
 
@@ -244,22 +225,9 @@ __device__ __forceinline__ void mbar_expect_tx_only(uint32_t bar, uint32_t bytes
                : "memory");
 }
 
-// four 8 x 8 bf16 blocks of a fragment stored transposed: lane l gives
-// the address of row l % 8 of block l / 8
-__device__ __forceinline__ void stsm_x4_trans(uint32_t addr, const uint32_t (&r)[4]) {
-  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
-               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
-               : "memory");
-}
-
 __device__ __forceinline__ float prologue(float x, float s, float t, float slope) {
   const float v = fmaf(x, s, t);
   return v >= 0.f ? v : v * slope;
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 struct Args {
@@ -597,8 +565,6 @@ conv3x3_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 // a 4-D (w, h, c, b) map of a channel-major input, read in (kRawW, rows, 16,
 // 1) boxes without swizzle; 0 or a cudaError_t
 int input_map(CUtensorMap* map, const void* x, const long long* st, int C, int B, int H, int W,
@@ -622,16 +588,6 @@ int input_map(CUtensorMap* map, const void* x, const long long* st, int C, int B
 bool tma_ok(const void* p, const long long* st, int B) {
   return p != nullptr && aligned16(p) && st[3] == 1 && st[2] > 0 && st[1] > 0 &&
          st[2] % 8 == 0 && st[1] % 8 == 0 && (B == 1 || (st[0] > 0 && st[0] % 8 == 0));
-}
-
-int sm_count() {
-  static int count[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  int& n = count[dev & 63];
-  if (n == 0 && cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    n = 0;
-  return n;
 }
 
 template <int kCout>

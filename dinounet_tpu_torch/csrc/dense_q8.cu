@@ -192,13 +192,13 @@ extern "C" int dense_q8(const void* h, const void* wq, const void* ws, const voi
   p.D = D;
   const int ldq = q8::pad16(K);
   if (!residual) {
-    p.vec = D % 8 == 0 && q8::aligned16(out);
+    p.vec = D % 8 == 0 && aligned16(out);
     return q8::launch_gemm<q8::kPlain, q8::kSplitRows>(xq, wq, ldq, p, s);
   }
   p.gamma = static_cast<const float*>(gamma);
   p.res = static_cast<const __nv_bfloat16*>(res);
   p.mu = static_cast<float*>(mu);
   p.var = static_cast<float*>(var);
-  p.vec = D % 8 == 0 && q8::aligned16(res) && q8::aligned16(out);
+  p.vec = D % 8 == 0 && aligned16(res) && aligned16(out);
   return q8::launch_gemm<q8::kStats, q8::kSplitFeatures>(xq, wq, ldq, p, s);
 }

@@ -376,8 +376,6 @@ dense_stats_kernel(const __grid_constant__ CUtensorMap a_map,
   }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 template <bool kCM>
 int launch(const Args& p, cudaStream_t stream) {
   CUtensorMap a_map, w_map;

@@ -531,8 +531,6 @@ q8_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
   }
 }
 
-inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 // xq (rows, ldq) and wq (D, ldq) int8, K contiguous, into p's epilogue: 0
 // or a cudaError_t
 template <int kEpi, int kLayout>
@@ -561,10 +559,8 @@ int launch_gemm(const void* xq, const void* wq, int ldq, Args p, cudaStream_t st
   // fc1 against 0.052 on the 2-D grid)
   int groups = kEpi == kTokenColumns ? passes : 1;
   if (kEpi == kPlain) {
-    int dev = 0, sms = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
+    const int sms = sm_count();
+    if (sms < 1) return (int)cudaErrorInvalidDevice;
     groups = max(1, min(passes, sms / row_tiles));
   }
   p.passes_per_block = (passes + groups - 1) / groups;

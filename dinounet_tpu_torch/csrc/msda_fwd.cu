@@ -66,6 +66,7 @@
 
 #include <stdint.h>
 
+#include "hopper_common.cuh"
 #include "msda_fwd.cuh"
 
 namespace {
@@ -75,14 +76,6 @@ using namespace msda;
 constexpr int kThreads = 512;       // the most threads a block: one query a thread at a time
 constexpr int kSmemMax = 232448;    // the shared memory a block may have
 
-// four 8 x 8 bf16 matrices stored transposed: lane l gives the address of
-// stored row l % 8 of matrix l / 8
-__device__ __forceinline__ void stsm_x4_trans(uint32_t addr, const uint32_t (&r)[4]) {
-  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
-               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
-               : "memory");
-}
-
 // the block's slice of its head's map, channel rows v_g[c * S + s] (c < dc),
 // into shared memory as [ceil(dc / 8)][Sp] cells of 8 channels (zero past
 // dc; Sp = S rounded up to 8)
@@ -90,7 +83,9 @@ __device__ __forceinline__ void stage_map(uint4* __restrict__ v_s,
                                           const __nv_bfloat16* __restrict__ v_g, int dc,
                                           int ng, int S, int Sp) {
   int done = 0;  // 8 x 8 tiles (8 channels x 8 positions) staged by stmatrix
-  if ((S & 7) == 0) {
+  // 4-byte loads: channel rows of a multiple of 8 positions from a 4-byte
+  // aligned map (a contiguous view may start at an odd element)
+  if ((S & 7) == 0 && (reinterpret_cast<uintptr_t>(v_g) & 3) == 0) {
     // a warp takes 4 tiles of a group: lane l loads the 4-byte pair of
     // positions 2 (l % 4) of channel row l / 4 of each (the fragment of an
     // 8 x 8 matrix, rows = channels), and stmatrix stores the matrices
@@ -113,7 +108,8 @@ __device__ __forceinline__ void stage_map(uint4* __restrict__ v_s,
       stsm_x4_trans(base + (uint32_t)(((size_t)g * Sp + s0 + lane % 8) * 16), r);
     }
   }
-  // the rest (S not a multiple of 8, or the last tiles): element by element
+  // the rest (S not a multiple of 8, a map at an odd element, or the last
+  // tiles): element by element
   __nv_bfloat16* v_e = reinterpret_cast<__nv_bfloat16*>(v_s);
   for (int i = done * 64 + threadIdx.x; i < ng * S * 8; i += blockDim.x) {
     const int e = i & 7, cell = i >> 3;
@@ -255,16 +251,6 @@ msda_fwd_fused_kernel(const __nv_bfloat16* __restrict__ value,
   }
 }
 
-int sm_count() {
-  static int count[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  int& n = count[dev & 63];
-  if (n == 0 && cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    n = 0;
-  return n;
-}
-
 // sw: the channels a block (the whole head where not kSliced)
 template <int NG, bool kSliced, bool kGlobal, bool kMerged>
 int launch(const void* value, const void* off, const void* logits, const void* base,
@@ -275,17 +261,12 @@ int launch(const void* value, const void* off, const void* logits, const void* b
   const int n_slices = kSliced ? (D + sw - 1) / sw : 1;
   const size_t smem = kGlobal ? 0 : (size_t)((sw + 7) / 8) * ((S + 7) & ~7) * 16;
   const int threads = kThreads;
-  // the attribute and the blocks an SM holds, once an instance and map size
-  static int ready_dev = -1, last_smem = -1, per_sm = 0;  // per_sm of `threads`
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  // the attribute once a device; the blocks an SM holds once an instance and
+  // map size
+  static unsigned long long ready = 0;  // one bit a device
+  cudaError_t err = set_smem_once(kernel, kSmemMax, &ready);
   if (err != cudaSuccess) return (int)err;
-  if (ready_dev != dev) {
-    err = allow_smem(kernel, kSmemMax);
-    if (err != cudaSuccess) return (int)err;
-    ready_dev = dev;
-    last_smem = -1;
-  }
+  static int last_smem = -1, per_sm = 0;  // per_sm of `threads`
   if (last_smem != (int)smem) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
     if (err != cudaSuccess) return (int)err;
@@ -293,7 +274,9 @@ int launch(const void* value, const void* off, const void* logits, const void* b
   }
   // split each head's queries into as many ranges as one wave of blocks holds
   const long long heads = (long long)B * M * n_slices;
-  const long long room = (long long)(per_sm > 0 ? per_sm : 1) * sm_count();
+  const int sms = sm_count();
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
+  const long long room = (long long)(per_sm > 0 ? per_sm : 1) * sms;
   long long ranges = room / heads;
   const long long most = (Lq + threads - 1) / threads;
   if (ranges > most) ranges = most;

@@ -3,8 +3,8 @@
 // the value map (staged in shared memory or gathered from a token-major copy
 // in device memory, the template flag kGlobal), the bilinear sample of one
 // point into the slice's fp32 accumulators, and the store. msda_fwd.cu (#1
-// and #6, the fused prep) takes only kMaxPoints, kSlice, allow_smem and
-// bad_sizes; its header says how its redesign stages and gathers.
+// and #6, the fused prep) takes only kMaxPoints, kSlice and bad_sizes; its
+// header says how its redesign stages and gathers.
 
 #pragma once
 

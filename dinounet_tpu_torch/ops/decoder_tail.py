@@ -31,9 +31,6 @@ _CONV_COUT = (16, 32, 64, 128)
 _PACK_ATTR = "_dinounet_conv3x3_packed"
 _TPACK_ATTR = "_dinounet_transpconv_packed"
 _BIAS_ATTR = "_dinounet_bias_f32"
-# the transposed conv kernel's limits (csrc/transpconv2x2.cu: kMaxCin, kMaxCout)
-_TRANSP_MAX_CIN = 512
-_TRANSP_MAX_COUT = 512
 
 
 def _pick_stripe(h: int, vmem_rows: int = 32) -> Optional[int]:
@@ -166,21 +163,6 @@ def packed_transpconv_weight(w: torch.Tensor) -> torch.Tensor:
     return _build.cached_on_storage(w, _TPACK_ATTR, lambda: pack_transpconv_weight(w))
 
 
-def transpconv2x2_from_packed(x_cm, packed, b, prologue: Prologue = None,
-                              leaky_slope: float = 0.01):
-    """The kernel's arithmetic on any device, from the packed weight: the
-    per-pixel GEMM x'^T packed^T (fp32 sums of bf16 products), the fp32 bias,
-    one rounding, the columns (c, p, q) scattered to out[c, 2j + p, 2x + q].
-    Reads only the first 4 Cout rows of `packed` (Cout = b's length)."""
-    x = apply_prologue(x_cm, prologue, leaky_slope)
-    B, Cin, H, W = x.shape
-    cout = b.shape[0]
-    y = torch.einsum("bkp,nk->bnp", x.reshape(B, Cin, H * W).float(),
-                     packed[:4 * cout].float())
-    y = y.reshape(B, cout, 2, 2, H, W) + b.float()[None, :, None, None, None, None]
-    return y.permute(0, 1, 4, 2, 5, 3).reshape(B, cout, 2 * H, 2 * W).to(x_cm.dtype)
-
-
 def _bias_f32(b: torch.Tensor) -> torch.Tensor:
     """b as a contiguous fp32 tensor, converted once per version."""
     if b.dtype == torch.float32 and b.is_contiguous():
@@ -261,7 +243,10 @@ def transpconv2x2_cm(x_cm, w, b, prologue: Prologue = None, leaky_slope: float =
     W % 128 != 0 outside its kernel, at the same rounding points) and reads x
     through its strides; the output is contiguous NCHW. The weight goes in
     packed (``packed_transpconv_weight``) and the bias in fp32, each made
-    once per version."""
+    once per version. On CUDA tensors Cin is a multiple of 16 and Cout of 4,
+    each at most 512 (the kernel's kMaxCin / kMaxCout, which its C entry
+    enforces: a larger one raises RuntimeError); the repo's models stay
+    within it."""
     dev = _device_of(x_cm, "transpconv2x2_cm")
     if dev is None:
         return transpconv2x2_cm_plain(x_cm, w, b, prologue, leaky_slope)
@@ -269,12 +254,9 @@ def transpconv2x2_cm(x_cm, w, b, prologue: Prologue = None, leaky_slope: float =
     bf16, f32 = torch.bfloat16, torch.float32
     B, Cin, H, W = x_cm.shape
     Cout = w.shape[1]
-    if (Cin % 16 or Cout % 4 or Cin > _TRANSP_MAX_CIN or Cout > _TRANSP_MAX_COUT
-            or tuple(w.shape) != (Cin, Cout, 2, 2)):
-        raise ValueError(f"{op}: the kernel takes Cin in multiples of 16 up to "
-                         f"{_TRANSP_MAX_CIN} and Cout in multiples of 4 up to "
-                         f"{_TRANSP_MAX_COUT}; got {Cin} -> {Cout}, weight "
-                         f"{tuple(w.shape)}")
+    if Cin % 16 or Cout % 4 or tuple(w.shape) != (Cin, Cout, 2, 2):
+        raise ValueError(f"{op}: the kernel takes Cin in multiples of 16 and Cout in "
+                         f"multiples of 4; got {Cin} -> {Cout}, weight {tuple(w.shape)}")
     if x_cm.dtype != bf16 or w.device != dev:
         raise ValueError(f"{op}: x must be bfloat16 and w on {dev}, got {x_cm.dtype}, "
                          f"w on {w.device}")

@@ -115,12 +115,12 @@ _MSDA, _TC, _HC = "msda_fwd.cu", "transpconv2x2.cu", "hopper_common.cuh"
 # leaky(x s + t) on the fragment, wgmma with A from registers; the producer
 # leaves the TMA box as it is (channel-major inputs; the others as committed)
 _TC_PROLOGUE_IN_REGISTERS = [
-    ("// four 8 x 8 bf16 blocks of a fragment stored transposed:",
+    ("__device__ __forceinline__ float leaky(",
      "template <int N>\nstruct WgmmaRS;\n" + "".join(_wgmma_rs(n) for n in (128, 256))
      + "__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {\n"
        '  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\\n"\n'
        '               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));\n}\n\n'
-       "// four 8 x 8 bf16 blocks of a fragment stored transposed:"),
+       "__device__ __forceinline__ float leaky("),
     ("  const bool by_threads = pro || a.mode == kModeLoads;",
      "  const bool by_threads = (pro && !kTransA) || a.mode == kModeLoads;"),
     ("          const uint32_t bar = (pro ? a_raw : a_full) + 8 * slot;",
@@ -129,8 +129,7 @@ _TC_PROLOGUE_IN_REGISTERS = [
      "        if (pro && !kTransA) {  // the prologue on the staged tile, in place"),
     ("            const uint64_t ad = kTransA ? sw128_desc(a_chunk + kk * 16 * 128, kBoxBytes, 1024)\n"
      "                                        : sw128_desc(a_chunk + kk * 32, 16, 1024);\n"
-     "            Mma<NB, kTransA>::run(acc, ad, sw128_desc(w_tile + kk * 32, 16, 1024),\n"
-     "                                  c > 0 || kk > 0);",
+     "            wgmma_ss<kTransA>(acc, ad, sw128_desc(w_tile + kk * 32, 16, 1024), c > 0 || kk > 0);",
      "            if (kTransA && pro) {\n"
      "              uint32_t af[4];\n"
      "              const int i4 = lane / 8, kr = kk * 16 + 8 * (i4 >> 1) + lane % 8;\n"
@@ -149,12 +148,12 @@ _TC_PROLOGUE_IN_REGISTERS = [
      "            } else {\n"
      "            const uint64_t ad = kTransA ? sw128_desc(a_chunk + kk * 16 * 128, kBoxBytes, 1024)\n"
      "                                        : sw128_desc(a_chunk + kk * 32, 16, 1024);\n"
-     "            Mma<NB, kTransA>::run(acc, ad, sw128_desc(w_tile + kk * 32, 16, 1024),\n"
-     "                                  c > 0 || kk > 0);\n"
+     "            wgmma_ss<kTransA>(acc, ad, sw128_desc(w_tile + kk * 32, 16, 1024), c > 0 || kk > 0);\n"
      "            }"),
 ]
 # edits of the MSDA forward that take phases out (for timing the others)
-_MSDA_BY_ELEMENTS = [("  if ((S & 7) == 0) {\n    // a warp takes", "  if (false) {\n    // a warp takes")]
+_MSDA_BY_ELEMENTS = [("  if ((S & 7) == 0 && (reinterpret_cast<uintptr_t>(v_g) & 3) == 0) {",
+                      "  if (false) {")]
 _MSDA_NO_STAGING = _MSDA_BY_ELEMENTS + [(
     "  for (int i = done * 64 + threadIdx.x; i < ng * S * 8; i += blockDim.x) {",
     "  for (int i = done * 64 + threadIdx.x; i < 0; i += blockDim.x) {")]
@@ -185,7 +184,7 @@ _TC_NO_TRANSFORM = [("          const float* pt = a.pt + (size_t)t.b * a.Cin;\n"
                      "          for (int v = tid; v < a.kchunks * 1024; v += 128) {",
                      "          const float* pt = a.pt + (size_t)t.b * a.Cin;\n"
                      "          for (int v = tid; v < 0; v += 128) {")]
-_TC_NO_MMA = [("            Mma<NB, kTransA>::run(acc, ad,", "            if (c < 0) Mma<NB, kTransA>::run(acc, ad,")]
+_TC_NO_MMA = [("            wgmma_ss<kTransA>(acc, ad,", "            if (c < 0) wgmma_ss<kTransA>(acc, ad,")]
 _TC_NO_EPILOGUE = [("      for (int round = 0; round < NB / kRound; ++round) {",
                     "      for (int round = 0; round < (pass < 0 ? NB / kRound : 0); ++round) {")]
 
@@ -203,8 +202,8 @@ VARIANTS = {
     "swap_grids": ("int8", {"int8_gemm.cuh": [
         ("int groups = kEpi == kTokenColumns ? passes : 1;",
          "int groups = kEpi == kPlain ? passes : 1;"),
-        ("  if (kEpi == kPlain) {\n    int dev = 0, sms = 0;",
-         "  if (kEpi == kTokenColumns) {\n    int dev = 0, sms = 0;")]}),
+        ("  if (kEpi == kPlain) {\n    const int sms = sm_count();",
+         "  if (kEpi == kTokenColumns) {\n    const int sms = sm_count();")]}),
     "no_setmaxnreg": ("int8", {"int8_gemm.cuh": [
         ("    if constexpr (P::kHalves == 2) setmaxnreg_dec<24>();\n", ""),
         ("  if constexpr (P::kHalves == 2) setmaxnreg_inc<240>();\n", "")]}),

@@ -110,6 +110,35 @@ def test_msda_merged_kernel_matches_plain(dev, B, M, D, H, W, P, Lq):
     assert max_excess(got, want, KERNEL_TOLERANCES["msda_fwd_merged"]) <= 0
 
 
+def _at_odd_element(t):
+    """A contiguous copy of t that starts one element into its storage (2
+    bytes past a 4-byte boundary for bf16)."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 4 == 2
+    return out
+
+
+# a value map that is a contiguous view at an odd element: the staged
+# instances take the element-wise staging (a whole head, slices) and the
+# global one its token-major copy
+@pytest.mark.parametrize("merged", [False, True])
+@pytest.mark.parametrize("B,M,D,H,W,P,Lq", [(2, 3, 24, 8, 8, 4, 100), (1, 2, 80, 16, 16, 4, 130),
+                                           (1, 2, 8, 128, 128, 4, 200)])
+def test_msda_forward_on_odd_offset_map(dev, merged, B, M, D, H, W, P, Lq):
+    v, off, logits, base = _msda_case(23, B, M, D, H, W, P, Lq, dev)
+    vo = _at_odd_element(v)
+    if merged:
+        packed = torch.cat([off, logits], dim=2)
+        got = ms_deform_attn_premapped_fused_merged(vo, ((H, W),), packed, base)
+        want = ms_deform_attn_premapped_fused_merged_plain(v, ((H, W),), packed, base)
+    else:
+        got = ms_deform_attn_premapped_fused(vo, ((H, W),), off, logits, base)
+        want = ms_deform_attn_premapped_fused_plain(v, ((H, W),), off, logits, base)
+    torch.cuda.synchronize()
+    assert max_excess(got, want, KERNEL_TOLERANCES["msda_fwd_merged" if merged else "msda_fwd"]) <= 0
+
+
 def _prepped_case(seed, B, M, D, shapes, P, Lq, dev, dtype=torch.bfloat16):
     """A value map over `shapes` and fp32 pixel coordinates reaching past
     every edge of their level, softmaxed weights."""
@@ -804,6 +833,10 @@ def test_conv_family_bad_inputs_raise(dev):
     with pytest.raises(ValueError):
         transpconv2x2_cm(x[:, :8], torch.zeros((8, 4, 2, 2), device=dev),
                          torch.zeros(4, device=dev))
+    # past the kernel's 512 input channels: its C entry refuses the launch
+    xw = torch.zeros((1, 528, 2, 2), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(RuntimeError):
+        transpconv2x2_cm(xw, torch.zeros((528, 4, 2, 2), device=dev), torch.zeros(4, device=dev))
 
 
 def test_launches_are_counted(dev):

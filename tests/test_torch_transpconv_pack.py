@@ -3,15 +3,14 @@ into the kernel's B operand, its reading (the kernel's arithmetic from the
 packed weight) against the JAX kernel, and the caches.
 
 ``pack_transpconv_weight`` lays a (Cin, Cout, 2, 2) weight out as
-csrc/transpconv2x2.cu reads it: (Npad, Cin) bf16, row n = 4 c + 2 p + q;
-``transpconv2x2_from_packed`` computes the op from that layout as the kernel
-does (fp32 sums of bf16 products, fp32 bias, one rounding). It is held against
-the JAX ``transpconv2x2_cm`` in Pallas interpret mode at W = 128 and through
-the JAX wrapper's XLA branch at W = 32, at ``test_torch_decoder_tail.py``'s
-bf16 map tolerance (atol 2e-2, rtol 1e-2: both round the same fp32 sums
-once, and an order difference can flip one bf16 ulp). ``packed_transpconv_
-weight`` keeps the pack on the weight's storage owner, tied to its version
-counter.
+csrc/transpconv2x2.cu reads it: (Npad, Cin) bf16, row n = 4 c + 2 p + q.
+The packed weight's reading, the plain version run on the weight read back
+from the pack's first 4 Cout rows, is held against the JAX
+``transpconv2x2_cm`` in Pallas interpret mode at W = 128 and through the JAX
+wrapper's XLA branch at W = 32, at ``test_torch_decoder_tail.py``'s bf16 map
+tolerance (atol 2e-2, rtol 1e-2: both round the same fp32 sums once, and an
+order difference can flip one bf16 ulp). ``packed_transpconv_weight`` keeps
+the pack on the weight's storage owner, tied to its version counter.
 """
 
 import jax.numpy as jnp
@@ -28,6 +27,14 @@ def _np(x):
     if isinstance(x, torch.Tensor):
         return x.float().numpy()
     return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _reading(x, packed, b, prologue=None):
+    """The op from the packed weight: the plain version on the (Cin, Cout,
+    2, 2) weight that the pack's first 4 Cout rows hold."""
+    cin, cout = packed.shape[1], b.shape[0]
+    w = packed[:4 * cout].t().reshape(cin, cout, 2, 2)
+    return t_tail.transpconv2x2_cm_plain(x, w, b, prologue)
 
 
 def _transp_t(k):
@@ -54,8 +61,7 @@ def test_packed_reading_matches_jax(width, with_prologue):
     want = jax_tc(jnp.asarray(x, jnp.bfloat16), jnp.asarray(k), jnp.asarray(b),
                   prologue=pj, interpret=True)
     packed = t_tail.pack_transpconv_weight(_transp_t(k))
-    got = t_tail.transpconv2x2_from_packed(torch.from_numpy(x).to(torch.bfloat16), packed,
-                                           torch.from_numpy(b), pt)
+    got = _reading(torch.from_numpy(x).to(torch.bfloat16), packed, torch.from_numpy(b), pt)
     assert got.dtype == torch.bfloat16 and got.shape == (B, Cout, 2 * H, 2 * width)
     np.testing.assert_allclose(_np(got), _np(want), atol=MAP_TOL[0], rtol=MAP_TOL[1])
     # and the plain version the CPU path runs gives the same bf16 map
@@ -101,10 +107,10 @@ def test_transpconv_reading_after_weight_update():
     x = torch.randn((1, 16, 3, 8), generator=g).to(torch.bfloat16)
     w = torch.nn.Parameter(torch.randn((16, 8, 2, 2), generator=g) * 0.25)
     b = torch.randn(8, generator=g) * 0.1
-    before = t_tail.transpconv2x2_from_packed(x, t_tail.packed_transpconv_weight(w), b)
+    before = _reading(x, t_tail.packed_transpconv_weight(w), b)
     with torch.no_grad():
         w.copy_(torch.randn((16, 8, 2, 2), generator=g) * 0.25)
-    after = t_tail.transpconv2x2_from_packed(x, t_tail.packed_transpconv_weight(w), b)
+    after = _reading(x, t_tail.packed_transpconv_weight(w), b)
     assert not torch.equal(before, after)
     assert torch.equal(after, t_tail.transpconv2x2_cm_plain(x, w.detach(), b))
 
