@@ -31,7 +31,12 @@ not 0:
               function or, for the convs, the same conv alone (cuDNN on
               channels-last bf16, no prologue or statistics), for the int8
               ops torch._int_mm on the pre-quantized operands (the int8 GEMM
-              alone), timed as a yardstick and never called by the port.
+              alone), for the MSDA kernels grid_sample (bilinear, zero
+              padding, align_corners=False) on the same map and points: the
+              stock gather alone, without the prep or the weighted sum over
+              points (the forwards: its forward on bf16; the backward: its
+              backward to the map and the grid on fp32), timed as a
+              yardstick and never called by the port.
               The int8 ops' bound counts their weight's cached int8 levels
               and scales (quantized once, not per call); each also prints
               TOPS and GB/s, its device time split into the quantize pass
@@ -44,11 +49,15 @@ not 0:
               prints its device time a call split into the conv kernel and
               the memset of the sums (a call must launch those and nothing
               else: the packed weight is cached) and the weight's one-time
-              pack. The transposed conv (serve_cm's five shapes) and the
+              pack. The transposed conv (serve_cm's five shapes), the
               three MSDA forwards (#1, #6 and #5 at D = 24, D = 128 and on
-              the 1024^2 patch) likewise print their device time a call
-              split by launch (the kernel; the MSDA token-major copy where
-              the map outgrows shared memory), and a call that launches
+              the 1024^2 patch; the token-major copy only where not one
+              16-byte cell of the map a position fits in shared memory: at
+              none of these) and the MSDA backward (the memset of its gv
+              scratch, its walk, its finishing transpose, the slice sums of
+              a sliced head; the device-memory instance at none of its four
+              shapes) likewise print their
+              device time a call split by launch, and a call that launches
               anything else fails the run. serve_cm also prints the
               transposed conv's launches a tile-batch forward by shape.
 3. serve   -- dinounet_b at full width with seeded random weights, behind the
@@ -178,7 +187,7 @@ from dinounet_tpu_torch.ops.msda import (ms_deform_attn_premapped_backward_plain
                                          ms_deform_attn_premapped_fused_plain,
                                          ms_deform_attn_premapped_plain,
                                          premapped_fused_prep)
-from dinounet_tpu_torch.ops.msda_kernel import (ms_deform_attn_premapped,
+from dinounet_tpu_torch.ops.msda_kernel import (bwd_plan, ms_deform_attn_premapped,
                                                 ms_deform_attn_premapped_backward,
                                                 ms_deform_attn_premapped_fused,
                                                 ms_deform_attn_premapped_fused_merged)
@@ -273,7 +282,7 @@ PARITY_7B_BOUND = 0.05
 PER_TRAIN_STEP = {**dict.fromkeys(PER_FORWARD, 0), "rope_attention": 12,
                   "dense_cm_stats": 12, "dense_rm_stats": 12, "msda_fwd": 12, "msda_bwd": 6}
 # DinoUNetTrainer_l: the ViT-L's 24 blocks, the adapter's 16 heads of 32
-# channels (the MSDA backward's device-memory instance); DinoUNetTrainer_b
+# channels (the MSDA backward's whole-head staged instance); DinoUNetTrainer_b
 # under DINOUNET_TPU_MSDA_PREP=xla: the prepped-input forward in place of
 # the fused one
 PER_TRAIN_STEP_L = {**PER_TRAIN_STEP, "rope_attention": 24, "dense_cm_stats": 24,
@@ -501,6 +510,39 @@ def _log_launch_split(name, shape_desc, kernel_fn, parts: dict, want: dict,
 MSDA_FWD_PARTS = {"gathers": "msda_fwd_fused_kernel", "token-major copy": "transpose_kernel"}
 MSDA_PREMAPPED_PARTS = {"gathers": "msda_fwd_premapped_kernel",
                         "token-major copy": "transpose_kernel"}
+MSDA_BWD_PARTS = {"walk": "msda_bwd_kernel", "finish": "finish_kernel",
+                  "slice sums": "sum_slices_kernel", "gv scratch memset": "Memset",
+                  "device-memory walk": "msda_bwd_global_kernel",
+                  "transposes": "transpose_kernel"}
+GRID_SAMPLE_LABEL = "library (grid_sample alone: the stock gather, a partial yardstick)"
+
+
+def _grid_sample_fwd(v, shapes, xs, ys):
+    """grid_sample's forward on v's one level (B, M, D, S) at the points
+    (xs, ys) (B, M, P, Lq) in pixels: bilinear, zero padding,
+    align_corners=False, in v's dtype; no prep, no sum over points."""
+    (H, W), = shapes
+    B, M, D, _ = v.shape
+    P, Lq = xs.shape[2], xs.shape[3]
+    inp = v.reshape(B * M, D, H, W)
+    grid = torch.stack([(xs + 0.5) * (2.0 / W) - 1.0, (ys + 0.5) * (2.0 / H) - 1.0], dim=-1)
+    grid = grid.reshape(B * M, P, Lq, 2).transpose(1, 2).contiguous().to(v.dtype)
+    return lambda: F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=False)
+
+
+def _grid_sample_bwd(v, shapes, xs, ys, g):
+    """grid_sample's backward to the map and the grid (fp32) at the same
+    points, the cotangent g (B, M, D, Lq) spread over the points."""
+    (H, W), = shapes
+    B, M, D, _ = v.shape
+    P, Lq = xs.shape[2], xs.shape[3]
+    inp = v.float().reshape(B * M, D, H, W).requires_grad_(True)
+    grid = torch.stack([(xs + 0.5) * (2.0 / W) - 1.0, (ys + 0.5) * (2.0 / H) - 1.0], dim=-1)
+    grid = grid.reshape(B * M, P, Lq, 2).transpose(1, 2).contiguous().requires_grad_(True)
+    out = F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros", align_corners=False)
+    cot = g.reshape(B * M, D, Lq, 1).expand(-1, -1, -1, P).contiguous()
+    return lambda: torch.autograd.grad(out, (inp, grid), cot, retain_graph=True)
 
 
 def _compare(name, shape_desc, kernel_fn, plain_fn, inputs, flops, peak,
@@ -734,8 +776,9 @@ def phase_kernels(dev) -> dict:
     # MSDA: 16 heads over the 32 x 32 ViT grid, 5376 queries around the
     # adapter's reference grid, 4 points: 24 channels a head (dinounet_b),
     # then 128 (dinounet_7b, the kernel's 32-channel slices); no library op
-    # computes it. Operations: 4 corners x 2 FLOP per channel and point
-    # (fp32 FMA).
+    # computes it: grid_sample on the same map and points (the gather alone)
+    # stands in as a partial yardstick. Operations: 4 corners x 2 FLOP per
+    # channel and point (fp32 FMA).
     Mq, Hv, P, Lq = 16, 32, 4, 5376
     base = torch.rand((2 * P, Lq), generator=g, device=dev) * Hv - 0.5
 
@@ -748,12 +791,16 @@ def phase_kernels(dev) -> dict:
         shapes = ((Hw, Hw),)
         desc = f"{what}value {tuple(vw.shape)} Lq={Lw}"
         flops = 8.0 * Bw * Mq * Lw * P * Dw
-        global_copy = 16 * Hw * Hw > 232448  # csrc/msda_fwd.cu stages 8 channels at least
+        # the forwards stage slices as narrow as one 16-byte cell a position
+        global_copy = 16 * Hw * Hw > 232448
+        xw, yw, aww = (t.contiguous() for t in premapped_fused_prep(ow, lw, bw))
+        library = _grid_sample_fwd(vw, shapes, xw, yw)
         r1 = _compare(
             "msda_fwd", desc,
             lambda: ms_deform_attn_premapped_fused(vw, shapes, ow, lw, bw),
             lambda: ms_deform_attn_premapped_fused_plain(vw, shapes, ow, lw, bw),
-            (vw, ow, lw, bw), flops, FP32_FLOP_S, plain_iters=plain_iters)
+            (vw, ow, lw, bw), flops, FP32_FLOP_S, library, library_label=GRID_SAMPLE_LABEL,
+            plain_iters=plain_iters)
         _log_launch_split("msda_fwd", desc,
                           lambda: ms_deform_attn_premapped_fused(vw, shapes, ow, lw, bw),
                           MSDA_FWD_PARTS, {"gathers": 1, "token-major copy": int(global_copy)})
@@ -762,25 +809,23 @@ def phase_kernels(dev) -> dict:
             "msda_fwd_merged", f"{desc} packed {tuple(packed.shape)}",
             lambda: ms_deform_attn_premapped_fused_merged(vw, shapes, packed, bw),
             lambda: ms_deform_attn_premapped_fused_merged_plain(vw, shapes, packed, bw),
-            (vw, packed, bw), flops, FP32_FLOP_S, plain_iters=plain_iters)
+            (vw, packed, bw), flops, FP32_FLOP_S, library, library_label=GRID_SAMPLE_LABEL,
+            plain_iters=plain_iters)
         _log_launch_split("msda_fwd_merged", desc,
                           lambda: ms_deform_attn_premapped_fused_merged(vw, shapes, packed, bw),
                           MSDA_FWD_PARTS, {"gathers": 1, "token-major copy": int(global_copy)})
         del packed
-        xw, yw, aww = (t.contiguous() for t in premapped_fused_prep(ow, lw, bw))
         r5 = _compare(
             "msda_fwd_premapped", f"{desc} L=1",
             lambda: ms_deform_attn_premapped(vw, shapes, xw, yw, aww),
             lambda: ms_deform_attn_premapped_plain(vw, shapes, xw, yw, aww),
-            (vw, xw, yw, aww), flops, FP32_FLOP_S, plain_iters=plain_iters)
-        # csrc/msda_fwd_premapped.cu stages whole heads of up to 32 channels
-        # or 32-channel slices
+            (vw, xw, yw, aww), flops, FP32_FLOP_S, library, library_label=GRID_SAMPLE_LABEL,
+            plain_iters=plain_iters)
         _log_launch_split("msda_fwd_premapped", desc,
                           lambda: ms_deform_attn_premapped(vw, shapes, xw, yw, aww),
                           MSDA_PREMAPPED_PARTS,
-                          {"gathers": 1,
-                           "token-major copy": int(2 * min(Dw, 32) * Hw * Hw > 232448)})
-        del xw, yw, aww
+                          {"gathers": 1, "token-major copy": int(global_copy)})
+        del xw, yw, aww, library
         return (vw, ow, lw), (r1, r6, r5)
 
     for Dv in (24, 128):
@@ -810,21 +855,41 @@ def phase_kernels(dev) -> dict:
     # coordinates and weights of the forward's inputs, an fp32 cotangent.
     # Operations: per corner and channel the value-gradient scatter, the
     # attention-weight product and the two coordinate derivatives (8 FLOP).
+    # Each call runs the staged instance (msda_kernel.bwd_plan: the whole
+    # head at D 24 and 32 and on the patch, four slices at the 7B's D 128):
+    # the memset of its gv scratch, the walk, the finishing transpose into
+    # gv, and for a sliced head the sum of its slices' ga / gx / gy; never
+    # the device-memory instance
+
+    def msda_backward(vb, shapes, xb, yb, ab, cb, what, plain_iters=20):
+        Bb, _, Db, Sb = vb.shape
+        Lb = xb.shape[3]
+        desc = f"{what}value {tuple(vb.shape)} Lq={Lb}"
+        r = _compare(
+            "msda_bwd", desc,
+            lambda: ms_deform_attn_premapped_backward(vb, shapes, xb, yb, ab, cb),
+            lambda: ms_deform_attn_premapped_backward_plain(vb, shapes, xb, yb, ab, cb),
+            (vb, xb, yb, ab, cb), 32.0 * Bb * Mq * Lb * P * Db, FP32_FLOP_S,
+            _grid_sample_bwd(vb, shapes, xb, yb, cb), library_label=GRID_SAMPLE_LABEL,
+            plain_iters=plain_iters)
+        plan = bwd_plan(Db, Sb, vb.element_size())
+        if plan is None:
+            raise AssertionError(f"msda_bwd {desc}: the device-memory instance")
+        _log_launch_split("msda_bwd", desc,
+                          lambda: ms_deform_attn_premapped_backward(vb, shapes, xb, yb, ab, cb),
+                          MSDA_BWD_PARTS, {"walk": 1, "finish": 1, "gv scratch memset": 1,
+                                           "slice sums": int(plan[1] > 1)})
+        return r
+
     Bt = 2
     xs, ys, aw = (t.contiguous() for t in premapped_fused_prep(
         off[:Bt], logits[:Bt], base))
     cot = randn(Bt, Mq, Dv, Lq)
     vt = v[:Bt].contiguous()
-    results["msda_bwd"] = _compare(
-        "msda_bwd", f"value {tuple(vt.shape)} Lq={Lq}",
-        lambda: ms_deform_attn_premapped_backward(vt, ((Hv, Hv),), xs, ys, aw, cot),
-        lambda: ms_deform_attn_premapped_backward_plain(vt, ((Hv, Hv),), xs, ys, aw, cot),
-        (vt, xs, ys, aw, cot), 32.0 * Bt * Mq * Lq * P * Dv, FP32_FLOP_S)
-    # the widened MSDA kernels at shapes their first versions refused: the
-    # backward at dinounet_l's train shape (16 heads of 32), the 7B's (of
-    # 128) and at a 1024^2 patch (a 64 x 64 map, 21504 queries), all on its
-    # device-memory instance; the three forwards at D 32 on that map (#1 and
-    # #6 in 16-channel slices, #5 on its token-major copy). Plain versions
+    results["msda_bwd"] = msda_backward(vt, ((Hv, Hv),), xs, ys, aw, cot, "")
+    # the backward at dinounet_l's train shape (16 heads of 32), the 7B's (of
+    # 128) and at a 1024^2 patch (a 64 x 64 map, 21504 queries); the three
+    # forwards at D 32 on that map (in 16-channel slices). Plain versions
     # timed over 3 calls
     for Dw, Hw, Bw, what in ((32, Hv, Bt, "dinounet_l train"), (128, Hv, Bt, "dinounet_7b train"),
                              (Dv, 2 * Hv, Bt, "1024^2 patch"), (32, 2 * Hv, B, "1024^2 patch")):
@@ -835,12 +900,7 @@ def phase_kernels(dev) -> dict:
         if Bw == Bt:
             xw, yw, aww = (t.contiguous() for t in premapped_fused_prep(ow, lw, bw))
             cw = randn(Bw, Mq, Dw, Lw)
-            _compare("msda_bwd", f"{what} value {tuple(vw.shape)} Lq={Lw}",
-                     lambda: ms_deform_attn_premapped_backward(vw, ((Hw, Hw),), xw, yw, aww, cw),
-                     lambda: ms_deform_attn_premapped_backward_plain(
-                         vw, ((Hw, Hw),), xw, yw, aww, cw),
-                     (vw, xw, yw, aww, cw), 32.0 * Bw * Mq * Lw * P * Dw, FP32_FLOP_S,
-                     plain_iters=3)
+            msda_backward(vw, ((Hw, Hw),), xw, yw, aww, cw, f"{what} ", plain_iters=3)
             del xw, yw, aww, cw
         else:
             del vw, ow, lw

@@ -21,62 +21,62 @@
 // any S.
 //
 // What bounds it on an H100: the scatter's atomics and the gathers. Per
-// query and head the kernel does L x P x 4 corners x D gathers and D
-// scatter-adds (16 x 24 of each at dinounet_b shapes), one FMA each;
+// query and head the kernel reads L x P x 4 corners x D values and adds as
+// many terms into gv (16 x 24 of each at dinounet_b's shapes), one FMA each;
 // device-memory traffic is one pass over g, the coordinates and the outputs
 // plus the value map. The TPU kernel built dense one-hot (S, Q) weight
-// matrices for the MXU, S times the work; that is not carried over. In both
-// instances below one warp takes one query at a time, one lane per channel
-// (CH = ceil(D / 32) channels a lane). All lanes of a warp sample the same
-// corners, so the branches are uniform, the gathers read D contiguous values
-// of a token-major [S][D] map, and each corner's D scatter-adds go to D
-// contiguous floats: distinct banks or one run of cache lines, no two lanes
-// on one address. (A first version gave each thread a query: neighbouring
-// queries sample the same corners, so the lanes of a warp collided on the
-// same addresses and the fp32 atomics serialised. At dinounet_b's train
-// shapes on an H100 80GB HBM3 at 700 W it took 1.00 ms of device time a
-// call, this layout 0.30 ms.) ga, gx and gy are per-lane partial sums
-// reduced across the warp with shuffles: they are deterministic.
-// - staged (msda_bwd_kernel), where one level's bf16 map and an fp32 gv
-//   partial of the head fit in shared memory (6 * D * S + 2 KB * D bytes:
-//   D <= 28 at S = 1024; dinounet_b's D = 24): one block per (b, head, query
-//   slice), the slices chosen so that the grid is about one block per SM
-//   (4 slices of 1344 queries for dinounet_b's 32 heads on 132 SMs). The
-//   block stages the map as bf16 [S][D] (48 KB for dinounet_b) beside an
-//   fp32 [S][D] partial of gv (96 KB), walks its slice in chunks of 512
-//   queries whose g columns it stages as [q][D] (48 KB; 192 KB in all), and
-//   then adds the non-zero entries of its partial into global gv with fp32
-//   atomicAdd.
-// - global (msda_bwd_global_kernel), every other head: dinounet_l's D = 32
-//   and the 7B's D = 128 at S = 1024, any S, several levels, an fp32 map. A
-//   pre-pass writes a token-major copy (B, M, S, D) of the map, the warps
-//   gather from it through L2 (__ldg; the whole value tensor of a train step
-//   is at most 8 MB, B 2 x M 16 x D 128 x S 1024 bf16, well inside the 50 MB
-//   L2) and add into a token-major fp32 gv (B, M, S, D) in device memory
-//   with atomicAdd, as the reference CUDA col2im does; a post-pass
-//   transposes it into gv. One block per (b, head, 64-query chunk) stages
-//   its chunk's g columns as [q][D]. Cutting a head into channel slices
-//   across blocks instead would keep a slice of the map in shared memory,
-//   but ga, gx and gy would then need a sum across blocks; the whole head in
-//   one warp keeps them warp sums.
-// In both gv depends on the order in which warps and blocks arrive, at fp32
-// rounding. Queries past Lq touch nothing. gv (staged) and the token-major gv
-// (global) must arrive zeroed: the kernels add into them.
+// matrices for the MXU, S times the work; that is not carried over.
+//
+// Design (the staged instance, msda_bwd_kernel):
+// 1. A block takes one (b, head, channel slice) and a contiguous range of its
+//    queries, a head's queries cut into as many ranges as one wave of blocks
+//    holds. It stages the slice's map once (all levels) as 16-byte cells of
+//    8 bf16 or 4 fp32 channels (msda_common.cuh::stage_map). Heads of up to
+//    64 channels whose cells fit a block are one slice (dinounet_b's D = 24
+//    and dinounet_l's D = 32, also on a 1024^2 patch's S = 4096 at D = 24);
+//    wider heads are cut into slices of up to 32 channels, as wide as fit
+//    (four of the 7B's 128), as the forwards cut them; the wrapper picks the
+//    width.
+// 2. A lane takes one (query, 4 channels): a warp walks 32 / nu queries at a
+//    time, nu = the slice's 4-channel units (6 at D = 24: 30 of 32 lanes
+//    busy), the lanes of a unit on consecutive queries (their cotangents read
+//    coalesced, a point's coordinates one broadcast). Per corner a lane reads
+//    its unit of the cell (8 or 16 bytes) and sums its channels' products
+//    with the cotangent.
+// 3. gv: per corner a lane adds wt * g for its 4 channels into a token-major
+//    fp32 scratch (B, M, S, Dp) by one 16-byte reduction in L2
+//    (red.global.add.v4.f32: no return, no retry). The lanes of a query cover
+//    its channels of one position, a row of Dp = D rounded up to 32 floats,
+//    so a query's corner is one 128-byte line of reductions (the cost of
+//    these reductions follows the lines they touch). A finishing kernel
+//    transposes the scratch into gv (D, S). (Drafts timed slower: a
+//    shared-memory partial of gv, since sm_90 has no shared fp32 add and
+//    each add is a compare-and-swap loop on addresses that neighbouring
+//    queries share; and 16-byte reductions into a cell-major scratch, six
+//    lines a query's corner: kernel_variants.py.)
+// 4. ga, gx and gy: a point's sums over the query's nu lanes, by shuffles
+//    (a butterfly where nu is a power of two, else in lane order), written
+//    by the query's first lane: no atomics, the same every run. A head cut
+//    into channel slices writes each slice's sums to the caller's scratch
+//    and a second kernel adds them in slice order.
+// gv depends on the order in which the reductions arrive, at fp32 rounding.
+// The instance needs one cell's channels of the map in shared memory (S up
+// to 14528). A wider map takes the device-memory instance
+// (msda_bwd_global_kernel): a pre-pass writes a token-major copy (B, M, S, D)
+// of the map, one warp takes one query at a time, a lane a channel, gathers
+// through L2 and adds into a token-major fp32 gv (B, M, S, D) in device
+// memory with atomicAdd, as the reference CUDA col2im does, and a post-pass
+// transposes it into gv. Queries past Lq touch nothing.
 
 #include "msda_common.cuh"
 
-#include <math.h>
-
 namespace {
 
-using msda::Levels;
-using msda::to_float;
+using namespace msda;
 
-constexpr int kThreads = 512;   // 16 warps, one query each at a time
+constexpr int kThreads = 512;  // 16 warps, 32 / nu queries each at a time
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 512;     // queries whose g columns are staged at once
-constexpr int kMaxPoints = 16;  // per level
-constexpr int kThreadsG = 256;  // the global instance: 8 warps
+constexpr int kThreadsG = 256;  // the device-memory instance: 8 warps
 constexpr int kWarpsG = kThreadsG / 32;
 constexpr int kChunkG = 64;     // its queries a block
 
@@ -86,60 +86,94 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// CH channels per lane: lane l holds channels l and l + 32
-template <int CH>
-__global__ void __launch_bounds__(kThreads)
-msda_bwd_kernel(const __nv_bfloat16* __restrict__ value,
-                const float* __restrict__ xs, const float* __restrict__ ys,
-                const float* __restrict__ aw, const float* __restrict__ g,
-                float* __restrict__ gv, float* __restrict__ ga,
-                float* __restrict__ gx, float* __restrict__ gy,
-                int M, int D, int H, int W, int P, int Lq, int slice) {
-  extern __shared__ unsigned char smem[];
-  const int S = H * W;
-  float* gv_s = reinterpret_cast<float*>(smem);       // [S][D]
-  float* g_s = gv_s + S * D;                           // [kChunk][D]
-  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(g_s + kChunk * D);  // [S][D]
-  const size_t bm = (size_t)blockIdx.z * M + blockIdx.y;
-  const __nv_bfloat16* v_g = value + bm * D * S;
-  for (int i = threadIdx.x; i < D * S; i += kThreads) {
-    const int d = i / S;
-    const int s = i - d * S;
-    v_s[s * D + d] = v_g[i];
-    gv_s[i] = 0.f;
+// the sum of v over the nu lanes of a query (lanes qi + qw u, u < nu), in
+// its lane u = 0: a butterfly where nu is a power of two (qw nu = 32), else
+// in lane order
+__device__ __forceinline__ float unit_sum(float v, int lane, int nu, int qw) {
+  if ((nu & (nu - 1)) == 0) {
+    for (int o = qw; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
   }
+  float t = v;
+  for (int u = 1; u < nu; ++u) t += __shfl_sync(0xffffffffu, v, lane + u * qw);
+  return t;
+}
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int q_begin = blockIdx.x * slice;
-  const int q_end = min(Lq, q_begin + slice);
-  const float* g_g = g + bm * D * Lq;
-  const size_t row0 = bm * P * Lq;
-  for (int c0 = q_begin; c0 < q_end; c0 += kChunk) {
-    const int n = min(kChunk, q_end - c0);
-    __syncthreads();  // the value map is staged / the last chunk is done
-    for (int i = threadIdx.x; i < D * n; i += kThreads) {
-      const int d = i / n;
-      const int j = i - d * n;
-      g_s[j * D + d] = g_g[(size_t)d * Lq + c0 + j];
-    }
-    __syncthreads();
+// channels [4 u, 4 u + 4) of position pos from the staged cells ([ng][Sp]):
+// half a bf16 cell, a whole fp32 one
+template <typename T>
+__device__ __forceinline__ void load_unit(float (&v)[4], const uint4* v_s, int Sp, int u,
+                                          int pos) {
+  if constexpr (sizeof(T) == 2) {
+    const uint2 w = reinterpret_cast<const uint2*>(v_s + (size_t)(u >> 1) * Sp + pos)[u & 1];
+    v[0] = __uint_as_float(w.x << 16);
+    v[1] = __uint_as_float(w.x & 0xFFFF0000u);
+    v[2] = __uint_as_float(w.y << 16);
+    v[3] = __uint_as_float(w.y & 0xFFFF0000u);
+  } else {
+    const uint4 w = v_s[(size_t)u * Sp + pos];
+    v[0] = __uint_as_float(w.x);
+    v[1] = __uint_as_float(w.y);
+    v[2] = __uint_as_float(w.z);
+    v[3] = __uint_as_float(w.w);
+  }
+}
 
-    for (int j = warp; j < n; j += kWarps) {
-      const int q = c0 + j;
-      float gq[CH];
+// blockIdx = (query range, head * n_slices + slice, b). gv_t: (B, M, S,
+// Dp) fp32, zeroed; part: (3, n_slices, B, M, LP, Lq) when n_slices > 1
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ xs,
+                const float* __restrict__ ys, const float* __restrict__ aw,
+                const float* __restrict__ g, float* __restrict__ gv_t, float* __restrict__ ga,
+                float* __restrict__ gx, float* __restrict__ gy, float* __restrict__ part,
+                int M, int D, int Dp, int sw, int n_slices, int S, Levels lv, int P, int Lq,
+                int q_chunk) {
+  constexpr int CC = kCell<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Sp = round8(S);
+  const int m = blockIdx.y / n_slices, slice = blockIdx.y - m * n_slices;
+  const int d0 = slice * sw, dc = min(sw, D - d0);
+  const size_t bm = (size_t)blockIdx.z * M + m;
+  uint4* v_s = reinterpret_cast<uint4*>(smem);  // [ceil(dc / CC)][Sp] cells
+  stage_map(v_s, value + (bm * D + d0) * S, dc, (dc + CC - 1) / CC, S, Sp);  // ends with a barrier
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nu = (dc + 3) >> 2, qw = 32 / nu;
+  const int u = lane / qw, qi = lane - u * qw;  // the lane's 4-channel unit and query
+  const int c0 = 4 * u;                         // its first channel in the slice
+  const int LP = lv.n * P;
+  const size_t row0 = bm * LP * Lq;
+  float *oa = ga, *ox = gx, *oy = gy;
+  if (n_slices > 1) {  // this slice's sums, added by sum_slices_kernel
+    const size_t n = (size_t)gridDim.z * M * LP * Lq;
+    oa = part + slice * n;
+    ox = oa + n_slices * n;
+    oy = ox + n_slices * n;
+  }
+  const float* g_c = g + (bm * D + d0 + c0) * Lq;
+  float* gv_u = gv_t + bm * S * Dp + d0 + c0;  // the lane's channels of position 0
+  const int q_end = min(Lq, (int)(blockIdx.x + 1) * q_chunk);
+  for (int qb = blockIdx.x * q_chunk + warp * qw; qb < q_end; qb += kWarps * qw) {
+    const int q = qb + qi;
+    const bool live = u < nu && q < q_end;
+    float gq[4];
 #pragma unroll
-      for (int k = 0; k < CH; ++k) {
-        const int d = lane + 32 * k;
-        gq[k] = d < D ? g_s[j * D + d] : 0.f;
-      }
+    for (int k = 0; k < 4; ++k) gq[k] = live && c0 + k < dc ? g_c[(size_t)k * Lq + q] : 0.f;
+    for (int l = 0; l < lv.n; ++l) {
+      const int st = lv.start[l], H = lv.h[l], W = lv.w[l];
       for (int p = 0; p < P; ++p) {
-        const size_t at = row0 + (size_t)p * Lq + q;
-        const float a = aw[at];
+        const size_t at = row0 + (size_t)(l * P + p) * Lq + q;
+        float a = 0.f, x = -2.f, y = -2.f;
+        if (live) {
+          a = aw[at];
+          x = xs[at];
+          y = ys[at];
+        }
         // clamping to one pixel beyond the map keeps the int conversion in
         // range and leaves every out-of-map corner out of the map
-        const float x = fminf(fmaxf(xs[at], -2.f), (float)W + 1.f);
-        const float y = fminf(fmaxf(ys[at], -2.f), (float)H + 1.f);
+        x = fminf(fmaxf(x, -2.f), (float)W + 1.f);
+        y = fminf(fmaxf(y, -2.f), (float)H + 1.f);
         const float x0f = floorf(x);
         const float y0f = floorf(y);
         const float fx = x - x0f;
@@ -153,42 +187,67 @@ msda_bwd_kernel(const __nv_bfloat16* __restrict__ value,
           const int dx = c & 1;
           const int yy = y0 + dy;
           const int xx = x0 + dx;
-          if (yy < 0 || yy >= H || xx < 0 || xx >= W) continue;  // warp-uniform
+          if (!live || yy < 0 || yy >= H || xx < 0 || xx >= W) continue;
           const float wy = dy ? fy : 1.f - fy;
           const float wx = dx ? fx : 1.f - fx;
           const float wt = a * (wy * wx);
-          const int pos = (yy * W + xx) * D;
+          const int pos = st + yy * W + xx;
+          atomicAdd(reinterpret_cast<float4*>(gv_u + (size_t)pos * Dp),
+                    make_float4(wt * gq[0], wt * gq[1], wt * gq[2], wt * gq[3]));
+          float v[4];
+          load_unit<T>(v, v_s, Sp, u, pos);
           float t = 0.f;
 #pragma unroll
-          for (int k = 0; k < CH; ++k) {
-            const int d = lane + 32 * k;
-            if (d < D) {
-              t = fmaf(__bfloat162float(v_s[pos + d]), gq[k], t);
-              atomicAdd(gv_s + pos + d, wt * gq[k]);
-            }
-          }
+          for (int k = 0; k < 4; ++k) t = fmaf(v[k], gq[k], t);
           s_val = fmaf(wy * wx, t, s_val);
           s_dx = fmaf(dx ? wy : -wy, t, s_dx);
           s_dy = fmaf(dy ? wx : -wx, t, s_dy);
         }
-        s_val = warp_sum(s_val);
-        s_dx = warp_sum(s_dx);
-        s_dy = warp_sum(s_dy);
-        if (lane == 0) ga[at] = s_val;
-        if (lane == 1) gx[at] = a * s_dx;
-        if (lane == 2) gy[at] = a * s_dy;
+        s_val = unit_sum(s_val, lane, nu, qw);
+        s_dx = unit_sum(s_dx, lane, nu, qw);
+        s_dy = unit_sum(s_dy, lane, nu, qw);
+        if (live && u == 0) {
+          oa[at] = s_val;
+          ox[at] = a * s_dx;
+          oy[at] = a * s_dy;
+        }
       }
     }
   }
-  __syncthreads();
+}
 
-  // global layout (D, S): consecutive threads add to consecutive positions
-  float* gv_g = gv + bm * D * S;
-  for (int i = threadIdx.x; i < D * S; i += kThreads) {
-    const int d = i / S;
-    const int s = i - d * S;
-    const float t = gv_s[s * D + d];
-    if (t != 0.f) atomicAdd(gv_g + i, t);
+// gv (R, D, S) from the token-major scratch gv_t (R, S, Dp), through a 32 x 33
+// tile in shared memory: reads and writes coalesced
+__global__ void finish_kernel(const float* __restrict__ gv_t, float* __restrict__ gv, int D,
+                              int Dp, int S) {
+  __shared__ float tile[32][33];
+  const float* in = gv_t + blockIdx.z * (size_t)S * Dp;
+  float* out = gv + blockIdx.z * (size_t)D * S;
+  const int s0 = blockIdx.y * 32, c0 = blockIdx.x * 32;
+  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+    const int s = s0 + i, c = c0 + threadIdx.x;
+    if (s < S && c < D) tile[i][threadIdx.x] = in[(size_t)s * Dp + c];
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+    const int c = c0 + i, s = s0 + threadIdx.x;
+    if (s < S && c < D) out[(size_t)c * S + s] = tile[threadIdx.x][i];
+  }
+}
+
+// ga, gx, gy = the slices' sums in part (3, n_slices, n), in slice order
+__global__ void sum_slices_kernel(const float* __restrict__ part, float* __restrict__ ga,
+                                  float* __restrict__ gx, float* __restrict__ gy,
+                                  int n_slices, size_t n) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float t[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int o = 0; o < 3; ++o)
+      for (int sl = 0; sl < n_slices; ++sl) t[o] += part[((size_t)o * n_slices + sl) * n + i];
+    ga[i] = t[0];
+    gx[i] = t[1];
+    gy[i] = t[2];
   }
 }
 
@@ -276,31 +335,48 @@ msda_bwd_global_kernel(const T* __restrict__ v_sd, const float* __restrict__ xs,
   }
 }
 
-template <int CH>
-int launch(const void* value, const void* xs, const void* ys, const void* aw,
-           const void* g, void* gv, void* ga, void* gx, void* gy, int B, int M,
-           int D, int H, int W, int P, int Lq, cudaStream_t stream) {
-  const size_t S = (size_t)H * W;
-  const size_t smem = S * D * (sizeof(float) + sizeof(__nv_bfloat16)) +
-                      (size_t)kChunk * D * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      msda_bwd_kernel<CH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+
+template <typename T>
+int launch(const void* value, const void* xs, const void* ys, const void* aw, const void* g,
+           void* gv, void* gv_t, void* ga, void* gx, void* gy, void* part, int B, int M, int D,
+           int S, const Levels& lv, int P, int Lq, int sw, cudaStream_t stream) {
+  constexpr int CC = kCell<T>;
+  auto kernel = msda_bwd_kernel<T>;
+  const int n_slices = (D + sw - 1) / sw, Dp = (D + 31) / 32 * 32;
+  const size_t smem = (size_t)((sw < D ? sw : D) + CC - 1) / CC * round8(S) * 16;
+  // the attribute once a device; the blocks an SM holds once a map size
+  static unsigned long long ready = 0;  // one bit a device
+  cudaError_t err = set_smem_once(kernel, kSmemMax, &ready);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
+  static int last_smem = -1, per_sm = 0;
+  if (last_smem != (int)smem) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    last_smem = (int)smem;
+  }
+  if (sm_count() < 1) return (int)cudaErrorInvalidDevice;
+  const int heads = B * M;
+  err = cudaMemsetAsync(gv_t, 0, (size_t)heads * S * Dp * sizeof(float), stream);
   if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  // about one block per SM: split each head's queries into that many slices
-  const int slices = max(1, min((Lq + kWarps - 1) / kWarps, sms / (B * M)));
-  const int slice = (Lq + slices - 1) / slices;
-  const dim3 grid((Lq + slice - 1) / slice, M, B);
-  msda_bwd_kernel<CH><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(value), static_cast<const float*>(xs),
+  const int q_chunk = query_chunk(per_sm, (long long)heads * n_slices, Lq, kThreads);
+  const dim3 grid((Lq + q_chunk - 1) / q_chunk, M * n_slices, B);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(value), static_cast<const float*>(xs),
       static_cast<const float*>(ys), static_cast<const float*>(aw),
-      static_cast<const float*>(g), static_cast<float*>(gv),
-      static_cast<float*>(ga), static_cast<float*>(gx), static_cast<float*>(gy),
-      M, D, H, W, P, Lq, slice);
+      static_cast<const float*>(g), static_cast<float*>(gv_t), static_cast<float*>(ga),
+      static_cast<float*>(gx), static_cast<float*>(gy), static_cast<float*>(part), M, D, Dp,
+      sw, n_slices, S, lv, P, Lq, q_chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  finish_kernel<<<dim3((D + 31) / 32, (S + 31) / 32, heads), dim3(32, 8), 0, stream>>>(
+      static_cast<const float*>(gv_t), static_cast<float*>(gv), D, Dp, S);
+  if (n_slices > 1) {
+    const size_t n = (size_t)heads * lv.n * P * Lq;
+    const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+    sum_slices_kernel<<<blocks, 256, 0, stream>>>(
+        static_cast<const float*>(part), static_cast<float*>(ga), static_cast<float*>(gx),
+        static_cast<float*>(gy), n_slices, n);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -343,25 +419,37 @@ int global_path(const void* value, void* v_sd, const void* xs, const void* ys,
 }  // namespace
 
 // shapes (H_0, W_0, ..., H_{L-1}, W_{L-1}) on the host; value fp32 if
-// value_fp32, else bf16. v_sd null: the staged instance (one level, a bf16
-// map, D <= 64, the caller has checked that it fits; gv zeroed). Else the
-// global one: v_sd (B, M, S, D) of value's type and gv_sd (B, M, S, D) fp32,
-// zeroed, are the caller's scratch, and gv is written whole.
+// value_fp32, else bf16. v_sd null: the staged instance, in channel slices
+// of sw channels (a multiple of a cell's 8 bf16 or 4 fp32 channels; sw >= D:
+// the whole head) whose cells fit in shared memory; scratch: gv_t
+// (B, M, S, D rounded up to 32) fp32, and part (3, n_slices, B, M, LP, Lq) fp32
+// where the head has more than one slice, else null; gv is written whole.
+// Else the device-memory instance: v_sd (B, M, S, D) of value's type and
+// gv_sd (B, M, S, D) fp32, zeroed, are the caller's scratch, and gv is
+// written whole.
 extern "C" int msda_bwd(const void* value, void* v_sd, const void* xs, const void* ys,
                         const void* aw, const void* g, void* gv, void* gv_sd, void* ga,
-                        void* gx, void* gy, int B, int M, int D, const int* shapes, int L,
-                        int P, int Lq, int value_fp32, void* stream) {
+                        void* gx, void* gy, void* gv_t, void* part, int B, int M, int D,
+                        const int* shapes, int L, int P, int Lq, int value_fp32, int sw,
+                        void* stream) {
   Levels lv;
   int S = 0;
-  if (D < 1 || D > 128 || P < 1 || P > kMaxPoints || B < 1 || M < 1 || Lq < 1 ||
-      !msda::make_levels(shapes, L, &lv, &S))
+  if (D < 1 || D > 128 || bad_sizes(B, M, D, P, Lq) || B > 65535 ||
+      !make_levels(shapes, L, &lv, &S))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (v_sd == nullptr) {
-    if (L != 1 || value_fp32 || D > 64) return (int)cudaErrorInvalidValue;
-    if (D <= 32)
-      return launch<1>(value, xs, ys, aw, g, gv, ga, gx, gy, B, M, D, lv.h[0], lv.w[0], P, Lq, s);
-    return launch<2>(value, xs, ys, aw, g, gv, ga, gx, gy, B, M, D, lv.h[0], lv.w[0], P, Lq, s);
+    const int CC = value_fp32 ? kCell<float> : kCell<__nv_bfloat16>;
+    if (sw < CC || sw % CC != 0 || gv_t == nullptr) return (int)cudaErrorInvalidValue;
+    const int n_slices = (D + sw - 1) / sw, dc = sw < D ? sw : D;
+    const size_t smem = (size_t)(dc + CC - 1) / CC * round8(S) * 16;
+    if (smem > (size_t)kSmemMax || M > 65535 / n_slices || (n_slices > 1) != (part != nullptr))
+      return (int)cudaErrorInvalidValue;
+    if (value_fp32)
+      return launch<float>(value, xs, ys, aw, g, gv, gv_t, ga, gx, gy, part, B, M, D, S, lv,
+                           P, Lq, sw, s);
+    return launch<__nv_bfloat16>(value, xs, ys, aw, g, gv, gv_t, ga, gx, gy, part, B, M, D, S,
+                                 lv, P, Lq, sw, s);
   }
   if (gv_sd == nullptr) return (int)cudaErrorInvalidValue;
   if (value_fp32)

@@ -14,7 +14,8 @@
 // with zero padding outside the H x W map (grid_sample, align_corners=False).
 // One level (the adapter samples the one ViT patch grid), P <= 16, any D and
 // S. The third forward, #5 (the prep done outside, several levels), is
-// msda_fwd_premapped.cu, on msda_fwd.cuh's first design.
+// msda_fwd_premapped.cu, on the same staging and gather loop
+// (msda_common.cuh).
 //
 // What bounds it on an H100: gathers. Each query reads 4 corners x P points x D
 // channels at data-dependent positions -- 4 * 4 * 24 values per query per head
@@ -38,17 +39,11 @@
 //    and more resident warps hide more of it (kernel_variants.py).
 // 2. Staging: the slice's map is copied into shared memory once, as 16-byte
 //    cells of 8 channels at one position ([channel group][S rounded up to 8]
-//    cells). A warp takes four 8 x 8 tiles (8 channels x 8 positions) at a
-//    time: each lane loads the 4-byte position pair of the matrix fragment
-//    it holds for stmatrix (channel row lane / 4; a row's 16 bytes come from
-//    4 lanes, coalesced), and one stmatrix.trans stores the four tiles
-//    transposed: a stored row is one position's 8 channels, one cell, and a
-//    tile's 8 rows are 8 consecutive cells, so the stores meet no bank
-//    conflict and the transpose takes no registers beyond the fragment.
+//    cells), by stmatrix.trans (msda_common.cuh::stage_map).
 // 3. Gathers: a corner's channels are ceil(dc / 8) 16-byte loads, each
 //    unpacked to 8 fp32 and accumulated by FMA into the thread's fp32
-//    accumulators; the coordinate prep and the fp32 P-way softmax are the
-//    first design's.
+//    accumulators, after the query's coordinate prep and fp32 P-way softmax
+//    (msda_common.cuh::gather_point).
 // 4. Stores: a thread writes its query's dc channels, 2 bytes each, coalesced
 //    across the warp (consecutive queries).
 // Heads of up to 64 channels are one slice (64 channels x S = 1024: 128 KB).
@@ -66,119 +61,13 @@
 
 #include <stdint.h>
 
-#include "hopper_common.cuh"
-#include "msda_fwd.cuh"
+#include "msda_common.cuh"
 
 namespace {
 
 using namespace msda;
 
 constexpr int kThreads = 512;       // the most threads a block: one query a thread at a time
-constexpr int kSmemMax = 232448;    // the shared memory a block may have
-
-// the block's slice of its head's map, channel rows v_g[c * S + s] (c < dc),
-// into shared memory as [ceil(dc / 8)][Sp] cells of 8 channels (zero past
-// dc; Sp = S rounded up to 8)
-__device__ __forceinline__ void stage_map(uint4* __restrict__ v_s,
-                                          const __nv_bfloat16* __restrict__ v_g, int dc,
-                                          int ng, int S, int Sp) {
-  int done = 0;  // 8 x 8 tiles (8 channels x 8 positions) staged by stmatrix
-  // 4-byte loads: channel rows of a multiple of 8 positions from a 4-byte
-  // aligned map (a contiguous view may start at an odd element)
-  if ((S & 7) == 0 && (reinterpret_cast<uintptr_t>(v_g) & 3) == 0) {
-    // a warp takes 4 tiles of a group: lane l loads the 4-byte pair of
-    // positions 2 (l % 4) of channel row l / 4 of each (the fragment of an
-    // 8 x 8 matrix, rows = channels), and stmatrix stores the matrices
-    // transposed: stored row i is position i's 8 channels, one 16-byte
-    // cell, and the 8 rows of a matrix are 8 consecutive cells
-    const int s8 = S >> 3, tiles = ng * s8;
-    const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
-    const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(v_s));
-    done = tiles & ~3;
-    for (int t0 = 4 * (threadIdx.x >> 5); t0 < done; t0 += 4 * nwarps) {
-      uint32_t r[4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int t = t0 + m, g = t / s8, s0 = (t - g * s8) * 8, c = 8 * g + lane / 4;
-        r[m] = c < dc ? __ldg(reinterpret_cast<const uint32_t*>(v_g + (size_t)c * S + s0) +
-                              lane % 4)
-                      : 0u;
-      }
-      const int t = t0 + lane / 8, g = t / s8, s0 = (t - g * s8) * 8;
-      stsm_x4_trans(base + (uint32_t)(((size_t)g * Sp + s0 + lane % 8) * 16), r);
-    }
-  }
-  // the rest (S not a multiple of 8, a map at an odd element, or the last
-  // tiles): element by element
-  __nv_bfloat16* v_e = reinterpret_cast<__nv_bfloat16*>(v_s);
-  for (int i = done * 64 + threadIdx.x; i < ng * S * 8; i += blockDim.x) {
-    const int e = i & 7, cell = i >> 3;
-    const int g = cell / S, s = cell - g * S;
-    const int c = 8 * g + e;
-    v_e[((size_t)g * Sp + s) * 8 + e] = c < dc ? v_g[(size_t)c * S + s] : __float2bfloat16(0.f);
-  }
-  __syncthreads();
-}
-
-// acc[8 g + k] += wt * channel 8 g + k of an 8-channel cell
-__device__ __forceinline__ void fma_cell(float* acc, const uint4& u, float wt) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    acc[2 * k] = fmaf(wt, __uint_as_float(w[k] << 16), acc[2 * k]);
-    acc[2 * k + 1] = fmaf(wt, __uint_as_float(w[k] & 0xFFFF0000u), acc[2 * k + 1]);
-  }
-}
-
-// acc += w_p * bilinear(map, x, y) over the slice's channels, for one point
-// on an H x W map: staged cells, or (kGlobal) the token-major copy's rows
-// vt + pos * D (16-byte loads where D and the slice start allow)
-template <int NG, bool kGlobal>
-__device__ __forceinline__ void gather_point(float (&acc)[8 * NG],
-                                             const uint4* __restrict__ v_s,
-                                             const __nv_bfloat16* __restrict__ vt, int D,
-                                             int dc, int ng, int Sp, int H, int W, float x,
-                                             float y, float w_p) {
-  // clamping to one pixel beyond the map keeps the int conversion in range
-  // and leaves every out-of-map corner out of the map
-  x = fminf(fmaxf(x, -2.f), (float)W + 1.f);
-  y = fminf(fmaxf(y, -2.f), (float)H + 1.f);
-  const float x0f = floorf(x);
-  const float y0f = floorf(y);
-  const float fx = x - x0f;
-  const float fy = y - y0f;
-  const int x0 = (int)x0f;
-  const int y0 = (int)y0f;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int dy = c >> 1;
-    const int dx = c & 1;
-    const int yy = y0 + dy;
-    const int xx = x0 + dx;
-    if (yy < 0 || yy >= H || xx < 0 || xx >= W) continue;
-    const float wy = dy ? fy : 1.f - fy;
-    const float wx = dx ? fx : 1.f - fx;
-    const float wt = w_p * (wy * wx);
-    const int pos = yy * W + xx;
-    if (kGlobal) {
-      const __nv_bfloat16* vp = vt + (size_t)pos * D;
-      if ((D & 7) == 0) {
-#pragma unroll
-        for (int g = 0; g < NG; ++g)
-          if (g < ng) fma_cell(acc + 8 * g, __ldg(reinterpret_cast<const uint4*>(vp) + g), wt);
-      } else {
-#pragma unroll
-        for (int d = 0; d < 8 * NG; ++d)
-          if (d < dc) acc[d] = fmaf(wt, __bfloat162float(__ldg(vp + d)), acc[d]);
-      }
-    } else {
-      const uint4* cell = v_s + pos;
-#pragma unroll
-      for (int g = 0; g < NG; ++g)
-        if (g < ng) fma_cell(acc + 8 * g, cell[(size_t)g * Sp], wt);
-    }
-  }
-}
 
 // one instance: NG 8-channel groups a thread at most; kSliced: blockIdx.y =
 // head * n_slices + slice, channels [slice * sw, slice * sw + sw); kGlobal:
@@ -241,7 +130,8 @@ msda_fwd_fused_kernel(const __nv_bfloat16* __restrict__ value,
             __bfloat162float(off_q[(size_t)(2 * p) * Lq]) + base[(size_t)(2 * p) * Lq + q];
         const float y = __bfloat162float(off_q[(size_t)(2 * p + 1) * Lq]) +
                         base[(size_t)(2 * p + 1) * Lq + q];
-        gather_point<NG, kGlobal>(acc, v_s, vt, D, dc, ng, Sp, H, W, x, y, a[p] / sum);
+        gather_point<NG, kGlobal, __nv_bfloat16>(acc, v_s, vt, D, dc, ng, Sp, H, W, x, y,
+                                                 a[p] / sum);
       }
     }
     __nv_bfloat16* o = out + (bm * D + d0) * Lq + q;
@@ -272,16 +162,8 @@ int launch(const void* value, const void* off, const void* logits, const void* b
     if (err != cudaSuccess) return (int)err;
     last_smem = (int)smem;
   }
-  // split each head's queries into as many ranges as one wave of blocks holds
-  const long long heads = (long long)B * M * n_slices;
-  const int sms = sm_count();
-  if (sms < 1) return (int)cudaErrorInvalidDevice;
-  const long long room = (long long)(per_sm > 0 ? per_sm : 1) * sms;
-  long long ranges = room / heads;
-  const long long most = (Lq + threads - 1) / threads;
-  if (ranges > most) ranges = most;
-  if (ranges < 1) ranges = 1;
-  const int q_chunk = (int)((Lq + ranges - 1) / ranges);
+  if (sm_count() < 1) return (int)cudaErrorInvalidDevice;
+  const int q_chunk = query_chunk(per_sm, (long long)B * M * n_slices, Lq, threads);
   const dim3 grid((Lq + q_chunk - 1) / q_chunk, M * n_slices, B);
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(value), static_cast<const __nv_bfloat16*>(off),

@@ -32,7 +32,7 @@ BUILD_ROOT = _PKG.parent / "build" / "dinounet_tpu_torch"
 SOURCES = ("msda_fwd.cu", "msda_fwd_premapped.cu", "msda_bwd.cu", "rope_attention.cu",
            "dense_stats.cu", "conv3x3_stats.cu", "transpconv2x2.cu", "seg_head.cu",
            "dense_q8.cu", "qkv_q8_dmaj.cu")
-HEADERS = ("hopper_common.cuh", "int8_gemm.cuh", "msda_common.cuh", "msda_fwd.cuh")
+HEADERS = ("hopper_common.cuh", "int8_gemm.cuh", "msda_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,9 +47,9 @@ _SIGNATURES = {
     "msda_fwd_merged": [_P] * 5 + [_I] * 7 + [_P],
     # value, scratch, xs, ys, aw, out, B, M, D, shapes, L, P, Lq, value_fp32, stream
     "msda_fwd_premapped": [_P] * 6 + [_I] * 3 + [_LEVELS] + [_I] * 4 + [_P],
-    # value, v_scratch, xs, ys, aw, g, gv, gv_scratch, ga, gx, gy, B, M, D,
-    # shapes, L, P, Lq, value_fp32, stream
-    "msda_bwd": [_P] * 11 + [_I] * 3 + [_LEVELS] + [_I] * 4 + [_P],
+    # value, v_scratch, xs, ys, aw, g, gv, gv_scratch, ga, gx, gy, gv_rows,
+    # part, B, M, D, shapes, L, P, Lq, value_fp32, slice width, stream
+    "msda_bwd": [_P] * 13 + [_I] * 3 + [_LEVELS] + [_I] * 5 + [_P],
     # qkv, sin, cos ((N, Dh) fp32, or both null), scratch, out, B, M, Dh, N,
     # scale, stream (the three layouts)
     "rope_attention_dmaj": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],

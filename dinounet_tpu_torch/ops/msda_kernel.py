@@ -32,20 +32,25 @@ backward is the backward kernel called directly (``_premapped_bwd``), and
 ``ms_deform_attn`` reaches its reference-layout gradients by autograd through
 the layout prep (the unnormalization's (W_l, H_l) included).
 
-Limits. The forward kernels take any S and D (wider heads in 32-channel
-slices across blocks); the fused entries one level, the premapped entry up to
-``MAX_LEVELS``; at most ``MAX_POINTS`` points a level. A block stages its
-slice of a head's value map in shared memory where it fits (``MAX_SMEM``);
-elsewhere the wrapper hands the kernel a token-major scratch copy to gather
-from. The backward takes up to ``MAX_D`` channels a head, any S, up to
+Limits. The forward kernels take any S and D; the fused entries one level,
+the premapped entry up to ``MAX_LEVELS``; at most ``MAX_POINTS`` points a
+level. A block stages its channel slice of a head's value map in shared
+memory as 16-byte cells (8 bf16 or 4 fp32 channels at one position): heads
+of up to 64 bf16 or 32 fp32 channels whole where they fit, else slices of up
+to 32 channels as wide as fit;
+only where not even one cell's channels fit (16 S bytes over ``MAX_SMEM``)
+does the wrapper hand the kernel a token-major scratch copy to gather from.
+The backward takes up to ``MAX_D`` channels a head, any S, up to
 ``MAX_LEVELS`` levels and a bf16 or fp32 value map: its shared-memory
-instance where one level's bf16 map and gradient partial fit (6 D S + 2048 D
-bytes: dinounet_b's 24 channels at S = 1024), else the instance that gathers
-and scatter-adds through device memory, on token-major scratch copies of the
-map and the gradient. The fused forward takes bf16 value / offsets / logits
-and an fp32 base grid and returns bf16; the premapped forward a bf16 or fp32
-value map and fp32 coordinates and weights, and returns the value's dtype;
-the backward returns fp32 gradients.
+instance in the channel slices of ``bwd_plan`` (a slice's map cells in
+shared memory; the value gradient added into a token-major fp32 scratch; a
+head of several slices adds its slices' ga, gx, gy through a second fp32
+scratch), else, where not even one cell's channels fit, the instance that
+gathers and scatter-adds through device memory, on token-major scratch
+copies of the map and the gradient. The fused
+forward takes bf16 value / offsets / logits and an fp32 base grid and returns
+bf16; the premapped forward a bf16 or fp32 value map and fp32 coordinates and
+weights, and returns the value's dtype; the backward returns fp32 gradients.
 """
 
 from typing import Optional, Sequence, Tuple
@@ -62,13 +67,32 @@ from dinounet_tpu_torch.ops.msda import (ms_deform_attn_premapped_backward_plain
 MAX_D = 128
 MAX_POINTS = 16
 MAX_LEVELS = 4
-# the shared memory a block may have (227 KB). A forward block stages one
-# head's value map, or a 32-channel slice of a wider head;
-# the backward's staged block keeps the head's bf16 value map and an fp32 gv
-# partial (6 bytes per position and channel) and stages 512 queries' fp32
-# cotangents (2 KB per channel)
+# the shared memory a block may have (227 KB): a block stages its channel
+# slice of a head's value map as 16-byte cells
 MAX_SMEM = 232448
-_SLICE = 32  # csrc/msda_fwd.cuh: kSlice
+
+
+def bwd_plan(D: int, S: int, elem_size: int) -> Optional[Tuple[int, int, int]]:
+    """The backward kernel's shared-memory plan for a head of D channels over
+    S positions of a map of `elem_size`-byte values: (slice width, slices,
+    shared-memory bytes of a block). A block stages its slice as [cells][S
+    rounded up to 8] 16-byte cells (csrc/msda_bwd.cu). A head of up to 64
+    channels whose cells fit a block is one slice; a wider one is cut into
+    slices of up to 32 channels, as even as the widest that fits allows,
+    each a whole number of cells. None where not even one cell's channels
+    fit (the device-memory instance)."""
+    cc = 16 // elem_size
+    per_cell = 16 * (-(-S // 8) * 8)
+    fit = MAX_SMEM // per_cell
+    if fit < 1:
+        return None
+    cells = -(-D // cc)
+    if D > 64 or cells > fit:
+        widest = min(fit, 32 // cc)
+        n_slices = -(-cells // widest)
+        cells = -(-cells // n_slices)
+        return cells * cc, n_slices, cells * per_cell
+    return cells * cc, 1, cells * per_cell
 
 
 def _on_cpu(t: torch.Tensor, op: str) -> bool:
@@ -95,12 +119,14 @@ def _check_shapes(op: str, value_t, spatial_shapes, LP: int, max_levels: int) ->
     return P
 
 
-def _fwd_scratch(value_t: torch.Tensor, slice_bytes: int) -> Optional[torch.Tensor]:
-    """None where a forward block can stage its channel slice of one head's
-    map (`slice_bytes`) in shared memory; else the token-major (B, M, S, D)
-    copy the kernel writes and gathers from."""
+def _fwd_scratch(value_t: torch.Tensor) -> Optional[torch.Tensor]:
+    """None where a forward block can stage a slice of one head's map in
+    shared memory (csrc/msda_fwd.cu and msda_fwd_premapped.cu stage slices
+    as narrow as one 16-byte cell a position: 8 bf16 or 4 fp32 channels);
+    else the token-major (B, M, S, D) copy the kernel writes and gathers
+    from."""
     B, M, D, S = value_t.shape
-    if slice_bytes <= MAX_SMEM:
+    if 16 * S <= MAX_SMEM:
         return None
     return torch.empty((B, M, S, D), dtype=value_t.dtype, device=value_t.device)
 
@@ -126,9 +152,7 @@ def _forward_fused(value_t, spatial_shapes, off, logits, base, merged: bool):
         specs.update(off=(off, bf16, (B, M, 2 * P, Lq)), logits=(logits, bf16, (B, M, P, Lq)))
     _build.check_inputs(op, value_t.device, **specs)
     out = torch.empty((B, M, D, Lq), dtype=bf16, device=value_t.device)
-    # csrc/msda_fwd.cu stages slices as narrow as 8 channels (16-byte cells of
-    # 8 channels a position)
-    scratch = _fwd_scratch(value_t, 16 * S)
+    scratch = _fwd_scratch(value_t)
     stream = _build.stream_of(value_t.device)
     if merged:
         err = _build.lib().msda_fwd_merged(
@@ -155,9 +179,7 @@ def _forward_premapped(value_t, spatial_shapes, xs, ys, aw) -> torch.Tensor:
     _build.check_inputs(op, value_t.device, value_t=(value_t, dt, (B, M, D, S)),
                         xs=(xs, f32, lane), ys=(ys, f32, lane), aw=(aw, f32, lane))
     out = torch.empty((B, M, D, Lq), dtype=dt, device=value_t.device)
-    # csrc/msda_fwd_premapped.cu stages whole heads of up to 32 channels, else
-    # 32-channel slices
-    scratch = _fwd_scratch(value_t, value_t.element_size() * min(D, _SLICE) * S)
+    scratch = _fwd_scratch(value_t)
     err = _build.lib().msda_fwd_premapped(
         value_t.data_ptr(), _ptr(scratch), xs.data_ptr(), ys.data_ptr(), aw.data_ptr(),
         out.data_ptr(), B, M, D, _build.levels(spatial_shapes), len(spatial_shapes), P,
@@ -187,20 +209,24 @@ def ms_deform_attn_premapped_backward(
     _build.check_inputs(op, dev, value_t=(value_t, dt, (B, M, D, S)),
                         xs=(xs, f32, lane), ys=(ys, f32, lane), aw=(aw, f32, lane),
                         g=(g, f32, (B, M, D, Lq)))
-    staged = (len(spatial_shapes) == 1 and dt == torch.bfloat16 and D <= 64
-              and 6 * D * S + 2048 * D <= MAX_SMEM)
-    if staged:  # the kernel adds into gv
-        gv, v_sd, gv_sd = torch.zeros((B, M, D, S), dtype=f32, device=dev), None, None
-    else:  # it adds into the token-major gv_sd and writes gv whole
-        gv = torch.empty((B, M, D, S), dtype=f32, device=dev)
+    gv = torch.empty((B, M, D, S), dtype=f32, device=dev)  # written whole
+    plan = bwd_plan(D, S, value_t.element_size())
+    v_sd = gv_sd = gv_t = part = None
+    if plan is None:  # it adds into the token-major gv_sd
         v_sd = torch.empty((B, M, S, D), dtype=dt, device=dev)
         gv_sd = torch.zeros((B, M, S, D), dtype=f32, device=dev)
+        width = 0
+    else:  # it adds into gv_t, rows of D rounded up to 32, zeroed by the C entry
+        width, n_slices, _ = plan
+        gv_t = torch.empty((B, M, S, -(-D // 32) * 32), dtype=f32, device=dev)
+        if n_slices > 1:  # the slices' ga, gx, gy, added in slice order
+            part = torch.empty((3, n_slices) + lane, dtype=f32, device=dev)
     ga, gx, gy = (torch.empty(lane, dtype=f32, device=dev) for _ in range(3))
     err = _build.lib().msda_bwd(
         value_t.data_ptr(), _ptr(v_sd), xs.data_ptr(), ys.data_ptr(), aw.data_ptr(),
         g.data_ptr(), gv.data_ptr(), _ptr(gv_sd), ga.data_ptr(), gx.data_ptr(),
-        gy.data_ptr(), B, M, D, _build.levels(spatial_shapes), len(spatial_shapes), P,
-        Lq, int(dt == f32), _build.stream_of(dev))
+        gy.data_ptr(), _ptr(gv_t), _ptr(part), B, M, D, _build.levels(spatial_shapes),
+        len(spatial_shapes), P, Lq, int(dt == f32), width, _build.stream_of(dev))
     _build.check(err, "msda_bwd")
     ms_deform_attn_premapped_backward.launches += 1
     return gv, ga, gx, gy

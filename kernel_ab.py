@@ -9,9 +9,11 @@ queries, tile batch 8; also at dinounet_7b's 128 channels a head and on a
 1024^2 patch's 64 x 64 map, 21504 queries, 32 channels a head), the Dh-major attention #2 (12 heads of 64, 1029
 tokens, tile batch 8), the row-major attention #9 that shares #2's flash
 loop (dinounet_7b's 32 heads of 128, tile batch 8), the MSDA backward #7 at
-the train step's batch 2, and where the checkout has them the MSDA forward
-with the prep done outside #5, the merged-projection MSDA forward #6 (also
-at #1's two other shapes) and the (B, 3, M, N, Dh) attention #8 at
+the train step's batch 2 (dinounet_b's D 24, dinounet_l's D 32, the 7B's D
+128, and D 24 on the 1024^2 patch), and where the checkout has them the MSDA
+forward with the prep done outside #5 (also over two levels, on an fp32
+map and at #1's two other shapes), the merged-projection MSDA forward #6
+(also at #1's two other shapes) and the (B, 3, M, N, Dh) attention #8 at
 dinounet_b's shapes; and the dense +
 residual + statistics kernels #3 (channel-major) and #4 (row-major, GELU) at
 the six shapes of the path (tile batch 8): the ViT attention projection and
@@ -92,6 +94,18 @@ def main(checkout: str, only=()) -> None:
     Bt = 2  # the train step's batch
     cot = torch.randn((Bt, M, D, Lq), generator=g, device=dev)
     vt, xt, yt, at = (t[:Bt].contiguous() for t in (v, xs, ys, aw))
+    # #7 at dinounet_l's (D 32) and the 7B's (D 128) train shapes and on a
+    # 1024^2 patch (D 24, a 64 x 64 map, 21504 queries)
+    bwd_wide = {}
+    for tag, D_, side, Lq_ in (("l_d32", 32, Hv, Lq), ("7b_d128", 128, Hv, Lq),
+                               ("patch1024_d24", 24, 2 * Hv, 21504)):
+        v_ = torch.randn((Bt, M, D_, side * side), generator=g, device=dev).to(bf)
+        off_ = (torch.randn((Bt, M, 2 * P, Lq_), generator=g, device=dev) * 2).to(bf)
+        lg_ = torch.randn((Bt, M, P, Lq_), generator=g, device=dev).to(bf)
+        base_ = torch.rand((2 * P, Lq_), generator=g, device=dev) * side - 0.5
+        p_ = tuple(t.contiguous() for t in premapped_fused_prep(off_, lg_, base_))
+        bwd_wide[tag] = (v_, ((side, side),), p_,
+                         torch.randn((Bt, M, D_, Lq_), generator=g, device=dev))
     # #1 and #6 at dinounet_7b's 128 channels a head and on a 1024^2 patch's
     # 64 x 64 map (21504 queries, 32 channels a head: dinounet_l's)
     wide = {}
@@ -111,9 +125,26 @@ def main(checkout: str, only=()) -> None:
         "rope_attention_rm_dh128": lambda: attention.fused_rope_attention(
             qkv_rm, sin_rm, cos_rm),
     }
+    for tag, (v_, sh_, p_, c_) in bwd_wide.items():
+        calls[f"msda_bwd_{tag}_train"] = (
+            lambda v_=v_, sh_=sh_, p_=p_, c_=c_:
+            msda_kernel.ms_deform_attn_premapped_backward(v_, sh_, *p_, c_))
     if hasattr(msda_kernel, "ms_deform_attn_premapped"):
         calls["msda_fwd_premapped_d24"] = lambda: msda_kernel.ms_deform_attn_premapped(
             v, shapes, xs, ys, aw)
+        # #5 over two levels (the map and a 16 x 16 one, coordinates past every
+        # edge), on an fp32 map, at the 7B's D 128 and on the 1024^2 patch
+        shapes2 = ((Hv, Hv), (Hv // 2, Hv // 2))
+        v2 = torch.cat([v, torch.randn((B, M, D, (Hv // 2) ** 2), generator=g,
+                                       device=dev).to(bf)], dim=3).contiguous()
+        xs2, ys2 = (torch.cat([t, torch.rand((B, M, P, Lq), generator=g, device=dev) * 20 - 2],
+                              dim=2) for t in (xs, ys))
+        aw2 = torch.softmax(torch.randn((B, M, 2 * P, Lq), generator=g, device=dev), dim=2)
+        calls["msda_fwd_premapped_l2"] = lambda: msda_kernel.ms_deform_attn_premapped(
+            v2, shapes2, xs2, ys2, aw2)
+        v32 = v.float()
+        calls["msda_fwd_premapped_fp32_d24"] = lambda: msda_kernel.ms_deform_attn_premapped(
+            v32, shapes, xs, ys, aw)
     if hasattr(msda_kernel, "ms_deform_attn_premapped_fused_merged"):
         calls["msda_fwd_merged_d24"] = (
             lambda: msda_kernel.ms_deform_attn_premapped_fused_merged(v, shapes, packed, base))
@@ -121,6 +152,10 @@ def main(checkout: str, only=()) -> None:
         calls[f"msda_fwd_{tag}"] = (lambda v_=v_, sh_=sh_, off_=off_, lg_=lg_, base_=base_:
                                     msda_kernel.ms_deform_attn_premapped_fused(
                                         v_, sh_, off_, lg_, base_))
+        if hasattr(msda_kernel, "ms_deform_attn_premapped"):
+            p_ = tuple(t.contiguous() for t in premapped_fused_prep(off_, lg_, base_))
+            calls[f"msda_fwd_premapped_{tag}"] = (
+                lambda v_=v_, sh_=sh_, p_=p_: msda_kernel.ms_deform_attn_premapped(v_, sh_, *p_))
         if hasattr(msda_kernel, "ms_deform_attn_premapped_fused_merged"):
             pk_ = torch.cat([off_, lg_], dim=2)
             calls[f"msda_fwd_merged_{tag}"] = (
@@ -215,7 +250,11 @@ def main(checkout: str, only=()) -> None:
     # attention leaves behind rather than the MSDA kernels' own time; the
     # dense and int8 kernels between the two
     for name in ("msda_fwd_d24", "msda_fwd_d128", "msda_fwd_patch1024_d32",
-                 "msda_bwd_d24_train", "msda_fwd_premapped_d24", "msda_fwd_merged_d24",
+                 "msda_bwd_d24_train", "msda_bwd_l_d32_train", "msda_bwd_7b_d128_train",
+                 "msda_bwd_patch1024_d24_train", "msda_fwd_premapped_d24",
+                 "msda_fwd_premapped_l2", "msda_fwd_premapped_d128",
+                 "msda_fwd_premapped_patch1024_d32", "msda_fwd_premapped_fp32_d24",
+                 "msda_fwd_merged_d24",
                  "msda_fwd_merged_d128", "msda_fwd_merged_patch1024_d32", "dense_cm_vit_proj", "dense_cm_msda_proj",
                  "dense_rm_vit_fc2", "dense_rm_convffn_fc2", "dense_cm_7b_msda_proj",
                  "dense_rm_7b_convffn_fc2", "q8_vit_fc1", "q8_stats_vit_fc2",

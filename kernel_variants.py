@@ -30,6 +30,25 @@ to back (CUDA events). A variant that faults prints its error. The
 conv_*_only variants keep one phase of the kernel (the TMA loads, the
 loader's transform, the products, the epilogue) and its barriers, for
 timing only: their outputs are wrong.
+
+msda_bwd variants (#7, csrc/msda_bwd.cu) print one JSON line each: whether
+the backward agrees with its plain version (KERNEL_TOLERANCES) at its four
+train shapes (batch 2, 16 heads, 4 points: dinounet_b's D 24 and
+dinounet_l's D 32 on the 32 x 32 map, 5376 queries; the 7B's D 128; a
+1024^2 patch's 64 x 64 map at D 24, 21504 queries) and at edge shapes,
+whether ga, gx and gy of two calls are bit-equal, and at each train shape
+the device time a call by kernel and of one call of 50 back to back. A
+variant may name a checkout (its third field, e.g. build/parent, a `git
+archive` of the parent commit): its sources are edited and its package's
+wrappers called, so that the parent's phases are timed in the same call as
+the change's. The *_only and no_* variants are for timing only.
+
+msda_premapped variants (#5, csrc/msda_fwd_premapped.cu) print whether the
+prepped-input forward agrees with its plain version at its path shapes
+(tile batch 8, 16 heads, 4 points a level: D 24 over the 32 x 32 map and
+over two levels, the 7B's D 128, D 32 on the 1024^2 patch, D 24 on an fp32
+map) and edge shapes, and the device time a call by kernel at the path
+shapes.
 """
 import ctypes
 import json
@@ -50,6 +69,8 @@ FAMILIES = {
     "conv": (("conv3x3_stats.cu",), ("conv3x3_stats",)),
     "transpconv": (("transpconv2x2.cu",), ("transpconv2x2",)),
     "msda": (("msda_fwd.cu",), ("msda_fwd_fused", "msda_fwd_merged")),
+    "msda_bwd": (("msda_bwd.cu",), ("msda_bwd",)),
+    "msda_premapped": (("msda_fwd_premapped.cu",), ("msda_fwd_premapped",)),
 }
 _CONV = "conv3x3_stats.cu"
 # edits of conv3x3_stats.cu that take one phase out (for timing the others)
@@ -107,7 +128,8 @@ _A_LDMATRIX = [
      "          wgmma_fence();\n"
      "          WgmmaRS<kCout>::run(acc[sg], af, bd, c > 0 || tap > 0);")]
 
-_MSDA, _TC, _HC = "msda_fwd.cu", "transpconv2x2.cu", "hopper_common.cuh"
+_MSDA, _MC = "msda_fwd.cu", "msda_common.cuh"
+_TC, _HC = "transpconv2x2.cu", "hopper_common.cuh"
 # the transposed conv's prologue applied by the consumers in registers: the
 # M-major A tile read by ldmatrix.trans (lane l gives the row address of
 # channel row l % 8 of 8 x 8 block l / 8: pixels 16 warp + 8 (l / 8 % 2),
@@ -157,8 +179,8 @@ _MSDA_BY_ELEMENTS = [("  if ((S & 7) == 0 && (reinterpret_cast<uintptr_t>(v_g) &
 _MSDA_NO_STAGING = _MSDA_BY_ELEMENTS + [(
     "  for (int i = done * 64 + threadIdx.x; i < ng * S * 8; i += blockDim.x) {",
     "  for (int i = done * 64 + threadIdx.x; i < 0; i += blockDim.x) {")]
-_MSDA_GATHER = ("        gather_point<NG, kGlobal>(acc, v_s, vt, D, dc, ng, Sp, H, W, x, y, "
-                "a[p] / sum);")
+_MSDA_GATHER = ("        gather_point<NG, kGlobal, __nv_bfloat16>(acc, v_s, vt, D, dc, ng, Sp, H, W, x, y,\n"
+                "                                                 a[p] / sum);")
 _MSDA_STORE = "    __nv_bfloat16* o = out + (bm * D + d0) * Lq + q;"
 _MSDA_FOLD = ("    float fold = 0.f;\n#pragma unroll\n    for (int d = 0; d < 8 * NG; ++d) "
               "fold += acc[d];\n    if (fold != 1234.5f) continue;\n" + _MSDA_STORE)
@@ -170,6 +192,50 @@ _MSDA_PREP_ONLY = [(_MSDA_GATHER, "        acc[0] += x + y + a[p] / sum;"),
                    (_MSDA_STORE, _MSDA_FOLD)]
 _MSDA_NO_STORES = [(_MSDA_STORE, _MSDA_FOLD)]
 _MSDA_NO_GATHERS = [(_MSDA_GATHER, "")]
+# edits of the parent's MSDA backward (csrc/msda_bwd.cu before its redesign:
+# the shared-memory instance msda_bwd_kernel, the device-memory instance
+# msda_bwd_global_kernel) that take phases out, for timing the others
+_BWD = "msda_bwd.cu"
+_PB_MAP_STAGING = ("  for (int i = threadIdx.x; i < D * S; i += kThreads) {\n"
+                   "    const int d = i / S;\n    const int s = i - d * S;\n"
+                   "    v_s[s * D + d] = v_g[i];")
+_PB_WALK = "  const int lane = threadIdx.x & 31;\n  const int warp = threadIdx.x >> 5;\n  const int q_begin"
+_PB_G_STAGING = "    for (int i = threadIdx.x; i < D * n; i += kThreads) {"
+_PB_QUERIES = "    for (int j = warp; j < n; j += kWarps) {"
+_PB_FLUSH = ("  for (int i = threadIdx.x; i < D * S; i += kThreads) {\n"
+             "    const int d = i / S;\n    const int s = i - d * S;\n"
+             "    const float t = gv_s[s * D + d];")
+_PB_GATHERS = [("              t = fmaf(__bfloat162float(v_s[pos + d]), gq[k], t);", ""),
+               ("              t = fmaf(to_float(__ldg(v_l + pos + d)), gq[k], t);", "")]
+_PB_SCATTER = [("              atomicAdd(gv_s + pos + d, wt * gq[k]);", ""),
+               ("              atomicAdd(gv_l + pos + d, wt * gq[k]);", "")]
+_PB_NO_QUERIES = [(_PB_QUERIES, "    for (int j = warp; j < (n < 0 ? n : 0); j += kWarps) {")]
+_PB_NO_FLUSH = [(_PB_FLUSH, "  if (g_s[threadIdx.x] == 12345.f) gv[0] = 1.f;\n"
+                 + _PB_FLUSH.replace("i < D * S", "i < 0"))]
+_PB_MAP_STAGING_ONLY = [(_PB_WALK, "  __syncthreads();\n  if (gv_s[threadIdx.x] == 12345.f) "
+                         "gv[0] = __bfloat162float(v_s[threadIdx.x]);\n  return;\n" + _PB_WALK)]
+_PB_G_STAGING_ONLY = ([(_PB_MAP_STAGING, _PB_MAP_STAGING.replace("i < D * S", "i < 0"))]
+                      + _PB_NO_QUERIES + _PB_NO_FLUSH)
+_PB_FLUSH_ONLY = [(_PB_MAP_STAGING + "\n    gv_s[i] = 0.f;",
+                   _PB_MAP_STAGING + "\n    gv_s[i] = 1.f;"),
+                  (_PB_G_STAGING, _PB_G_STAGING.replace("i < D * n", "i < 0"))] + _PB_NO_QUERIES
+# edits of the MSDA backward as it stands, for design variants and for timing
+# one phase (the *_only and no_* variants: outputs wrong)
+_B_SCATTER = ("          atomicAdd(reinterpret_cast<float4*>(gv_u + (size_t)pos * Dp),\n"
+              "                    make_float4(wt * gq[0], wt * gq[1], wt * gq[2], wt * gq[3]));")
+_B_GATHER = "          load_unit<T>(v, v_s, Sp, u, pos);"
+_B_WALK = "  for (int qb = blockIdx.x * q_chunk + warp * qw; qb < q_end; qb += kWarps * qw) {"
+_B_STAGED = "  stage_map(v_s, value + (bm * D + d0) * S, dc, (dc + CC - 1) / CC, S, Sp);  // ends with a barrier"
+_B_NO_GATHERS = [(_B_GATHER, "#pragma unroll\n          for (int k = 0; k < 4; ++k) v[k] = 0.f;")]
+_B_NO_SCATTER = [(_B_SCATTER, "          if (wt == 12345.f) gv_u[pos] = 1.f;")]
+_B_NO_WALK = [(_B_WALK, _B_WALK.replace("qb < q_end;", "qb < (q_end < 0 ? q_end : 0);"))]
+_B_STAGING_ONLY = [(_B_STAGED, _B_STAGED + "\n  if (v_s[0].x == 12345u + threadIdx.x) gv_t[0] = 1.f;\n"
+                    "  return;")]
+_B_SPREAD = [(_B_WALK + "\n    const int q = qb + qi;",
+              "  const int q0 = blockIdx.x * q_chunk;\n"
+              "  const int n_sw = (q_end - q0 + kWarps * qw - 1) / (kWarps * qw);\n"
+              "  for (int t = 0; t < n_sw; ++t) {\n"
+              "    const int q = q0 + (warp * qw + qi) * n_sw + t;")]
 # edits of the transposed conv that take one phase out: the input's TMA
 # boxes, the producer's prologue pass, the products, the epilogue
 _TC_NO_TMA = [
@@ -280,21 +346,65 @@ VARIANTS = {
         "  constexpr int kUnroll = kGlobal || kMerged || kSliced ? 1 : kMaxPoints;",
         "  constexpr int kUnroll = 1;")]}),
     # one query range a head: the map staged once a head, fewer blocks
-    "msda_one_range_a_head": ("msda", {_MSDA: [
-        ("  long long ranges = room / heads;", "  long long ranges = 1;")]}),
+    "msda_one_range_a_head": ("msda", {_MC: [
+        ("  long long ranges = room / groups;", "  long long ranges = 1;")]}),
     # two waves of query ranges (more, shorter ranges: more staging)
-    "msda_two_waves": ("msda", {_MSDA: [
-        ("  long long ranges = room / heads;", "  long long ranges = 2 * room / heads;")]}),
+    "msda_two_waves": ("msda", {_MC: [
+        ("  long long ranges = room / groups;", "  long long ranges = 2 * room / groups;")]}),
     # the staging element by element (2-byte loads and stores) instead of by
     # stmatrix
-    "msda_staging_by_elements": ("msda", {_MSDA: _MSDA_BY_ELEMENTS}),
+    "msda_staging_by_elements": ("msda", {_MC: _MSDA_BY_ELEMENTS}),
     # timing only (outputs wrong): the forward's phases
-    "msda_no_staging": ("msda", {_MSDA: _MSDA_NO_STAGING}),
+    "msda_no_staging": ("msda", {_MC: _MSDA_NO_STAGING}),
     "msda_staging_only": ("msda", {_MSDA: _MSDA_STAGING_ONLY}),
-    "msda_prep_only": ("msda", {_MSDA: _MSDA_NO_STAGING + _MSDA_PREP_ONLY}),
-    "msda_prep_gathers": ("msda", {_MSDA: _MSDA_NO_STAGING + _MSDA_NO_STORES}),
-    "msda_stores_only": ("msda", {_MSDA: _MSDA_NO_STAGING + _MSDA_NO_GATHERS}),
+    "msda_prep_only": ("msda", {_MC: _MSDA_NO_STAGING, _MSDA: _MSDA_PREP_ONLY}),
+    "msda_prep_gathers": ("msda", {_MC: _MSDA_NO_STAGING, _MSDA: _MSDA_NO_STORES}),
+    "msda_stores_only": ("msda", {_MC: _MSDA_NO_STAGING, _MSDA: _MSDA_NO_GATHERS}),
+    # the parent's MSDA backward (a checkout of the parent commit under
+    # build/parent) and its phases, timing only: the map staged and nothing
+    # else; the cotangent's chunks staged and nothing else; no shared-memory
+    # scatter (gathers, sums, staging, a flush of zeros); no gathers (the
+    # scatter, staging, flush); staging and the partial's flush alone. The
+    # device-memory instance's pre- and post-pass show as their own kernels
+    "msda_bwd_current": ("msda_bwd", {}),
+    # one block an SM (its registers uncapped; two where they fit as
+    # committed, 64 registers a thread)
+    "msda_bwd_one_block_an_sm": ("msda_bwd", {_BWD: [("__launch_bounds__(kThreads, 2)",
+                                                      "__launch_bounds__(kThreads, 1)")]}),
+    # one query range a (b, head, slice): fewer, longer blocks
+    "msda_bwd_one_range": ("msda_bwd", {_BWD: [(
+        "  const int q_chunk = query_chunk(per_sm, (long long)heads * n_slices, Lq, kThreads);",
+        "  const int q_chunk = Lq;")]}),
+    # a warp's queries spread over the block's range instead of consecutive
+    # (consecutive queries sample neighbouring pixels: their reductions meet
+    # on one address)
+    "msda_bwd_spread": ("msda_bwd", {_BWD: _B_SPREAD}),
+    # timing only: the staging alone; the walk without the scatter's
+    # reductions; without the gathers; the memset, staging and finishing
+    # kernel without the walk
+    "msda_bwd_staging_only": ("msda_bwd", {_BWD: _B_STAGING_ONLY}),
+    "msda_bwd_no_scatter": ("msda_bwd", {_BWD: _B_NO_SCATTER}),
+    "msda_bwd_no_gathers": ("msda_bwd", {_BWD: _B_NO_GATHERS}),
+    "msda_bwd_no_walk": ("msda_bwd", {_BWD: _B_NO_WALK}),
+    "msda_premapped_current": ("msda_premapped", {}),
+    "msda_premapped_parent": ("msda_premapped", {}, "build/parent"),
+    # 256 threads a block (512 as committed)
+    "msda_premapped_threads_256": ("msda_premapped", {"msda_fwd_premapped.cu": [
+        ("constexpr int kThreads = 512;", "constexpr int kThreads = 256;")]}),
+    "msda_bwd_parent": ("msda_bwd", {}, "build/parent"),
+    "msda_bwd_parent_map_staging_only": ("msda_bwd", {_BWD: _PB_MAP_STAGING_ONLY},
+                                         "build/parent"),
+    "msda_bwd_parent_g_staging_only": ("msda_bwd", {_BWD: _PB_G_STAGING_ONLY}, "build/parent"),
+    "msda_bwd_parent_no_scatter": ("msda_bwd", {_BWD: _PB_SCATTER}, "build/parent"),
+    "msda_bwd_parent_no_gathers": ("msda_bwd", {_BWD: _PB_GATHERS}, "build/parent"),
+    "msda_bwd_parent_flush_only": ("msda_bwd", {_BWD: _PB_FLUSH_ONLY}, "build/parent"),
 }
+
+
+def _checkout(name: str) -> Path:
+    """The checkout whose sources and wrappers a variant edits and calls."""
+    entry = VARIANTS[name]
+    return ROOT / entry[2] if len(entry) > 2 else ROOT
 
 
 def build(names) -> None:
@@ -303,10 +413,10 @@ def build(names) -> None:
 
     jobs = []
     for name in names:
-        family, edits_by_file = VARIANTS[name]
+        family, edits_by_file = VARIANTS[name][:2]
         d = OUT / name
         shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(CSRC, d)
+        shutil.copytree(_checkout(name) / "dinounet_tpu_torch" / "csrc", d)
         for fname, edits in edits_by_file.items():
             text = (d / fname).read_text()
             for old, new in edits:
@@ -330,7 +440,7 @@ def build(names) -> None:
             for entry in (p.stdout + p.stderr).split("Compiling entry function '")[1:]:
                 kernel = entry.split("'", 1)[0]
                 if "gemm" in kernel or "conv3x3" in kernel or "transpconv" in kernel or \
-                        "msda_fwd" in kernel:
+                        "msda" in kernel:
                     regs = re.search(r"Used (\d+) registers", entry)
                     spill = re.search(r"(\d+) bytes spill stores", entry)
                     inst = re.search(r"kernelILi(\d+)E", kernel)
@@ -623,12 +733,110 @@ def run_msda(name: str) -> dict:
     return out
 
 
+# the MSDA backward's train shapes (batch 2, 16 heads, 4 points): (tag, D,
+# map side, Lq); then edges (B, M, D, map side, P, Lq), not timed
+BWD_PATH = (("b_d24", 24, 32, 5376), ("l_d32", 32, 32, 5376), ("7b_d128", 128, 32, 5376),
+            ("patch1024_d24", 24, 64, 21504))
+BWD_EDGES = ((2, 3, 8, 5, 4, 37), (1, 2, 33, 6, 3, 700), (1, 2, 100, 7, 2, 65),
+             (1, 2, 40, 64, 4, 300))
+
+
+def run_msda_bwd(name: str) -> dict:
+    import torch
+
+    from dinounet_tpu_torch.ops.kernel_check import KERNEL_TOLERANCES, max_excess
+    from dinounet_tpu_torch.ops.msda import (ms_deform_attn_premapped_backward_plain,
+                                             premapped_fused_prep)
+    from dinounet_tpu_torch.ops.msda_kernel import ms_deform_attn_premapped_backward
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {"variant": name}
+    ok = det = True
+    cases = [(t, 2, 16, D, side, 4, Lq) for t, D, side, Lq in BWD_PATH]
+    cases += [(f"edge_{i}", *e) for i, e in enumerate(BWD_EDGES)]
+    for tag, B, M, D, side, P, Lq in cases:
+        try:
+            v = torch.randn((B, M, D, side * side), generator=g, device=dev).to(torch.bfloat16)
+            off = (torch.randn((B, M, 2 * P, Lq), generator=g, device=dev) * 2).to(torch.bfloat16)
+            lg = torch.randn((B, M, P, Lq), generator=g, device=dev).to(torch.bfloat16)
+            base = torch.rand((2 * P, Lq), generator=g, device=dev) * (side + 2) - 1.5
+            xs, ys, aw = (t.contiguous() for t in premapped_fused_prep(off, lg, base))
+            cot = torch.randn((B, M, D, Lq), generator=g, device=dev)
+            shapes = ((side, side),)
+            fn = lambda: ms_deform_attn_premapped_backward(v, shapes, xs, ys, aw, cot)
+            got, again = fn(), fn()
+            want = ms_deform_attn_premapped_backward_plain(v, shapes, xs, ys, aw, cot)
+            torch.cuda.synchronize()
+            ok = ok and all(max_excess(a, b, KERNEL_TOLERANCES["msda_bwd"]) <= 0
+                            for a, b in zip(got, want))
+            det = det and all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))
+            del got, again, want
+            if not tag.startswith("edge"):
+                out[tag] = _kernels_ms(fn)
+        except Exception as e:
+            ok = False
+            out[tag] = {"error": str(e).splitlines()[0]}
+    out["agrees"] = ok
+    out["ga_gx_gy_bit_equal_twice"] = det
+    return out
+
+
+# #5 at its path shapes: (tag, B, M, D, levels, P, Lq, fp32 map); then edges
+PREMAPPED_PATH = (("d24", 8, 16, 24, ((32, 32),), 4, 5376, False),
+                  ("l2_d24", 8, 16, 24, ((32, 32), (16, 16)), 4, 5376, False),
+                  ("d128", 8, 16, 128, ((32, 32),), 4, 5376, False),
+                  ("patch1024_d32", 8, 16, 32, ((64, 64),), 4, 21504, False),
+                  ("fp32_d24", 8, 16, 24, ((32, 32),), 4, 5376, True),
+                  ("edge_0", 2, 3, 8, ((5, 7),), 4, 37, False),
+                  ("edge_1", 1, 2, 40, ((9, 11), (4, 5), (2, 3), (1, 1)), 3, 130, True),
+                  ("edge_2", 1, 2, 20, ((130, 128),), 2, 100, False))
+
+
+def run_msda_premapped(name: str) -> dict:
+    import torch
+
+    from dinounet_tpu_torch.ops.kernel_check import KERNEL_TOLERANCES, max_excess
+    from dinounet_tpu_torch.ops.msda import ms_deform_attn_premapped_plain
+    from dinounet_tpu_torch.ops.msda_kernel import ms_deform_attn_premapped
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {"variant": name}
+    ok = True
+    for tag, B, M, D, shapes, P, Lq, fp32 in PREMAPPED_PATH:
+        try:
+            S, L = sum(h * w for h, w in shapes), len(shapes)
+            v = torch.randn((B, M, D, S), generator=g, device=dev)
+            v = v if fp32 else v.to(torch.bfloat16)
+            xs = torch.rand((B, M, L * P, Lq), generator=g, device=dev)
+            ys = torch.rand((B, M, L * P, Lq), generator=g, device=dev)
+            for lvl, (h, w) in enumerate(shapes):  # past every edge of its level
+                xs[:, :, lvl * P:(lvl + 1) * P] = xs[:, :, lvl * P:(lvl + 1) * P] * (w + 4) - 2.5
+                ys[:, :, lvl * P:(lvl + 1) * P] = ys[:, :, lvl * P:(lvl + 1) * P] * (h + 4) - 2.5
+            aw = torch.softmax(torch.randn((B, M, L * P, Lq), generator=g, device=dev), dim=2)
+            fn = lambda: ms_deform_attn_premapped(v, shapes, xs, ys, aw)
+            got, want = fn(), ms_deform_attn_premapped_plain(v, shapes, xs, ys, aw)
+            torch.cuda.synchronize()
+            tol = (1e-5, 1e-5) if fp32 else KERNEL_TOLERANCES["msda_fwd_premapped"]
+            ok = ok and max_excess(got, want, tol) <= 0
+            del got, want
+            if not tag.startswith("edge"):
+                out[tag] = _kernels_ms(fn)
+        except Exception as e:
+            ok = False
+            out[tag] = {"error": str(e).splitlines()[0]}
+    out["agrees"] = ok
+    return out
+
+
 def run(name: str) -> None:
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(_checkout(name)))
     _load(name)
     family = VARIANTS[name][0]
     runner = {"int8": run_int8, "conv": run_conv, "transpconv": run_transpconv,
-              "msda": run_msda}[family]
+              "msda": run_msda, "msda_bwd": run_msda_bwd,
+              "msda_premapped": run_msda_premapped}[family]
     print(json.dumps(runner(name)), flush=True)
 
 

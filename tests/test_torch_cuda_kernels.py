@@ -205,6 +205,51 @@ def test_msda_backward_kernel_levels_match_plain(dev, dtype, B, M, D, shapes, P,
         assert max_excess(gt, wt, KERNEL_TOLERANCES["msda_bwd"]) <= 0
 
 
+# the staged-cell layouts of #5 and #7: D 8 to 128 and D not a multiple of a
+# cell (12, 20, 33), S not a multiple of 8 (35, 99), 1 to 4 levels, P 2 to
+# 16, ragged Lq, heads in channel slices (D 128; D 20 and 33 at S 4096), and
+# a map of which not one 16-byte cell a position fits a block (S 16640: the
+# forward's token-major copy, the backward's device-memory instance);
+# coordinates past every edge
+MSDA_CELL_LAYOUTS = [(8, ((5, 7),), 4, 37), (16, ((32, 32),), 4, 300),
+                     (24, ((8, 16), (4, 8), (2, 4), (1, 2)), 2, 129),
+                     (32, ((12, 12), (6, 6)), 3, 200), (40, ((16, 16),), 4, 257),
+                     (64, ((9, 11),), 16, 65), (128, ((32, 32),), 4, 700),
+                     (20, ((64, 64),), 4, 300), (33, ((48, 64), (32, 32)), 2, 90),
+                     (12, ((128, 130),), 2, 100)]
+# (dtype, map at an odd element)
+MSDA_CELL_MAPS = [(torch.bfloat16, False), (torch.bfloat16, True), (torch.float32, False)]
+
+
+@pytest.mark.parametrize("dtype,odd", MSDA_CELL_MAPS)
+@pytest.mark.parametrize("D,shapes,P,Lq", MSDA_CELL_LAYOUTS)
+def test_msda_premapped_cell_layouts_match_plain(dev, dtype, odd, D, shapes, P, Lq):
+    v, xs, ys, aw = _prepped_case(25, 2, 3, D, shapes, P, Lq, dev, dtype)
+    got = ms_deform_attn_premapped(_at_odd_element(v) if odd else v, shapes, xs, ys, aw)
+    want = ms_deform_attn_premapped_plain(v, shapes, xs, ys, aw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    tol = KERNEL_TOLERANCES["msda_fwd_premapped"] if dtype == torch.bfloat16 else (1e-5, 1e-5)
+    assert max_excess(got, want, tol) <= 0
+
+
+@pytest.mark.parametrize("dtype,odd", MSDA_CELL_MAPS)
+@pytest.mark.parametrize("D,shapes,P,Lq", MSDA_CELL_LAYOUTS)
+def test_msda_backward_cell_layouts_match_plain(dev, dtype, odd, D, shapes, P, Lq):
+    """The backward in every layout; two calls give bit-equal ga, gx, gy."""
+    v, xs, ys, aw = _prepped_case(26, 2, 3, D, shapes, P, Lq, dev, dtype)
+    cot = torch.randn((2, 3, D, Lq), generator=torch.Generator().manual_seed(27)).to(dev)
+    vk = _at_odd_element(v) if odd else v
+    got = ms_deform_attn_premapped_backward(vk, shapes, xs, ys, aw, cot)
+    again = ms_deform_attn_premapped_backward(vk, shapes, xs, ys, aw, cot)
+    want = ms_deform_attn_premapped_backward_plain(v, shapes, xs, ys, aw, cot)
+    torch.cuda.synchronize()
+    for gt, wt in zip(got, want):
+        assert max_excess(gt, wt, KERNEL_TOLERANCES["msda_bwd"]) <= 0
+    for gt, ag in zip(got[1:], again[1:]):
+        assert torch.equal(gt, ag)
+
+
 def _grads(outs, leaves, seed=6):
     outs = outs if isinstance(outs, tuple) else (outs,)
     gen = torch.Generator().manual_seed(seed)
