@@ -54,11 +54,12 @@
 //    each add is a compare-and-swap loop on addresses that neighbouring
 //    queries share; and 16-byte reductions into a cell-major scratch, six
 //    lines a query's corner: kernel_variants.py.)
-// 4. ga, gx and gy: a point's sums over the query's nu lanes, by shuffles
-//    (a butterfly where nu is a power of two, else in lane order), written
-//    by the query's first lane: no atomics, the same every run. A head cut
-//    into channel slices writes each slice's sums to the caller's scratch
-//    and a second kernel adds them in slice order.
+// 4. ga, gx and gy: a point's three sums over the query's nu lanes, by
+//    shuffles in a fixed order (halves folded, then the first three lanes
+//    each gather one sum: 5 shuffles at D = 24, not 15; unit_sums), each
+//    written by its own lane in one store: no atomics, the same every run.
+//    A head cut into channel slices writes each slice's sums to the caller's
+//    scratch and a second kernel adds them in slice order.
 // gv depends on the order in which the reductions arrive, at fp32 rounding.
 // The instance needs one cell's channels of the map in shared memory (S up
 // to 14528). A wider map takes the device-memory instance
@@ -86,17 +87,37 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// the sum of v over the nu lanes of a query (lanes qi + qw u, u < nu), in
-// its lane u = 0: a butterfly where nu is a power of two (qw nu = 32), else
-// in lane order
-__device__ __forceinline__ float unit_sum(float v, int lane, int nu, int qw) {
-  if ((nu & (nu - 1)) == 0) {
-    for (int o = qw; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
+// the sums of a query's three partials v[0..2] over its nu lanes (lanes
+// qi + qw u, u < nu). Halves fold while three lanes or more remain; then
+// each of the first three lanes gathers its value's partials from the others
+// in rotation (at D = 24: 3 + 2 shuffles, not 3 x 5). On return lane u < 3
+// holds the total of v[u] in v[0]; where nu < 3, lane u = 0 holds all three.
+// The order of the additions is fixed: the sums are the same every run.
+__device__ __forceinline__ void unit_sums(float (&v)[3], int lane, int u, int nu, int qw) {
+  int c = nu;
+  while ((c & 1) == 0 && c / 2 >= 3) {  // the same for the whole warp
+    const int o = (c / 2) * qw;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) v[i] += __shfl_down_sync(0xffffffffu, v[i], o);
+    c /= 2;
   }
-  float t = v;
-  for (int u = 1; u < nu; ++u) t += __shfl_sync(0xffffffffu, v, lane + u * qw);
-  return t;
+  if (c < 3) {
+    if (c == 2) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) v[i] += __shfl_down_sync(0xffffffffu, v[i], qw);
+    }
+    return;
+  }
+  const int qi = lane - u * qw;
+  float t = u == 0 ? v[0] : u == 1 ? v[1] : u == 2 ? v[2] : 0.f;
+  for (int k = 1; k < c; ++k) {
+    // lane u receives value u from unit (u + k) % c, which sends its value
+    // (its unit - k) mod c
+    const int s = (u - k + c) % c;
+    const float send = s == 0 ? v[0] : s == 1 ? v[1] : s == 2 ? v[2] : 0.f;
+    t += __shfl_sync(0xffffffffu, send, ((u + k) % c) * qw + qi);
+  }
+  v[0] = t;
 }
 
 // channels [4 u, 4 u + 4) of position pos from the staged cells ([ng][Sp]):
@@ -180,7 +201,7 @@ msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ xs,
         const float fy = y - y0f;
         const int x0 = (int)x0f;
         const int y0 = (int)y0f;
-        float s_val = 0.f, s_dx = 0.f, s_dy = 0.f;
+        float sv[3] = {0.f, 0.f, 0.f};  // the value's, d / dx's and d / dy's sums
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int dy = c >> 1;
@@ -199,17 +220,19 @@ msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ xs,
           float t = 0.f;
 #pragma unroll
           for (int k = 0; k < 4; ++k) t = fmaf(v[k], gq[k], t);
-          s_val = fmaf(wy * wx, t, s_val);
-          s_dx = fmaf(dx ? wy : -wy, t, s_dx);
-          s_dy = fmaf(dy ? wx : -wx, t, s_dy);
+          sv[0] = fmaf(wy * wx, t, sv[0]);
+          sv[1] = fmaf(dx ? wy : -wy, t, sv[1]);
+          sv[2] = fmaf(dy ? wx : -wx, t, sv[2]);
         }
-        s_val = unit_sum(s_val, lane, nu, qw);
-        s_dx = unit_sum(s_dx, lane, nu, qw);
-        s_dy = unit_sum(s_dy, lane, nu, qw);
-        if (live && u == 0) {
-          oa[at] = s_val;
-          ox[at] = a * s_dx;
-          oy[at] = a * s_dy;
+        unit_sums(sv, lane, u, nu, qw);
+        if (nu < 3) {
+          if (live && u == 0) {
+            oa[at] = sv[0];
+            ox[at] = a * sv[1];
+            oy[at] = a * sv[2];
+          }
+        } else if (live && u < 3) {  // one store: lane u writes output u
+          (u == 0 ? oa : u == 1 ? ox : oy)[at] = u == 0 ? sv[0] : a * sv[0];
         }
       }
     }
