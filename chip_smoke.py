@@ -164,9 +164,9 @@ from dinounet_tpu_torch.ops.attention import (fused_rope_attention,
                                               rope_tables_dmaj)
 from dinounet_tpu_torch.ops.conv_hwbc import conv3x3_hwbc, conv3x3_hwbc_plain
 from dinounet_tpu_torch.ops.decoder_tail import (conv3x3_cm, conv3x3_cm_plain,
-                                                 pack_conv_weight, pack_transpconv_weight,
-                                                 packed_conv_weight,
-                                                 packed_transpconv_weight,
+                                                 pack_conv_weight, pack_seg_weight,
+                                                 pack_transpconv_weight, packed_conv_weight,
+                                                 packed_seg_weight, packed_transpconv_weight,
                                                  seg_head_cm, seg_head_cm_plain,
                                                  transpconv2x2_cm,
                                                  transpconv2x2_cm_plain)
@@ -982,17 +982,22 @@ def phase_kernels(dev) -> dict:
                           {"transpconv kernel": 1},
                           ("the weight's pack", lambda: pack_transpconv_weight(w)))
         results.setdefault("transpconv2x2_cm", r)
-    # the seg head over the last stage: (8, 32, 512, 512) -> 3 fp32 logits
+    # the seg head over the last stage: (8, 32, 512, 512) -> 3 fp32 logits;
+    # one launch a call, its (C, K) weight prepared once (the bound counts it)
     C, K, H = 32, N_CLASSES, PATCH
     x = randn(B, C, H, H).to(bf)
     w, b = randn(K, C, 1, 1, scale=C ** -0.5), randn(K, scale=0.1)
     p = (torch.rand((B, C), generator=g, device=dev) + 0.5, randn(B, C, scale=0.3))
     xl, wl = x.contiguous(memory_format=torch.channels_last), w.to(bf)
+    desc = f"({B}, {C}, {H}, {H}) -> {K}"
     results["seg_head_cm"] = _compare(
-        "seg_head_cm", f"({B}, {C}, {H}, {H}) -> {K}",
+        "seg_head_cm", desc,
         lambda: seg_head_cm(x, w, b, p), lambda: seg_head_cm_plain(x, w, b, p),
-        (x, w, b, *p), 2.0 * B * H * H * C * K, FP32_FLOP_S,
+        (x, packed_seg_weight(w), b, *p), 2.0 * B * H * H * C * K, FP32_FLOP_S,
         lambda: F.conv2d(xl, wl), library_label=CUDNN_LABEL)
+    _log_launch_split("seg_head_cm", desc, lambda: seg_head_cm(x, w, b, p),
+                      {"seg head kernel": "seg_head"}, {"seg head kernel": 1},
+                      ("the weight's preparation", lambda: pack_seg_weight(w)))
 
     # the int8 serving mode's w8a8 ops at the path's shapes, each fed an fp32
     # Linear weight's transpose as the models feed it. The weight is

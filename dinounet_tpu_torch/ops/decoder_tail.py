@@ -30,6 +30,7 @@ Prologue = Optional[Tuple[torch.Tensor, torch.Tensor]]
 _CONV_COUT = (16, 32, 64, 128)
 _PACK_ATTR = "_dinounet_conv3x3_packed"
 _TPACK_ATTR = "_dinounet_transpconv_packed"
+_SEG_ATTR = "_dinounet_seg_weight"
 _BIAS_ATTR = "_dinounet_bias_f32"
 
 
@@ -163,6 +164,19 @@ def packed_transpconv_weight(w: torch.Tensor) -> torch.Tensor:
     return _build.cached_on_storage(w, _TPACK_ATTR, lambda: pack_transpconv_weight(w))
 
 
+def pack_seg_weight(w: torch.Tensor) -> torch.Tensor:
+    """(K, C, 1, 1) or (K, C) -> the seg head kernel's (C, K) fp32 weight,
+    holding w's bf16-rounded values."""
+    K = w.shape[0]
+    return w.detach().reshape(K, -1).t().to(torch.bfloat16).float().contiguous()
+
+
+def packed_seg_weight(w: torch.Tensor) -> torch.Tensor:
+    """``pack_seg_weight(w)``, once per weight version
+    (``_build.cached_on_storage``)."""
+    return _build.cached_on_storage(w, _SEG_ATTR, lambda: pack_seg_weight(w))
+
+
 def _bias_f32(b: torch.Tensor) -> torch.Tensor:
     """b as a contiguous fp32 tensor, converted once per version."""
     if b.dtype == torch.float32 and b.is_contiguous():
@@ -277,7 +291,10 @@ def transpconv2x2_cm(x_cm, w, b, prologue: Prologue = None, leaky_slope: float =
 def seg_head_cm(x_cm, w, b, prologue: Prologue, leaky_slope: float = 0.01):
     """1x1 seg head over channel-major (B, C, H, W) features with the fused
     leaky(x * s + t) prologue: fp32 logits (B, K, H, W). w: (K, C, 1, 1)
-    (or (K, C)); b: (K,)."""
+    (or (K, C)); b: (K,). On CUDA tensors a call is one launch: the weight
+    goes in as ``packed_seg_weight`` and the bias in fp32, each made once
+    per version; x may be any contiguous view (the kernel loads element by
+    element where its pointer is not 16-byte aligned)."""
     dev = _device_of(x_cm, "seg_head_cm")
     if dev is None:
         return seg_head_cm_plain(x_cm, w, b, prologue, leaky_slope)
@@ -285,12 +302,14 @@ def seg_head_cm(x_cm, w, b, prologue: Prologue, leaky_slope: float = 0.01):
     bf16, f32 = torch.bfloat16, torch.float32
     B, C, H, W = x_cm.shape
     K = w.shape[0]
-    if K > 32 or C > 512:
-        raise ValueError(f"{op}: the kernel takes up to 32 classes and 512 channels; "
-                         f"got {C} -> {K}")
-    wk = w.reshape(K, C).t().to(bf16).float().contiguous()  # (C, K), bf16 values
-    bias = b.to(f32).contiguous()
-    _build.check_inputs(op, dev, x=(x_cm, bf16, (B, C, H, W)), bias=(bias, f32, (K,)))
+    if K > 32 or C > 512 or w.numel() != K * C or prologue is None:
+        raise ValueError(f"{op}: the kernel takes up to 32 classes and 512 channels, "
+                         f"a (K, C) weight and a prologue; got {C} -> {K}, weight "
+                         f"{tuple(w.shape)}, prologue {prologue is not None}")
+    wk = packed_seg_weight(w)
+    bias = _bias_f32(b)
+    _build.check_inputs(op, dev, x=(x_cm, bf16, (B, C, H, W)), w=(wk, f32, (C, K)),
+                        bias=(bias, f32, (K,)))
     _st, ps, pt = _prologue_ptrs(op, prologue, B, C, dev)
     out = torch.empty((B, K, H, W), dtype=f32, device=dev)
     err = _build.lib().seg_head(

@@ -35,7 +35,8 @@ why each is what it is:
   atomics in an order that changes from run to run, and ulp flips of single
   pixels move a mean by ~1e-6; 1e-3 still catches a sum taken over the wrong
   pixels or channels, which moves a mean by O(0.1).
-- ``seg_head_cm``: fp32 logits from exact products; the prologue's fused
+- ``seg_head_cm``: fp32 logits from exact products, summed by the tensor
+  cores' fp32 accumulation in another order; the prologue's fused
   multiply-add can flip the bf16 rounding of an activation (one ulp, ~4e-3 of
   it), which moves a logit by ~1e-3 at these weights.
 - ``qkv_q8_dmaj`` / ``dense_q8`` / ``dense_q8_stats`` / ``dense_cm_q8_stats``

@@ -26,19 +26,22 @@ attention projection and the adapter's MSDA output projection, #13 the ViT
 qkv; and the conv family at the serve routes' shapes (tile batch 8): the
 3x3 conv + statistics #14 at serve_cm's seven (the decoder's conv0 and
 conv1 at 512^2, 256^2 and 128^2, the SPM stem at 256^2), the same kernel as
-#17 at serve_hwbc's four ((H, W, B, C) views of NCHW maps), and the k2s2
-transposed conv #16 at its five. For each: the wrapper's event time
-(median of 50 synchronised calls) and the device time of one launch (CUDA
-events around 50 back-to-back calls). Prints one JSON line (null for a kernel the
-checkout lacks). Compare two checkouts within one machine, in turns: A, B,
-B, A. Row names after the checkout time those rows alone (the others print
+#17 at serve_hwbc's four ((H, W, B, C) views of NCHW maps), the k2s2
+transposed conv #16 at its five, and the seg head #15 over the last stage's
+(8, 32, 512, 512) map to 3 classes and to 14 (a multi-organ class count).
+For each: the wrapper's event time (median of 50 synchronised calls) and
+the device time of one launch (CUDA events around 50 back-to-back calls);
+for the seg head, whose call is shorter than its host work, also the
+device time a call by the profiler (every launch of the wrapper summed).
+Prints one JSON line (null for a kernel the checkout lacks). Compare two
+checkouts within one machine, in turns: A, B, B, A. Row names after the checkout time those rows alone (the others print
 null), so that a row can be timed without the rows before it.
 """
 import json
 import sys
 
 
-def _time(fn) -> dict:
+def _time(fn, profiled=False) -> dict:
     import torch
 
     for _ in range(5):
@@ -59,7 +62,16 @@ def _time(fn) -> dict:
         fn()
     b.record()
     b.synchronize()
-    return {"event_median_ms": ev[25], "back_to_back_ms": a.elapsed_time(b) / 50}
+    out = {"event_median_ms": ev[25], "back_to_back_ms": a.elapsed_time(b) / 50}
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        out["device_ms"] = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / 20
+    return out
 
 
 def main(checkout: str, only=()) -> None:
@@ -69,7 +81,7 @@ def main(checkout: str, only=()) -> None:
     from dinounet_tpu_torch.ops import _build
     from dinounet_tpu_torch.ops import attention, dense_q8, dense_stats, msda_kernel
     from dinounet_tpu_torch.ops.conv_hwbc import conv3x3_hwbc
-    from dinounet_tpu_torch.ops.decoder_tail import conv3x3_cm, transpconv2x2_cm
+    from dinounet_tpu_torch.ops.decoder_tail import conv3x3_cm, seg_head_cm, transpconv2x2_cm
     from dinounet_tpu_torch.ops.msda import premapped_fused_prep
 
     dev = torch.device("cuda", 0)
@@ -244,6 +256,16 @@ def main(checkout: str, only=()) -> None:
               torch.randn((8, Cin), generator=g, device=dev) * 0.3) if pro else None)
         calls[name] = lambda x=x, w=w, b=b, p=p: transpconv2x2_cm(x, w, b, p)
         conv_names.append(name)
+    # #15: (name, K) over (8, 32, 512, 512) with the last InstanceNorm's apply
+    xs_ = torch.randn((8, 32, 512, 512), generator=g, device=dev).to(bf)
+    ps_ = (torch.rand((8, 32), generator=g, device=dev) + 0.5,
+           torch.randn((8, 32), generator=g, device=dev) * 0.3)
+    seg_names = []
+    for name, K in (("seg_head", 3), ("seg_head_k14", 14)):
+        w = torch.randn((K, 32, 1, 1), generator=g, device=dev) * 32 ** -0.5
+        b = torch.randn((K,), generator=g, device=dev) * 0.1
+        calls[name] = lambda w=w, b=b: seg_head_cm(xs_, w, b, ps_)
+        seg_names.append(name)
     out = {"checkout": checkout}
     # the MSDA kernels first: timed after a run of the attention kernels they
     # have read 2-3 % slower with their own code unchanged, a state the
@@ -260,9 +282,9 @@ def main(checkout: str, only=()) -> None:
                  "dense_rm_7b_convffn_fc2", "q8_vit_fc1", "q8_stats_vit_fc2",
                  "q8_stats_convffn_fc2", "q8_cm_vit_proj", "q8_cm_msda_proj", "q8_vit_qkv",
                  "rope_attention_dh64", "rope_attention_ndh_dh64", "rope_attention_rm_dh128",
-                 *conv_names):
+                 *conv_names, *seg_names):
         wanted = name in calls and (not only or name in only)
-        out[name] = _time(calls[name]) if wanted else None
+        out[name] = _time(calls[name], name in seg_names) if wanted else None
     print(json.dumps(out), flush=True)
 
 

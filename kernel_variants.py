@@ -49,6 +49,18 @@ prepped-input forward agrees with its plain version at its path shapes
 over two levels, the 7B's D 128, D 32 on the 1024^2 patch, D 24 on an fp32
 map) and edge shapes, and the device time a call by kernel at the path
 shapes.
+
+seg variants (#15, csrc/seg_head.cu) print whether the seg head agrees with
+its plain version at its path shape (tile batch 8, 32 channels at 512^2 to
+3 classes, and to 14) and at edge shapes (element loads, every class-count
+instance, 512 channels, an input at an odd element), and at the path
+shapes the device time a call of every launch the wrapper makes (the
+parent's weight casts too), one call of 50 back to back, the wrapper's
+event time and the kernel's rate in TB/s. seg_tma_ring is the design
+timed against the committed one, seg_staged_stores the logits staged in
+shared memory for whole-sector stores; the *_only, loads_prologue and
+no_stores variants time phases; the seg_parent* variants the parent's
+kernel (a checkout under build/parent).
 """
 import ctypes
 import json
@@ -71,6 +83,7 @@ FAMILIES = {
     "msda": (("msda_fwd.cu",), ("msda_fwd_fused", "msda_fwd_merged")),
     "msda_bwd": (("msda_bwd.cu",), ("msda_bwd",)),
     "msda_premapped": (("msda_fwd_premapped.cu",), ("msda_fwd_premapped",)),
+    "seg": (("seg_head.cu",), ("seg_head",)),
 }
 _CONV = "conv3x3_stats.cu"
 # edits of conv3x3_stats.cu that take one phase out (for timing the others)
@@ -254,6 +267,294 @@ _TC_NO_MMA = [("            wgmma_ss<kTransA>(acc, ad,", "            if (c < 0)
 _TC_NO_EPILOGUE = [("      for (int round = 0; round < NB / kRound; ++round) {",
                     "      for (int round = 0; round < (pass < 0 ? NB / kRound : 0); ++round) {")]
 
+_SEG = "seg_head.cu"
+# edits of the parent's seg head (csrc/seg_head.cu before its redesign: 4
+# pixels a thread, 8-byte loads, a runtime C loop) that take phases out
+_PS_PROLOGUE = ("    const float s = s_s[c], t = t_s[c];\n#pragma unroll\n"
+                "    for (int i = 0; i < kPix; ++i) {\n      float a = fmaf(v[i], s, t);\n"
+                "      a = a >= 0.f ? a : a * slope;\n"
+                "      v[i] = __bfloat162float(__float2bfloat16(a));\n    }\n")
+_PS_PRODUCTS = ("#pragma unroll\n    for (int k = 0; k < kK; ++k) {\n"
+                "      const float wk = w_s[c * kK + k];\n#pragma unroll\n"
+                "      for (int i = 0; i < kPix; ++i) acc[k][i] = fmaf(v[i], wk, acc[k][i]);\n"
+                "    }\n")
+_PS_FOLD_IN = "#pragma unroll\n    for (int i = 0; i < kPix; ++i) acc[0][i] += v[i];\n"
+_PS_STORES = "#pragma unroll\n  for (int k = 0; k < kK; ++k) {\n    if (k >= K) break;"
+_PS_NO_STORES = [(_PS_STORES, "  float fold = 0.f;\n#pragma unroll\n  for (int k = 0; k < kK; ++k)\n"
+                  "#pragma unroll\n    for (int i = 0; i < kPix; ++i) fold += acc[k][i];\n"
+                  "  if (fold != 1234.5f) return;\n" + _PS_STORES)]
+_PS_NO_LOADS = [("  for (int c = 0; c < C; ++c) {", "  for (int c = 0; c < (C < 0 ? C : 0); ++c) {")]
+
+# edits of the seg head as it stands: phases taken out (for timing the
+# others; outputs wrong) and design variants
+_S_ACT = ("            lo[i] = act(__uint_as_float(v << 16), sti[i], slope);\n"
+          "            hi[i] = act(__uint_as_float(v & 0xffff0000u), sti[i], slope);\n")
+_S_PACK = ("          const uint32_t a[4] = {pack2(lo[0], lo[1]), pack2(hi[0], hi[1]), "
+           "pack2(lo[2], lo[3]),\n                                 pack2(hi[2], hi[3])};\n")
+_S_MMA = ("#pragma unroll\n"
+          "          for (int nt = 0; nt < kNT; ++nt) mma16816(acc[nt][m], a, bf[nt]);\n")
+_S_STAGE = "    // the group's 8 pixels of classes 8 nt + 2q + {0, 1}\n"
+_S_NO_STORES = [(_S_STAGE,
+                 "    float fold = 0.f;\n#pragma unroll\n    for (int nt = 0; nt < kNT; ++nt)\n"
+                 "#pragma unroll\n      for (int m = 0; m < 4; ++m)\n#pragma unroll\n"
+                 "        for (int j = 0; j < 4; ++j) fold += acc[nt][m][j];\n"
+                 "    if (fold != 1234.5f) continue;\n" + _S_STAGE)]
+_S_LOADS_ONLY = [(_S_ACT, "            lo[i] = __uint_as_float(v);\n            hi[i] = 0.f;\n"),
+                 (_S_PACK + _S_MMA, "          acc[0][m][0] += lo[0] + lo[1] + lo[2] + lo[3];\n")
+                 ] + _S_NO_STORES
+_S_LOADS_PROLOGUE = [(_S_MMA, "          acc[0][m][0] += __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3]);\n")
+                     ] + _S_NO_STORES
+_S_STORES_ONLY = [("    for (int c0 = 0; c0 < C; c0 += 16 * kChunks) {",
+                   "    for (int c0 = 0; c0 < (C < 0 ? C : 0); c0 += 16 * kChunks) {")]
+# a warp's logits staged in shared memory ([warps][K][68] floats), each
+# class's 64 pixels then stored as 16 lanes' 16-byte stores (whole 32-byte
+# sectors a store; the committed fragments fill half of each sector a store)
+_S_STAGED_STORES = [
+    ("constexpr int kMaxC = 512;",
+     "constexpr int kStride = kWarpPix + 4;\nconstexpr int kMaxC = 512;"),
+    ("  float2* st = reinterpret_cast<float2*>(wf + nchunk * kNT * 32);  // [16 nchunk] (s, t)\n",
+     "  float2* st = reinterpret_cast<float2*>(wf + nchunk * kNT * 32);  // [16 nchunk] (s, t)\n"
+     "  float* out_s = reinterpret_cast<float*>(st + nchunk * 16);\n"),
+    ("    const bool live = p0 < HW;\n",
+     "    const bool live = p0 < HW;\n    float* os = out_s + warp * K * kStride;\n"),
+    ("""    if (!live) continue;
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int k = nt * 8 + 2 * q + j;
+        if (k >= K) continue;
+        const float bk = b_s[k];
+        float v[8];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          v[2 * m] = acc[nt][m][j] + bk;
+          v[2 * m + 1] = acc[nt][m][2 + j] + bk;
+        }
+        float* o = out + ((size_t)b * K + k) * HW + p0;
+        if (kVec) {
+          reinterpret_cast<float4*>(o)[0] = make_float4(v[0], v[1], v[2], v[3]);
+          reinterpret_cast<float4*>(o)[1] = make_float4(v[4], v[5], v[6], v[7]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            if (p0 + i < HW) o[i] = v[i];
+        }
+      }
+  }
+}""", """#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int k = nt * 8 + 2 * q + j;
+        if (k >= K) continue;
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          *reinterpret_cast<float2*>(os + k * kStride + g * 8 + 2 * m) =
+              make_float2(acc[nt][m][j], acc[nt][m][2 + j]);
+      }
+    __syncwarp();
+    const int pix = u * kWarpPix + 4 * (lane % 16);
+    for (int k = lane / 16; k < K; k += 2) {
+      float4 v = *reinterpret_cast<const float4*>(os + k * kStride + 4 * (lane % 16));
+      const float bk = b_s[k];
+      v = make_float4(v.x + bk, v.y + bk, v.z + bk, v.w + bk);
+      float* o = out + ((size_t)b * K + k) * HW + pix;
+      if (kVec) {
+        if (pix < HW) *reinterpret_cast<float4*>(o) = v;
+      } else {
+        const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (pix + i < HW) o[i] = e[i];
+      }
+    }
+    __syncwarp();
+  }
+}"""),
+    ("""  constexpr int kMaxBytes = (kMaxC / 16) * kNT * 32 * 8 + kMaxC * 8;
+  const int bytes = ((C + 15) / 16) * (kNT * 32 * 8 + 16 * 8);
+  const auto kernel = seg_head_kernel<kNT, kVec>;
+  static int per_sm = 0;  // resident blocks an SM, looked up once
+  if (per_sm == 0) {
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kMaxBytes);
+    if (err != cudaSuccess) return (int)err;
+  }""", """  constexpr int kMaxBytes =
+      (kMaxC / 16) * kNT * 32 * 8 + kMaxC * 8 + kWarps * 8 * kNT * kStride * 4;
+  const int bytes = ((C + 15) / 16) * (kNT * 32 * 8 + 16 * 8) + kWarps * K * kStride * 4;
+  const auto kernel = seg_head_kernel<kNT, kVec>;
+  static unsigned long long smem_ready = 0;
+  cudaError_t err = set_smem_once(kernel, kMaxBytes, &smem_ready);
+  if (err != cudaSuccess) return (int)err;
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kMaxBytes);
+    if (err != cudaSuccess) return (int)err;
+  }"""),
+]
+# design (b): a persistent block an SM, one producer thread keeping a ring of
+# up to 40 tiles (64 pixels x C channels, one box of a 3-D tensor map over
+# (pixels, channels, images), 128-byte swizzle) in flight, 8 consumer warps
+# each taking a whole tile with the committed loop's lane layout, prologue
+# and products (its fragments read from the staged tile, the coefficients
+# through the read-only cache) and staged stores; where
+# it does not apply (more than 16 classes or 128 channels, C not a multiple
+# of 16, unaligned) the committed kernel runs
+_SEG_TMA_CODE = r"""
+constexpr int kConsumers = 8;  // consumer warps; one more produces
+constexpr int kRingMax = 48;
+constexpr int kTmaStride = kWarpPix + 4;  // a class row of staged logits
+
+template <int kNT>
+__global__ void __launch_bounds__(32 * (kConsumers + 1), 1)
+seg_head_tma_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict__ w,
+                    const float* __restrict__ bias, const float* __restrict__ ps,
+                    const float* __restrict__ pt, float slope, float* __restrict__ out,
+                    int C, int HW, int K, int ring, int tiles_per_image, int tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw_u = smem_u32(smem_raw);
+  const uint32_t ring_u = (raw_u + 1023u) & ~1023u;  // the swizzle's 1024-byte alignment
+  const unsigned char* ring_p = smem_raw + (ring_u - raw_u);
+  const int stage_bytes = C * 128, nchunk = C / 16;
+  uint2* wf = reinterpret_cast<uint2*>(smem_raw + (ring_u - raw_u) + ring * stage_bytes);
+  float* out_s = reinterpret_cast<float*>(wf + nchunk * kNT * 32);  // [consumers][K][stride]
+  const uint32_t full = smem_u32(out_s + kConsumers * K * kTmaStride);
+  const uint32_t empty = full + 8 * kRingMax;
+  __shared__ float b_s[8 * kNT];
+  for (int i = threadIdx.x; i < nchunk * kNT * 32; i += blockDim.x) {
+    const int l = i % 32, nt = (i / 32) % kNT, c = (i / (32 * kNT)) * 16 + 2 * (l % 4);
+    const int n = nt * 8 + l / 4;
+    float v[4];
+    for (int j = 0; j < 4; ++j) v[j] = n < K ? w[(c + (j & 1) + 8 * (j >> 1)) * K + n] : 0.f;
+    wf[i] = make_uint2(pack2(v[0], v[1]), pack2(v[2], v[3]));
+  }
+  for (int k = threadIdx.x; k < 8 * kNT; k += blockDim.x) b_s[k] = k < K ? bias[k] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ring; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const int n = tiles > (int)blockIdx.x ? (tiles - 1 - (int)blockIdx.x) / gridDim.x + 1 : 0;
+  if (warp == kConsumers) {
+    if (lane == 0) {
+      for (int i = 0; i < n; ++i) {
+        const int slot = i % ring;
+        if (i >= ring) mbar_wait(empty + 8 * slot, (uint32_t)((i / ring - 1) & 1));
+        const int tile = blockIdx.x + i * gridDim.x, b = tile / tiles_per_image;
+        mbar_expect_tx(full + 8 * slot, stage_bytes);
+        tma_load_3d(ring_u + slot * stage_bytes, &map, (tile - b * tiles_per_image) * 64, 0, b,
+                    full + 8 * slot);
+      }
+    }
+    return;
+  }
+  for (int i = warp; i < n; i += kConsumers) {
+    const int slot = i % ring;
+    mbar_wait(full + 8 * slot, (uint32_t)((i / ring) & 1));
+    const int tile = blockIdx.x + i * gridDim.x, b = tile / tiles_per_image;
+    const int p0 = (tile - b * tiles_per_image) * 64 + g * 8;
+    const unsigned char* stg = ring_p + slot * stage_bytes;
+    float acc[kNT][4][4];
+    for (int nt = 0; nt < kNT; ++nt)
+      for (int m = 0; m < 4; ++m)
+        for (int j = 0; j < 4; ++j) acc[nt][m][j] = 0.f;
+    for (int cb = 0; cb < C; cb += 16) {
+      uint4 raw[4];
+      float2 sti[4];
+#pragma unroll
+      for (int i2 = 0; i2 < 4; ++i2) {
+        const int c = cb + 2 * q + (i2 & 1) + 8 * (i2 >> 1);
+        raw[i2] = *reinterpret_cast<const uint4*>(stg + c * 128 + ((g ^ (c & 7)) * 16));
+        sti[i2] = make_float2(__ldg(ps + (size_t)b * C + c), __ldg(pt + (size_t)b * C + c));
+      }
+      uint2 bf[kNT];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) bf[nt] = wf[((cb / 16) * kNT + nt) * 32 + lane];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        float lo[4], hi[4];
+#pragma unroll
+        for (int i2 = 0; i2 < 4; ++i2) {
+          const uint32_t v = word(raw[i2], m);
+          lo[i2] = act(__uint_as_float(v << 16), sti[i2], slope);
+          hi[i2] = act(__uint_as_float(v & 0xffff0000u), sti[i2], slope);
+        }
+        const uint32_t a[4] = {pack2(lo[0], lo[1]), pack2(hi[0], hi[1]), pack2(lo[2], lo[3]),
+                               pack2(hi[2], hi[3])};
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) mma16816(acc[nt][m], a, bf[nt]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * slot);
+    // the committed kernel's staged stores
+    float* os = out_s + warp * K * kTmaStride;
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int k = nt * 8 + 2 * q + j;
+        if (k >= K) continue;
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          *reinterpret_cast<float2*>(os + k * kTmaStride + g * 8 + 2 * m) =
+              make_float2(acc[nt][m][j], acc[nt][m][2 + j]);
+      }
+    __syncwarp();
+    const int pix = p0 - g * 8 + 4 * (lane % 16);
+    for (int k = lane / 16; k < K; k += 2) {
+      float4 v = *reinterpret_cast<const float4*>(os + k * kTmaStride + 4 * (lane % 16));
+      const float bk = b_s[k];
+      if (pix < HW)
+        *reinterpret_cast<float4*>(out + ((size_t)b * K + k) * HW + pix) =
+            make_float4(v.x + bk, v.y + bk, v.z + bk, v.w + bk);
+    }
+    __syncwarp();
+  }
+}
+
+template <int kNT>
+int launch_tma(const void* x, const void* w, const void* bias, const void* ps, const void* pt,
+               float slope, void* out, int B, int C, int HW, int K, cudaStream_t stream) {
+  CUtensorMap map;
+  const cuuint64_t dims[3] = {(cuuint64_t)HW, (cuuint64_t)C, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)HW * 2, (cuuint64_t)C * HW * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)C, 1};
+  int err = bf16_sw128_map(&map, x, 3, dims, strides, box);
+  if (err != 0) return err;
+  const int stage = C * 128;
+  const int ring = (160 * 1024) / stage < kRingMax ? (160 * 1024) / stage : kRingMax;
+  const int bytes = 1024 + ring * stage + (C / 16) * kNT * 256 +
+                    kConsumers * K * kTmaStride * 4 + 16 * kRingMax;
+  static unsigned long long ready = 0;
+  cudaError_t e = set_smem_once(seg_head_tma_kernel<kNT>, 220 * 1024, &ready);
+  if (e != cudaSuccess) return (int)e;
+  const int tpi = (HW + 63) / 64, tiles = B * tpi;
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  seg_head_tma_kernel<kNT><<<grid, 32 * (kConsumers + 1), bytes, stream>>>(
+      map, static_cast<const float*>(w), static_cast<const float*>(bias),
+      static_cast<const float*>(ps), static_cast<const float*>(pt), slope,
+      static_cast<float*>(out), C, HW, K, ring, tpi, tiles);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+"""
+_SEG_TMA_RING = [
+    ("\n}  // namespace\n", _SEG_TMA_CODE),
+    ("  cudaStream_t s = static_cast<cudaStream_t>(stream);\n",
+     "  cudaStream_t s = static_cast<cudaStream_t>(stream);\n"
+     "  if (K <= 16 && C <= 128 && C % 16 == 0 && HW % 8 == 0 && aligned16(x) && "
+     "aligned16(out)) {\n"
+     "    if (K <= 8) return launch_tma<1>(x, w, bias, ps, pt, slope, out, B, C, HW, K, s);\n"
+     "    return launch_tma<2>(x, w, bias, ps, pt, slope, out, B, C, HW, K, s);\n"
+     "  }\n")]
+
 # name -> (family, {file: [(old, new), ...]})
 VARIANTS = {
     "current": ("int8", {}),
@@ -398,6 +699,42 @@ VARIANTS = {
     "msda_bwd_parent_no_scatter": ("msda_bwd", {_BWD: _PB_SCATTER}, "build/parent"),
     "msda_bwd_parent_no_gathers": ("msda_bwd", {_BWD: _PB_GATHERS}, "build/parent"),
     "msda_bwd_parent_flush_only": ("msda_bwd", {_BWD: _PB_FLUSH_ONLY}, "build/parent"),
+    # the parent's seg head and its phases: the loads alone, the loads and
+    # the prologue, the whole kernel without its stores, the stores alone
+    "seg_parent": ("seg", {}, "build/parent"),
+    "seg_parent_loads_only": ("seg", {_SEG: [(_PS_PROLOGUE + _PS_PRODUCTS, _PS_FOLD_IN)]
+                                      + _PS_NO_STORES}, "build/parent"),
+    "seg_parent_loads_prologue": ("seg", {_SEG: [(_PS_PRODUCTS, _PS_FOLD_IN)] + _PS_NO_STORES},
+                                  "build/parent"),
+    "seg_parent_no_stores": ("seg", {_SEG: _PS_NO_STORES}, "build/parent"),
+    "seg_parent_stores_only": ("seg", {_SEG: _PS_NO_LOADS}, "build/parent"),
+    "seg_current": ("seg", {}),
+    "seg_loads_only": ("seg", {_SEG: _S_LOADS_ONLY}),
+    "seg_loads_prologue": ("seg", {_SEG: _S_LOADS_PROLOGUE}),
+    "seg_no_stores": ("seg", {_SEG: _S_NO_STORES}),
+    "seg_stores_only": ("seg", {_SEG: _S_STORES_ONLY}),
+    "seg_staged_stores": ("seg", {_SEG: _S_STAGED_STORES}),
+    # design (b), the TMA ring (see _SEG_TMA_CODE)
+    "seg_tma_ring": ("seg", {_SEG: _SEG_TMA_RING}),
+    # the input through the read-only cache (__ldg) in place of the
+    # streaming loads (__ldcs)
+    "seg_ldg_loads": ("seg", {_SEG: [(
+        "  if (kVec) return __ldcs(reinterpret_cast<const uint4*>(p));",
+        "  if (kVec) return __ldg(reinterpret_cast<const uint4*>(p));")]}),
+    # three blocks an SM (at most 85 registers a thread) in place of two
+    "seg_three_blocks": ("seg", {_SEG: [("__launch_bounds__(kThreads, 2)",
+                                         "__launch_bounds__(kThreads, 3)")]}),
+    # one and four 16-channel chunks' loads issued together (two committed)
+    "seg_chunks1": ("seg", {_SEG: [("constexpr int kChunks = 2;", "constexpr int kChunks = 1;")]}),
+    "seg_chunks4": ("seg", {_SEG: [("constexpr int kChunks = 2;", "constexpr int kChunks = 4;")]}),
+    # the leaky ReLU as max(a, a * slope) (equal for slopes in [0, 1]; the
+    # committed select holds for any slope)
+    "seg_max_leaky": ("seg", {_SEG: [("  return a >= 0.f ? a : a * slope;",
+                                      "  return fmaxf(a, a * slope);")]}),
+    # a block per 8 warp units, in as many waves as that takes (the
+    # committed grid is one wave of resident blocks)
+    "seg_waves": ("seg", {_SEG: [("  int per_image = sms * per_sm / B;",
+                                  "  int per_image = (units + kWarps - 1) / kWarps;")]}),
 }
 
 
@@ -440,7 +777,7 @@ def build(names) -> None:
             for entry in (p.stdout + p.stderr).split("Compiling entry function '")[1:]:
                 kernel = entry.split("'", 1)[0]
                 if "gemm" in kernel or "conv3x3" in kernel or "transpconv" in kernel or \
-                        "msda" in kernel:
+                        "msda" in kernel or "seg_head" in kernel:
                     regs = re.search(r"Used (\d+) registers", entry)
                     spill = re.search(r"(\d+) bytes spill stores", entry)
                     inst = re.search(r"kernelILi(\d+)E", kernel)
@@ -830,13 +1167,74 @@ def run_msda_premapped(name: str) -> dict:
     return out
 
 
+# seg_head_cm at the serve_cm path shape (8, 32, 512, 512), 3 classes, and at
+# 14 (a multi-organ class count): (tag, K)
+SEG_PATH = (("k3", 3), ("k14", 14))
+# and edges: (B, C, H, W, K, input at an odd element): H * W not a multiple
+# of 4, a multiple of 4 but not of 8, each class-count instance, 512
+# channels at 32 classes, an input one element into its buffer
+SEG_EDGES = ((2, 16, 7, 9, 3, False), (2, 32, 6, 10, 3, False), (2, 32, 16, 128, 5, False),
+             (1, 64, 8, 40, 14, False), (1, 16, 4, 4, 32, False), (1, 512, 8, 16, 32, False),
+             (2, 32, 16, 16, 3, True))
+
+
+def run_seg(name: str) -> dict:
+    """#15 at its path shapes: agreement, the wrapper's event time (median
+    of 50 synchronised calls), device time a call by kernel (every launch
+    of the wrapper, casts included) and back to back, the kernel's rate;
+    then the edges. The parent's kernel takes an odd-offset input as an
+    8-byte-aligned one and faults, so its variants skip that case."""
+    import torch
+
+    from dinounet_tpu_torch.ops.decoder_tail import seg_head_cm, seg_head_cm_plain
+    from dinounet_tpu_torch.ops.kernel_check import KERNEL_TOLERANCES, max_excess, median_ms
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {"variant": name}
+    ok = True
+
+    def case(B, C, H, W, K, odd):
+        x = torch.randn((B, C, H, W), generator=g, device=dev).to(torch.bfloat16)
+        if odd:
+            x = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(x.shape).copy_(x)
+        w = torch.randn((K, C, 1, 1), generator=g, device=dev) * C ** -0.5
+        b = torch.randn((K,), generator=g, device=dev) * 0.1
+        p = (torch.rand((B, C), generator=g, device=dev) + 0.5,
+             torch.randn((B, C), generator=g, device=dev) * 0.3)
+        return x, w, b, p
+
+    parent = len(VARIANTS[name]) > 2
+    cases = [(t, 8, 32, 512, 512, K, False) for t, K in SEG_PATH]
+    cases += [(f"edge_{i}", *e) for i, e in enumerate(SEG_EDGES) if not (parent and e[-1])]
+    for tag, B, C, H, W, K, odd in cases:
+        try:
+            x, w, b, p = case(B, C, H, W, K, odd)
+            fn = lambda: seg_head_cm(x, w, b, p)
+            got, want = fn(), seg_head_cm_plain(x, w, b, p)
+            torch.cuda.synchronize()
+            ok = ok and max_excess(got, want, KERNEL_TOLERANCES["seg_head_cm"]) <= 0
+            del got, want
+            if not tag.startswith("edge"):
+                r = _kernels_ms(fn)
+                r["event_median_ms"] = median_ms(fn, iters=50)
+                kernel = sum(v for k, v in r.items() if "seg_head" in k)
+                r["kernel_tb_s"] = (x.numel() * 2 + B * K * H * W * 4) / kernel / 1e9
+                out[tag] = r
+        except Exception as e:
+            ok = False
+            out[tag] = {"error": str(e).splitlines()[0]}
+    out["agrees"] = ok
+    return out
+
+
 def run(name: str) -> None:
     sys.path.insert(0, str(_checkout(name)))
     _load(name)
     family = VARIANTS[name][0]
     runner = {"int8": run_int8, "conv": run_conv, "transpconv": run_transpconv,
               "msda": run_msda, "msda_bwd": run_msda_bwd,
-              "msda_premapped": run_msda_premapped}[family]
+              "msda_premapped": run_msda_premapped, "seg": run_seg}[family]
     print(json.dumps(runner(name)), flush=True)
 
 

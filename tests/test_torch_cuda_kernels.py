@@ -868,6 +868,75 @@ def test_seg_head_kernel_matches_plain(dev, B, C, H, W, K):
     assert max_excess(got, want, KERNEL_TOLERANCES["seg_head_cm"]) <= 0
 
 
+# the kernel's edges: H * W a multiple of 4 but not of 8 (element loads), C
+# not a multiple of the 8-channel chunk, 9 and 17 classes (two and four
+# threads a unit, the last group part-filled), 512 channels at 32 classes,
+# and the path's tile batch of 8 at 512^2 (32 channels to 3 and 14 classes)
+@pytest.mark.parametrize("B,C,H,W,K", [(2, 32, 6, 10, 3), (1, 20, 8, 16, 5), (2, 24, 8, 24, 9),
+                                       (1, 40, 4, 64, 17), (1, 512, 8, 16, 32),
+                                       (8, 32, 512, 512, 3), (8, 32, 512, 512, 14)])
+def test_seg_head_kernel_edges_match_plain(dev, B, C, H, W, K):
+    g = torch.Generator().manual_seed(13)
+    x = _randn(g, (B, C, H, W), dev).to(torch.bfloat16)
+    w = _randn(g, (K, C, 1, 1), dev, C ** -0.5)
+    b = _randn(g, (K,), dev, 0.1)
+    p = _prologue(g, B, C, dev)
+    got, want = seg_head_cm(x, w, b, p), seg_head_cm_plain(x, w, b, p)
+    torch.cuda.synchronize()
+    assert got.shape == (B, K, H, W)
+    assert max_excess(got, want, KERNEL_TOLERANCES["seg_head_cm"]) <= 0
+
+
+# an input that is a contiguous view one element into a larger buffer: its
+# pointer 2 bytes past a 16-byte boundary, which a 16-byte load would fault
+# on; the kernel loads it element by element
+@pytest.mark.parametrize("B,C,H,W,K", [(2, 32, 16, 16, 3), (2, 32, 64, 64, 14)])
+def test_seg_head_kernel_on_odd_offset_input(dev, B, C, H, W, K):
+    g = torch.Generator().manual_seed(14)
+    x = _at_odd_element(_randn(g, (B, C, H, W), dev).to(torch.bfloat16))
+    w = _randn(g, (K, C, 1, 1), dev, C ** -0.5)
+    b = _randn(g, (K,), dev, 0.1)
+    p = _prologue(g, B, C, dev)
+    got, want = seg_head_cm(x, w, b, p), seg_head_cm_plain(x, w, b, p)
+    torch.cuda.synchronize()
+    assert max_excess(got, want, KERNEL_TOLERANCES["seg_head_cm"]) <= 0
+
+
+def test_seg_head_kernel_after_weight_update(dev):
+    """A repeated call after an in-place update of the weight and of a bf16
+    bias (as load_state_dict makes them) takes the new values: the prepared
+    weight and the fp32 bias are made again."""
+    g = torch.Generator().manual_seed(15)
+    B, C, K = 2, 32, 3
+    x = _randn(g, (B, C, 16, 32), dev).to(torch.bfloat16)
+    w = _randn(g, (K, C, 1, 1), dev, C ** -0.5)
+    b = _randn(g, (K,), dev, 0.1).to(torch.bfloat16)
+    p = _prologue(g, B, C, dev)
+    first = seg_head_cm(x, w, b, p)
+    with torch.no_grad():
+        w.copy_(_randn(g, tuple(w.shape), dev, C ** -0.5))
+        b.add_(0.5)
+    got = seg_head_cm(x, w, b, p)
+    torch.cuda.synchronize()
+    assert max_excess(got, seg_head_cm_plain(x, w, b, p),
+                      KERNEL_TOLERANCES["seg_head_cm"]) <= 0
+    assert not torch.equal(got, first)
+
+
+def test_seg_head_bad_inputs_raise(dev):
+    x = torch.zeros((1, 16, 4, 8), dtype=torch.bfloat16, device=dev)
+    w, b = torch.zeros((3, 16, 1, 1), device=dev), torch.zeros(3, device=dev)
+    p = (torch.ones((1, 16), device=dev), torch.zeros((1, 16), device=dev))
+    with pytest.raises(ValueError):
+        seg_head_cm(x, w, b, None)  # the kernel takes a prologue, as the JAX kernel does
+    with pytest.raises(ValueError):
+        seg_head_cm(x, torch.zeros((33, 16, 1, 1), device=dev), torch.zeros(33, device=dev), p)
+    with pytest.raises(ValueError):
+        seg_head_cm(x, torch.zeros((3, 8, 1, 1), device=dev), b, p)  # 8 channels, x has 16
+    with pytest.raises(ValueError):
+        seg_head_cm(x.float(), w, b, p)
+
+
 def test_conv_family_bad_inputs_raise(dev):
     x = torch.zeros((1, 16, 4, 4), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):

@@ -155,12 +155,17 @@ def test_transpconv2x2_cm_matches_jax(dtype, width, with_prologue):
     _close(got, want, MAP_TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_seg_head_cm_matches_jax(dtype):
+# 16 channels to 3 classes, then a multi-organ class count (14) and a wider
+# map (64 channels)
+@pytest.mark.parametrize("dtype,C,K", [
+    pytest.param(d, C, K, id=d + tag) for tag, C, K in (("", 16, 3), ("-K14", 16, 14),
+                                                        ("-C64", 64, 3))
+    for d in DTYPES])
+def test_seg_head_cm_matches_jax(dtype, C, K):
     from dinounet_tpu.ops.decoder_tail_pallas import seg_head_cm as jax_seg
 
     rng = np.random.default_rng(12)
-    B, C, H, W, K = 2, 16, 16, 128, 3
+    B, H, W = 2, 16, 128
     xj, xt = _both(_rand(rng, (B, C, H, W)), dtype)
     w, b = _rand(rng, (C, K), C ** -0.5), _rand(rng, (K,), 0.1)
     pj, pt = _prologue(rng, B, C)
