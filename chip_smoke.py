@@ -130,10 +130,36 @@ not 0:
               loss within TRAIN_LOSS_BOUND;
               an optimizer step on the card leaves every backbone parameter
               as it was.
+9. pipeline -- the path from raw files to segmentation files. A raw NIfTI
+              dataset (RAW_DATASET: RAW_TRAIN labelled and RAW_TEST test
+              cases of one 800 x 800 slice at 0.8 mm, the disk and ring
+              cases) with a hand-written plans file (2d, 1.0 mm: each case
+              is resampled to 640 x 640, RAW_TILES tiles of 512^2 at step
+              0.5), preprocess_dataset, then run.run_training of
+              DinoUNetTrainer_b on fold 0 with the train phase's epochs and
+              steps, ending in perform_actual_validation (mirror TTA) and
+              its summary.json; then a fresh nnUNetPredictor on the card,
+              initialize_from_trained_model_folder and predict_from_files
+              over imagesTs with the probabilities saved. Checks: every
+              validation and test case's segmentation file has its raw
+              file's shape and geometry (the NIfTI affine: spacing and
+              origin) and labels in {0, 1, 2}; summary.json's foreground
+              mean Dice is finite; the launches of the whole phase are
+              exactly the train steps' PER_TRAIN_STEP plus PER_FORWARD for
+              every tile batch of the run (the epochs' validation batches,
+              then cases x tile batches x mirrors for the validation and
+              the prediction, and one batch for the parity case); one test
+              case predicted on the card without mirroring (bf16, the
+              kernels) against predict_single_npy_array of the same model
+              folder on the CPU (fp32, the plain versions, no mirroring):
+              relative L2 of the probabilities <= PARITY_BOUND, the labels'
+              agreement for information. Seconds a case for preprocessing,
+              prediction and export, the validation's total and
+              predict_from_files' cases/s for information.
 
 Then the card's name and power limit, one JSON line of kernel results
-(launches: the counts of the serve path, each route's and the train paths),
-and as the last line {"ok": true, "device": {...}}. Without a CUDA device the
+(launches: the counts of the serve path, each route's, the train paths and
+the pipeline), and as the last line {"ok": true, "device": {...}}. Without a CUDA device the
 script raises before printing any result.
 """
 
@@ -151,6 +177,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dinounet_tpu_torch.imageio.nifti import NiftiIO, read_nifti
+from dinounet_tpu_torch.inference import export as export_module
+from dinounet_tpu_torch.inference import predictor as predictor_module
 from dinounet_tpu_torch.inference.predictor import nnUNetPredictor
 from dinounet_tpu_torch.models.dinounet import DinoUNet, DinoUNetConfig
 from dinounet_tpu_torch.models.vit import rope_sincos
@@ -191,12 +220,16 @@ from dinounet_tpu_torch.ops.msda_kernel import (bwd_plan, ms_deform_attn_premapp
                                                 ms_deform_attn_premapped_backward,
                                                 ms_deform_attn_premapped_fused,
                                                 ms_deform_attn_premapped_fused_merged)
-from dinounet_tpu_torch.run import get_trainer_from_args
+from dinounet_tpu_torch.planning.plan_and_preprocess_api import preprocess_dataset
+from dinounet_tpu_torch.preprocessing.preprocessor import DefaultPreprocessor
+from dinounet_tpu_torch.run import get_trainer_from_args, run_training
+from dinounet_tpu_torch.training.dinounet_trainer import DinoUNetTrainer_b
 from dinounet_tpu_torch.training.losses import dc_and_ce_loss
-from dinounet_tpu_torch.training.trainer import clip_and_step, sgd_nesterov
+from dinounet_tpu_torch.training.trainer import clip_and_step, nnUNetTrainer, sgd_nesterov
 from dinounet_tpu_torch.utilities.plans_handler import PlansManager
 from dinounet_tpu_torch.utilities.synthetic_dataset import (disk_ring_case,
-                                                            write_disk_ring_dataset)
+                                                            write_disk_ring_dataset,
+                                                            write_disk_ring_raw_dataset)
 
 TILE_BATCH = 8
 PATCH = 512
@@ -290,6 +323,14 @@ PER_TRAIN_STEP_L = {**PER_TRAIN_STEP, "rope_attention": 24, "dense_cm_stats": 24
 PER_TRAIN_STEP_XLA = {**PER_TRAIN_STEP, "msda_fwd": 0, "msda_fwd_premapped": 12}
 TRAIN_ITERS, TRAIN_EPOCHS, VAL_ITERS, LEARN_STEPS, ROUTE_STEPS = 5, 2, 2, 40, 5
 TRAIN_DATASET = "Dataset998_SmokeTrain"
+# the pipeline phase's raw dataset: one 800 x 800 slice a case at 0.8 mm,
+# planned at 1.0 mm (640 x 640 after preprocessing); fold 0 of the 5-fold
+# split of RAW_TRAIN cases validates RAW_VAL of them
+RAW_DATASET = "Dataset997_SmokeRaw"
+RAW_TRAIN, RAW_TEST, RAW_VAL = 8, 2, 2
+RAW_SIZE, RAW_SPACING, PLANS_SPACING = 800, 0.8, 1.0
+# the mirror-TTA variants of a 2-D network (axes 0 and 1: none, either, both)
+MIRRORS = 4
 # one train step, card bf16 (kernels) vs CPU fp32 (plain versions), relative
 # L2. bf16 keeps 8 significant bits and the ~60 layers of forward and
 # backward each round activations and gradients at 2^-9 relative: the whole
@@ -1650,6 +1691,193 @@ def phase_train_parity(dev) -> None:
         "tensors unchanged")
 
 
+def raw_tiles() -> int:
+    """Tiles of one preprocessed case: the slice resampled to PLANS_SPACING,
+    padded to a multiple of half the patch, tiled at step 0.5."""
+    side = round(RAW_SIZE * RAW_SPACING / PLANS_SPACING)
+    padded = -(-max(side, PATCH) // (PATCH // 2)) * (PATCH // 2)
+    steps = -(-(padded - PATCH) // (PATCH // 2)) + 1
+    return steps * steps
+
+
+@contextlib.contextmanager
+def shortened_training(trainer_cls):
+    """run.run_training builds its trainer itself: within the block,
+    `trainer_cls` trains TRAIN_EPOCHS epochs of TRAIN_ITERS steps and
+    VAL_ITERS validation batches, from seed 0."""
+    had_own = "__init__" in vars(trainer_cls)
+    init = trainer_cls.__init__
+
+    def short_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self.seed = 0
+        self.num_epochs = TRAIN_EPOCHS
+        self.num_iterations_per_epoch = TRAIN_ITERS
+        self.num_val_iterations_per_epoch = VAL_ITERS
+
+    trainer_cls.__init__ = short_init
+    try:
+        yield
+    finally:
+        if had_own:
+            trainer_cls.__init__ = init
+        else:
+            del trainer_cls.__init__
+
+
+@contextlib.contextmanager
+def timed_calls(table: dict):
+    """Seconds of each call, by stage, within the block: preprocessing a
+    case (DefaultPreprocessor.run_case), its prediction on the device
+    (predict_logits_from_preprocessed_data, which ends in the copy of the
+    logits to the host), its export, and the trainer's final validation."""
+    patched = [(DefaultPreprocessor, "run_case", "preprocess"),
+               (nnUNetPredictor, "predict_logits_from_preprocessed_data", "predict"),
+               (export_module, "export_prediction_from_logits", "export"),
+               (predictor_module, "export_prediction_from_logits", "export"),
+               (nnUNetTrainer, "perform_actual_validation", "validation")]
+    saved = [getattr(owner, name) for owner, name, _ in patched]
+
+    def timed(fn, stage):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            table.setdefault(stage, []).append(time.perf_counter() - t0)
+            return out
+        return call
+
+    for (owner, name, stage), fn in zip(patched, saved):
+        setattr(owner, name, timed(fn, stage))
+    try:
+        yield
+    finally:
+        for (owner, name, _), fn in zip(patched, saved):
+            setattr(owner, name, fn)
+
+
+def check_segmentation_file(out_file: str, raw_file: str) -> None:
+    """A predicted segmentation has its raw image's shape, spacing and
+    origin (the whole NIfTI affine) and labels within {0, 1, 2}."""
+    seg, seg_props = NiftiIO().read_seg(out_file)
+    img, img_props = NiftiIO().read_images([raw_file])
+    if seg.shape != img.shape or seg_props["spacing"] != img_props["spacing"]:
+        raise AssertionError(f"{out_file}: {seg.shape} at {seg_props['spacing']}, the raw "
+                             f"image {img.shape} at {img_props['spacing']}")
+    if not np.array_equal(read_nifti(out_file)[1]["affine"], read_nifti(raw_file)[1]["affine"]):
+        raise AssertionError(f"{out_file}: its affine differs from {raw_file}'s")
+    if not set(np.unique(seg).tolist()) <= {0, 1, 2}:
+        raise AssertionError(f"{out_file}: labels {np.unique(seg)}")
+
+
+def _per_case(times) -> str:
+    return f"{float(np.median(times)):.3f} s a case (median of {len(times)})"
+
+
+def phase_pipeline(dev, root: str) -> dict:
+    for sub in ("raw", "preprocessed", "results"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        os.environ["nnUNet_" + sub] = os.path.join(root, sub)
+    raw = write_disk_ring_raw_dataset(
+        os.environ["nnUNet_raw"], os.environ["nnUNet_preprocessed"], RAW_DATASET,
+        RAW_TRAIN, RAW_TEST, (RAW_SIZE, RAW_SIZE), RAW_SPACING, PLANS_SPACING,
+        (PATCH, PATCH), 2, ARCH, seed=0)
+    tiles = raw_tiles()
+    batches = -(-tiles // TILE_BATCH)
+    times = {}
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with timed_calls(times):
+        preprocess_dataset(RAW_DATASET, configurations=["2d"], num_processes=[4])
+        prep_s = time.perf_counter() - t0
+        prep_times = times.pop("preprocess")
+        with shortened_training(DinoUNetTrainer_b):
+            trainer = run_training(RAW_DATASET, "2d", 0, "DinoUNetTrainer_b", device=dev)
+        torch.cuda.synchronize()
+        val_times = {k: times.pop(k) for k in list(times)}
+
+        _, val_keys = trainer.do_split()
+        if len(val_keys) != RAW_VAL:
+            raise AssertionError(f"fold 0 validates {val_keys}")
+        val_folder = os.path.join(trainer.output_folder, "validation")
+        for k in val_keys:
+            check_segmentation_file(os.path.join(val_folder, k + ".nii.gz"),
+                                    os.path.join(raw, "imagesTr", k + "_0000.nii.gz"))
+        with open(os.path.join(val_folder, "summary.json")) as f:
+            dice = json.load(f)["foreground_mean"]["Dice"]
+        if not np.isfinite(dice):
+            raise AssertionError(f"summary.json: foreground mean Dice {dice}")
+        model_folder = trainer.output_folder_base
+        del trainer
+        torch.cuda.empty_cache()
+
+        predictor = nnUNetPredictor(device=dev)
+        predictor.initialize_from_trained_model_folder(model_folder, use_folds=(0,))
+        out = os.path.join(root, "predicted")
+        t0 = time.perf_counter()
+        written = predictor.predict_from_files(os.path.join(raw, "imagesTs"), out,
+                                               save_probabilities=True)
+        torch.cuda.synchronize()
+        predict_s = time.perf_counter() - t0
+        if len(written) != RAW_TEST:
+            raise AssertionError(f"predict_from_files wrote {written}")
+        for ofile in written:
+            check_segmentation_file(ofile + ".nii.gz", os.path.join(
+                raw, "imagesTs", os.path.basename(ofile) + "_0000.nii.gz"))
+        test_times = {k: times.pop(k) for k in list(times)}
+
+        # the parity case, without mirroring
+        case = os.path.join(raw, "imagesTs", f"case_{RAW_TRAIN:03d}_0000.nii.gz")
+        predictor.use_mirroring = False
+        predictor.predict_from_files([[case]], os.path.join(root, "parity"),
+                                     save_probabilities=True)
+    counts = _build.launch_counts()
+
+    n_forwards = (TRAIN_EPOCHS * VAL_ITERS + (RAW_VAL + RAW_TEST) * batches * MIRRORS
+                  + batches)
+    want = {k: TRAIN_EPOCHS * TRAIN_ITERS * PER_TRAIN_STEP[k] + n_forwards * PER_FORWARD[k]
+            for k in PER_FORWARD}
+    log(f"[pipeline] {RAW_TRAIN} + {RAW_TEST} raw cases of {RAW_SIZE}^2 at {RAW_SPACING} mm "
+        f"-> {tiles} tiles of {PATCH}^2 a case ({batches} tile batch of {TILE_BATCH}); "
+        f"run_training: {TRAIN_EPOCHS} epochs x {TRAIN_ITERS} steps, {RAW_VAL} validation "
+        f"cases x {MIRRORS} mirrors; {RAW_TEST} test cases x {MIRRORS} mirrors; 1 parity "
+        f"case; launches {counts}")
+    if counts != want:
+        raise AssertionError(f"pipeline: kernel launches {counts}, the path makes {want}")
+
+    p_card = np.load(os.path.join(root, "parity", f"case_{RAW_TRAIN:03d}.npz"))["probabilities"]
+    cpu = nnUNetPredictor(use_mirroring=False, device="cpu", tile_batch=tiles)
+    cpu.initialize_from_trained_model_folder(model_folder, use_folds=(0,))
+    cpu.network = DinoUNet(dataclasses.replace(cpu.network.cfg, dtype="float32")).eval()
+    image, props = NiftiIO().read_images([case])
+    t0 = time.perf_counter()
+    seg_cpu, p_cpu = cpu.predict_single_npy_array(image, props, None, None, True)
+    cpu_s = time.perf_counter() - t0
+    seg_card = NiftiIO().read_seg(os.path.join(root, "parity",
+                                               f"case_{RAW_TRAIN:03d}.nii.gz"))[0][0]
+    if p_card.shape != p_cpu.shape or p_card.shape != (N_CLASSES, 1, RAW_SIZE, RAW_SIZE):
+        raise AssertionError(f"probabilities {p_card.shape} on the card, {p_cpu.shape} "
+                             "on the CPU")
+    rel = rel_l2(torch.from_numpy(p_card.astype(np.float32)),
+                 torch.from_numpy(p_cpu.astype(np.float32)))
+    agree = float(np.mean(seg_card == seg_cpu))
+    log(f"[pipeline] validation: foreground mean Dice {dice:.4f} (summary.json); parity "
+        f"case_{RAW_TRAIN:03d}, exported probabilities, card bf16 vs CPU fp32 "
+        f"predict_single_npy_array ({cpu_s:.1f} s), no mirroring: relative L2 {rel:.4e} "
+        f"(bound {PARITY_BOUND}), labels agree on {100 * agree:.3f} % of the pixels")
+    if not rel <= PARITY_BOUND:
+        raise AssertionError(f"pipeline parity {rel} over {PARITY_BOUND}")
+    log(f"[pipeline] {card_line()}: preprocess_dataset {prep_s:.2f} s for {RAW_TRAIN} "
+        f"cases (run_case {_per_case(prep_times)}, 4 threads); final validation "
+        f"{val_times['validation'][0]:.2f} s for {RAW_VAL} cases (prediction on the "
+        f"device {_per_case(val_times['predict'])}, export {_per_case(val_times['export'])}"
+        f"); predict_from_files {predict_s:.2f} s for {RAW_TEST} cases, "
+        f"{RAW_TEST / predict_s:.3f} cases/s (preprocessing "
+        f"{_per_case(test_times['preprocess'])}, prediction on the device "
+        f"{_per_case(test_times['predict'])}, export {_per_case(test_times['export'])})")
+    return counts
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1714,6 +1942,8 @@ def main() -> int:
         counts["train_l"] = phase_train_steps(dev, "DinoUNetTrainer_l", "train_l",
                                               PER_TRAIN_STEP_L)
     phase_train_parity(dev)
+    with tempfile.TemporaryDirectory() as root:
+        counts["pipeline"] = phase_pipeline(dev, root)
 
     log(card_line())
     log(json.dumps({"kernels": [

@@ -1,8 +1,10 @@
 """Global settings of the port.
 
-The compute dtype of the model, the device-memory budget of the
-sliding-window accumulators, the three inference-only conv routes, the
-three MSDA and attention routes and the int8 serving mode. The JAX
+The resampling's anisotropy threshold (as in
+``dinounet_tpu/configuration.py:12-14``), the compute dtype of the model,
+the device-memory budget of the sliding-window accumulators, the three
+inference-only conv routes, the three MSDA and attention routes and the
+int8 serving mode. The JAX
 package's other switches that only choose between TPU formulations of the
 same math have no counterpart here (``DINOUNET_TPU_INT8_QKV_IMPL``, for
 one, picks between two TPU formulations of the int8 qkv that give the same
@@ -41,6 +43,10 @@ not been checked; the mode stays opt-in.
 import os
 
 import torch
+
+# Above this spacing-anisotropy ratio the resampling switches to the
+# separate-z path (per-slice 2D resampling + independent z interpolation).
+ANISO_THRESHOLD = 3
 
 # Matmuls, convolutions and the kernels run in bfloat16; LayerNorm,
 # InstanceNorm and BatchNorm statistics, the softmaxes and the logits in fp32.

@@ -1,0 +1,186 @@
+"""Spacing/shape resampling of images and segmentations.
+
+Capability parity with ref: dinounet/preprocessing/resampling/default_resampling.py
+(:32-216): cubic-spline resize for image data, one-hot linear resize for
+segmentations, and the separate-z path for anisotropic volumes (per-slice 2-D
+resize + independent z interpolation). skimage/batchgenerators are not available
+in this image; the resize core is implemented directly on scipy.ndimage
+(`map_coordinates` over half-pixel-aligned coordinates with spline prefilter,
+mode 'nearest' == skimage's mode='edge', clip=True) which is numerically what
+skimage.transform.resize(anti_aliasing=False) computes.
+
+Registered in the resampling registry under the reference plans.json function
+names so plans files stay byte-compatible.
+
+JAX-free copy of ``dinounet_tpu/preprocessing/resampling.py``.
+"""
+
+from typing import List, Tuple, Union
+
+import numpy as np
+from scipy.ndimage import map_coordinates
+
+from dinounet_tpu_torch.configuration import ANISO_THRESHOLD
+from dinounet_tpu_torch.utilities.registry import resampling_fns
+
+
+def resize_nd(image: np.ndarray, new_shape, order: int = 3, mode: str = "nearest",
+              clip: bool = True) -> np.ndarray:
+    """skimage.transform.resize(mode='edge', anti_aliasing=False, clip=True) equivalent."""
+    image = np.asarray(image)
+    old_shape = image.shape
+    new_shape = tuple(int(s) for s in new_shape)
+    if tuple(old_shape) == new_shape:
+        return image.astype(float, copy=True)
+    coords = np.meshgrid(
+        *[
+            (np.arange(n, dtype=float) + 0.5) * (o / n) - 0.5
+            for o, n in zip(old_shape, new_shape)
+        ],
+        indexing="ij",
+    )
+    out = map_coordinates(
+        image.astype(float), np.array(coords), order=order, mode=mode,
+        prefilter=order > 1,
+    )
+    if clip:
+        out = np.clip(out, image.min(), image.max())
+    return out
+
+
+def resize_segmentation(segmentation: np.ndarray, new_shape, order: int = 3) -> np.ndarray:
+    """One-hot resize: each label channel resized with `order`, argmax by >=0.5.
+
+    Equivalent of batchgenerators.augmentations.utils.resize_segmentation as used
+    by the reference (ref: default_resampling.py:8, 147-149).
+    """
+    tpe = segmentation.dtype
+    unique_labels = np.unique(segmentation)
+    if order == 0:
+        return resize_nd(segmentation.astype(float), new_shape, order).astype(tpe)
+    reshaped = np.zeros(new_shape, dtype=tpe)
+    for c in unique_labels:
+        mask = segmentation == c
+        reshaped_multihot = resize_nd(mask.astype(float), new_shape, order)
+        reshaped[reshaped_multihot >= 0.5] = c
+    return reshaped
+
+
+def get_do_separate_z(spacing, anisotropy_threshold=ANISO_THRESHOLD) -> bool:
+    return (np.max(spacing) / np.min(spacing)) > anisotropy_threshold
+
+
+def get_lowres_axis(new_spacing):
+    return np.where(max(new_spacing) / np.array(new_spacing) == 1)[0]
+
+
+def compute_new_shape(old_shape, old_spacing, new_spacing) -> np.ndarray:
+    assert len(old_spacing) == len(old_shape) == len(new_spacing)
+    return np.array([int(round(i / j * k)) for i, j, k in zip(old_spacing, new_spacing, old_shape)])
+
+
+def _determine_separate_z(current_spacing, new_spacing, force_separate_z,
+                          threshold) -> Tuple[bool, Union[np.ndarray, None]]:
+    if force_separate_z is not None:
+        do_separate_z = force_separate_z
+        axis = get_lowres_axis(current_spacing) if force_separate_z else None
+    else:
+        if get_do_separate_z(current_spacing, threshold):
+            do_separate_z, axis = True, get_lowres_axis(current_spacing)
+        elif get_do_separate_z(new_spacing, threshold):
+            do_separate_z, axis = True, get_lowres_axis(new_spacing)
+        else:
+            do_separate_z, axis = False, None
+    if axis is not None and len(axis) != 1:
+        # 2+ axes sharing the max spacing: no meaningful out-of-plane axis
+        do_separate_z = False
+    return do_separate_z, axis
+
+
+def resample_data_or_seg(data: np.ndarray, new_shape, is_seg: bool = False,
+                         axis=None, order: int = 3, do_separate_z: bool = False,
+                         order_z: int = 0) -> np.ndarray:
+    """ref: default_resampling.py:125-216."""
+    assert data.ndim == 4, "data must be (c, x, y, z)"
+    assert len(new_shape) == data.ndim - 1
+
+    resize_fn = resize_segmentation if is_seg else resize_nd
+    dtype_data = data.dtype
+    shape = np.array(data[0].shape)
+    new_shape = np.array([int(s) for s in new_shape])
+    if np.all(shape == new_shape):
+        return data
+
+    data = data.astype(float)
+    if do_separate_z:
+        assert len(axis) == 1, "only one anisotropic axis supported"
+        ax = int(axis[0])
+        new_shape_2d = np.delete(new_shape, ax)
+
+        reshaped_final = []
+        for c in range(data.shape[0]):
+            slices = [
+                resize_fn(np.take(data[c], s, axis=ax), new_shape_2d, order)
+                for s in range(shape[ax])
+            ]
+            reshaped = np.stack(slices, axis=ax)
+            if shape[ax] != new_shape[ax]:
+                # z interpolation with order_z over half-pixel-aligned coords
+                orig = np.array(reshaped.shape, dtype=float)
+                scale = orig / new_shape
+                grids = np.mgrid[[slice(0, int(n)) for n in new_shape]].astype(float)
+                coord_map = np.array(
+                    [scale[i] * (grids[i] + 0.5) - 0.5 for i in range(3)]
+                )
+                if not is_seg or order_z == 0:
+                    reshaped_final.append(
+                        map_coordinates(reshaped, coord_map, order=order_z, mode="nearest")[None]
+                    )
+                else:
+                    unique_labels = np.sort(np.unique(reshaped.ravel()))
+                    out = np.zeros(tuple(new_shape), dtype=dtype_data)
+                    for cl in unique_labels:
+                        mh = np.round(
+                            map_coordinates((reshaped == cl).astype(float), coord_map,
+                                            order=order_z, mode="nearest")
+                        )
+                        out[mh > 0.5] = cl
+                    reshaped_final.append(out[None])
+            else:
+                reshaped_final.append(reshaped[None])
+        return np.vstack(reshaped_final).astype(dtype_data)
+
+    reshaped = [resize_fn(data[c], new_shape, order)[None] for c in range(data.shape[0])]
+    return np.vstack(reshaped).astype(dtype_data)
+
+
+@resampling_fns.register(
+    "resample_data_or_seg_to_shape",
+    "dinounet.preprocessing.resampling.default_resampling.resample_data_or_seg_to_shape",
+    "nnunetv2.preprocessing.resampling.default_resampling.resample_data_or_seg_to_shape",
+)
+def resample_data_or_seg_to_shape(data, new_shape, current_spacing, new_spacing,
+                                  is_seg: bool = False, order: int = 3, order_z: int = 0,
+                                  force_separate_z: Union[bool, None] = False,
+                                  separate_z_anisotropy_threshold: float = ANISO_THRESHOLD):
+    """ref: default_resampling.py:80-122."""
+    data = np.asarray(data)
+    do_separate_z, axis = _determine_separate_z(
+        current_spacing, new_spacing, force_separate_z, separate_z_anisotropy_threshold
+    )
+    return resample_data_or_seg(data, new_shape, is_seg, axis, order, do_separate_z,
+                                order_z=order_z)
+
+
+def resample_data_or_seg_to_spacing(data, current_spacing, new_spacing,
+                                    is_seg: bool = False, order: int = 3, order_z: int = 0,
+                                    force_separate_z: Union[bool, None] = False,
+                                    separate_z_anisotropy_threshold: float = ANISO_THRESHOLD):
+    """ref: default_resampling.py:32-77."""
+    data = np.asarray(data)
+    do_separate_z, axis = _determine_separate_z(
+        current_spacing, new_spacing, force_separate_z, separate_z_anisotropy_threshold
+    )
+    new_shape = compute_new_shape(np.array(data[0].shape), current_spacing, new_spacing)
+    return resample_data_or_seg(data, new_shape, is_seg, axis, order, do_separate_z,
+                                order_z=order_z)

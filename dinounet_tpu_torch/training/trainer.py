@@ -18,9 +18,14 @@ nnUNetTrainer/nnUNetTrainer.py) for 2-D configurations on one device:
     host thread that prefetches numpy batches; compute is bf16 (the model's
     dtype), parameters and optimizer state fp32, no loss scaling.
 
-Regions (DC+BCE training), the cascade, 3-D configurations, deep-supervision
-outputs and ``perform_actual_validation`` (export, image I/O and metrics) are
-not ported yet and raise ``NotImplementedError``.
+The final validation (``perform_actual_validation``) predicts the
+validation cases by sliding window with mirror TTA on the trainer's device,
+exports them through the plans' reader/writer and writes their metrics to
+``validation/summary.json``, as the JAX trainer does.
+
+Regions (DC+BCE training), the cascade, 3-D configurations and
+deep-supervision outputs are not ported yet and raise
+``NotImplementedError``.
 """
 
 import os
@@ -469,7 +474,56 @@ class nnUNetTrainer:
     # --------------------------------------------------- final validation
 
     def perform_actual_validation(self, save_probabilities: bool = False):
-        raise NotImplementedError(
-            "perform_actual_validation (sliding-window prediction of the "
-            "validation cases, export and metrics) waits for the port's "
-            "validation slice")
+        """Sliding-window prediction of every validation case of the split
+        on the trainer's device, export to <output_folder>/validation, and
+        the metrics against gt_segmentations into its summary.json
+        (ref :1146-1293). Returns the metrics (None without
+        gt_segmentations)."""
+        from dinounet_tpu_torch.evaluation.metrics import compute_metrics_on_folder
+        from dinounet_tpu_torch.inference.export import export_prediction_from_logits
+        from dinounet_tpu_torch.inference.predictor import nnUNetPredictor
+
+        if self.configuration_manager.next_stage_names:
+            raise NotImplementedError(
+                "exporting the validation for a cascade's next stage is not "
+                "ported yet (ROADMAP.md, queue item 8)")
+        inference_network = self.build_network_architecture(
+            self.configuration_manager.network_arch_class_name,
+            self.configuration_manager.network_arch_init_kwargs,
+            self.configuration_manager.network_arch_init_kwargs_req_import,
+            self.num_input_channels,
+            self.label_manager.num_segmentation_heads,
+            enable_deep_supervision=False)
+        predictor = nnUNetPredictor(tile_step_size=0.5, use_gaussian=True,
+                                    use_mirroring=True, device=self.device)
+        predictor.manual_initialization(
+            inference_network, self.plans_manager, self.configuration_manager,
+            [self.network.state_dict()], self.dataset_json, self.__class__.__name__,
+            self.inference_allowed_mirroring_axes)
+
+        validation_output_folder = os.path.join(self.output_folder, "validation")
+        os.makedirs(validation_output_folder, exist_ok=True)
+        _, val_keys = self.do_split()
+        dataset_val = nnUNetDataset(self.preprocessed_dataset_folder, val_keys)
+        for k in val_keys:
+            self.print_to_log_file(f"predicting {k}")
+            data, _, properties = dataset_val.load_case(k)
+            prediction = predictor.predict_logits_from_preprocessed_data(np.asarray(data))
+            export_prediction_from_logits(
+                prediction, properties, self.configuration_manager, self.plans_manager,
+                self.dataset_json, os.path.join(validation_output_folder, k),
+                save_probabilities)
+
+        gt_folder = os.path.join(self.preprocessed_dataset_folder_base, "gt_segmentations")
+        if not os.path.isdir(gt_folder):
+            return None
+        metrics = compute_metrics_on_folder(
+            gt_folder, validation_output_folder,
+            os.path.join(validation_output_folder, "summary.json"),
+            self.plans_manager.image_reader_writer_class(),
+            self.dataset_json["file_ending"],
+            self.label_manager.foreground_regions if self.label_manager.has_regions
+            else self.label_manager.foreground_labels,
+            self.label_manager.ignore_label)
+        self.print_to_log_file("Mean Validation Dice:", metrics["foreground_mean"]["Dice"])
+        return metrics

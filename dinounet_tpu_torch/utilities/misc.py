@@ -1,6 +1,7 @@
-"""Cross-validation splits and dataset-name resolution (JAX-free copies of
-``dinounet_tpu/utilities/misc.py``; ref: dinounet/utilities/
-{crossval_split.py,dataset_name_id_conversion.py})."""
+"""Cross-validation splits, dataset-name resolution and the results
+folder's name (JAX-free copies of ``dinounet_tpu/utilities/misc.py``; ref:
+dinounet/utilities/{crossval_split.py,dataset_name_id_conversion.py,
+file_path_utilities.py})."""
 
 import os
 from typing import List, Union
@@ -57,3 +58,14 @@ def maybe_convert_to_dataset_name(dataset_name_or_id: Union[int, str]) -> str:
         raise RuntimeError(f"found {len(candidates)} datasets with id {dataset_id} "
                            f"in nnUNet_raw/preprocessed/results: {sorted(candidates)}")
     return candidates.pop()
+
+
+def convert_identifier_to_trained_model_output_folder(
+        dataset_name: str, trainer_name: str, plans_identifier: str,
+        configuration: str) -> str:
+    """results/<dataset>/<Trainer>__<plans>__<config> (ref:
+    file_path_utilities.py:19)."""
+    from dinounet_tpu_torch import paths
+
+    return os.path.join(paths.nnUNet_results(), dataset_name,
+                        f"{trainer_name}__{plans_identifier}__{configuration}")

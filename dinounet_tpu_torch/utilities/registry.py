@@ -11,10 +11,13 @@ the mapping is auditable.
 from typing import Any, Callable, Dict
 
 
-# Modules of this package that register built-ins on import: the trainers.
-# Preprocessors, planners and readers come with the parts of the port that
-# add them.
+# Modules of this package that register built-ins on import: the
+# preprocessor, the resampling functions, the image readers and the
+# trainers. The planners come with the part of the port that adds them.
 _REGISTRATION_MODULES = (
+    "dinounet_tpu_torch.preprocessing.preprocessor",
+    "dinounet_tpu_torch.preprocessing.resampling",
+    "dinounet_tpu_torch.imageio.reader_writer_registry",
     "dinounet_tpu_torch.training.trainer",
     "dinounet_tpu_torch.training.trainer_variants",
     "dinounet_tpu_torch.training.dinounet_trainer",

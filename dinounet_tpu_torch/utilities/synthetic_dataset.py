@@ -19,6 +19,8 @@ import pickle
 
 import numpy as np
 
+from dinounet_tpu_torch.imageio.nifti import write_nifti
+
 LABELS = {"background": 0, "disk": 1, "ring": 2}
 
 
@@ -87,3 +89,83 @@ def write_disk_ring_dataset(preprocessed_root: str, dataset_name: str, n_cases: 
     with open(os.path.join(base, "nnUNetPlans.json"), "w") as f:
         json.dump(plans, f, indent=2)
     return base
+
+
+def _intensity_properties(foreground: np.ndarray) -> dict:
+    """The planner's foreground intensity statistics of one channel."""
+    return {"max": float(np.max(foreground)), "mean": float(np.mean(foreground)),
+            "median": float(np.median(foreground)), "min": float(np.min(foreground)),
+            "percentile_00_5": float(np.percentile(foreground, 0.5)),
+            "percentile_99_5": float(np.percentile(foreground, 99.5)),
+            "std": float(np.std(foreground))}
+
+
+def write_disk_ring_raw_dataset(raw_root: str, preprocessed_root: str,
+                                dataset_name: str, n_train: int, n_test: int, size,
+                                in_plane_spacing: float, target_spacing: float,
+                                patch_size, batch_size: int, architecture: dict,
+                                seed: int = 0) -> str:
+    """Write the raw dataset and its plans (see the module docstring):
+    `n_train` labelled and `n_test` unlabelled cases of one (H, W) slice at
+    `in_plane_spacing` mm (1 mm between slices), drawn in that order from
+    one generator; the plans resample to `target_spacing` mm in plane.
+    Returns the raw dataset's folder."""
+    rng = np.random.default_rng(seed)
+    H, W = size
+    folder = os.path.join(raw_root, dataset_name)
+    for sub in ("imagesTr", "labelsTr", "imagesTs"):
+        os.makedirs(os.path.join(folder, sub), exist_ok=True)
+    spacing_xyz = (in_plane_spacing, in_plane_spacing, 1.0)
+    foreground = []
+    for i in range(n_train + n_test):
+        img, seg = disk_ring_case(rng, H, W)  # (1, 1, H, W): one slice (z, y, x)
+        name = f"case_{i:03d}"
+        if i < n_train:
+            write_nifti(os.path.join(folder, "imagesTr", name + "_0000.nii.gz"),
+                        img[0], spacing_xyz)
+            write_nifti(os.path.join(folder, "labelsTr", name + ".nii.gz"),
+                        seg[0].astype(np.uint8), spacing_xyz)
+            foreground.append(img[0][seg[0] > 0])
+        else:
+            write_nifti(os.path.join(folder, "imagesTs", name + "_0000.nii.gz"),
+                        img[0], spacing_xyz)
+    dataset_json = {"channel_names": {"0": "synthetic"}, "labels": LABELS,
+                    "numTraining": n_train, "file_ending": ".nii.gz"}
+
+    resampling_kwargs = {"order_z": 0, "force_separate_z": None}
+    plans = {
+        "dataset_name": dataset_name, "plans_name": "nnUNetPlans",
+        "original_median_spacing_after_transp": [1.0, in_plane_spacing, in_plane_spacing],
+        "original_median_shape_after_transp": [1, H, W],
+        "image_reader_writer": "NiftiIO",
+        "transpose_forward": [0, 1, 2], "transpose_backward": [0, 1, 2],
+        "configurations": {"2d": {
+            "data_identifier": "nnUNetPlans_2d", "preprocessor_name": "DefaultPreprocessor",
+            "batch_size": batch_size, "patch_size": list(patch_size),
+            "median_image_size_in_voxels": [
+                round(H * in_plane_spacing / target_spacing),
+                round(W * in_plane_spacing / target_spacing)],
+            "spacing": [target_spacing, target_spacing],
+            "normalization_schemes": ["ZScoreNormalization"], "use_mask_for_norm": [False],
+            "resampling_fn_data": "resample_data_or_seg_to_shape",
+            "resampling_fn_seg": "resample_data_or_seg_to_shape",
+            "resampling_fn_data_kwargs": {"is_seg": False, "order": 3, **resampling_kwargs},
+            "resampling_fn_seg_kwargs": {"is_seg": True, "order": 1, **resampling_kwargs},
+            "resampling_fn_probabilities": "resample_data_or_seg_to_shape",
+            "resampling_fn_probabilities_kwargs": {"is_seg": False, "order": 1,
+                                                   **resampling_kwargs},
+            "architecture": {"network_class_name": "DinoUNet", "arch_kwargs": architecture,
+                             "_kw_requires_import": []},
+            "batch_dice": True,
+        }},
+        "experiment_planner_used": "ExperimentPlanner", "label_manager": "LabelManager",
+        "foreground_intensity_properties_per_channel": {
+            "0": _intensity_properties(np.concatenate(foreground))},
+    }
+    for base in (folder, os.path.join(preprocessed_root, dataset_name)):
+        os.makedirs(base, exist_ok=True)
+        with open(os.path.join(base, "dataset.json"), "w") as f:
+            json.dump(dataset_json, f, indent=2)
+    with open(os.path.join(preprocessed_root, dataset_name, "nnUNetPlans.json"), "w") as f:
+        json.dump(plans, f, indent=2)
+    return folder

@@ -48,3 +48,20 @@ def test_no_port_source_imports_jax():
     assert offenders == []
     assert _IMPORT.search("    from dinounet_tpu.ops import x")  # the check bites
     assert not _IMPORT.search("from dinounet_tpu_torch.ops import x")
+
+
+def test_importing_every_port_module_needs_no_pil():
+    """No port module imports PIL at its top: the card's machine may lack
+    it, and only reading or writing a PNG or TIFF file needs it."""
+    modules = _port_modules()
+    assert "dinounet_tpu_torch.imageio.natural_image" in modules
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['PIL'] = None\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "ok"
