@@ -156,10 +156,31 @@ not 0:
               agreement for information. Seconds a case for preprocessing,
               prediction and export, the validation's total and
               predict_from_files' cases/s for information.
+10. api     -- the end-to-end CLI's path. A raw PNG dataset (API_DATASET:
+              API_CASES labelled grey cases of 800 x 800, the disk and ring
+              cases) with a dataset.json and no plans file;
+              dinounet_training_torch.main_dinov3("dinounet_b") on the card:
+              fingerprint, plan (forced 512 x 512, 4 stages, 2d), preprocess,
+              the planned network configuration injected into
+              DinoUNetTrainer_b, training (the train phase's epochs and
+              steps, by shortened_training) with its final validation, then
+              api.evaluate. Checks: dataset_fingerprint.json and
+              nnUNetPlans.json written, the 2d plans' patch 512^2 and 4
+              stages, the trained network's configuration is the injected
+              one's, every logged loss finite, checkpoint_final.pth written,
+              summary.json's foreground mean Dice finite, evaluate's dict
+              equal to the summary.json the validation wrote (read before
+              evaluate rewrites it), and the launches of the whole phase
+              exactly the train steps' PER_TRAIN_STEP plus PER_FORWARD for
+              every tile batch (the epochs' validation batches, then the
+              validation cases x 1 tile x mirrors). The plans' batch and
+              patch size, the seconds of each stage and the peak device
+              memory for information. The injection is class-level and
+              stays for the rest of the process: the phase runs last.
 
 Then the card's name and power limit, one JSON line of kernel results
-(launches: the counts of the serve path, each route's, the train paths and
-the pipeline), and as the last line {"ok": true, "device": {...}}. Without a CUDA device the
+(launches: the counts of the serve path, each route's, the train paths, the
+pipeline and the api phase), and as the last line {"ok": true, "device": {...}}. Without a CUDA device the
 script raises before printing any result.
 """
 
@@ -177,6 +198,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import dinounet_training_torch
+from dinounet_tpu_torch import api
+from dinounet_tpu_torch.evaluation.metrics import load_summary_json
 from dinounet_tpu_torch.imageio.nifti import NiftiIO, read_nifti
 from dinounet_tpu_torch.inference import export as export_module
 from dinounet_tpu_torch.inference import predictor as predictor_module
@@ -223,12 +247,13 @@ from dinounet_tpu_torch.ops.msda_kernel import (bwd_plan, ms_deform_attn_premapp
 from dinounet_tpu_torch.planning.plan_and_preprocess_api import preprocess_dataset
 from dinounet_tpu_torch.preprocessing.preprocessor import DefaultPreprocessor
 from dinounet_tpu_torch.run import get_trainer_from_args, run_training
-from dinounet_tpu_torch.training.dinounet_trainer import DinoUNetTrainer_b
+from dinounet_tpu_torch.training.dinounet_trainer import DinoUNetTrainer, DinoUNetTrainer_b
 from dinounet_tpu_torch.training.losses import dc_and_ce_loss
 from dinounet_tpu_torch.training.trainer import clip_and_step, nnUNetTrainer, sgd_nesterov
 from dinounet_tpu_torch.utilities.plans_handler import PlansManager
 from dinounet_tpu_torch.utilities.synthetic_dataset import (disk_ring_case,
                                                             write_disk_ring_dataset,
+                                                            write_disk_ring_png_dataset,
                                                             write_disk_ring_raw_dataset)
 
 TILE_BATCH = 8
@@ -331,6 +356,11 @@ RAW_TRAIN, RAW_TEST, RAW_VAL = 8, 2, 2
 RAW_SIZE, RAW_SPACING, PLANS_SPACING = 800, 0.8, 1.0
 # the mirror-TTA variants of a 2-D network (axes 0 and 1: none, either, both)
 MIRRORS = 4
+# the api phase's raw PNG dataset: API_CASES labelled cases of RAW_SIZE^2,
+# no plans file; the CLI's forced 512 x 512 shape makes each case one tile,
+# and fold 0 of the 5-fold split validates API_VAL of them
+API_DATASET_ID, API_DATASET = 995, "Dataset995_SmokePng"
+API_CASES, API_VAL = 8, 2
 # one train step, card bf16 (kernels) vs CPU fp32 (plain versions), relative
 # L2. bf16 keeps 8 significant bits and the ~60 layers of forward and
 # backward each round activations and gradients at 2^-9 relative: the whole
@@ -1701,15 +1731,18 @@ def raw_tiles() -> int:
 
 
 @contextlib.contextmanager
-def shortened_training(trainer_cls):
+def shortened_training(trainer_cls, built=None):
     """run.run_training builds its trainer itself: within the block,
     `trainer_cls` trains TRAIN_EPOCHS epochs of TRAIN_ITERS steps and
-    VAL_ITERS validation batches, from seed 0."""
+    VAL_ITERS validation batches, from seed 0; each trainer built is
+    appended to `built` where it is a list."""
     had_own = "__init__" in vars(trainer_cls)
     init = trainer_cls.__init__
 
     def short_init(self, *args, **kwargs):
         init(self, *args, **kwargs)
+        if built is not None:
+            built.append(self)
         self.seed = 0
         self.num_epochs = TRAIN_EPOCHS
         self.num_iterations_per_epoch = TRAIN_ITERS
@@ -1726,16 +1759,17 @@ def shortened_training(trainer_cls):
 
 
 @contextlib.contextmanager
-def timed_calls(table: dict):
+def timed_calls(table: dict, more=()):
     """Seconds of each call, by stage, within the block: preprocessing a
     case (DefaultPreprocessor.run_case), its prediction on the device
     (predict_logits_from_preprocessed_data, which ends in the copy of the
-    logits to the host), its export, and the trainer's final validation."""
+    logits to the host), its export, the trainer's final validation, and
+    the (owner, attribute, stage) triples of `more`."""
     patched = [(DefaultPreprocessor, "run_case", "preprocess"),
                (nnUNetPredictor, "predict_logits_from_preprocessed_data", "predict"),
                (export_module, "export_prediction_from_logits", "export"),
                (predictor_module, "export_prediction_from_logits", "export"),
-               (nnUNetTrainer, "perform_actual_validation", "validation")]
+               (nnUNetTrainer, "perform_actual_validation", "validation"), *more]
     saved = [getattr(owner, name) for owner, name, _ in patched]
 
     def timed(fn, stage):
@@ -1878,6 +1912,105 @@ def phase_pipeline(dev, root: str) -> dict:
     return counts
 
 
+def _same_json(a, b) -> bool:
+    """Equality of JSON-like trees, NaN equal to NaN."""
+    return json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
+
+
+def phase_api(dev, root: str) -> dict:
+    for sub in ("raw", "preprocessed", "results"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        os.environ["nnUNet_" + sub] = os.path.join(root, sub)
+    write_disk_ring_png_dataset(os.environ["nnUNet_raw"], API_DATASET, API_CASES,
+                                (RAW_SIZE, RAW_SIZE), seed=1)
+    times, built, written = {}, [], {}
+    evaluate = dinounet_training_torch.evaluate
+
+    def evaluate_after_reading(dataset_id, result_folder):
+        written["summary"] = load_summary_json(
+            os.path.join(result_folder, "validation", "summary.json"))
+        t0 = time.perf_counter()
+        out = evaluate(dataset_id=dataset_id, result_folder=result_folder)
+        times["evaluate"] = [time.perf_counter() - t0]
+        return out
+
+    stages = [(api, "extract_fingerprints", "fingerprint"), (api, "plan_experiments", "plan"),
+              (api, "preprocess", "preprocess_dataset"),
+              (nnUNetTrainer, "run_training", "training")]
+    dinounet_training_torch.evaluate = evaluate_after_reading
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    try:
+        with timed_calls(times, stages), shortened_training(DinoUNetTrainer_b, built):
+            t0 = time.perf_counter()
+            result_folder, training_log, results = dinounet_training_torch.main_dinov3(
+                model_name="dinounet_b", dataset_id=API_DATASET_ID,
+                num_epochs=TRAIN_EPOCHS, device=dev)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+    finally:
+        dinounet_training_torch.evaluate = evaluate
+    counts = _build.launch_counts()
+    injected = DinoUNetTrainer._network_config
+
+    pre = os.path.join(os.environ["nnUNet_preprocessed"], API_DATASET)
+    for name in ("dataset_fingerprint.json", "nnUNetPlans.json"):
+        if not os.path.isfile(os.path.join(pre, name)):
+            raise AssertionError(f"api: no {name} in {pre}")
+    with open(os.path.join(pre, "nnUNetPlans.json")) as f:
+        plan = json.load(f)["configurations"]["2d"]
+    arch = plan["architecture"]["arch_kwargs"]
+    if plan["patch_size"] != [PATCH, PATCH] or arch["n_stages"] != 4:
+        raise AssertionError(f"api: the 2d plans have patch {plan['patch_size']} and "
+                             f"{arch['n_stages']} stages")
+    if len(built) != 1:
+        raise AssertionError(f"api: {len(built)} DinoUNetTrainer_b built")
+    trainer = built[0]
+    want_cfg = DinoUNetConfig.from_plans_arch(injected["architecture"], N_CLASSES,
+                                              model_name="dinounet_b",
+                                              deep_supervision=False)
+    if (DinoUNetTrainer._dinov3_model_name != "dinounet_b" or trainer.network.cfg != want_cfg
+            or injected["architecture"]["features_per_stage"] != list(
+                arch["features_per_stage"])):
+        raise AssertionError(f"api: the trained network's configuration "
+                             f"{trainer.network.cfg} is not the injected {injected} "
+                             f"({DinoUNetTrainer._dinov3_model_name})")
+    losses = training_log["train_losses"] + training_log["val_losses"]
+    if len(losses) != 2 * TRAIN_EPOCHS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"api: logged losses {losses}")
+    if not os.path.isfile(os.path.join(result_folder, "checkpoint_final.pth")):
+        raise AssertionError("api: no checkpoint_final.pth")
+    dice = written["summary"]["foreground_mean"]["Dice"]
+    if not np.isfinite(dice):
+        raise AssertionError(f"api: summary.json's foreground mean Dice {dice}")
+    if not _same_json(results, written["summary"]):
+        raise AssertionError("api: evaluate returned another summary than the "
+                             "trainer's validation wrote")
+    _, val_keys = trainer.do_split()
+    if len(val_keys) != API_VAL:
+        raise AssertionError(f"api: fold 0 validates {val_keys}")
+    n_forwards = TRAIN_EPOCHS * VAL_ITERS + API_VAL * MIRRORS  # one tile a case
+    want = {k: TRAIN_EPOCHS * TRAIN_ITERS * PER_TRAIN_STEP[k] + n_forwards * PER_FORWARD[k]
+            for k in PER_FORWARD}
+    log(f"[api] main_dinov3('dinounet_b') on {API_CASES} raw PNG cases of {RAW_SIZE}^2: "
+        f"plans' 2d batch size {plan['batch_size']}, patch {plan['patch_size']}, "
+        f"{arch['n_stages']} stages, features {arch['features_per_stage']}; "
+        f"{TRAIN_EPOCHS} epochs x {TRAIN_ITERS} steps, {API_VAL} validation cases x "
+        f"{MIRRORS} mirrors; losses {[round(x, 4) for x in losses]}; foreground mean "
+        f"Dice {dice:.4f}; launches {counts}")
+    if counts != want:
+        raise AssertionError(f"api: kernel launches {counts}, the path makes {want}")
+    stage_s = {k: sum(v) for k, v in times.items()}
+    log(f"[api] {card_line()}: main_dinov3 {total_s:.2f} s: fingerprint "
+        f"{stage_s['fingerprint']:.2f} s, plan {stage_s['plan']:.2f} s, preprocess "
+        f"{stage_s['preprocess_dataset']:.2f} s ({API_CASES} cases), training "
+        f"{stage_s['training']:.2f} s (set-up and {TRAIN_EPOCHS * TRAIN_ITERS} steps), "
+        f"final validation {stage_s['validation']:.2f} s ({API_VAL} cases), evaluate "
+        f"{stage_s['evaluate']:.2f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    return counts
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1944,6 +2077,8 @@ def main() -> int:
     phase_train_parity(dev)
     with tempfile.TemporaryDirectory() as root:
         counts["pipeline"] = phase_pipeline(dev, root)
+    with tempfile.TemporaryDirectory() as root:
+        counts["api"] = phase_api(dev, root)
 
     log(card_line())
     log(json.dumps({"kernels": [

@@ -1,7 +1,7 @@
 """Global settings of the port.
 
-The resampling's anisotropy threshold (as in
-``dinounet_tpu/configuration.py:12-14``), the compute dtype of the model,
+The default number of host workers and the resampling's anisotropy
+threshold (as in ``dinounet_tpu/configuration.py:9-14``), the compute dtype of the model,
 the device-memory budget of the sliding-window accumulators, the three
 inference-only conv routes, the three MSDA and attention routes and the
 int8 serving mode. The JAX
@@ -43,6 +43,10 @@ not been checked; the mode stays opt-in.
 import os
 
 import torch
+
+# Number of host-side worker processes/threads for preprocessing & friends
+# (the JAX package's default and variable).
+default_num_processes = int(os.environ.get("nnUNet_def_n_proc", 8))
 
 # Above this spacing-anisotropy ratio the resampling switches to the
 # separate-z path (per-slice 2D resampling + independent z interpolation).

@@ -7,6 +7,16 @@ from the plans' architecture dict, and the size variants pinning the
 backbone. Deep supervision is off (the base class
 is nnUNetTrainerNoDeepSupervision).
 
+``set_network_config`` injects a network configuration (an entry of
+``api.plan_and_preprocess``'s ``network_configurations``) at class level, as
+the reference does (ref :842-855): it copies the configuration, the model
+name and the checkpoint path down to ``DinoUNetTrainer``, so that from then
+on every DinoUNet trainer of the process builds that configuration's
+architecture with that model, whatever its own size. Without an injection
+each trainer builds from the plans' architecture with its own model.
+``DINOV3_TRAINERS`` and ``get_dinov3_trainer`` map the CLI's model names to
+the size variants.
+
 The published DINOv3 ``.pth`` backbones load in a later slice; until then a
 trainer whose checkpoint file is missing goes on with a randomly initialised
 frozen backbone and says so in its log, as the JAX trainer does, and one
@@ -31,25 +41,48 @@ from dinounet_tpu_torch.utilities import registry
 class DinoUNetTrainer(nnUNetTrainerNoDeepSupervision):
     """ref dinounet_training.py:833-881."""
 
+    _network_config = None
     _dinov3_pretrained_path = None
     _dinov3_model_name = "dinounet_s"
+
+    @classmethod
+    def set_network_config(cls, network_config, dinov3_pretrained_path=None,
+                           dinov3_model_name=None, adapter_type: str = "default"):
+        """Class-level config injection, copied down to the base class so the
+        network builder sees it (ref :842-855)."""
+        cls._network_config = network_config
+        if dinov3_pretrained_path is not None:
+            cls._dinov3_pretrained_path = dinov3_pretrained_path
+        if dinov3_model_name is not None:
+            cls._dinov3_model_name = dinov3_model_name
+        DinoUNetTrainer._network_config = cls._network_config
+        DinoUNetTrainer._dinov3_model_name = cls._dinov3_model_name
+        DinoUNetTrainer._dinov3_pretrained_path = cls._dinov3_pretrained_path
 
     @classmethod
     def build_network_architecture(cls, architecture_class_name: str, arch_init_kwargs: dict,
                                    arch_init_kwargs_req_import, num_input_channels: int,
                                    num_output_channels: int,
                                    enable_deep_supervision: bool = True) -> DinoUNet:
-        """Ignores the plans' network class; returns DinoUNet (ref :857-881)."""
-        arch = dict(arch_init_kwargs)
-        arch.setdefault("n_stages", len(arch.get("features_per_stage", [32, 64, 128, 256])))
+        """Ignores the plans' network class; returns DinoUNet (ref :857-881),
+        from the injected configuration and model where there is one."""
+        if DinoUNetTrainer._network_config is not None:
+            arch = dict(DinoUNetTrainer._network_config["architecture"])
+            model_name = DinoUNetTrainer._dinov3_model_name
+        else:
+            arch = dict(arch_init_kwargs)
+            arch.setdefault("n_stages", len(arch.get("features_per_stage", [32, 64, 128, 256])))
+            model_name = cls._dinov3_model_name
         cfg = DinoUNetConfig.from_plans_arch(
-            arch, num_classes=num_output_channels, model_name=cls._dinov3_model_name,
+            arch, num_classes=num_output_channels, model_name=model_name,
             deep_supervision=enable_deep_supervision)
         return DinoUNet(cfg)
 
     def initialize(self):
         super().initialize()
-        path = self._dinov3_pretrained_path
+        path = (DinoUNetTrainer._dinov3_pretrained_path
+                if DinoUNetTrainer._network_config is not None
+                else self._dinov3_pretrained_path)
         if path and os.path.exists(path):
             raise NotImplementedError(
                 f"{path} exists, but loading a published DINOv3 backbone into "
@@ -93,3 +126,19 @@ class DinoUNetTrainer_7b(DinoUNetTrainer):
             "the network on the host in fp32 (27 GB for the backbone) and moves "
             "it whole; dinounet_7b serves through nnUNetPredictor")
 
+
+# ref dinounet_training.py:935-940
+DINOV3_TRAINERS = {
+    "dinounet_s": DinoUNetTrainer_s,
+    "dinounet_b": DinoUNetTrainer_b,
+    "dinounet_l": DinoUNetTrainer_l,
+    "dinounet_7b": DinoUNetTrainer_7b,
+}
+
+
+def get_dinov3_trainer(model_name: str):
+    if model_name not in DINOV3_TRAINERS:
+        raise ValueError(
+            f"Unsupported model: {model_name}. Supported: {list(DINOV3_TRAINERS)}"
+        )
+    return DINOV3_TRAINERS[model_name]

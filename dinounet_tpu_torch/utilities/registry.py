@@ -12,12 +12,14 @@ from typing import Any, Callable, Dict
 
 
 # Modules of this package that register built-ins on import: the
-# preprocessor, the resampling functions, the image readers and the
-# trainers. The planners come with the part of the port that adds them.
+# preprocessor, the resampling functions, the image readers, the planners
+# and the trainers.
 _REGISTRATION_MODULES = (
     "dinounet_tpu_torch.preprocessing.preprocessor",
     "dinounet_tpu_torch.preprocessing.resampling",
     "dinounet_tpu_torch.imageio.reader_writer_registry",
+    "dinounet_tpu_torch.planning.planner",
+    "dinounet_tpu_torch.planning.resenc_planner",
     "dinounet_tpu_torch.training.trainer",
     "dinounet_tpu_torch.training.trainer_variants",
     "dinounet_tpu_torch.training.dinounet_trainer",

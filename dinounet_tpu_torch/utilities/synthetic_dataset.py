@@ -1,4 +1,10 @@
-"""A synthetic preprocessed 2-D dataset, for smoke runs and tests of training.
+"""Synthetic 2-D datasets, for smoke runs and tests of training and of the
+path from raw files.
+
+Each case is a noisy image with a bright disk (label 1) and a dark ring
+(label 2) at random places and sizes (``disk_ring_case``): the intensities
+correlate with the labels, so a network that trains at all lowers its loss
+within a few dozen steps. All of it comes from a numpy seed. Three writers:
 
 ``write_disk_ring_dataset`` writes, under ``<preprocessed_root>/<name>/``,
 what nnU-Net's preprocessing leaves for a 2-D configuration:
@@ -6,11 +12,17 @@ what nnU-Net's preprocessing leaves for a 2-D configuration:
 configuration with the given patch, batch size and network ``architecture``
 dict) and ``nnUNetPlans_2d/<case>.npz`` (``data`` (1, 1, H, W) float32,
 ``seg`` (1, 1, H, W) int8) with ``<case>.pkl`` properties holding the
-``class_locations`` the loader's foreground oversampling reads. Each case is
-a noisy image with a bright disk (label 1) and a dark ring (label 2) at
-random places and sizes: the intensities correlate with the labels, so a
-network that trains at all lowers its loss within a few dozen steps. All of
-it comes from a numpy seed.
+``class_locations`` the loader's foreground oversampling reads.
+
+``write_disk_ring_raw_dataset`` writes a raw dataset of one-slice NIfTI
+cases (``imagesTr``, ``labelsTr``, ``imagesTs``, ``dataset.json``) under
+``<raw_root>/<name>/`` and a hand-written plans file for it under
+``<preprocessed_root>/<name>/``, for preprocessing without the planner.
+
+``write_disk_ring_png_dataset`` writes a raw dataset of grey PNG cases
+(``imagesTr``, ``labelsTr``, ``dataset.json``) and no plans file: the
+planner's input, read through ``NaturalImage2DIO``, as the JAX package's
+``tests/helpers.py::make_png_dataset`` writes one for its planning tests.
 """
 
 import json
@@ -168,4 +180,35 @@ def write_disk_ring_raw_dataset(raw_root: str, preprocessed_root: str,
             json.dump(dataset_json, f, indent=2)
     with open(os.path.join(preprocessed_root, dataset_name, "nnUNetPlans.json"), "w") as f:
         json.dump(plans, f, indent=2)
+    return folder
+
+
+def write_disk_ring_png_dataset(raw_root: str, dataset_name: str, n_cases: int, size,
+                                seed: int = 0) -> str:
+    """Write `n_cases` labelled (H, W) cases as 8-bit grey PNG files and
+    their dataset.json under <raw_root>/<dataset_name>/ (see the module
+    docstring); returns that folder. Keep H >= W: with a forced target shape
+    the planner takes the transpose from the argmax of the in-plane spacing,
+    which garbles the forced patch when W > H (the reference's quirk, which
+    the planner keeps)."""
+    from dinounet_tpu_torch.imageio.natural_image import pil_image
+
+    Image = pil_image()
+    rng = np.random.default_rng(seed)
+    H, W = size
+    folder = os.path.join(raw_root, dataset_name)
+    for sub in ("imagesTr", "labelsTr"):
+        os.makedirs(os.path.join(folder, sub), exist_ok=True)
+    for i in range(n_cases):
+        img, seg = disk_ring_case(rng, H, W)  # z-scored: +-4 covers it
+        grey = np.clip(np.round(img[0, 0] * 32.0 + 128.0), 0, 255).astype(np.uint8)
+        name = f"case_{i:03d}"
+        Image.fromarray(grey).save(os.path.join(folder, "imagesTr", name + "_0000.png"))
+        Image.fromarray(seg[0, 0].astype(np.uint8)).save(
+            os.path.join(folder, "labelsTr", name + ".png"))
+    dataset_json = {"channel_names": {"0": "rescale_to_0_1"}, "labels": LABELS,
+                    "numTraining": n_cases, "file_ending": ".png",
+                    "overwrite_image_reader_writer": "NaturalImage2DIO"}
+    with open(os.path.join(folder, "dataset.json"), "w") as f:
+        json.dump(dataset_json, f, indent=2)
     return folder
