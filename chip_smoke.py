@@ -176,11 +176,59 @@ not 0:
               validation cases x 1 tile x mirrors). The plans' batch and
               patch size, the seconds of each stage and the peak device
               memory for information. The injection is class-level and
-              stays for the rest of the process: the phase runs last.
+              stays for the rest of the process: the phases after it put it
+              back as they found it.
+11. pretrained -- a synthetic published-layout dinov3_vitb16 .pth (the
+              manifest's keys and shapes, seeded fp32 values drawn on the
+              card, bias_mask 1/0/1 over q/k/v, the ignored keys the layout
+              has) in the api phase's directory; DinoUNetTrainer_b pointed at
+              it by set_network_config(..., dinov3_pretrained_path=...) and
+              set up on the api phase's preprocessed set. Checks: the load is
+              logged, every backbone tensor equals the file's (the k bias
+              zeroed), and again after ROUTE_STEPS train steps (finite
+              losses); one tile through the loaded model, card bf16 (the
+              kernels) vs CPU fp32 (the plain versions) within PARITY_BOUND;
+              the launches exactly ROUTE_STEPS x PER_TRAIN_STEP plus one
+              PER_FORWARD. Load seconds for information.
+12. regions -- the api phase's PNG generator (API_CASES cases of 800^2),
+              its labels declared as the overlapping regions REGION_LABELS
+              with REGIONS_CLASS_ORDER; api.plan_and_preprocess (512^2, 4
+              stages), the network configuration injected into
+              DinoUNetTrainer_b, run_training as the train phase is
+              shortened (DC+BCE on the two region channels), its final
+              validation and export. Checks: finite losses, two finite
+              region pseudo-Dice a validation epoch, summary.json's
+              foreground mean Dice finite, each exported validation case
+              800^2 with labels in {0, 1, 2}, the launches exactly the train
+              steps' PER_TRAIN_STEP plus PER_FORWARD for every tile batch.
+13. train_7b -- a synthetic published-layout dinov3_vit7b16 .pth in bf16
+              (13.4 GB, drawn on the card as the pretrained phase draws;
+              the free disk space checked first), then DinoUNetTrainer_7b
+              through run.run_training on the api phase's set, shortened as
+              the train phase is, with that file injected: dinounet_7b
+              built on the card with the backbone's matrices in bf16, the
+              file loaded tensor by tensor from its mapping, training, the
+              final validation. To keep the script's disk writes near 30
+              GB, run_training runs with disable_checkpointing and
+              checkpoint_final.pth (~15 GB) is saved once after it (best
+              and latest would add 30 GB); then a fresh nnUNetPredictor,
+              initialize_from_trained_model_folder (the checkpoint mapped)
+              and predict_from_files of one raw case. Checks: finite losses,
+              every backbone tensor equal to the file's after training, the
+              launches of run_training exactly the train steps'
+              PER_TRAIN_STEP_7B plus the 7B's serve counts for every tile
+              batch (and those of 3 more timed steps and of the
+              prediction), the growth of anonymous memory across the load
+              and across the reload under ANON_GROWTH_BOUND (the process's
+              RssAnon, or the machine's AnonPages where the kernel reports
+              no RssAnon; 1 GiB written on the host must show as 1 GiB),
+              the predicted case 800^2 with labels in {0, 1, 2}. Seconds to write, load, step, save and reload, and the
+              peak device memory for information.
 
 Then the card's name and power limit, one JSON line of kernel results
 (launches: the counts of the serve path, each route's, the train paths, the
-pipeline and the api phase), and as the last line {"ok": true, "device": {...}}. Without a CUDA device the
+pipeline, the api, pretrained, regions and train_7b phases), and as the last
+line {"ok": true, "device": {...}}. Without a CUDA device the
 script raises before printing any result.
 """
 
@@ -189,6 +237,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -201,12 +250,14 @@ import torch.nn.functional as F
 import dinounet_training_torch
 from dinounet_tpu_torch import api
 from dinounet_tpu_torch.evaluation.metrics import load_summary_json
+from dinounet_tpu_torch.imageio.natural_image import pil_image
 from dinounet_tpu_torch.imageio.nifti import NiftiIO, read_nifti
 from dinounet_tpu_torch.inference import export as export_module
 from dinounet_tpu_torch.inference import predictor as predictor_module
 from dinounet_tpu_torch.inference.predictor import nnUNetPredictor
+from dinounet_tpu_torch.models.convert import checkpoint_manifest
 from dinounet_tpu_torch.models.dinounet import DinoUNet, DinoUNetConfig
-from dinounet_tpu_torch.models.vit import rope_sincos
+from dinounet_tpu_torch.models.vit import VIT_CONFIGS, rope_sincos
 from dinounet_tpu_torch.ops import _build
 from dinounet_tpu_torch.ops.attention import (fused_rope_attention,
                                               fused_rope_attention_premapped,
@@ -247,7 +298,9 @@ from dinounet_tpu_torch.ops.msda_kernel import (bwd_plan, ms_deform_attn_premapp
 from dinounet_tpu_torch.planning.plan_and_preprocess_api import preprocess_dataset
 from dinounet_tpu_torch.preprocessing.preprocessor import DefaultPreprocessor
 from dinounet_tpu_torch.run import get_trainer_from_args, run_training
-from dinounet_tpu_torch.training.dinounet_trainer import DinoUNetTrainer, DinoUNetTrainer_b
+from dinounet_tpu_torch.training import dinounet_trainer as dinounet_trainer_module
+from dinounet_tpu_torch.training.dinounet_trainer import (DinoUNetTrainer, DinoUNetTrainer_7b,
+                                                          DinoUNetTrainer_b)
 from dinounet_tpu_torch.training.losses import dc_and_ce_loss
 from dinounet_tpu_torch.training.trainer import clip_and_step, nnUNetTrainer, sgd_nesterov
 from dinounet_tpu_torch.utilities.plans_handler import PlansManager
@@ -361,6 +414,19 @@ MIRRORS = 4
 # and fold 0 of the 5-fold split validates API_VAL of them
 API_DATASET_ID, API_DATASET = 995, "Dataset995_SmokePng"
 API_CASES, API_VAL = 8, 2
+# the regions phase: the api phase's PNG generator with its labels declared
+# as overlapping regions (tests/test_training_e2e.py::test_region_based_training)
+REGIONS_ID, REGIONS_DATASET = 994, "Dataset994_SmokeRegions"
+REGION_LABELS = {"background": 0, "whole": [1, 2], "inner": [2]}
+REGIONS_CLASS_ORDER = [1, 2]
+# DinoUNetTrainer_7b's train step: the 40 unfused SwiGLU blocks of the frozen
+# backbone launch the row-major attention (their dense layers are cuBLAS
+# GEMMs); the adapter trains unfused, as dinounet_b's does
+PER_TRAIN_STEP_7B = {**dict.fromkeys(PER_FORWARD, 0), "rope_attention_rm": 40,
+                     "msda_fwd": 12, "msda_bwd": 6}
+# the growth of the process's anonymous memory allowed across loading the
+# 7B's 13.4 GB of weights from a file (mapped, copied a tensor at a time)
+ANON_GROWTH_BOUND = 2 * 2**30
 # one train step, card bf16 (kernels) vs CPU fp32 (plain versions), relative
 # L2. bf16 keeps 8 significant bits and the ~60 layers of forward and
 # backward each round activations and gradients at 2^-9 relative: the whole
@@ -2011,6 +2077,346 @@ def phase_api(dev, root: str) -> dict:
     return counts
 
 
+def anon_rss() -> tuple:
+    """Anonymous resident memory in bytes and where it was read: the
+    process's RssAnon (/proc/self/status), else the machine's AnonPages
+    (/proc/meminfo), where a sandboxed kernel reports no per-process split
+    and the machine runs this process alone. Pages mapped from a file (an
+    mmapped checkpoint) are in neither."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("RssAnon:"):
+                return int(line.split()[1]) * 1024, "RssAnon"
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("AnonPages:"):
+                return int(line.split()[1]) * 1024, "AnonPages"
+    raise RuntimeError("neither RssAnon in /proc/self/status nor AnonPages in "
+                       "/proc/meminfo: no measure of anonymous memory here")
+
+
+def anon_sees(nbytes: int = 2**30) -> float:
+    """The growth of `anon_rss` while `nbytes` of host memory are written
+    (a measure that cannot see them would pass any bound)."""
+    before = anon_rss()[0]
+    block = torch.ones(nbytes // 4)
+    grown = anon_rss()[0] - before
+    del block
+    return grown / nbytes
+
+
+def published_backbone(model_name: str, dtype, dev, seed: int) -> dict:
+    """Seeded tensors on the card in the published checkpoint's layout (the
+    manifest's keys and shapes, the ignored keys included): matrices
+    N(0, 1 / fan in), norm scales 1 + N(0, 0.01), other vectors and the
+    LayerScale N(0, 0.01), bias_mask 1 / 0 / 1 over q / k / v."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, shape in checkpoint_manifest(model_name).items():
+        if name.endswith("bias_mask"):
+            t = torch.ones(shape, device=dev)
+            t[shape[0] // 3:2 * shape[0] // 3] = 0
+        elif len(shape) >= 2 and name not in ("cls_token", "storage_tokens", "mask_token"):
+            t = torch.randn(shape, generator=g, device=dev) / float(np.sqrt(np.prod(shape[1:])))
+        elif name in ("norm.weight",) or name.endswith((".norm1.weight", ".norm2.weight")):
+            t = 1.0 + 0.1 * torch.randn(shape, generator=g, device=dev)
+        else:
+            t = 0.1 * torch.randn(shape, generator=g, device=dev)
+        out[name] = t.to(dtype)
+    return out
+
+
+def loaded_as_file(backbone, sd: dict) -> int:
+    """Every tensor of `backbone` equal to the file's `sd` (on any device),
+    the qkv bias times its bias_mask, converted to the parameter's dtype;
+    returns the count."""
+    state = backbone.state_dict()
+    for name, t in state.items():
+        want = sd[name]
+        if name.endswith("attn.qkv.bias"):
+            want = want * sd[name + "_mask"]
+        if not torch.equal(t, want.to(t.device, t.dtype)):
+            raise AssertionError(f"backbone {name} differs from the file's")
+    return len(state)
+
+
+@contextlib.contextmanager
+def injected(trainer_cls, config: dict, path: str, model_name: str):
+    """set_network_config(config, path, model_name) on `trainer_cls` for the
+    block; every DinoUNet trainer's class-level injection put back after."""
+    classes, todo = [], [DinoUNetTrainer]
+    while todo:
+        cls = todo.pop()
+        classes.append(cls)
+        todo.extend(cls.__subclasses__())
+    names = ("_network_config", "_dinov3_model_name", "_dinov3_pretrained_path")
+    saved = [(cls, {a: vars(cls)[a] for a in names if a in vars(cls)}) for cls in classes]
+    trainer_cls.set_network_config(config, dinov3_pretrained_path=path,
+                                   dinov3_model_name=model_name)
+    try:
+        yield
+    finally:
+        for cls, attrs in saved:
+            for a in names:
+                if a in attrs:
+                    setattr(cls, a, attrs[a])
+                elif a in vars(cls):
+                    delattr(cls, a)
+
+
+@contextlib.contextmanager
+def measured_loads(table: dict):
+    """Seconds and anonymous-memory growth of each backbone load the DinoUNet
+    trainers make within the block (``load_dinov3_backbone_``)."""
+    load = dinounet_trainer_module.load_dinov3_backbone_
+
+    def measured(*args, **kwargs):
+        anon0, source = anon_rss()
+        t0 = time.perf_counter()
+        out = load(*args, **kwargs)
+        torch.cuda.synchronize()
+        table.setdefault("load", []).append(
+            (time.perf_counter() - t0, anon_rss()[0] - anon0, source))
+        return out
+
+    dinounet_trainer_module.load_dinov3_backbone_ = measured
+    try:
+        yield
+    finally:
+        dinounet_trainer_module.load_dinov3_backbone_ = load
+
+
+def phase_pretrained(dev, root: str) -> dict:
+    path = os.path.join(root, "dinov3_vitb16_pretrain.pth")
+    sd = published_backbone("dinov3_vitb16", torch.float32, dev, seed=3)
+    torch.save(sd, path)
+    loads = {}
+    with injected(DinoUNetTrainer_b, DinoUNetTrainer._network_config, path, "dinounet_b"), \
+            measured_loads(loads):
+        trainer = get_trainer_from_args(API_DATASET, "2d", 0, "DinoUNetTrainer_b", device=dev)
+        trainer.seed = 0
+        trainer.on_train_start()
+    with open(trainer.log_file) as f:
+        if f"Loaded DINOv3 backbone weights from {path}" not in f.read():
+            raise AssertionError("pretrained: the trainer did not log the load")
+    backbone = trainer.network.encoder.dinov3_adapter.backbone
+    n = loaded_as_file(backbone, sd)
+    load_s, _, _ = loads["load"][0]
+
+    _build.reset_launch_counts()
+    losses = [float(trainer.train_step_host(trainer.dataloader_train.generate_train_batch()))
+              for _ in range(ROUTE_STEPS)]
+    loaded_as_file(backbone, sd)
+    model = trainer.network.eval()
+    tile = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (1, 1, PATCH, PATCH)).astype(np.float32))
+    with torch.inference_mode():
+        got = model(tile.to(dev)).float().cpu()
+    counts = _build.launch_counts()
+    want_counts = {k: ROUTE_STEPS * PER_TRAIN_STEP[k] + PER_FORWARD[k] for k in PER_FORWARD}
+    want, cpu_s = cpu_logits(model, tile)
+    rel = rel_l2(got, want)
+    log(f"[pretrained] DinoUNetTrainer_b pointed at a synthetic published-layout "
+        f"dinov3_vitb16 .pth ({os.path.getsize(path) / 2**20:.0f} MiB, fp32, bias_mask "
+        f"1/0/1) by set_network_config: loaded in {load_s:.2f} s, all {n} backbone tensors "
+        f"equal to the file's (k bias zeroed), and again after {ROUTE_STEPS} train steps "
+        f"(losses {[round(x, 4) for x in losses]}); serve forward of the loaded model, "
+        f"{PATCH}x{PATCH} tile, card bf16 vs CPU fp32 ({cpu_s:.1f} s): relative L2 {rel:.4e} "
+        f"(bound {PARITY_BOUND}); launches {counts}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"pretrained: losses {losses}")
+    if counts != want_counts:
+        raise AssertionError(f"pretrained: kernel launches {counts}, the path makes "
+                             f"{want_counts}")
+    if not rel <= PARITY_BOUND:
+        raise AssertionError(f"pretrained parity {rel} over {PARITY_BOUND}")
+    return counts
+
+
+def phase_regions(dev, root: str) -> dict:
+    folder = write_disk_ring_png_dataset(os.environ["nnUNet_raw"], REGIONS_DATASET,
+                                         API_CASES, (RAW_SIZE, RAW_SIZE), seed=2)
+    with open(os.path.join(folder, "dataset.json")) as f:
+        dataset_json = json.load(f)
+    dataset_json["labels"] = REGION_LABELS
+    dataset_json["regions_class_order"] = REGIONS_CLASS_ORDER
+    with open(os.path.join(folder, "dataset.json"), "w") as f:
+        json.dump(dataset_json, f, indent=2)
+    _, configs = api.plan_and_preprocess(
+        REGIONS_ID, verify_dataset_integrity=True, force_target_shape=[PATCH, PATCH],
+        force_n_stages=4, configurations=["2d"], verbose=False)
+    times = {}
+    _build.reset_launch_counts()
+    with injected(DinoUNetTrainer_b, configs["2d"], None, "dinounet_b"), \
+            shortened_training(DinoUNetTrainer_b), timed_calls(times):
+        trainer = run_training(REGIONS_ID, "2d", 0, "DinoUNetTrainer_b", device=dev)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    logged = trainer.logger.my_fantastic_logging
+    losses = logged["train_losses"] + logged["val_losses"]
+    dice = logged["dice_per_class_or_region"]
+    summary = os.path.join(trainer.output_folder, "validation", "summary.json")
+    with open(summary) as f:
+        mean_dice = json.load(f)["foreground_mean"]["Dice"]
+    _, val_keys = trainer.do_split()
+    n_forwards = TRAIN_EPOCHS * VAL_ITERS + len(val_keys) * MIRRORS  # one tile a case
+    want = {k: TRAIN_EPOCHS * TRAIN_ITERS * PER_TRAIN_STEP[k] + n_forwards * PER_FORWARD[k]
+            for k in PER_FORWARD}
+    log(f"[regions] {API_CASES} raw PNG cases of {RAW_SIZE}^2 with the labels declared "
+        f"as regions {REGION_LABELS} (order {REGIONS_CLASS_ORDER}), planned to "
+        f"{PATCH}^2; run_training(DinoUNetTrainer_b): {TRAIN_EPOCHS} epochs x "
+        f"{TRAIN_ITERS} steps, {len(val_keys)} validation cases x {MIRRORS} mirrors "
+        f"({times['validation'][0]:.2f} s); losses {[round(x, 4) for x in losses]}; "
+        f"region pseudo Dice {dice}; summary.json foreground mean Dice {mean_dice:.4f}; "
+        f"launches {counts}")
+    if not trainer.label_manager.has_regions or trainer.network.cfg.num_classes != 2:
+        raise AssertionError("regions: the trainer does not train the two regions")
+    if len(losses) != 2 * TRAIN_EPOCHS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"regions: logged losses {losses}")
+    if any(len(d) != 2 or not np.all(np.isfinite(d)) for d in dice):
+        raise AssertionError(f"regions: pseudo Dice {dice}")
+    if not np.isfinite(mean_dice):
+        raise AssertionError(f"regions: summary.json's foreground mean Dice {mean_dice}")
+    for k in val_keys:
+        seg = np.asarray(pil_image().open(os.path.join(
+            trainer.output_folder, "validation", k + ".png")))
+        if seg.shape != (RAW_SIZE, RAW_SIZE) or not set(np.unique(seg).tolist()) <= {0, 1, 2}:
+            raise AssertionError(f"regions: {k}.png {seg.shape} labels {np.unique(seg)}")
+    if counts != want:
+        raise AssertionError(f"regions: kernel launches {counts}, the path makes {want}")
+    return counts
+
+
+def phase_train_7b(dev, root: str) -> dict:
+    """DinoUNetTrainer_7b from a bf16 published-layout .pth, through
+    run.run_training, its final validation, then the predictor from its
+    folder."""
+    cfg = dataclasses.replace(VIT_CONFIGS["dinov3_vit7b16"], dtype="bfloat16")
+    backbone_bytes = sum(int(np.prod(s)) for s in checkpoint_manifest(
+        "dinov3_vit7b16").values()) * 2
+    free = shutil.disk_usage(root).free
+    # the .pth and checkpoint_final.pth: the backbone and under 2 GiB of fp32
+    # weights and momentum
+    need = 2 * backbone_bytes + 2 * 2**30
+    log(f"[train_7b] {root}: {free / 1e9:.1f} GB free, the phase writes up to "
+        f"{need / 1e9:.1f} GB")
+    if free < need:
+        raise AssertionError(f"train_7b: {free / 1e9:.1f} GB free under {root}, the phase "
+                             f"needs {need / 1e9:.1f} GB")
+    path = os.path.join(root, "dinov3_vit7b16_pretrain.pth")
+    t0 = time.perf_counter()
+    sd = published_backbone("dinov3_vit7b16", torch.bfloat16, dev, seed=7)
+    torch.save(sd, path)
+    write_s = time.perf_counter() - t0
+    n_keys = len(sd)
+    del sd
+    torch.cuda.empty_cache()
+
+    times, loads, built = {}, {}, []
+    more = [(nnUNetTrainer, "save_checkpoint", "save")]
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    with injected(DinoUNetTrainer_7b, DinoUNetTrainer._network_config, path, "dinounet_7b"), \
+            measured_loads(loads), shortened_training(DinoUNetTrainer_7b, built), \
+            timed_calls(times, more):
+        # the .pth and one ~15 GB checkpoint: checkpoint_best and _latest
+        # would add 30 GB of disk writes to the script
+        trainer = run_training(API_DATASET, "2d", 0, "DinoUNetTrainer_7b", device=dev,
+                               disable_checkpointing=True)
+        torch.cuda.synchronize()
+        run_peak = torch.cuda.max_memory_allocated(dev)
+        counts = _build.launch_counts()
+        final = os.path.join(trainer.output_folder, "checkpoint_final.pth")
+        nnUNetTrainer.save_checkpoint(trainer, final)
+        backbone = trainer.network.encoder.dinov3_adapter.backbone
+        if backbone.cfg != cfg or backbone.blocks[0].mlp.w1.weight.dtype != torch.bfloat16:
+            raise AssertionError(f"train_7b: the trainer built {backbone.cfg}")
+        on_file = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+        n = loaded_as_file(backbone, on_file)
+        del on_file
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launch_counts()
+        step_ms, losses = [], []
+        for _ in range(3):
+            batch = trainer.dataloader_train.generate_train_batch()
+            t1 = time.perf_counter()
+            losses.append(float(trainer.train_step_host(batch)))  # synchronises
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        step_peak = torch.cuda.max_memory_allocated(dev)
+        extra = _build.launch_counts()
+        logged = trainer.logger.my_fantastic_logging
+        logged_losses = logged["train_losses"] + logged["val_losses"]
+        model_folder = trainer.output_folder_base
+        final_bytes = os.path.getsize(final)
+        del trainer, backbone, built[:]
+        torch.cuda.empty_cache()
+
+        anon0, source = anon_rss()
+        t0 = time.perf_counter()
+        predictor = nnUNetPredictor(device=dev)
+        predictor.initialize_from_trained_model_folder(model_folder, use_folds=(0,))
+        predictor._load(predictor.list_of_parameters[0])
+        torch.cuda.synchronize()
+        reload_s = time.perf_counter() - t0
+        anon_reload = anon_rss()[0] - anon0
+        seen = anon_sees()
+        case = os.path.join(os.environ["nnUNet_raw"], API_DATASET, "imagesTr",
+                            "case_000_0000.png")
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        written = predictor.predict_from_files([[case]], os.path.join(root, "predicted_7b"))
+        torch.cuda.synchronize()
+        predict_s = time.perf_counter() - t0
+        predicted = _build.launch_counts()
+    seg = np.asarray(pil_image().open(written[0] + ".png"))
+
+    load_s, anon_load, _ = loads["load"][0]
+    n_steps = TRAIN_EPOCHS * TRAIN_ITERS
+    n_forwards = TRAIN_EPOCHS * VAL_ITERS + API_VAL * MIRRORS  # one tile a case
+    per_forward = {**PER_FORWARD, **PER_FORWARD_ROUTE["serve_7b"]}
+    want = {k: n_steps * PER_TRAIN_STEP_7B[k] + n_forwards * per_forward[k] for k in PER_FORWARD}
+    log(f"[train_7b] a synthetic published-layout dinov3_vit7b16 .pth ({n_keys} keys, bf16, "
+        f"{os.path.getsize(path) / 1e9:.2f} GB) drawn on the card and written in "
+        f"{write_s:.1f} s; run_training(DinoUNetTrainer_7b): {TRAIN_EPOCHS} epochs x "
+        f"{TRAIN_ITERS} steps, {API_VAL} validation cases x {MIRRORS} mirrors; losses "
+        f"{[round(x, 4) for x in logged_losses]}; all {n} backbone tensors equal to the "
+        f"file's after training; launches {counts}")
+    log(f"[train_7b] {card_line()}: load {load_s:.2f} s ({anon_load / 2**20:.1f} MiB "
+        f"{source} growth); step {float(np.median(step_ms)):.1f} ms median of 3 "
+        f"({', '.join(f'{t:.1f}' for t in step_ms)}; batch 2 x {PATCH}^2, augmentation "
+        f"included), peak device memory over those steps {step_peak / 2**30:.2f} GiB, over "
+        f"run_training {run_peak / 2**30:.2f} GiB; checkpoint_final.pth "
+        f"({final_bytes / 1e9:.2f} GB) saved in {times['save'][0]:.1f} s; final validation "
+        f"{times['validation'][0]:.1f} s; "
+        f"the predictor from the folder: build and reload {reload_s:.2f} s "
+        f"({anon_reload / 2**20:.1f} MiB {source} growth; 1 GiB written on the host grows "
+        f"it {seen:.3f} GiB), predict_from_files of one {RAW_SIZE}^2 case "
+        f"{predict_s:.2f} s")
+    if not np.all(np.isfinite(logged_losses + losses)) or len(logged_losses) != 2 * TRAIN_EPOCHS:
+        raise AssertionError(f"train_7b: losses {logged_losses} then {losses}")
+    if counts != want:
+        raise AssertionError(f"train_7b: kernel launches {counts}, the path makes {want}")
+    if extra != {k: 3 * n for k, n in PER_TRAIN_STEP_7B.items()}:
+        raise AssertionError(f"train_7b: 3 more steps launched {extra}")
+    if predicted != {k: MIRRORS * n for k, n in per_forward.items()}:
+        raise AssertionError(f"train_7b: the prediction launched {predicted}")
+    if seg.shape != (RAW_SIZE, RAW_SIZE) or not set(np.unique(seg).tolist()) <= {0, 1, 2}:
+        raise AssertionError(f"train_7b: predicted {seg.shape} labels {np.unique(seg)}")
+    if not 0.9 < seen < 1.1:
+        raise AssertionError(f"train_7b: {source} grew {seen:.3f} GiB while 1 GiB was "
+                             "written on the host: it does not measure this process")
+    for what, grown in (("load", anon_load), ("reload", anon_reload)):
+        if not grown < ANON_GROWTH_BOUND:
+            raise AssertionError(f"train_7b: {source} grew {grown / 2**30:.2f} GiB across "
+                                 f"the {what}")
+    for k, n in predicted.items():
+        counts[k] += n
+    for k, n in extra.items():
+        counts[k] += n
+    return counts
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2079,6 +2485,12 @@ def main() -> int:
         counts["pipeline"] = phase_pipeline(dev, root)
     with tempfile.TemporaryDirectory() as root:
         counts["api"] = phase_api(dev, root)
+        torch.cuda.empty_cache()
+        counts["pretrained"] = phase_pretrained(dev, root)
+        torch.cuda.empty_cache()
+        counts["regions"] = phase_regions(dev, root)
+        torch.cuda.empty_cache()
+        counts["train_7b"] = phase_train_7b(dev, root)
 
     log(card_line())
     log(json.dumps({"kernels": [

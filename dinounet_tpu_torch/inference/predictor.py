@@ -3,12 +3,16 @@ ensembling and mirror TTA on one device.
 
 Counterpart of ``dinounet_tpu/inference/predictor.py`` (ref: dinounet/
 inference/predict_from_raw_data.py:38-871):
-  * ``initialize_from_trained_model_folder`` reads the port's ``torch.save``
-    checkpoints of the folds, looks the trainer up by name and builds its
-    network with deep supervision off; ``manual_initialization`` takes a
+  * ``initialize_from_trained_model_folder`` maps the port's ``torch.save``
+    checkpoints of the folds (each fold's weights stay views of its file,
+    not copies in host memory), looks the trainer up by name and builds its
+    network on the predictor's device with deep supervision off, through
+    the trainer's own ``build_network`` (the ViT-7B's is built on the device
+    with its backbone's matrices in bf16); ``manual_initialization`` takes a
     network, the plans and one state_dict per fold (the trainer's final
     validation uses it). Each fold's weights are loaded into the one network
-    in turn, as the reference's predictor does;
+    in turn, as the reference's predictor does, and not again while they
+    are the ones it holds;
   * ``predict_sliding_window_return_logits`` and
     ``predict_logits_from_preprocessed_data`` (fold-averaged fp16 logits, the
     reference's output contract);
@@ -75,6 +79,7 @@ class nnUNetPredictor:
         self.trainer_name: Optional[str] = None
         self.network: Optional[nn.Module] = None
         self.list_of_parameters: List[dict] = []  # one state_dict per fold
+        self._loaded = None  # (network, the state_dict it was given last)
         self.allowed_mirroring_axes: Optional[Tuple[int, ...]] = None
         self.label_manager = None
 
@@ -83,8 +88,9 @@ class nnUNetPredictor:
     def initialize_from_trained_model_folder(self, model_training_output_dir: str,
                                              use_folds: Union[Tuple, List, str, None],
                                              checkpoint_name: str = "checkpoint_final.pth"):
-        """The folds' checkpoints of a trained model folder; the network is
-        the trainer's, built with deep supervision off (ref :67-130)."""
+        """The folds' checkpoints of a trained model folder, mapped; the
+        network is the trainer's, built on the predictor's device with deep
+        supervision off (ref :67-130)."""
         from dinounet_tpu_torch.training.checkpointing import load_checkpoint
 
         if use_folds is None:
@@ -110,11 +116,8 @@ class nnUNetPredictor:
         configuration_manager = plans_manager.get_configuration(configuration_name)
         num_input_channels = determine_num_input_channels(
             plans_manager, configuration_manager, dataset_json)
-        network = registry.trainers.get(trainer_name).build_network_architecture(
-            configuration_manager.network_arch_class_name,
-            configuration_manager.network_arch_init_kwargs,
-            configuration_manager.network_arch_init_kwargs_req_import,
-            num_input_channels,
+        network = registry.trainers.get(trainer_name).build_network(
+            self.device, configuration_manager, num_input_channels,
             plans_manager.get_label_manager(dataset_json).num_segmentation_heads,
             enable_deep_supervision=False)
         self.manual_initialization(network, plans_manager, configuration_manager,
@@ -132,6 +135,7 @@ class nnUNetPredictor:
         self.network = network.to(self.device).eval()
         self.list_of_parameters = (parameters if parameters is not None
                                    else [network.state_dict()])
+        self._loaded = None
         self.dataset_json = dataset_json
         self.trainer_name = trainer_name
         self.allowed_mirroring_axes = inference_allowed_mirroring_axes
@@ -195,7 +199,12 @@ class nnUNetPredictor:
         return self.allowed_mirroring_axes if self.use_mirroring else None
 
     def _load(self, params: dict) -> None:
-        self.network.load_state_dict(params)
+        """Load a fold's state_dict into the network, unless the network
+        holds it already (the 7B's weights are 15 GB to copy a case)."""
+        if self._loaded is None or self._loaded[0] is not self.network \
+                or self._loaded[1] is not params:
+            self.network.load_state_dict(params)
+            self._loaded = (self.network, params)
 
     def predict_sliding_window_return_logits(self, data: np.ndarray,
                                              parameters: Optional[dict] = None

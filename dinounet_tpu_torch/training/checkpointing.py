@@ -11,10 +11,15 @@ pickled msgpack envelope): a dict with
     inference_allowed_mirroring_axes
 
 written as checkpoint_latest / checkpoint_best / checkpoint_final.pth.
-Tensors are stored on the CPU. The file holds only tensors and plain Python
-values, so it loads with ``weights_only=True``. The sharded form (the JAX
-package's orbax directories for a model-sharded 7B) and a JAX <-> torch
-checkpoint converter are not ported yet.
+Tensors are written as they are held, each copied from the device on its
+own while the file is written, so a checkpoint of the ViT-7B trainer holds
+its bf16 backbone as bf16 and the host never holds the whole state at once;
+they load onto the CPU. ``load_checkpoint`` maps the file instead of
+reading it: the tensors are views of the page cache (no anonymous host
+memory), copied wherever a ``load_state_dict`` puts them. The file holds
+only tensors and plain Python values, so it loads with
+``weights_only=True``. The JAX package's orbax directories (a
+model-sharded 7B) are not ported (ROADMAP.md, queue item 11).
 """
 
 import os
@@ -27,25 +32,16 @@ CHECKPOINT_KEYS = ("network_weights", "optimizer_state", "grad_scaler_state",
                    "trainer_name", "inference_allowed_mirroring_axes")
 
 
-def _to_cpu(tree):
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu()
-    if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_cpu(v) for v in tree)
-    return tree
-
-
 def save_checkpoint(checkpoint: Dict[str, Any], filename: str) -> None:
     """Write atomically (a temporary file renamed over `filename`)."""
     missing = set(CHECKPOINT_KEYS) - set(checkpoint)
     if missing:
         raise KeyError(f"checkpoint lacks {sorted(missing)}")
     tmp = filename + ".tmp"
-    torch.save(_to_cpu(checkpoint), tmp)
+    torch.save(checkpoint, tmp)
     os.replace(tmp, filename)
 
 
 def load_checkpoint(filename: str) -> Dict[str, Any]:
-    return torch.load(filename, map_location="cpu", weights_only=True)
+    """The checkpoint with its tensors on the CPU, mapped from the file."""
+    return torch.load(filename, map_location="cpu", weights_only=True, mmap=True)

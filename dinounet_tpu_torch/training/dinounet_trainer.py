@@ -17,21 +17,30 @@ each trainer builds from the plans' architecture with its own model.
 ``DINOV3_TRAINERS`` and ``get_dinov3_trainer`` map the CLI's model names to
 the size variants.
 
-The published DINOv3 ``.pth`` backbones load in a later slice; until then a
-trainer whose checkpoint file is missing goes on with a randomly initialised
-frozen backbone and says so in its log, as the JAX trainer does, and one
-whose file is present raises rather than train from the wrong weights.
-``DinoUNetTrainer_7b`` raises. Its kernels are all ported (the MSDA
-backward takes the adapter's 128 channels a head), but the trainer builds
-its network on the host in fp32 and moves it whole to the device: 27 GB of
-host memory for the 6.7e9 backbone parameters, and the frozen backbone held
-in fp32 on the card. Training the 7B waits for a trainer that builds the
-network on the card with the frozen backbone's matrices held in bf16, as
-``DinoUNet.random_on`` and ``DinoViT.hold_weights_`` do for serving.
+``initialize`` loads the pretrained backbone (``models/convert.py::
+load_dinov3_backbone_``): the injected checkpoint path where there is an
+injection, else the trainer's own. The published ``.pth`` is read as it is
+downloaded; where it is missing and the JAX package's converted
+``.msgpack`` of the same stem exists (the file the JAX size trainers look
+for), that is read. A file that is present but does not match the
+backbone raises; only a missing file leaves the randomly initialised
+frozen backbone, with a warning in the log, as in the JAX trainer. The JAX
+trainer reads only the base class's path, which stays None without an
+injection (``dinounet_tpu/training/dinounet_trainer.py:67``): the port reads
+the size trainer's own on purpose.
+
+``DinoUNetTrainer_7b`` builds dinounet_7b on the trainer's device with the
+frozen backbone's matrices held at the compute dtype (bf16: 12.5 GiB where
+fp32 would take 27 GB), as ``DinoUNet.random_on`` builds it for serving,
+and only then draws the weights or has them loaded. Every number is the
+same as with fp32 matrices cast at each use.
 """
 
 import os
 
+import torch
+
+from dinounet_tpu_torch.models.convert import load_dinov3_backbone_, published_name
 from dinounet_tpu_torch.models.dinounet import DinoUNet, DinoUNetConfig
 from dinounet_tpu_torch.training.trainer_variants import nnUNetTrainerNoDeepSupervision
 from dinounet_tpu_torch.utilities import registry
@@ -80,17 +89,21 @@ class DinoUNetTrainer(nnUNetTrainerNoDeepSupervision):
 
     def initialize(self):
         super().initialize()
-        path = (DinoUNetTrainer._dinov3_pretrained_path
-                if DinoUNetTrainer._network_config is not None
-                else self._dinov3_pretrained_path)
-        if path and os.path.exists(path):
-            raise NotImplementedError(
-                f"{path} exists, but loading a published DINOv3 backbone into "
-                "the port waits for the checkpoint slice; remove it or train "
-                "with the JAX package")
-        self.print_to_log_file(
-            "WARNING: no pretrained DINOv3 checkpoint found "
-            f"({path}); the frozen backbone is randomly initialized.")
+        requested = (DinoUNetTrainer._dinov3_pretrained_path
+                     if DinoUNetTrainer._network_config is not None
+                     else self._dinov3_pretrained_path)
+        candidates = [requested] if requested else []
+        if requested and requested.endswith(".pth"):
+            candidates.append(requested[:-len(".pth")] + ".msgpack")
+        path = next((c for c in candidates if os.path.exists(c)), None)
+        if path is None:
+            self.print_to_log_file(
+                "WARNING: no pretrained DINOv3 checkpoint found "
+                f"({requested}); the frozen backbone is randomly initialized.")
+            return
+        backbone = self.network.encoder.dinov3_adapter.backbone
+        load_dinov3_backbone_(backbone, path, published_name(backbone.cfg))
+        self.print_to_log_file(f"Loaded DINOv3 backbone weights from {path}")
 
 
 @registry.trainers.register("DinoUNetTrainer_s")
@@ -116,15 +129,25 @@ class DinoUNetTrainer_l(DinoUNetTrainer):
 
 @registry.trainers.register("DinoUNetTrainer_7b")
 class DinoUNetTrainer_7b(DinoUNetTrainer):
-    """DINOv3 ViT-7B/16 (ref :921-930): not trainable in the port yet."""
+    """DINOv3 ViT-7B/16 (ref :921-930)."""
     _dinov3_model_name = "dinounet_7b"
+    _dinov3_pretrained_path = "dinounet/checkpoints/dinov3_vit7b16_pretrain.pth"
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DinoUNetTrainer_7b waits for a trainer that builds dinounet_7b on "
-            "the device with its frozen backbone held in bf16: this one builds "
-            "the network on the host in fp32 (27 GB for the backbone) and moves "
-            "it whole; dinounet_7b serves through nnUNetPredictor")
+    @classmethod
+    def build_network(cls, device, configuration_manager, num_input_channels: int,
+                      num_output_channels: int, enable_deep_supervision: bool = True,
+                      seed=None) -> DinoUNet:
+        """Built on `device` with the backbone's matrices at the compute
+        dtype before any weight is drawn or loaded (``DinoUNet.random_on``'s
+        build): nothing of it passes through the host, and the device holds
+        the backbone in fp32 only while it is constructed. With `seed` the
+        draws are ``init_weights``' on that device's generator."""
+        with torch.device(device):
+            network = super().build_network(
+                device, configuration_manager, num_input_channels, num_output_channels,
+                enable_deep_supervision)
+        network.encoder.dinov3_adapter.backbone.hold_weights_(network.compute_dtype)
+        return network if seed is None else network.init_weights(seed)
 
 
 # ref dinounet_training.py:935-940

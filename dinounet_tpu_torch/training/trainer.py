@@ -16,16 +16,22 @@ nnUNetTrainer/nnUNetTrainer.py) for 2-D configurations on one device:
     back to the CPU: a trainer built for ``cuda`` without a card raises;
   * augmentation runs on the device in torch (``augmentation.py``), fed by a
     host thread that prefetches numpy batches; compute is bf16 (the model's
-    dtype), parameters and optimizer state fp32, no loss scaling.
+    dtype), parameters and optimizer state fp32, no loss scaling;
+  * one build makes the network at all three sites that need one (the
+    trainer, its final validation, the predictor): ``build_network``, the
+    plans' network on a device, built on the host and moved there unless
+    the trainer class builds it there itself (``DinoUNetTrainer_7b``);
+  * labels declared as regions train with DC+BCE on sigmoid outputs, the
+    region targets made from the label map on the device, and validate with
+    per-region counts of sigmoid > 0.5 (JAX ``trainer.py:386-412,494-505``).
 
 The final validation (``perform_actual_validation``) predicts the
 validation cases by sliding window with mirror TTA on the trainer's device,
 exports them through the plans' reader/writer and writes their metrics to
 ``validation/summary.json``, as the JAX trainer does.
 
-Regions (DC+BCE training), the cascade, 3-D configurations and
-deep-supervision outputs are not ported yet and raise
-``NotImplementedError``.
+The cascade, 3-D configurations and deep-supervision outputs are not
+ported yet and raise ``NotImplementedError``.
 """
 
 import os
@@ -42,7 +48,8 @@ from dinounet_tpu_torch.training.checkpointing import load_checkpoint, save_chec
 from dinounet_tpu_torch.training.dataloading import (nnUNetDataLoader2D, nnUNetDataset,
                                                      unpack_dataset)
 from dinounet_tpu_torch.training.logger import nnUNetLogger
-from dinounet_tpu_torch.training.losses import dc_and_ce_loss, one_hot_channels
+from dinounet_tpu_torch.training.losses import (dc_and_bce_loss, dc_and_ce_loss,
+                                                one_hot_channels)
 from dinounet_tpu_torch.training.lr_scheduler import poly_lr
 from dinounet_tpu_torch.utilities import registry
 from dinounet_tpu_torch.utilities.json_export import load_json, save_json
@@ -115,9 +122,6 @@ class nnUNetTrainer:
         self.enable_deep_supervision = True
 
         self.label_manager = self.plans_manager.get_label_manager(dataset_json)
-        if self.label_manager.has_regions:
-            raise NotImplementedError("region-based (DC+BCE) training is not "
-                                      "ported yet")
 
         # seeds the weights, the augmentation draws and the drop-path draws;
         # set it before initialize() for a reproducible run
@@ -158,19 +162,34 @@ class nnUNetTrainer:
             f"the port builds DinoUNet only (DinoUNetTrainer*); "
             f"{architecture_class_name} is not ported yet")
 
+    @classmethod
+    def build_network(cls, device, configuration_manager, num_input_channels: int,
+                      num_output_channels: int, enable_deep_supervision: bool = True,
+                      seed=None):
+        """The configuration's network on `device`, its weights drawn from
+        `seed` where one is given (else left for a state_dict to fill). The
+        trainer, its final validation and the predictor all build through
+        here. This one builds on the host, draws there and moves the
+        network; a trainer class whose network should not pass through the
+        host in full builds it on the device itself."""
+        network = cls.build_network_architecture(
+            configuration_manager.network_arch_class_name,
+            configuration_manager.network_arch_init_kwargs,
+            configuration_manager.network_arch_init_kwargs_req_import,
+            num_input_channels, num_output_channels, enable_deep_supervision)
+        if seed is not None:
+            network.init_weights(seed)
+        return network.to(device)
+
     def initialize(self):
         if self.was_initialized:
             raise RuntimeError("initialize called twice")
         self.num_input_channels = determine_num_input_channels(
             self.plans_manager, self.configuration_manager, self.dataset_json)
-        network = self.build_network_architecture(
-            self.configuration_manager.network_arch_class_name,
-            self.configuration_manager.network_arch_init_kwargs,
-            self.configuration_manager.network_arch_init_kwargs_req_import,
-            self.num_input_channels,
-            self.label_manager.num_segmentation_heads,
-            self.enable_deep_supervision)
-        self.network = network.init_weights(self.seed).to(self.device)
+        self.network = self.build_network(
+            self.device, self.configuration_manager, self.num_input_channels,
+            self.label_manager.num_segmentation_heads, self.enable_deep_supervision,
+            seed=self.seed)
         adapter = getattr(getattr(self.network, "encoder", None), "dinov3_adapter", None)
         if adapter is not None:
             adapter.drop_path_generator = torch.Generator().manual_seed(self.seed + 1)
@@ -255,7 +274,27 @@ class nnUNetTrainer:
 
     # ------------------------------------------------------------- loss/steps
 
+    def _seg_to_region_onehot(self, seg: torch.Tensor) -> torch.Tensor:
+        """(B, H, W) labels -> (B, R, H, W) float region channels, with a
+        trailing channel marking the ignore label where there is one (ref
+        ConvertSegmentationToRegionsTransform, JAX ``trainer.py:386-400``)."""
+        lm = self.label_manager
+        channels = []
+        for region in lm.all_regions:
+            labels = region if isinstance(region, (list, tuple)) else (region,)
+            mask = torch.zeros_like(seg, dtype=torch.bool)
+            for label in labels:
+                mask = mask | (seg == label)
+            channels.append(mask)
+        if lm.has_ignore_label:
+            channels.append(seg == lm.ignore_label)
+        return torch.stack(channels, dim=1).float()
+
     def _loss(self, logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        if self.label_manager.has_regions:
+            return dc_and_bce_loss(logits, self._seg_to_region_onehot(target),
+                                   batch_dice=self.configuration_manager.batch_dice,
+                                   use_ignore_label=self.label_manager.has_ignore_label)
         return dc_and_ce_loss(logits, target, batch_dice=self.configuration_manager.batch_dice,
                               smooth=1e-5, do_bg=False,
                               ignore_label=self.label_manager.ignore_label)
@@ -282,12 +321,27 @@ class nnUNetTrainer:
     @torch.no_grad()
     def validation_step_host(self, batch):
         """Eval-mode forward (the fused serving path), loss and hard
-        pseudo-Dice counts tp / fp / fn per class (ref :946-1008)."""
+        pseudo-Dice counts tp / fp / fn per class, or per region: sigmoid >
+        0.5 against each region's target, outside the ignore label
+        (ref :946-1008)."""
         data, seg = self._batch_to_device(batch)
         seg = torch.where(seg < 0, torch.zeros_like(seg), seg)
         self.network.eval()
         out = self.network(data)
         loss = self._loss(out, seg)
+        axes = (0, 2, 3)
+        if self.label_manager.has_regions:
+            target = self._seg_to_region_onehot(seg)
+            if self.label_manager.has_ignore_label:
+                mask = 1.0 - target[:, -1:]
+                target = target[:, :-1]
+            else:
+                mask = 1.0
+            pred = (torch.sigmoid(out.float()) > 0.5).float()
+            tp = (pred * target * mask).sum(axes)
+            fp = (pred * (1 - target) * mask).sum(axes)
+            fn = ((1 - pred) * target * mask).sum(axes)
+            return loss, tp, fp, fn
         num_classes = self.label_manager.num_segmentation_heads
         ignore = self.label_manager.ignore_label
         if ignore is not None:
@@ -297,7 +351,6 @@ class nnUNetTrainer:
             mask = 1.0
         pred = one_hot_channels(out.argmax(1), num_classes)
         target = one_hot_channels(seg, num_classes)
-        axes = (0, 2, 3)
         tp = (pred * target * mask).sum(axes)
         fp = (pred * (1 - target) * mask).sum(axes)
         fn = ((1 - pred) * target * mask).sum(axes)
@@ -408,10 +461,13 @@ class nnUNetTrainer:
             self.current_epoch = epoch + 1
 
     def on_validation_epoch_end(self, val_loss, tp, fp, fn, epoch):
-        """Global per-class Dice from the summed counts (ref :1010-1052)."""
+        """Global Dice per foreground class (the counts past the background's)
+        or per region (every count) from the summed counts (ref :1010-1052)."""
         self.logger.log("val_losses", val_loss, epoch)
+        if not self.label_manager.has_regions:
+            tp, fp, fn = tp[1:], fp[1:], fn[1:]
         dice = [float(2 * i / (2 * i + j + k)) if (2 * i + j + k) > 0 else float("nan")
-                for i, j, k in zip(tp[1:], fp[1:], fn[1:])]
+                for i, j, k in zip(tp, fp, fn)]
         self.logger.log("mean_fg_dice", float(np.nanmean(dice)), epoch)
         self.logger.log("dice_per_class_or_region", dice, epoch)
         self.print_to_log_file(
@@ -487,13 +543,9 @@ class nnUNetTrainer:
             raise NotImplementedError(
                 "exporting the validation for a cascade's next stage is not "
                 "ported yet (ROADMAP.md, queue item 8)")
-        inference_network = self.build_network_architecture(
-            self.configuration_manager.network_arch_class_name,
-            self.configuration_manager.network_arch_init_kwargs,
-            self.configuration_manager.network_arch_init_kwargs_req_import,
-            self.num_input_channels,
-            self.label_manager.num_segmentation_heads,
-            enable_deep_supervision=False)
+        inference_network = self.build_network(
+            self.device, self.configuration_manager, self.num_input_channels,
+            self.label_manager.num_segmentation_heads, enable_deep_supervision=False)
         predictor = nnUNetPredictor(tile_step_size=0.5, use_gaussian=True,
                                     use_mirroring=True, device=self.device)
         predictor.manual_initialization(

@@ -391,5 +391,8 @@ def test_get_dinov3_trainer():
         assert registry.trainers.get(cls.__name__) is cls
     with pytest.raises(ValueError):
         port_trainers.get_dinov3_trainer("dinounet_xl")
-    with pytest.raises(NotImplementedError):
-        port_trainers.get_dinov3_trainer("dinounet_7b")({}, "2d", 0, {}, device="cpu")
+    # every size reads the published .pth, or the JAX package's .msgpack of
+    # the same stem where the .pth is missing (dinounet_7b included)
+    for name, cls in port_trainers.DINOV3_TRAINERS.items():
+        jax_path = jax_trainers.get_dinov3_trainer(name)._dinov3_pretrained_path
+        assert cls._dinov3_pretrained_path == jax_path[:-len(".msgpack")] + ".pth"

@@ -463,8 +463,11 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
 
     monkeypatch.setenv("nnUNet_preprocessed", str(tmp_path))
     monkeypatch.setenv("nnUNet_results", str(tmp_path))
-    with pytest.raises(NotImplementedError):
-        DinoUNetTrainer_7b({}, "2d", 0, {})
+    plans = {"dataset_name": "Dataset992_Tiny", "plans_name": "nnUNetPlans",
+             "configurations": {"3d_fullres": {"patch_size": [HW, HW, HW]}}}
+    with pytest.raises(NotImplementedError):  # 3-D training
+        DinoUNetTrainer_7b(plans, "3d_fullres", 0, {"labels": {"background": 0, "a": 1}},
+                           device="cpu")
     with pytest.raises(NotImplementedError):
         TorchDinoUNet(TorchConfig(vit=TorchViTConfig(**VIT_KW), deep_supervision=True,
                                   **CFG_KW))
