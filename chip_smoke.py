@@ -224,10 +224,44 @@ not 0:
               no RssAnon; 1 GiB written on the host must show as 1 GiB),
               the predicted case 800^2 with labels in {0, 1, 2}. Seconds to write, load, step, save and reload, and the
               peak device memory for information.
+14. unet_3d -- nnU-Net's own 3-D network. A raw NIfTI set (UNET3D_DATASET:
+              UNET3D_TRAIN labelled and UNET3D_TEST test volumes of
+              UNET3D_SIZE at 1 mm, a sphere and a shell) with no plans
+              file; extract_fingerprints, plan_experiments (the default
+              planner: 3d_fullres PlainConvUNet, 128^3 patches, batch 2,
+              features 32 to 320, checked against PLANNED_3D), preprocess,
+              then run.run_training of nnUNetTrainer on 3d_fullres with deep
+              supervision at the plans' full width (the train phase's
+              epochs and steps) ending in its final validation (8 mirror
+              variants), a fresh nnUNetPredictor from the model folder and
+              predict_from_files of one held-out case, then api.evaluate.
+              Checks: the step losses finite and falling (the last 3 below
+              the first 3 on average), every validation and test output
+              with its raw file's shape and geometry, a finite Dice,
+              evaluate equal to the validation's summary.json, no kernel
+              launch (3-D runs stock convs); one 3-D tile of the held-out
+              case, card bf16 vs CPU fp32, relative L2 <= PARITY_BOUND; the
+              case's fp16 logits accumulated on the host
+              (DINOUNET_TPU_SW_ACCUM_BUDGET_BYTES=0) against on the card
+              within HOST_ACCUM_RTOL. Step ms, peak memory, seconds a case
+              for information.
+15. resenc_3d -- nnUNetPlannerResEncM on the same set (its 3d_fullres
+              reuses the preprocessed data): ResidualEncoderUNet (160^3,
+              batch 2), RESENC_STEPS steps with deep supervision; finite
+              losses, no kernel launch; step ms and peak memory.
+16. unet_2d -- the default planner's 2d PlainConvUNet on a raw PNG set of
+              UNET2D_CASES cases of UNET2D_SIZE^2 (512^2 patches, 8
+              stages): UNET2D_STEPS steps with deep supervision (no
+              launch), then one tile batch of TILE_BATCH through the
+              trained network in eval mode, stock and under
+              DINOUNET_TPU_DECODER_TAIL=auto: the chain's launches exactly
+              PER_FORWARD_UNET2D_CHAIN (#14, #16, #15), its logits within
+              PARITY_BOUND of the stock stages'.
 
 Then the card's name and power limit, one JSON line of kernel results
 (launches: the counts of the serve path, each route's, the train paths, the
-pipeline, the api, pretrained, regions and train_7b phases), and as the last
+pipeline, the api, pretrained, regions, train_7b, unet_3d, resenc_3d and
+unet_2d phases), and as the last
 line {"ok": true, "device": {...}}. Without a CUDA device the
 script raises before printing any result.
 """
@@ -295,7 +329,12 @@ from dinounet_tpu_torch.ops.msda_kernel import (bwd_plan, ms_deform_attn_premapp
                                                 ms_deform_attn_premapped_backward,
                                                 ms_deform_attn_premapped_fused,
                                                 ms_deform_attn_premapped_fused_merged)
-from dinounet_tpu_torch.planning.plan_and_preprocess_api import preprocess_dataset
+from dinounet_tpu_torch.models.plain_unet import PlainConvUNet
+from dinounet_tpu_torch.models.residual_unet import ResidualEncoderUNet
+from dinounet_tpu_torch.planning.plan_and_preprocess_api import (extract_fingerprints,
+                                                                 plan_experiments, preprocess,
+                                                                 preprocess_dataset)
+from dinounet_tpu_torch.planning.resenc_planner import nnUNetPlannerResEncM
 from dinounet_tpu_torch.preprocessing.preprocessor import DefaultPreprocessor
 from dinounet_tpu_torch.run import get_trainer_from_args, run_training
 from dinounet_tpu_torch.training import dinounet_trainer as dinounet_trainer_module
@@ -307,7 +346,8 @@ from dinounet_tpu_torch.utilities.plans_handler import PlansManager
 from dinounet_tpu_torch.utilities.synthetic_dataset import (disk_ring_case,
                                                             write_disk_ring_dataset,
                                                             write_disk_ring_png_dataset,
-                                                            write_disk_ring_raw_dataset)
+                                                            write_disk_ring_raw_dataset,
+                                                            write_sphere_shell_raw_dataset)
 
 TILE_BATCH = 8
 PATCH = 512
@@ -475,6 +515,31 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "dense_cm_q8_stats": ("dinounet_tpu_torch/csrc/dense_q8.cu",
                           "dinounet_tpu/ops/dense_q8_pallas.py:130"),
 }
+# the unet_3d and resenc_3d phases: a raw 3-D NIfTI set of UNET3D_TRAIN
+# labelled and UNET3D_TEST test cases of UNET3D_SIZE voxels at 1 mm (a sphere
+# and a shell), planned by the default planner (3d_fullres: 128^3 patches,
+# batch 2, features 32 to 320) and by nnUNetPlannerResEncM (160^3, batch 2);
+# fold 0 validates UNET3D_VAL cases; a 3-D network's mirror TTA has 8
+# variants and its predictor's tile batch is TILE_BATCH // 4
+UNET3D_ID, UNET3D_DATASET = 993, "Dataset993_Smoke3d"
+UNET3D_TRAIN, UNET3D_TEST, UNET3D_VAL = 8, 2, 2
+UNET3D_SIZE = (160, 192, 192)
+MIRRORS_3D = 8
+PLANNED_3D = {"nnUNetPlans": ([128, 128, 128], 2), "nnUNetResEncUNetMPlans": ([160] * 3, 2)}
+RESENC_STEPS = 5
+# the unet_2d phase: a raw PNG set of UNET2D_CASES cases of UNET2D_SIZE^2
+# planned by the default planner (2d: 512^2 patches, 8 stages, features 32
+# to 512). The decoder's channel-major chain takes the trailing stages whose
+# skip is a multiple of 128 wide (the JAX package's eligibility), here the
+# three at 128^2, 256^2 and 512^2 (128, 64 and 32 channels): per tile-batch
+# forward 2 convs each, 3 transposed convs and the top seg head. (The 3-D
+# set's own 2d plan has 192^2 patches, which the chain does not take.)
+UNET2D_ID, UNET2D_DATASET = 992, "Dataset992_Smoke2d"
+UNET2D_CASES, UNET2D_SIZE, UNET2D_STEPS = 8, 512, 5
+PER_FORWARD_UNET2D_CHAIN = {"conv3x3_cm": 6, "transpconv2x2_cm": 3, "seg_head_cm": 1}
+# the logits of one case accumulated on the host against on the device: the
+# same fp32 additions in the same order, so equal; held to one fp16 ulp
+HOST_ACCUM_RTOL = 2.0 ** -10
 # the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, dense
 # bf16 tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores, dense int8
 # tensor-core operations/s
@@ -2417,6 +2482,286 @@ def phase_train_7b(dev, root: str) -> dict:
     return counts
 
 
+def _nnunet_env(root: str) -> None:
+    for sub in ("raw", "preprocessed", "results"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        os.environ["nnUNet_" + sub] = os.path.join(root, sub)
+
+
+@contextlib.contextmanager
+def recorded_steps(table: dict):
+    """Each nnUNetTrainer.train_step_host in the block, synchronised: its
+    loss under "losses", its milliseconds under "step_ms"."""
+    step = nnUNetTrainer.train_step_host
+
+    def timed(self, batch):
+        t0 = time.perf_counter()
+        loss = step(self, batch)
+        table.setdefault("losses", []).append(float(loss))  # synchronises
+        table.setdefault("step_ms", []).append((time.perf_counter() - t0) * 1e3)
+        return loss
+
+    nnUNetTrainer.train_step_host = timed
+    try:
+        yield
+    finally:
+        nnUNetTrainer.train_step_host = step
+
+
+def _steps_line(table: dict) -> str:
+    ms = table["step_ms"]
+    return (f"losses {[round(x, 4) for x in table['losses']]}; step ms "
+            f"{', '.join(f'{t:.0f}' for t in ms)} (median after the first "
+            f"{float(np.median(ms[1:])):.1f})")
+
+
+def _check_plan(plans_id: str, configuration: str, cls) -> dict:
+    with open(os.path.join(os.environ["nnUNet_preprocessed"], UNET3D_DATASET,
+                           plans_id + ".json")) as f:
+        plan = json.load(f)["configurations"][configuration]
+    arch = plan["architecture"]
+    if not arch["network_class_name"].endswith(cls.__name__):
+        raise AssertionError(f"{plans_id} {configuration}: network {arch['network_class_name']}")
+    return plan
+
+
+def phase_unet_3d(dev, root: str) -> dict:
+    """The plans' PlainConvUNet in 3-D: raw NIfTI volumes -> fingerprint ->
+    default planner -> 3d_fullres preprocessing -> run_training with deep
+    supervision and its final validation -> predict_from_files of a
+    held-out case -> evaluate; a tile's parity and host accumulation."""
+    _nnunet_env(root)
+    times, steps = {}, {}
+    t0 = time.perf_counter()
+    raw = write_sphere_shell_raw_dataset(os.environ["nnUNet_raw"], UNET3D_DATASET,
+                                         UNET3D_TRAIN, UNET3D_TEST, UNET3D_SIZE, seed=3)
+    write_s = time.perf_counter() - t0
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    extract_fingerprints([UNET3D_ID], num_processes=4)
+    plans_id = plan_experiments([UNET3D_ID])
+    plan_s = time.perf_counter() - t0
+    plan = _check_plan(plans_id, "3d_fullres", PlainConvUNet)
+    arch = plan["architecture"]["arch_kwargs"]
+    if (plan["patch_size"], plan["batch_size"]) != PLANNED_3D[plans_id]:
+        raise AssertionError(f"unet_3d: 3d_fullres patch {plan['patch_size']}, batch "
+                             f"{plan['batch_size']}")
+    t0 = time.perf_counter()
+    preprocess([UNET3D_ID], plans_id, ["3d_fullres"], [4])
+    prep_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    with timed_calls(times), recorded_steps(steps), shortened_training(nnUNetTrainer):
+        trainer = run_training(UNET3D_ID, "3d_fullres", 0, "nnUNetTrainer", plans_id,
+                               device=dev)
+        torch.cuda.synchronize()
+        train_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        if type(trainer.network) is not PlainConvUNet or not trainer.network.cfg.deep_supervision:
+            raise AssertionError(f"unet_3d: trained {type(trainer.network).__name__} "
+                                 f"{trainer.network.cfg}")
+        losses = steps["losses"]
+        if len(losses) != TRAIN_EPOCHS * TRAIN_ITERS or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"unet_3d: step losses {losses}")
+        if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            raise AssertionError(f"unet_3d: the losses do not fall: {losses}")
+        val_folder = os.path.join(trainer.output_folder, "validation")
+        _, val_keys = trainer.do_split()
+        if len(val_keys) != UNET3D_VAL:
+            raise AssertionError(f"unet_3d: fold 0 validates {val_keys}")
+        for k in val_keys:
+            check_segmentation_file(os.path.join(val_folder, k + ".nii.gz"),
+                                    os.path.join(raw, "imagesTr", k + "_0000.nii.gz"))
+        summary = load_summary_json(os.path.join(val_folder, "summary.json"))
+        val_times = {k: times.pop(k) for k in list(times)}
+        model_folder = trainer.output_folder_base
+        del trainer
+        torch.cuda.empty_cache()
+
+        predictor = nnUNetPredictor(device=dev)
+        predictor.initialize_from_trained_model_folder(model_folder, use_folds=(0,))
+        case = os.path.join(raw, "imagesTs", f"case_{UNET3D_TRAIN:03d}_0000.nii.gz")
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        written = predictor.predict_from_files([[case]], os.path.join(root, "predicted_3d"))
+        torch.cuda.synchronize()
+        predict_s = time.perf_counter() - t0
+        predict_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        test_times = {k: times.pop(k) for k in list(times)}
+    check_segmentation_file(written[0] + ".nii.gz", case)
+    t0 = time.perf_counter()
+    evaluated = api.evaluate(UNET3D_ID, os.path.join(model_folder, "fold_0"), fold=0,
+                             num_processes=4)
+    evaluate_s = time.perf_counter() - t0
+    dice = summary["foreground_mean"]["Dice"]
+    if not np.isfinite(dice) or not _same_json(evaluated, summary):
+        raise AssertionError(f"unet_3d: validation Dice {dice}; evaluate gave another "
+                             "summary than the validation wrote")
+    counts = _build.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"unet_3d: the 3-D path runs stock convs, launches {counts}")
+    log(f"[unet_3d] {UNET3D_TRAIN} + {UNET3D_TEST} raw cases of {UNET3D_SIZE} at 1 mm "
+        f"(written in {write_s:.1f} s); fingerprint + default planner {plan_s:.1f} s: "
+        f"3d_fullres patch {plan['patch_size']}, batch {plan['batch_size']}, features "
+        f"{arch['features_per_stage']}, strides {arch['strides']}; preprocess {prep_s:.1f} s")
+    log(f"[unet_3d] {card_line()}: nnUNetTrainer 3d_fullres with deep supervision, "
+        f"{TRAIN_EPOCHS} epochs x {TRAIN_ITERS} steps: {_steps_line(steps)}; peak device "
+        f"memory {train_peak:.2f} GiB; final validation {val_times['validation'][0]:.1f} s "
+        f"for {UNET3D_VAL} cases x {MIRRORS_3D} mirrors (prediction on the device "
+        f"{_per_case(val_times['predict'])}), foreground mean Dice {dice:.4f}; "
+        f"predict_from_files {predict_s:.2f} s for 1 case (preprocessing "
+        f"{_per_case(test_times['preprocess'])}, prediction on the device "
+        f"{_per_case(test_times['predict'])}, export {_per_case(test_times['export'])}), "
+        f"peak device memory {predict_peak:.2f} GiB; evaluate {evaluate_s:.1f} s equals "
+        f"the validation's summary.json; launches {counts}")
+
+    # one tile: the card's bf16 forward against the fp32 plain forward on the CPU
+    image, props = NiftiIO().read_images([case])
+    cm = predictor.configuration_manager
+    data, _ = cm.preprocessor_class().run_case_npy(image, None, props,
+                                                  predictor.plans_manager, cm,
+                                                  predictor.dataset_json)
+    pz, py, px = cm.patch_size
+    tile = torch.from_numpy(np.ascontiguousarray(data[None, :, :pz, :py, :px],
+                                                 dtype=np.float32))
+    network = predictor.network
+    with torch.inference_mode():
+        got = network(tile.to(dev)).float().cpu()
+        ref = type(network)(dataclasses.replace(network.cfg, dtype="float32"),
+                            network.input_channels).eval()
+        ref.load_state_dict({k: v.cpu() for k, v in network.state_dict().items()})
+        t0 = time.perf_counter()
+        want = ref(tile)
+        cpu_s = time.perf_counter() - t0
+    del ref
+    rel = rel_l2(got, want)
+    log(f"[unet_3d] parity: one {cm.patch_size} tile, card bf16 vs CPU fp32 ({cpu_s:.1f} "
+        f"s): relative L2 error {rel:.4e} (bound {PARITY_BOUND}); max abs "
+        f"{float((got - want).abs().max()):.4e} of max |ref| {float(want.abs().max()):.4e}")
+    if not rel <= PARITY_BOUND:
+        raise AssertionError(f"unet_3d parity {rel} over {PARITY_BOUND}")
+
+    # the held-out case again, its accumulators on the host
+    t0 = time.perf_counter()
+    on_device = predictor.predict_logits_from_preprocessed_data(data)
+    device_s = time.perf_counter() - t0
+    with route_env({"DINOUNET_TPU_SW_ACCUM_BUDGET_BYTES": "0"}):
+        t0 = time.perf_counter()
+        on_host = predictor.predict_logits_from_preprocessed_data(data)
+        host_s = time.perf_counter() - t0
+    a, b = on_host.astype(np.float32), on_device.astype(np.float32)
+    n_diff = int(np.count_nonzero(a != b))
+    excess = float(np.max(np.abs(a - b) - HOST_ACCUM_RTOL * np.abs(b)))
+    log(f"[unet_3d] host accumulation (DINOUNET_TPU_SW_ACCUM_BUDGET_BYTES=0) vs the "
+        f"device's, fp16 logits {on_host.shape}: {n_diff} of {a.size} differ, max abs "
+        f"{float(np.max(np.abs(a - b))):.4e} (bound: one fp16 ulp, rtol "
+        f"{HOST_ACCUM_RTOL}); {host_s:.2f} s on the host, {device_s:.2f} s on the device")
+    if on_host.shape != on_device.shape or not excess <= 0:
+        raise AssertionError(f"unet_3d: host accumulation differs by {excess} past one ulp")
+    del predictor, network
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _plans_steps(dev, dataset_id, configuration: str, plans_id: str, n_steps: int,
+                 tag: str):
+    """nnUNetTrainer of the plans on the card: set-up, then `n_steps` train
+    steps with deep supervision; returns the trainer and the steps' table."""
+    trainer = get_trainer_from_args(dataset_id, configuration, 0, "nnUNetTrainer",
+                                    plans_id, device=dev)
+    trainer.seed = 0
+    t0 = time.perf_counter()
+    trainer.on_train_start()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = {}
+    with recorded_steps(steps):
+        for _ in range(n_steps):
+            trainer.train_step_host(trainer.dataloader_train.generate_train_batch())
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    cm = trainer.configuration_manager
+    log(f"[{tag}] {card_line()}: {type(trainer.network).__name__} "
+        f"({sum(p.numel() for p in trainer.network.parameters()) / 1e6:.1f} M parameters) "
+        f"{configuration}, patch {cm.patch_size}, batch {cm.batch_size}, deep "
+        f"supervision; set-up {setup_s:.1f} s; {n_steps} steps: {_steps_line(steps)}; peak "
+        f"device memory {peak:.2f} GiB")
+    if not np.all(np.isfinite(steps["losses"])):
+        raise AssertionError(f"{tag}: losses {steps['losses']}")
+    return trainer, steps
+
+
+def phase_resenc_3d(dev) -> dict:
+    """nnUNetPlannerResEncM's 3d_fullres ResidualEncoderUNet on the unet_3d
+    phase's set (its preprocessed data reused): RESENC_STEPS steps."""
+    _build.reset_launch_counts()
+    plans_id = plan_experiments([UNET3D_ID], experiment_planner_class=nnUNetPlannerResEncM)
+    plan = _check_plan(plans_id, "3d_fullres", ResidualEncoderUNet)
+    if (plan["patch_size"], plan["batch_size"]) != PLANNED_3D[plans_id]:
+        raise AssertionError(f"resenc_3d: 3d_fullres patch {plan['patch_size']}, batch "
+                             f"{plan['batch_size']}")
+    trainer, _ = _plans_steps(dev, UNET3D_ID, "3d_fullres", plans_id, RESENC_STEPS,
+                              "resenc_3d")
+    if type(trainer.network) is not ResidualEncoderUNet:
+        raise AssertionError(f"resenc_3d: trained {type(trainer.network).__name__}")
+    log(f"[resenc_3d] blocks per stage "
+        f"{plan['architecture']['arch_kwargs']['n_conv_per_stage']}, features "
+        f"{plan['architecture']['arch_kwargs']['features_per_stage']}")
+    counts = _build.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"resenc_3d: the 3-D path runs stock convs, launches {counts}")
+    del trainer
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_unet_2d(dev, root: str) -> dict:
+    """The default planner's 2d PlainConvUNet: UNET2D_STEPS steps with deep
+    supervision, then one tile batch through the trained network in eval
+    mode, stock and under DINOUNET_TPU_DECODER_TAIL=auto."""
+    _nnunet_env(root)
+    write_disk_ring_png_dataset(os.environ["nnUNet_raw"], UNET2D_DATASET, UNET2D_CASES,
+                                (UNET2D_SIZE, UNET2D_SIZE), seed=2)
+    extract_fingerprints([UNET2D_ID], num_processes=4)
+    plans_id = plan_experiments([UNET2D_ID])
+    preprocess([UNET2D_ID], plans_id, ["2d"], [4])
+    _build.reset_launch_counts()
+    trainer, _ = _plans_steps(dev, UNET2D_ID, "2d", plans_id, UNET2D_STEPS, "unet_2d")
+    cm = trainer.configuration_manager
+    arch = cm.network_arch_init_kwargs
+    if cm.patch_size != [UNET2D_SIZE, UNET2D_SIZE] or arch["features_per_stage"][:3] != [
+            32, 64, 128]:
+        raise AssertionError(f"unet_2d: 2d patch {cm.patch_size}, features "
+                             f"{arch['features_per_stage']}")
+    train_counts = _build.launch_counts()
+    if any(train_counts.values()):
+        raise AssertionError(f"unet_2d: train steps launched {train_counts}")
+
+    tiles = []
+    while len(tiles) < TILE_BATCH:
+        tiles.extend(trainer.dataloader_val.generate_train_batch()["data"])
+    tiles = torch.from_numpy(np.stack(tiles[:TILE_BATCH]))
+    network = trainer.network.eval()
+    with torch.inference_mode():
+        stock = network(tiles.to(dev)).float()
+        with route_env({"DINOUNET_TPU_DECODER_TAIL": "auto"}):
+            _build.reset_launch_counts()
+            fused = network(tiles.to(dev)).float()
+            counts = _build.launch_counts()
+    want = {**dict.fromkeys(counts, 0), **PER_FORWARD_UNET2D_CHAIN}
+    rel = rel_l2(fused, stock)
+    agree = float((fused.argmax(1) == stock.argmax(1)).float().mean())
+    log(f"[unet_2d] one tile batch of {len(tiles)} x {UNET2D_SIZE}^2 through the trained "
+        f"network, the decoder chain (DINOUNET_TPU_DECODER_TAIL=auto) vs the stock stages, "
+        f"both card bf16: relative L2 {rel:.4e} (bound {PARITY_BOUND}), argmax agreement "
+        f"{agree:.4%}; launches {counts}")
+    if counts != want:
+        raise AssertionError(f"unet_2d: kernel launches {counts}, the chain makes {want}")
+    if not rel <= PARITY_BOUND:
+        raise AssertionError(f"unet_2d: chain vs stock {rel} over {PARITY_BOUND}")
+    del trainer, network
+    torch.cuda.empty_cache()
+    return counts
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2491,6 +2836,11 @@ def main() -> int:
         counts["regions"] = phase_regions(dev, root)
         torch.cuda.empty_cache()
         counts["train_7b"] = phase_train_7b(dev, root)
+    with tempfile.TemporaryDirectory() as root:
+        counts["unet_3d"] = phase_unet_3d(dev, root)
+        counts["resenc_3d"] = phase_resenc_3d(dev)
+    with tempfile.TemporaryDirectory() as root:
+        counts["unet_2d"] = phase_unet_2d(dev, root)
 
     log(card_line())
     log(json.dumps({"kernels": [

@@ -1,5 +1,5 @@
-"""nnUNetPredictor: prediction of 2-D cases from files or arrays, with fold
-ensembling and mirror TTA on one device.
+"""nnUNetPredictor: prediction of cases from files or arrays by a 2-D or 3-D
+network, with fold ensembling and mirror TTA on one device.
 
 Counterpart of ``dinounet_tpu/inference/predictor.py`` (ref: dinounet/
 inference/predict_from_raw_data.py:38-871):
@@ -13,9 +13,12 @@ inference/predict_from_raw_data.py:38-871):
     validation uses it). Each fold's weights are loaded into the one network
     in turn, as the reference's predictor does, and not again while they
     are the ones it holds;
-  * ``predict_sliding_window_return_logits`` and
+  * ``predict_sliding_window_return_logits``, its ``_with_target`` form and
     ``predict_logits_from_preprocessed_data`` (fold-averaged fp16 logits, the
-    reference's output contract);
+    reference's output contract). A 3-D network's tile batch is a quarter of
+    ``tile_batch`` (at least 1), as in the JAX package. Past the device
+    budget of the accumulators the folds add into one host buffer pair
+    (``sliding_window.py``);
   * ``predict_single_npy_array``, the array iterators and
     ``predict_from_files``: preprocessing runs ahead of the device in a
     bounded thread pool (``data_iterators``) and export (resampling and
@@ -23,9 +26,8 @@ inference/predict_from_raw_data.py:38-871):
     device's work runs on the calling thread;
   * the CLIs ``predict_entry_point`` and ``predict_entry_point_modelfolder``.
 
-Not ported: the 3-D predictor, sharding the cases over ``num_parts``, and
-previous-stage segmentations (the cascade); they raise
-``NotImplementedError``.
+Not ported: sharding the cases over ``num_parts``, and previous-stage
+segmentations (the cascade); they raise ``NotImplementedError``.
 """
 
 import os
@@ -43,7 +45,7 @@ from dinounet_tpu_torch.inference.export import (
     convert_predicted_logits_to_segmentation_with_correct_shape,
     export_prediction_from_logits)
 from dinounet_tpu_torch.inference.sliding_window import (
-    TilePredictor2d, check_accum_budget, finalize_sliding_window_logits,
+    TilePredictor, finalize_sliding_window_logits, over_accum_budget,
     predict_sliding_window_return_logits, prepare_sliding_window_volume)
 from dinounet_tpu_torch.planning.dataset_utils import create_lists_from_splitted_dataset_folder
 from dinounet_tpu_torch.utilities import registry
@@ -206,37 +208,65 @@ class nnUNetPredictor:
             self.network.load_state_dict(params)
             self._loaded = (self.network, params)
 
+    @property
+    def _tile_batch(self) -> int:
+        """3-D tiles are ~patch_size[0] times bigger than 2-D ones: a quarter
+        of the batch (JAX ``predictor.py:243-246``)."""
+        if len(self.configuration_manager.patch_size) == 2:
+            return self.tile_batch
+        return max(1, self.tile_batch // 4)
+
     def predict_sliding_window_return_logits(self, data: np.ndarray,
                                              parameters: Optional[dict] = None
                                              ) -> np.ndarray:
         """fp32 logits (K, Z, Y, X) of one fold (default: the first)."""
+        return self._one_fold(data, parameters, None)
+
+    def predict_sliding_window_return_logits_with_target(
+            self, data: np.ndarray, target_mask: np.ndarray,
+            parameters: Optional[dict] = None) -> np.ndarray:
+        """The `*_with_target` entry point (ref predict_from_raw_data.py:
+        728-776): for a network whose forward takes (image, mask), the mask
+        volume (C_t, Z, Y, X) tiled and mirrored beside the image. fp32
+        logits (K, Z, Y, X) of one fold (default: the first)."""
+        return self._one_fold(data, parameters, np.asarray(target_mask))
+
+    def _one_fold(self, data, parameters, target_mask) -> np.ndarray:
         self._load(parameters if parameters is not None else self.list_of_parameters[0])
         return predict_sliding_window_return_logits(
             self.network, np.asarray(data), tuple(self.configuration_manager.patch_size),
             self.label_manager.num_segmentation_heads,
             tile_step_size=self.tile_step_size, mirror_axes=self._mirror_axes,
-            tile_batch=self.tile_batch, use_gaussian=self.use_gaussian,
-            device=self.device)
+            tile_batch=self._tile_batch, use_gaussian=self.use_gaussian,
+            device=self.device, target_mask=target_mask)
 
     def predict_logits_from_preprocessed_data(self, data: np.ndarray) -> np.ndarray:
         """Fold-averaged logits (K, Z, Y, X) in fp16. The volume is uploaded
         once, the folds' logits are summed in one fp32 accumulator on the
-        device, and one fp16 copy comes back to the host."""
+        device (past the budget, on the host), and one fp16 copy comes back
+        to the host."""
         patch_size = tuple(self.configuration_manager.patch_size)
         num_classes = self.label_manager.num_segmentation_heads
         volume, offsets, revert = prepare_sliding_window_volume(
             np.asarray(data), patch_size, self.tile_step_size, self.device)
-        check_accum_budget((volume.shape[0],) + tuple(volume.shape[2:]), num_classes)
-        predictor = TilePredictor2d(self.network, patch_size, num_classes,
-                                    self.tile_batch, self._mirror_axes,
-                                    self.use_gaussian)
+        predictor = TilePredictor(self.network, patch_size, num_classes,
+                                  self._tile_batch, self._mirror_axes,
+                                  self.use_gaussian)
+        on_host = over_accum_budget(volume, patch_size, num_classes)
+        if on_host and self.verbose:
+            print("sliding window: accumulators over the device budget; "
+                  "accumulating on the host")
         accum_sum = weights = None
         for params in self.list_of_parameters:
             self._load(params)
-            accum, weights = predictor.predict(volume, offsets, weights)
-            accum_sum = accum if accum_sum is None else accum_sum + accum
+            if on_host:
+                accum_sum, weights = predictor.predict_host(volume, offsets,
+                                                            accum_sum, weights)
+            else:
+                accum, weights = predictor.predict(volume, offsets, weights)
+                accum_sum = accum if accum_sum is None else accum_sum + accum
         n = len(self.list_of_parameters)
-        return finalize_sliding_window_logits(accum_sum, weights * n, revert,
+        return finalize_sliding_window_logits(accum_sum, weights * n, revert, patch_size,
                                               out_dtype=torch.float16)
 
     # ------------------------------------------------------ arrays and files

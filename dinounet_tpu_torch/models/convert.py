@@ -6,8 +6,11 @@ backbone keys are already the port's (below
 ``encoder.dinov3_adapter.backbone.``). Three readers:
 
 ``state_dict_from_flax(variables)`` takes the ``{"params", "batch_stats"}``
-tree of ``dinounet_tpu.models.dinounet.DinoUNet`` (numpy arrays, or anything
-``np.asarray`` reads) and returns the port's ``DinoUNet`` state_dict. The
+tree of ``dinounet_tpu.models.dinounet.DinoUNet``, or of the plans' networks
+``plain_unet.PlainConvUNet`` and ``residual_unet.ResidualEncoderUNet`` in 2-D
+or 3-D (numpy arrays, or anything ``np.asarray`` reads), and returns the
+port's state_dict of the same network; BatchNorm running statistics come
+from ``batch_stats``. The
 backbone may come in either of the JAX package's block layouts: unrolled
 (``block{i}/...``) or scanned (``blocks_scan/block/...``, every leaf with a
 leading depth axis: the tree its ``nn.scan`` builds at depth >=
@@ -16,10 +19,10 @@ leading depth axis: the tree its ``nn.scan`` builds at depth >=
 changes:
 
   Dense          kernel (in, out)          -> weight (out, in)
-  Conv           kernel (kh, kw, Ci, Co)   -> weight (Co, Ci, kh, kw)
-  ConvTranspose  kernel (kh, kw, Ci, Co)   -> weight (Ci, Co, kh, kw), taps
-                 flipped in both spatial axes (flax's conv_transpose correlates
-                 with the spatially flipped kernel)
+  Conv           kernel (k..., Ci, Co)     -> weight (Co, Ci, k...)
+  ConvTranspose  kernel (k..., Ci, Co)     -> weight (Ci, Co, k...), taps
+                 flipped in every spatial axis (flax's conv_transpose
+                 correlates with the spatially flipped kernel)
 
 ``load_dinov3_backbone_(backbone, path, model_name)`` fills a ``DinoViT``
 from a DINOv3 backbone file, the counterpart of the JAX package's
@@ -95,6 +98,18 @@ _RULES = {
         (r"^seg(\d+)$", r"seg_layers.\1"),
     ]),
 }
+# the plans' networks (PlainConvUNet, ResidualEncoderUNet): one top-level
+# subtree per encoder stage or block, named by its indices
+_STAGE_TOPS = [
+    (r"^enc(\d+)$", r"encoder.stages.\1.0", [
+        (r"^conv(\d+)/norm/norm$", r"convs.\1.norm"),
+        (r"^conv(\d+)/conv$", r"convs.\1.conv"),
+    ]),
+    (r"^enc(\d+)_block(\d+)$", r"encoder.stages.\1.blocks.\2", [
+        (r"^conv(\d)$", r"conv\1.conv"), (r"^norm(\d)/norm$", r"conv\1.norm"),
+        (r"^proj$", "skip.conv"), (r"^proj_norm/norm$", "skip.norm"),
+    ]),
+]
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                "mean": "running_mean", "var": "running_var"}
 
@@ -126,9 +141,19 @@ def _unstack_scan(tree: Mapping, cast: bool = True) -> Mapping:
     return out
 
 
+def _top_rules(top: str):
+    """(torch prefix, module rules) of a top-level flax subtree."""
+    if top in _RULES:
+        return _RULES[top]
+    for pattern, prefix, rules in _STAGE_TOPS:
+        if re.match(pattern, top):
+            return re.sub(pattern, prefix, top), rules
+    raise KeyError(f"no torch names for the flax subtree {top!r}")
+
+
 def _torch_name(top: str, path: str) -> str:
     """flax path below `top` (e.g. "block3/attn/qkv/kernel") -> torch name."""
-    prefix, rules = _RULES[top]
+    prefix, rules = _top_rules(top)
     module, _, leaf = path.rpartition("/")
     if leaf.endswith("_gamma"):  # LayerScale: block3/ls1_gamma -> blocks.3.ls1.gamma
         module, leaf = f"{module}/{leaf[:-len('_gamma')]}", "gamma"
@@ -148,19 +173,25 @@ def _permute(leaf, axes):
 
 def _torch_layout(path: str, leaf):
     """A flax leaf (numpy array or tensor) -> the torch layout, as a view
-    where the leaf allows one."""
+    where the leaf allows one. Convs of 2 or 3 spatial dims alike."""
     if not path.endswith("/kernel"):
         return leaf
     if leaf.ndim == 2:
         return leaf.T
+    spatial = tuple(range(leaf.ndim - 2))
+    ci, co = leaf.ndim - 2, leaf.ndim - 1
     if "transpconv" in path:
-        flipped = leaf.flip((0, 1)) if isinstance(leaf, torch.Tensor) else leaf[::-1, ::-1]
-        return _permute(flipped, (2, 3, 0, 1))
-    return _permute(leaf, (3, 2, 0, 1))
+        if isinstance(leaf, torch.Tensor):
+            flipped = leaf.flip(spatial)
+        else:
+            flipped = leaf[(slice(None, None, -1),) * len(spatial)]
+        return _permute(flipped, (ci, co) + spatial)
+    return _permute(leaf, (co, ci) + spatial)
 
 
 def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX DinoUNet variables -> port DinoUNet state_dict (fp32 tensors)."""
+    """JAX DinoUNet, PlainConvUNet or ResidualEncoderUNet variables -> the
+    port's state_dict of the same network (fp32 tensors), 2-D or 3-D."""
     sd = {}
     for collection in ("params", "batch_stats"):
         for top, tree in variables.get(collection, {}).items():

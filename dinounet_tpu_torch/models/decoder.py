@@ -2,13 +2,15 @@
 
 Counterpart of ``dinounet_tpu/models/decoder.py``: per stage transposed conv
 (from below) -> concat(skip) -> stacked conv-norm-nonlin blocks -> 1x1
-segmentation head. All heads exist (so checkpoints load whatever the
+segmentation head, in 2-D (NCHW) or 3-D (NCDHW) by the rank of the strides
+and kernel sizes. All heads exist (so checkpoints load whatever the
 deep-supervision flag); with deep supervision the call returns every head's
 logits, highest resolution first, else only the top one. Parameter names are
 the reference's (``transpconvs.0.weight``, ``stages.0.convs.1.norm.weight``,
-``seg_layers.2.bias``).
+``seg_layers.2.bias``). The 3-D stages run stock ``F.conv3d`` and
+``F.conv_transpose3d`` (the JAX package's 3-D convs are XLA's, no Pallas).
 
-In eval mode two inference routes of the JAX package can replace the stock
+In eval mode two 2-D inference routes of the JAX package can replace the stock
 stages, on the same parameters (``configuration.py``):
 - the fused channel-major chain (DINOUNET_TPU_DECODER_TAIL): from the first
   stage from which every remaining stage is eligible, all of them run through
@@ -28,33 +30,42 @@ import torch.nn.functional as F
 from torch import nn
 
 from dinounet_tpu_torch.configuration import use_decoder_hwbc, use_decoder_tail
-from dinounet_tpu_torch.models.layers import (Conv2d, StackedConvBlocks,
-                                              TransposedConv)
+from dinounet_tpu_torch.models.layers import (Conv2d, Conv3d, StackedConvBlocks,
+                                              transposed_conv_nd)
 from dinounet_tpu_torch.ops.conv_hwbc import (conv3x3_hwbc, hwbc_supported,
                                               instance_norm_prologue_params)
 from dinounet_tpu_torch.ops.decoder_tail import (_pick_stripe, decoder_chain_cm,
                                                  tail_supported)
 
 
-class SegHead(Conv2d):
+class _SegHeadForward:
     """1x1 conv to num_classes on operands rounded to the compute dtype,
     logits in fp32 with the bias added in fp32. In train mode the product is
     taken in fp32, as the JAX package's dot_general with an fp32 result does
     (``decoder.py:185-190``); in eval mode it rounds through the compute
     dtype once, as its default inference form ("convbf") does."""
 
-    def __init__(self, in_ch: int, num_classes: int, dtype: torch.dtype):
-        super().__init__(in_ch, num_classes, 1, bias=True, dtype=dtype,
-                         init="lecun")
-
     def forward(self, x):
         cdt = self.compute_dtype
         w = self.weight.to(cdt)
         if self.training:
-            y = torch.einsum("bchw,kc->bkhw", x.to(cdt).float(), w[:, :, 0, 0].float())
+            y = torch.einsum("bc...,kc->bk...", x.to(cdt).float(),
+                             w.reshape(w.shape[0], w.shape[1]).float())
         else:
-            y = F.conv2d(x.to(cdt), w).float()
-        return y + self.bias[:, None, None]
+            y = self._conv(x.to(cdt), w).float()
+        return y + self.bias.view(-1, *([1] * (x.dim() - 2)))
+
+
+class SegHead(_SegHeadForward, Conv2d):
+    def __init__(self, in_ch: int, num_classes: int, dtype: torch.dtype):
+        super().__init__(in_ch, num_classes, 1, bias=True, dtype=dtype,
+                         init="lecun")
+
+
+class SegHead3d(_SegHeadForward, Conv3d):
+    def __init__(self, in_ch: int, num_classes: int, dtype: torch.dtype):
+        super().__init__(in_ch, num_classes, 1, bias=True, dtype=dtype,
+                         init="lecun")
 
 
 class UNetDecoder(nn.Module):
@@ -79,17 +90,18 @@ class UNetDecoder(nn.Module):
         self.transpconvs = nn.ModuleList()
         self.stages = nn.ModuleList()
         self.seg_layers = nn.ModuleList()
+        seg_head = SegHead if len(self.encoder_kernel_sizes[0]) == 2 else SegHead3d
         for s in range(1, n_stages):
             below = encoder_channels[-s]
             skip_ch = encoder_channels[-(s + 1)]
-            self.transpconvs.append(TransposedConv(
-                below, skip_ch, tuple(encoder_strides[-s]), bias=conv_bias,
+            self.transpconvs.append(transposed_conv_nd(
+                below, skip_ch, self.encoder_strides[-s], bias=conv_bias,
                 dtype=dtype))
             self.stages.append(StackedConvBlocks(
                 n_conv_per_stage[s - 1], 2 * skip_ch, skip_ch,
-                tuple(encoder_kernel_sizes[-(s + 1)]), norm, norm_kwargs,
+                self.encoder_kernel_sizes[-(s + 1)], norm, norm_kwargs,
                 nonlin, nonlin_kwargs, conv_bias, dtype))
-            self.seg_layers.append(SegHead(skip_ch, num_classes, dtype))
+            self.seg_layers.append(seg_head(skip_ch, num_classes, dtype))
 
     def forward(self, skips: List[torch.Tensor], deep_supervision: bool = False):
         if len(skips) != len(self.stages) + 1:

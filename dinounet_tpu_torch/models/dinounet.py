@@ -8,8 +8,12 @@ are NCHW; the logits are fp32. ``train()`` / ``eval()`` choose the path, as
 ``train=`` does in the JAX package: train mode runs the adapter's unfused,
 drop-path, checkpointed graph and BatchNorm batch statistics. The backbone is
 frozen (its parameters do not require grad, the JAX optimizer's
-``backbone_param_filter``) and runs under ``no_grad``. Deep-supervision
-outputs are not ported yet: the DinoUNet trainers train without them. Module nesting and parameter names follow the reference
+``backbone_param_filter``) and runs under ``no_grad``. With
+``deep_supervision`` in the config, train mode returns every decoder head's
+logits, highest resolution first (JAX ``dinounet.py:158-169``); eval mode
+returns the top head. The DinoUNet trainers train without deep supervision
+(``nnUNetTrainerNoDeepSupervision``), as in the JAX package. Module nesting
+and parameter names follow the reference
 (``encoder.dinov3_adapter.backbone.blocks.0...``, ``decoder.seg_layers.0...``),
 so its checkpoints load by name; ``models/convert.py`` maps the JAX package's
 parameter trees onto the same names.
@@ -100,10 +104,6 @@ class DinoUNet(nn.Module):
 
     def __init__(self, cfg: DinoUNetConfig):
         super().__init__()
-        if cfg.deep_supervision:
-            raise NotImplementedError(
-                "DinoUNet's deep-supervision outputs are not ported yet (a "
-                "later training slice); the DinoUNet trainers train without them")
         self.cfg = cfg
         cdt = getattr(torch, cfg.dtype)
         self.compute_dtype = cdt
@@ -158,4 +158,5 @@ class DinoUNet(nn.Module):
         else:
             x3 = x[:, :3]
         # deep supervision is a training output: inference returns the top head
-        return self.decoder(self.encoder(x3.to(self.compute_dtype)))
+        return self.decoder(self.encoder(x3.to(self.compute_dtype)),
+                            deep_supervision=self.cfg.deep_supervision and self.training)

@@ -1,4 +1,5 @@
-"""Shared building blocks (NCHW) for the adapter, FAPM and U-Net decoder.
+"""Shared building blocks for the adapter, FAPM and the U-Nets: NCHW, and
+NCDHW for the 3-D convs, norms and transposed convs of the plans' networks.
 
 Counterpart of ``dinounet_tpu/models/layers.py``. Parameters are fp32 and
 named as the reference torch modules name them (``weight``, ``bias``,
@@ -13,7 +14,7 @@ constructed at their constant init values (ones, zeros, 1e-5).
 
 import functools
 import math
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -88,38 +89,108 @@ class Linear(nn.Linear):
         return F.linear(x.to(cdt), self.weight.to(cdt), b)
 
 
-class Conv2d(nn.Conv2d):
-    """nn.Conv2d computing in `dtype`. `init` is "kaiming" (the reference's
-    fan-out normal, flax conv_kaiming_init) or "lecun" (flax's nn.Conv
-    default); biases start at zero."""
+def xla_same_pads(sizes: Sequence[int], kernel: Sequence[int],
+                  stride: Sequence[int]) -> List[Tuple[int, int]]:
+    """XLA's "SAME" padding, (lo, hi) per spatial dim: the output has
+    ceil(n / s) positions and the odd pixel of an odd total pads the end
+    (flax ``padding="SAME"``). A stride-2 3x3 conv over an even size pads
+    (0, 1), where torch's symmetric padding=1 would pad (1, 1)."""
+    pads = []
+    for n, k, st in zip(sizes, kernel, stride):
+        total = max((-(-n // st) - 1) * st + k - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
 
-    def __init__(self, in_ch: int, out_ch: int, kernel_size, stride=1,
-                 padding=0, groups: int = 1, bias: bool = True,
-                 dtype: torch.dtype = torch.bfloat16, init: str = "kaiming"):
-        super().__init__(in_ch, out_ch, kernel_size, stride=stride,
-                         padding=padding, groups=groups, bias=bias)
+
+class _ConvForward:
+    """The forward and init of Conv2d / Conv3d: inputs and weights cast to
+    the compute dtype; "kaiming" init (the reference's fan-out normal, flax
+    conv_kaiming_init) or "lecun" (flax's nn.Conv default), zero biases.
+    Built with padding="same", the conv pads as XLA's SAME does
+    (``xla_same_pads``), per call from the input's size."""
+
+    def _setup(self, dtype: torch.dtype, init: str, same: bool) -> None:
         self.compute_dtype = dtype
         self.init = init
+        self.same = same
 
     def init_params(self, gen):
-        kh, kw = self.kernel_size
+        field = math.prod(self.kernel_size)
         if self.init == "kaiming":
-            kaiming_fan_out_normal_(self.weight, kh * kw * self.out_channels, gen)
+            kaiming_fan_out_normal_(self.weight, field * self.out_channels, gen)
         else:
-            lecun_normal_(self.weight, kh * kw * self.in_channels // self.groups, gen)
+            lecun_normal_(self.weight, field * self.in_channels // self.groups, gen)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
         cdt = self.compute_dtype
         b = None if self.bias is None else self.bias.to(cdt)
-        return F.conv2d(x.to(cdt), self.weight.to(cdt), b, self.stride,
-                        self.padding, self.dilation, self.groups)
+        padding = self.padding
+        if self.same:
+            pads = xla_same_pads(x.shape[2:], self.kernel_size, self.stride)
+            if all(lo == hi for lo, hi in pads):
+                padding = tuple(lo for lo, _ in pads)
+            else:
+                x = F.pad(x, [v for lo, hi in reversed(pads) for v in (lo, hi)])
+                padding = 0
+        return self._conv(x.to(cdt), self.weight.to(cdt), b, self.stride,
+                          padding, self.dilation, self.groups)
 
 
-class TransposedConv(nn.ConvTranspose2d):
-    """ConvTranspose2d(kernel = stride): exact x2 upsampling, computing in
-    `dtype`; fan-out normal weight (fan_out = kh * kw * C_out)."""
+class Conv2d(_ConvForward, nn.Conv2d):
+    """nn.Conv2d computing in `dtype` (see ``_ConvForward``)."""
+    _conv = staticmethod(F.conv2d)
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size, stride=1,
+                 padding=0, groups: int = 1, bias: bool = True,
+                 dtype: torch.dtype = torch.bfloat16, init: str = "kaiming"):
+        same = padding == "same"
+        super().__init__(in_ch, out_ch, kernel_size, stride=stride,
+                         padding=0 if same else padding, groups=groups, bias=bias)
+        self._setup(dtype, init, same)
+
+
+class Conv3d(_ConvForward, nn.Conv3d):
+    """nn.Conv3d computing in `dtype` (see ``_ConvForward``): stock
+    ``F.conv3d``, as the JAX package runs its 3-D convs through XLA."""
+    _conv = staticmethod(F.conv3d)
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size, stride=1,
+                 padding=0, groups: int = 1, bias: bool = True,
+                 dtype: torch.dtype = torch.bfloat16, init: str = "kaiming"):
+        same = padding == "same"
+        super().__init__(in_ch, out_ch, kernel_size, stride=stride,
+                         padding=0 if same else padding, groups=groups, bias=bias)
+        self._setup(dtype, init, same)
+
+
+def conv_nd(in_ch: int, out_ch: int, kernel_size: Sequence[int], **kwargs) -> nn.Module:
+    """Conv2d or Conv3d by the rank of `kernel_size`."""
+    cls = Conv2d if len(kernel_size) == 2 else Conv3d
+    return cls(in_ch, out_ch, tuple(kernel_size), **kwargs)
+
+
+class _TransposedConvForward:
+    """ConvTranspose(kernel = stride): exact upsampling by the stride,
+    computing in `dtype`; fan-out normal weight (fan_out = prod(kernel) *
+    C_out), zero bias."""
+
+    def init_params(self, gen):
+        kaiming_fan_out_normal_(self.weight,
+                                math.prod(self.kernel_size) * self.out_channels, gen)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        cdt = self.compute_dtype
+        b = None if self.bias is None else self.bias.to(cdt)
+        return self._conv_t(x.to(cdt), self.weight.to(cdt), b, self.stride)
+
+
+class TransposedConv(_TransposedConvForward, nn.ConvTranspose2d):
+    """2-D: ConvTranspose2d(kernel = stride)."""
+    _conv_t = staticmethod(F.conv_transpose2d)
 
     def __init__(self, in_ch: int, out_ch: int, stride: Tuple[int, int] = (2, 2),
                  bias: bool = True, dtype: torch.dtype = torch.bfloat16):
@@ -127,16 +198,24 @@ class TransposedConv(nn.ConvTranspose2d):
                          bias=bias)
         self.compute_dtype = dtype
 
-    def init_params(self, gen):
-        kh, kw = self.kernel_size
-        kaiming_fan_out_normal_(self.weight, kh * kw * self.out_channels, gen)
-        if self.bias is not None:
-            nn.init.zeros_(self.bias)
 
-    def forward(self, x):
-        cdt = self.compute_dtype
-        b = None if self.bias is None else self.bias.to(cdt)
-        return F.conv_transpose2d(x.to(cdt), self.weight.to(cdt), b, self.stride)
+class TransposedConv3d(_TransposedConvForward, nn.ConvTranspose3d):
+    """3-D: ConvTranspose3d(kernel = stride), anisotropic strides such as
+    (1, 2, 2) included; stock ``F.conv_transpose3d``."""
+    _conv_t = staticmethod(F.conv_transpose3d)
+
+    def __init__(self, in_ch: int, out_ch: int, stride: Tuple[int, int, int],
+                 bias: bool = True, dtype: torch.dtype = torch.bfloat16):
+        super().__init__(in_ch, out_ch, tuple(stride), stride=tuple(stride),
+                         bias=bias)
+        self.compute_dtype = dtype
+
+
+def transposed_conv_nd(in_ch: int, out_ch: int, stride: Sequence[int],
+                       **kwargs) -> nn.Module:
+    """TransposedConv or TransposedConv3d by the rank of `stride`."""
+    cls = TransposedConv if len(stride) == 2 else TransposedConv3d
+    return cls(in_ch, out_ch, tuple(stride), **kwargs)
 
 
 class Nonlin(nn.Module):
@@ -164,9 +243,14 @@ def nonlin_fn(name: str, kwargs: Optional[dict] = None) -> Callable:
     raise KeyError(f"Unknown nonlinearity {name}")
 
 
+def _per_channel(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A (C,) vector shaped to broadcast over (B, C, *spatial) of rank ndim."""
+    return v.view(-1, *([1] * (ndim - 2)))
+
+
 class InstanceNorm(nn.Module):
-    """InstanceNorm2d(affine=True): fp32 one-pass statistics over H, W per
-    (sample, channel); the result in the input's dtype."""
+    """InstanceNorm{2,3}d(affine=True): fp32 one-pass statistics over the
+    spatial axes per (sample, channel); the result in the input's dtype."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -176,21 +260,23 @@ class InstanceNorm(nn.Module):
 
     def forward(self, x):
         xf = x.float()
-        mean = xf.mean(dim=(2, 3), keepdim=True)
-        var = torch.clamp((xf * xf).mean(dim=(2, 3), keepdim=True) - mean * mean,
+        axes = tuple(range(2, x.dim()))
+        mean = xf.mean(dim=axes, keepdim=True)
+        var = torch.clamp((xf * xf).mean(dim=axes, keepdim=True) - mean * mean,
                           min=0.0)
         y = (xf - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight[:, None, None] + self.bias[:, None, None]).to(x.dtype)
+        return (y * _per_channel(self.weight, x.dim())
+                + _per_channel(self.bias, x.dim())).to(x.dtype)
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d with flax's semantics, fp32 in and out (the flax module's
-    dtype=float32, momentum 0.9). In eval mode it applies the running
-    statistics. In train mode it normalises with the batch mean and the
-    biased batch variance, E[x^2] - E[x]^2 clamped at 0 as flax computes it,
-    and updates ra = 0.9 ra + 0.1 batch_stat with the *biased* variance too.
-    F.batch_norm(training=True) would put the unbiased variance into
-    running_var, so the update is done here."""
+    """BatchNorm over 2 or 3 spatial axes with flax's semantics, fp32 in and
+    out (the flax module's dtype=float32, momentum 0.9). In eval mode it
+    applies the running statistics. In train mode it normalises with the
+    batch mean and the biased batch variance, E[x^2] - E[x]^2 clamped at 0
+    as flax computes it, and updates ra = 0.9 ra + 0.1 batch_stat with the
+    *biased* variance too. F.batch_norm(training=True) would put the
+    unbiased variance into running_var, so the update is done here."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__(num_features, eps=eps, momentum=0.1)
@@ -200,7 +286,7 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(xf, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        axes = (0, 2, 3)
+        axes = (0,) + tuple(range(2, x.dim()))
         mean = xf.mean(dim=axes)
         var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
         with torch.no_grad():
@@ -209,8 +295,8 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.mul_(keep).add_(self.momentum * var)
             self.num_batches_tracked.add_(1)
         scale = torch.rsqrt(var + self.eps) * self.weight
-        return ((xf - mean[:, None, None]) * scale[:, None, None]
-                + self.bias[:, None, None])
+        return ((xf - _per_channel(mean, x.dim())) * _per_channel(scale, x.dim())
+                + _per_channel(self.bias, x.dim()))
 
 
 def Norm(kind: str, num_features: int, eps: float = 1e-5) -> nn.Module:
@@ -225,16 +311,17 @@ def Norm(kind: str, num_features: int, eps: float = 1e-5) -> nn.Module:
 
 
 class ConvNormAct(nn.Module):
-    """conv -> norm -> nonlin (nnU-Net's ConvDropoutNormReLU order)."""
+    """conv -> norm -> nonlin (nnU-Net's ConvDropoutNormReLU order), 2-D or
+    3-D by the rank of `kernel_size`; the conv pads as XLA's SAME does."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: Tuple[int, int],
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: Sequence[int],
                  norm: str, norm_kwargs: Optional[dict], nonlin: str,
                  nonlin_kwargs: Optional[dict], conv_bias: bool,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, stride: Optional[Sequence[int]] = None):
         super().__init__()
-        pad = tuple((k - 1) // 2 for k in kernel_size)
-        self.conv = Conv2d(in_ch, out_ch, tuple(kernel_size), padding=pad,
-                           bias=conv_bias, dtype=dtype)
+        stride = tuple(stride) if stride is not None else (1,) * len(kernel_size)
+        self.conv = conv_nd(in_ch, out_ch, kernel_size, stride=stride,
+                            padding="same", bias=conv_bias, dtype=dtype)
         self.norm = Norm(norm, out_ch, eps=(norm_kwargs or {}).get("eps", 1e-5))
         self.nonlin = Nonlin(nonlin, nonlin_kwargs)
 
@@ -243,17 +330,19 @@ class ConvNormAct(nn.Module):
 
 
 class StackedConvBlocks(nn.Module):
-    """n ConvNormAct blocks; the first maps in -> out channels."""
+    """n ConvNormAct blocks; the first maps in -> out channels and carries
+    `initial_stride` (default all 1)."""
 
     def __init__(self, n_convs: int, in_ch: int, out_ch: int,
-                 kernel_size: Tuple[int, int], norm: str,
+                 kernel_size: Sequence[int], norm: str,
                  norm_kwargs: Optional[dict], nonlin: str,
                  nonlin_kwargs: Optional[dict], conv_bias: bool,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, initial_stride: Optional[Sequence[int]] = None):
         super().__init__()
         self.convs = nn.Sequential(*[
             ConvNormAct(in_ch if i == 0 else out_ch, out_ch, kernel_size, norm,
-                        norm_kwargs, nonlin, nonlin_kwargs, conv_bias, dtype)
+                        norm_kwargs, nonlin, nonlin_kwargs, conv_bias, dtype,
+                        stride=initial_stride if i == 0 else None)
             for i in range(n_convs)])
 
     def forward(self, x):

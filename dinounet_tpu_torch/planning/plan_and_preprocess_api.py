@@ -47,7 +47,7 @@ def extract_fingerprints(dataset_ids: List[int], num_processes: int = 8,
 
 def plan_experiment_dataset(dataset_id: Union[int, str],
                             experiment_planner_class=ExperimentPlanner,
-                            gpu_memory_target_in_gb: float = 8,
+                            gpu_memory_target_in_gb: Optional[float] = None,
                             preprocess_class_name: str = "DefaultPreprocessor",
                             overwrite_target_spacing=None,
                             overwrite_plans_name: Optional[str] = None,
@@ -56,9 +56,10 @@ def plan_experiment_dataset(dataset_id: Union[int, str],
     kwargs = {}
     if overwrite_plans_name is not None:
         kwargs["plans_name"] = overwrite_plans_name
+    if gpu_memory_target_in_gb is not None:  # else the planner's own (8 GB; 24 ResEncL)
+        kwargs["gpu_memory_target_in_gb"] = gpu_memory_target_in_gb
     planner = experiment_planner_class(
-        dataset_id, gpu_memory_target_in_gb=gpu_memory_target_in_gb,
-        preprocessor_name=preprocess_class_name,
+        dataset_id, preprocessor_name=preprocess_class_name,
         overwrite_target_spacing=(
             [float(i) for i in overwrite_target_spacing]
             if overwrite_target_spacing is not None else None
@@ -143,7 +144,8 @@ def plan_and_preprocess_entry():
                         help="re-extract the fingerprint even if one exists")
     parser.add_argument("-pl", type=str, default="ExperimentPlanner",
                         help="experiment planner class name")
-    parser.add_argument("-gpu_memory_target", type=float, default=8)
+    parser.add_argument("-gpu_memory_target", type=float, default=None,
+                        help="GB the plans target (default: the planner's own)")
     parser.add_argument("-preprocessor_name", type=str, default="DefaultPreprocessor")
     parser.add_argument("-overwrite_target_spacing", nargs="+", default=None)
     parser.add_argument("-overwrite_plans_name", type=str, default=None)
@@ -206,7 +208,8 @@ def plan_experiment_entry():
     parser = argparse.ArgumentParser()
     parser.add_argument("-d", nargs="+", type=int, required=True, help="dataset ids")
     parser.add_argument("-pl", type=str, default="ExperimentPlanner")
-    parser.add_argument("-gpu_memory_target", type=float, default=8)
+    parser.add_argument("-gpu_memory_target", type=float, default=None,
+                        help="GB the plans target (default: the planner's own)")
     parser.add_argument("-preprocessor_name", type=str, default="DefaultPreprocessor")
     parser.add_argument("-overwrite_target_spacing", nargs="+", default=None)
     parser.add_argument("-overwrite_plans_name", type=str, default=None)

@@ -5,10 +5,13 @@ dinounet/experiment_planning/experiment_planners/resencUNet_planner.py:14-51:
 same planning pipeline as ExperimentPlanner with the ResidualEncoderUNet
 architecture, its own VRAM reference points, deeper encoder block counts, and
 a data identifier that reuses the default plans' preprocessed data for the
-2d/3d_fullres configurations. It only writes plans: the port trains
-DinoUNet alone.
+2d/3d_fullres configurations; the port's ``nnUNetTrainer`` trains the
+``ResidualEncoderUNet`` these plans name (``models/residual_unet.py``).
 
-JAX-free copy of ``dinounet_tpu/planning/resenc_planner.py``.
+JAX-free copy of ``dinounet_tpu/planning/resenc_planner.py``, with the
+reference's presets by memory target (nnU-Net's residual encoder presets):
+``nnUNetPlannerResEncM`` (8 GB, ``nnUNetResEncUNetMPlans``) and
+``nnUNetPlannerResEncL`` (24 GB, ``nnUNetResEncUNetLPlans``).
 """
 
 from typing import List, Optional, Tuple, Union
@@ -46,3 +49,27 @@ class ResEncUNetPlanner(ExperimentPlanner):
         if configuration_name in ("2d", "3d_fullres"):
             return "nnUNetPlans_" + configuration_name
         return self.plans_identifier + "_" + configuration_name
+
+
+@registry.planners.register("nnUNetPlannerResEncM")
+class nnUNetPlannerResEncM(ResEncUNetPlanner):
+    """The residual encoder planned for an 8 GB memory target."""
+
+    def __init__(self, dataset_name_or_id: Union[str, int],
+                 gpu_memory_target_in_gb: float = 8,
+                 preprocessor_name: str = "DefaultPreprocessor",
+                 plans_name: str = "nnUNetResEncUNetMPlans", **kwargs):
+        super().__init__(dataset_name_or_id, gpu_memory_target_in_gb,
+                         preprocessor_name, plans_name, **kwargs)
+
+
+@registry.planners.register("nnUNetPlannerResEncL")
+class nnUNetPlannerResEncL(ResEncUNetPlanner):
+    """The residual encoder planned for a 24 GB memory target."""
+
+    def __init__(self, dataset_name_or_id: Union[str, int],
+                 gpu_memory_target_in_gb: float = 24,
+                 preprocessor_name: str = "DefaultPreprocessor",
+                 plans_name: str = "nnUNetResEncUNetLPlans", **kwargs):
+        super().__init__(dataset_name_or_id, gpu_memory_target_in_gb,
+                         preprocessor_name, plans_name, **kwargs)

@@ -1,4 +1,4 @@
-"""Preprocessed-dataset access and infinite 2-D patch sampling with
+"""Preprocessed-dataset access and infinite 2-D and 3-D patch sampling with
 foreground oversampling (numpy, on the host).
 
 JAX-free copy of ``dinounet_tpu/training/dataloading.py`` (ref: dinounet/
@@ -12,10 +12,11 @@ batches as the JAX package's loader:
     round(batch*oversample_pct) samples of each batch are forced to contain
     foreground via the preprocessed class_locations, on a slice that holds
     the chosen class (ref data_loader_2d.py:41-58).
+  * nnUNetDataLoader3D: the same sampling, a patch of the whole volume
+    (ref data_loader_3d.py).
 
 The loader emits numpy batches (B, C, *patch) / (B, 1, *patch); the trainer
-moves them to the device, where the augmentation runs. The 3-D loader is not
-ported yet.
+moves them to the device, where the augmentation runs.
 """
 
 import os
@@ -270,6 +271,29 @@ class nnUNetDataLoader2D(nnUNetDataLoaderBase):
             d, s = self._crop_and_pad(data2d, seg2d, bbox_lbs, bbox_ubs, shape)
             data_all[j] = d
             seg_all[j] = s
+
+        return {"data": data_all, "seg": seg_all, "properties": case_properties,
+                "keys": selected_keys}
+
+
+class nnUNetDataLoader3D(nnUNetDataLoaderBase):
+    """ref data_loader_3d.py:6-56: a bbox crop of the whole volume."""
+
+    def generate_train_batch(self) -> dict:
+        selected_keys = self.get_indices()
+        data_all = np.zeros(self.data_shape, dtype=np.float32)
+        seg_all = np.zeros(self.seg_shape, dtype=np.int16)
+        case_properties = []
+
+        for j, key in enumerate(selected_keys):
+            force_fg = self.get_do_oversample(j)
+            data, seg, properties = self._data.load_case(key)
+            case_properties.append(properties)
+            shape = data.shape[1:]
+            bbox_lbs, bbox_ubs = self.get_bbox(
+                shape, force_fg, properties.get("class_locations"))
+            data_all[j], seg_all[j] = self._crop_and_pad(data, seg, bbox_lbs,
+                                                         bbox_ubs, shape)
 
         return {"data": data_all, "seg": seg_all, "properties": case_properties,
                 "keys": selected_keys}

@@ -1,7 +1,7 @@
-"""nnUNetTrainer: the 2-D training loop, PyTorch.
+"""nnUNetTrainer: the training loop, PyTorch.
 
 Counterpart of ``dinounet_tpu/training/trainer.py`` (ref: dinounet/training/
-nnUNetTrainer/nnUNetTrainer.py) for 2-D configurations on one device:
+nnUNetTrainer/nnUNetTrainer.py) for 2-D and 3-D configurations on one device:
   * the reference's hyperparameters and folder layout: results/<dataset>/
     <Trainer>__<plans>__<configuration>/fold_N, the 5-fold split seeded 12345,
     250 train / 50 validation iterations per epoch, SGD with Nesterov momentum
@@ -17,6 +17,15 @@ nnUNetTrainer/nnUNetTrainer.py) for 2-D configurations on one device:
   * augmentation runs on the device in torch (``augmentation.py``), fed by a
     host thread that prefetches numpy batches; compute is bf16 (the model's
     dtype), parameters and optimizer state fp32, no loss scaling;
+  * the plans' networks, ``PlainConvUNet`` and ``ResidualEncoderUNet``
+    (``models/plain_unet.py``, ``models/residual_unet.py``), in 2-D or 3-D,
+    trained with deep supervision: every decoder head's DC+CE against the
+    label map taken down to its size by nearest neighbour, weighted 1/2^i
+    with the lowest head at 0 (JAX ``trainer.py:449-468``);
+  * 3-D configurations: the enlarged patch for +-30 degrees about each
+    axis (in-plane only and no through-plane growth for a dummy-2D patch),
+    ``nnUNetDataLoader3D`` and the 3-D augmentation on the device (JAX
+    ``trainer.py:324-380``);
   * one build makes the network at all three sites that need one (the
     trainer, its final validation, the predictor): ``build_network``, the
     plans' network on a device, built on the host and moved there unless
@@ -30,8 +39,7 @@ validation cases by sliding window with mirror TTA on the trainer's device,
 exports them through the plans' reader/writer and writes their metrics to
 ``validation/summary.json``, as the JAX trainer does.
 
-The cascade, 3-D configurations and deep-supervision outputs are not
-ported yet and raise ``NotImplementedError``.
+The cascade is not ported yet and raises ``NotImplementedError``.
 """
 
 import os
@@ -42,13 +50,19 @@ import numpy as np
 import torch
 
 from dinounet_tpu_torch import paths
-from dinounet_tpu_torch.training.augmentation import (AugmentConfig, augment_batch_2d,
-                                                      get_enlarged_patch_size)
+from dinounet_tpu_torch.configuration import ANISO_THRESHOLD
+from dinounet_tpu_torch.training.augmentation import (AugmentConfig, AugmentConfig3D,
+                                                      augment_batch_2d, augment_batch_3d,
+                                                      downsample_seg_for_ds,
+                                                      get_enlarged_patch_size,
+                                                      get_enlarged_patch_size_3d)
 from dinounet_tpu_torch.training.checkpointing import load_checkpoint, save_checkpoint
-from dinounet_tpu_torch.training.dataloading import (nnUNetDataLoader2D, nnUNetDataset,
-                                                     unpack_dataset)
+from dinounet_tpu_torch.training.dataloading import (nnUNetDataLoader2D, nnUNetDataLoader3D,
+                                                     nnUNetDataset, unpack_dataset)
 from dinounet_tpu_torch.training.logger import nnUNetLogger
 from dinounet_tpu_torch.training.losses import (dc_and_bce_loss, dc_and_ce_loss,
+                                                deep_supervision_loss,
+                                                deep_supervision_weights,
                                                 one_hot_channels)
 from dinounet_tpu_torch.training.lr_scheduler import poly_lr
 from dinounet_tpu_torch.utilities import registry
@@ -94,9 +108,6 @@ class nnUNetTrainer:
         self.dataset_json = dataset_json
         self.fold = fold
         self.unpack_dataset = unpack_dataset
-        if len(self.configuration_manager.patch_size) != 2:
-            raise NotImplementedError("3-D training is not ported yet: the port "
-                                      "trains 2-D configurations")
         if self.configuration_manager.previous_stage_name is not None:
             raise NotImplementedError("cascade training is not ported yet")
 
@@ -156,11 +167,22 @@ class nnUNetTrainer:
                                    arch_init_kwargs_req_import, num_input_channels: int,
                                    num_output_channels: int,
                                    enable_deep_supervision: bool = True):
-        """The plans' own networks (PlainConvUNet, ResidualEncoderUNet) are
-        not ported yet; the DinoUNet trainers override this."""
-        raise NotImplementedError(
-            f"the port builds DinoUNet only (DinoUNetTrainer*); "
-            f"{architecture_class_name} is not ported yet")
+        """The conv U-Net the plans name (ref get_network_from_plans.py:9):
+        dotted torch class paths map onto the port's networks by their
+        trailing class name, PlainConvUNet by default. Built on the host,
+        fp32 parameters, weights not yet drawn."""
+        from dinounet_tpu_torch.models.plain_unet import PlainConvUNet, PlainUNetConfig
+        from dinounet_tpu_torch.models.residual_unet import (ResidualEncoderUNet,
+                                                             ResidualUNetConfig)
+
+        class_name = (architecture_class_name or "PlainConvUNet").rsplit(".", 1)[-1]
+        if class_name == "ResidualEncoderUNet":
+            return ResidualEncoderUNet(ResidualUNetConfig.from_plans_arch(
+                arch_init_kwargs, num_output_channels, enable_deep_supervision),
+                num_input_channels)
+        return PlainConvUNet(PlainUNetConfig.from_plans_arch(
+            arch_init_kwargs, num_output_channels, enable_deep_supervision),
+            num_input_channels)
 
     @classmethod
     def build_network(cls, device, configuration_manager, num_input_channels: int,
@@ -242,35 +264,59 @@ class nnUNetTrainer:
     # ------------------------------------------------------------ dataloaders
 
     def _configure_rotation_dummyDA_mirroring_and_initial_patch_size(self):
-        """Rotation range, the loader's enlarged patch and the mirror axes
-        (ref :391-446, the 2-D case: no dummy-2D)."""
+        """Rotation ranges, the loader's enlarged patch and the mirror axes
+        (ref :391-446). 2-D: +-15 degrees for an elongated patch, else any
+        angle. 3-D: +-30 degrees about each axis, or for an anisotropic
+        (dummy-2D) patch any in-plane angle, no through-plane rotation and
+        no through-plane growth of the patch."""
         patch_size = self.configuration_manager.patch_size
-        if max(patch_size) / min(patch_size) > 1.5:
-            rotation = (-15.0 / 360 * 2 * np.pi, 15.0 / 360 * 2 * np.pi)
+        if len(patch_size) == 2:
+            if max(patch_size) / min(patch_size) > 1.5:
+                rotation = (-15.0 / 360 * 2 * np.pi, 15.0 / 360 * 2 * np.pi)
+            else:
+                rotation = (-np.pi, np.pi)
+            mirror_axes = (0, 1)
+            initial_patch_size = get_enlarged_patch_size(
+                patch_size, max(abs(rotation[0]), abs(rotation[1])), (0.85, 1.25))
+            self.inference_allowed_mirroring_axes = mirror_axes
+            return rotation, False, initial_patch_size, mirror_axes
+        do_dummy_2d = (max(patch_size) / patch_size[0]) > ANISO_THRESHOLD
+        if do_dummy_2d:
+            rotation = ((-np.pi, np.pi), (0.0, 0.0), (0.0, 0.0))
         else:
-            rotation = (-np.pi, np.pi)
-        mirror_axes = (0, 1)
-        initial_patch_size = get_enlarged_patch_size(
-            patch_size, max(abs(rotation[0]), abs(rotation[1])), (0.85, 1.25))
+            r = 30.0 / 360 * 2 * np.pi
+            rotation = ((-r, r),) * 3
+        mirror_axes = (0, 1, 2)
+        initial_patch_size = get_enlarged_patch_size_3d(
+            patch_size, [max(abs(a), abs(b)) for a, b in rotation], (0.85, 1.25))
+        if do_dummy_2d:
+            initial_patch_size[0] = patch_size[0]
         self.inference_allowed_mirroring_axes = mirror_axes
-        return rotation, initial_patch_size, mirror_axes
+        return rotation, do_dummy_2d, initial_patch_size, mirror_axes
 
     def get_dataloaders(self):
-        rotation, initial_patch_size, mirror_axes = \
+        rotation, do_dummy_2d, initial_patch_size, mirror_axes = \
             self._configure_rotation_dummyDA_mirroring_and_initial_patch_size()
         tr_keys, val_keys = self.do_split()
         dataset_tr = nnUNetDataset(self.preprocessed_dataset_folder, tr_keys)
         dataset_val = nnUNetDataset(self.preprocessed_dataset_folder, val_keys)
         cm = self.configuration_manager
-        self.dataloader_train = nnUNetDataLoader2D(
+        loader = nnUNetDataLoader2D if len(cm.patch_size) == 2 else nnUNetDataLoader3D
+        self.dataloader_train = loader(
             dataset_tr, cm.batch_size, initial_patch_size, cm.patch_size,
             self.label_manager, self.oversample_foreground_percent)
-        self.dataloader_val = nnUNetDataLoader2D(
+        self.dataloader_val = loader(
             dataset_val, cm.batch_size, cm.patch_size, cm.patch_size,
             self.label_manager, self.oversample_foreground_percent)
-        self.augment_cfg = AugmentConfig(
-            patch_size=tuple(cm.patch_size)[-2:], rotation_range=rotation,
-            mirror_axes=mirror_axes, use_mask_for_norm=tuple(cm.use_mask_for_norm))
+        if len(cm.patch_size) == 2:
+            self.augment_cfg = AugmentConfig(
+                patch_size=tuple(cm.patch_size)[-2:], rotation_range=rotation,
+                mirror_axes=mirror_axes, use_mask_for_norm=tuple(cm.use_mask_for_norm))
+        else:
+            self.augment_cfg = AugmentConfig3D(
+                patch_size=tuple(cm.patch_size), rotation_ranges=rotation,
+                mirror_axes=mirror_axes, use_mask_for_norm=tuple(cm.use_mask_for_norm),
+                scale_in_plane_only=do_dummy_2d)
 
     # ------------------------------------------------------------- loss/steps
 
@@ -299,21 +345,41 @@ class nnUNetTrainer:
                               smooth=1e-5, do_bg=False,
                               ignore_label=self.label_manager.ignore_label)
 
+    def _train_loss(self, output, target: torch.Tensor) -> torch.Tensor:
+        """The loss of a train-mode forward: with deep supervision (a list of
+        heads, highest resolution first) the weighted sum over the heads of
+        the loss against the target taken down to each head's size (JAX
+        ``trainer.py:449-468``), else the plain loss."""
+        if not isinstance(output, (list, tuple)):
+            return self._loss(output, target)
+        top = output[0].shape[2:]
+        scales = [tuple(o.shape[2 + i] / top[i] for i in range(len(top)))
+                  for o in output]
+        return deep_supervision_loss(self._loss, output,
+                                     downsample_seg_for_ds(target, scales),
+                                     deep_supervision_weights(len(output)))
+
+    def _augment(self, data: torch.Tensor, seg: torch.Tensor):
+        if isinstance(self.augment_cfg, AugmentConfig3D):
+            return augment_batch_3d(data, seg, self.augment_cfg, self._aug_gen)
+        return augment_batch_2d(data, seg, self.augment_cfg, self._aug_gen)
+
     def _batch_to_device(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Loader batch -> data (B, C, H, W) float32 and labels (B, H, W)
-        int64 on the device."""
+        """Loader batch -> data (B, C, *spatial) float32 and labels
+        (B, *spatial) int64 on the device."""
         data = torch.from_numpy(batch["data"]).to(self.device, non_blocking=True)
         seg = torch.from_numpy(batch["seg"][:, 0]).to(self.device, non_blocking=True)
         return data, seg.long()
 
     def train_step_host(self, batch) -> torch.Tensor:
-        """Augment on the device, forward, DC+CE, backward, clip, SGD step.
+        """Augment on the device, forward, DC+CE (over the deep-supervision
+        heads where the network returns them), backward, clip, SGD step.
         Returns the loss as a device scalar (reading it synchronises)."""
         data, seg = self._batch_to_device(batch)
-        data, seg = augment_batch_2d(data, seg, self.augment_cfg, self._aug_gen)
+        data, seg = self._augment(data, seg)
         self.network.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self._loss(self.network(data), seg)
+        loss = self._train_loss(self.network(data), seg)
         loss.backward()
         clip_and_step(self.optimizer, 12.0)
         return loss.detach()
@@ -329,7 +395,7 @@ class nnUNetTrainer:
         self.network.eval()
         out = self.network(data)
         loss = self._loss(out, seg)
-        axes = (0, 2, 3)
+        axes = (0,) + tuple(range(2, out.dim()))
         if self.label_manager.has_regions:
             target = self._seg_to_region_onehot(seg)
             if self.label_manager.has_ignore_label:

@@ -1,5 +1,5 @@
-"""Synthetic 2-D datasets, for smoke runs and tests of training and of the
-path from raw files.
+"""Synthetic 2-D and 3-D datasets, for smoke runs and tests of training and
+of the path from raw files.
 
 Each case is a noisy image with a bright disk (label 1) and a dark ring
 (label 2) at random places and sizes (``disk_ring_case``): the intensities
@@ -23,6 +23,12 @@ cases (``imagesTr``, ``labelsTr``, ``imagesTs``, ``dataset.json``) under
 (``imagesTr``, ``labelsTr``, ``dataset.json``) and no plans file: the
 planner's input, read through ``NaturalImage2DIO``, as the JAX package's
 ``tests/helpers.py::make_png_dataset`` writes one for its planning tests.
+
+``write_sphere_shell_raw_dataset`` writes a raw 3-D dataset of NIfTI volumes
+at 1 mm isotropic (``imagesTr``, ``labelsTr``, ``imagesTs``,
+``dataset.json``), each a noisy volume with a bright sphere (label 1) and a
+dark spherical shell (label 2) (``sphere_shell_case``), and no plans file:
+the planner's input for ``3d_fullres``.
 """
 
 import json
@@ -34,6 +40,7 @@ import numpy as np
 from dinounet_tpu_torch.imageio.nifti import write_nifti
 
 LABELS = {"background": 0, "disk": 1, "ring": 2}
+LABELS_3D = {"background": 0, "sphere": 1, "shell": 2}
 
 
 def disk_ring_case(rng: np.random.Generator, H: int, W: int):
@@ -209,6 +216,57 @@ def write_disk_ring_png_dataset(raw_root: str, dataset_name: str, n_cases: int, 
     dataset_json = {"channel_names": {"0": "rescale_to_0_1"}, "labels": LABELS,
                     "numTraining": n_cases, "file_ending": ".png",
                     "overwrite_image_reader_writer": "NaturalImage2DIO"}
+    with open(os.path.join(folder, "dataset.json"), "w") as f:
+        json.dump(dataset_json, f, indent=2)
+    return folder
+
+
+def sphere_shell_case(rng: np.random.Generator, D: int, H: int, W: int):
+    """One 3-D case: image (D, H, W) float32 (z-scored), labels (D, H, W)
+    uint8: a sphere (1) and a shell (2) at random places and sizes."""
+    zz, yy, xx = (np.arange(n, dtype=np.float32) for n in (D, H, W))
+    zz, yy, xx = zz[:, None, None], yy[None, :, None], xx[None, None, :]
+    seg = np.zeros((D, H, W), np.uint8)
+    m = min(D, H, W)
+
+    def centre(r):
+        return [rng.uniform(r + 1, n - r - 1) for n in (D, H, W)]
+
+    r_sphere = rng.uniform(0.10, 0.18) * m
+    cz, cy, cx = centre(r_sphere)
+    seg[(zz - cz) ** 2 + (yy - cy) ** 2 + (xx - cx) ** 2 <= r_sphere ** 2] = 1
+    r_out = rng.uniform(0.12, 0.20) * m
+    r_in = r_out * rng.uniform(0.55, 0.75)
+    cz, cy, cx = centre(r_out)
+    d2 = (zz - cz) ** 2 + (yy - cy) ** 2 + (xx - cx) ** 2
+    seg[(d2 <= r_out ** 2) & (d2 >= r_in ** 2) & (seg == 0)] = 2
+    img = rng.standard_normal((D, H, W), dtype=np.float32) * np.float32(0.6)
+    img += np.where(seg == 1, np.float32(2.0), np.float32(0.0))
+    img += np.where(seg == 2, np.float32(-1.5), np.float32(0.0))
+    img = (img - img.mean()) / img.std()
+    return img.astype(np.float32), seg
+
+
+def write_sphere_shell_raw_dataset(raw_root: str, dataset_name: str, n_train: int,
+                                   n_test: int, size, seed: int = 0) -> str:
+    """Write `n_train` labelled and `n_test` unlabelled (D, H, W) cases at
+    1 mm isotropic, drawn in that order from one generator, and their
+    dataset.json under <raw_root>/<dataset_name>/ (see the module
+    docstring); returns that folder."""
+    rng = np.random.default_rng(seed)
+    folder = os.path.join(raw_root, dataset_name)
+    for sub in ("imagesTr", "labelsTr", "imagesTs"):
+        os.makedirs(os.path.join(folder, sub), exist_ok=True)
+    for i in range(n_train + n_test):
+        img, seg = sphere_shell_case(rng, *size)
+        name = f"case_{i:03d}"
+        sub = "imagesTr" if i < n_train else "imagesTs"
+        write_nifti(os.path.join(folder, sub, name + "_0000.nii.gz"), img, (1.0, 1.0, 1.0))
+        if i < n_train:
+            write_nifti(os.path.join(folder, "labelsTr", name + ".nii.gz"), seg,
+                        (1.0, 1.0, 1.0))
+    dataset_json = {"channel_names": {"0": "synthetic"}, "labels": LABELS_3D,
+                    "numTraining": n_train, "file_ending": ".nii.gz"}
     with open(os.path.join(folder, "dataset.json"), "w") as f:
         json.dump(dataset_json, f, indent=2)
     return folder

@@ -40,6 +40,7 @@ from dinounet_tpu_torch.utilities import registry
 from tests.helpers import make_png_dataset
 from tests.test_torch_models import CFG_KW, VIT_KW
 from tests.test_torch_planning import fast_fingerprints  # noqa: F401
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 DATASET_ID, DATASET = 501, "Dataset501_Toy2d"

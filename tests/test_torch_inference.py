@@ -111,10 +111,23 @@ def test_predictor_fold_ensemble_matches_jax(volume):
 
 
 def test_over_budget_accumulator_raises(volume, monkeypatch):
+    """Past the device budget the sliding window raises nothing: the host
+    accumulates the tile batches, as the JAX package's host path does, and
+    gives the device path's logits exactly and the JAX host path's to 1e-5."""
+    from dinounet_tpu.inference.sliding_window import (
+        predict_sliding_window_return_logits as jax_predict)
+
+    k, b = _conv_weights(0)
+    kw = dict(tile_step_size=0.5, mirror_axes=(0, 1), tile_batch=3)
+    on_device = predict_sliding_window_return_logits(_torch_net(k, b), volume, PATCH, 3,
+                                                     device="cpu", **kw)
     monkeypatch.setenv("DINOUNET_TPU_SW_ACCUM_BUDGET_BYTES", "1024")
-    with pytest.raises(NotImplementedError):
-        predict_sliding_window_return_logits(_torch_net(*_conv_weights(0)), volume,
-                                             PATCH, 3, device="cpu")
+    got = predict_sliding_window_return_logits(_torch_net(k, b), volume, PATCH, 3,
+                                               device="cpu", **kw)
+    want = jax_predict(lambda x: JaxConvNet().apply(_jax_vars(k, b), x), volume,
+                       PATCH, 3, **kw)
+    np.testing.assert_array_equal(got, on_device)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_slice_dinounet_sliding_window_matches_jax(variables):  # noqa: F811

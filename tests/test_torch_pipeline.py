@@ -39,6 +39,7 @@ from dinounet_tpu_torch.utilities.plans_handler import PlansManager
 from tests.test_torch_models import CFG_KW, VIT_KW, _jax_config, _torch_model  # noqa: F401
 from tests.test_torch_models import variables  # noqa: F401
 from tests.test_torch_preprocessing import planned_png_dataset
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 DATASET = "Dataset501_Toy2d"
 SEG_AGREEMENT = 0.999
@@ -184,12 +185,15 @@ def test_model_folder_predicts_as_the_trained_weights(trained, tmp_path, monkeyp
     cases = _raw_cases(root, 2)
     names = ["case_000", "case_001"]
 
-    from_folder = nnUNetPredictor(device="cpu", tile_batch=4)
+    # every predictor here runs at the CLIs' tile batch (nnUNetPredictor's
+    # default, which the CLIs do not set): the bf16 CPU convs may round
+    # differently at another batch, and the files are compared bit for bit
+    from_folder = nnUNetPredictor(device="cpu")
     from_folder.initialize_from_trained_model_folder(trainer.output_folder_base, None)
     assert from_folder.allowed_mirroring_axes == (0, 1)
     from_folder.predict_from_files(cases, str(tmp_path / "folder"), save_probabilities=True)
 
-    manual = nnUNetPredictor(device="cpu", tile_batch=4)
+    manual = nnUNetPredictor(device="cpu")
     network = PipelineTinyDinoUNetTrainer.build_network_architecture(
         None, {}, None, 1, 3, enable_deep_supervision=False)
     manual.manual_initialization(network, trainer.plans_manager,

@@ -459,15 +459,25 @@ def test_batch_prefetcher_orders_batches_and_surfaces_errors():
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """The cascade still raises; 3-D configurations and DinoUNet's
+    deep-supervision outputs are ported (tests/test_torch_3d.py,
+    tests/test_torch_unet.py) and build."""
     from dinounet_tpu_torch.training.dinounet_trainer import DinoUNetTrainer_7b
+    from dinounet_tpu_torch.training.trainer import nnUNetTrainer
 
     monkeypatch.setenv("nnUNet_preprocessed", str(tmp_path))
     monkeypatch.setenv("nnUNet_results", str(tmp_path))
     plans = {"dataset_name": "Dataset992_Tiny", "plans_name": "nnUNetPlans",
-             "configurations": {"3d_fullres": {"patch_size": [HW, HW, HW]}}}
-    with pytest.raises(NotImplementedError):  # 3-D training
-        DinoUNetTrainer_7b(plans, "3d_fullres", 0, {"labels": {"background": 0, "a": 1}},
-                           device="cpu")
-    with pytest.raises(NotImplementedError):
-        TorchDinoUNet(TorchConfig(vit=TorchViTConfig(**VIT_KW), deep_supervision=True,
-                                  **CFG_KW))
+             "configurations": {
+                 "3d_fullres": {"patch_size": [HW, HW, HW],
+                                "data_identifier": "nnUNetPlans_3d_fullres"},
+                 "3d_cascade_fullres": {"inherits_from": "3d_fullres",
+                                        "previous_stage": "3d_lowres"}}}
+    labels = {"labels": {"background": 0, "a": 1}}
+    with pytest.raises(NotImplementedError):  # the cascade
+        nnUNetTrainer(plans, "3d_cascade_fullres", 0, labels, device="cpu")
+    trainer = DinoUNetTrainer_7b(plans, "3d_fullres", 0, labels, device="cpu")
+    assert trainer.configuration_manager.patch_size == [HW, HW, HW]
+    model = TorchDinoUNet(TorchConfig(vit=TorchViTConfig(**VIT_KW), deep_supervision=True,
+                                      **CFG_KW))
+    assert model.cfg.deep_supervision
