@@ -257,11 +257,44 @@ not 0:
               DINOUNET_TPU_DECODER_TAIL=auto: the chain's launches exactly
               PER_FORWARD_UNET2D_CHAIN (#14, #16, #15), its logits within
               PARITY_BOUND of the stock stages'.
+17. cascade -- nnU-Net's cascade and its post-training tools. A raw NIfTI
+              set (CASCADE_DATASET: CASCADE_TRAIN labelled and CASCADE_TEST
+              test volumes of CASCADE_SIZE at 1 mm, the sphere and shell
+              cases) with no plans file; extract_fingerprints,
+              plan_experiments (the default planner's cascade pair:
+              3d_lowres and 3d_cascade_fullres, checked against
+              PLANNED_CASCADE), preprocess of 3d_lowres and 3d_fullres, a
+              two-fold splits_final.json (CASCADE_SPLITS); run.run_training
+              of nnUNetTrainer on 3d_lowres for both folds with the
+              validation's probabilities exported (the final validations
+              export every case for the next stage), then on
+              3d_cascade_fullres for both folds (1 + 2 input channels, the
+              previous stage's map as augmented one-hot channels);
+              find_best_configuration over the two models; the held-out
+              case predicted in two stages from the trained folders (both
+              folds, probabilities saved), ensembled where the ensemble won,
+              postprocessed with the chosen functions. Checks: each run's
+              losses finite and falling, every validation file on its raw
+              case's geometry, predicted_next_stage holding every case, the
+              cascade network's 3 input channels, find_best_configuration's
+              inference_information.json with the ensemble among its
+              results and its postprocessing.pkl, the final file on the raw
+              case's geometry, no kernel launch; a step profile of each
+              stage on a fresh fold-0 trainer (_cascade_step_profile: the
+              loader alone, the step's synchronised parts with the flood
+              fills counted, the device's busy share under torch.profiler,
+              the steps beside the prefetcher); the one-hot augmentation of
+              two CASCADE_CROP^3 crops of the exported maps and of the labels
+              on the card equal to the CPU's for the same draws (with and
+              without a removal); one cascade tile, card bf16 vs CPU fp32,
+              within PARITY_BOUND. Seconds of each stage, step ms, peak
+              memory, the augmentation's ms, the Dice values the selection
+              chose between and whether matplotlib imports, for information.
 
-Then the card's name and power limit, one JSON line of kernel results
-(launches: the counts of the serve path, each route's, the train paths, the
-pipeline, the api, pretrained, regions, train_7b, unet_3d, resenc_3d and
-unet_2d phases), and as the last
+Then the seconds of each group of phases, the card's name and power limit,
+one JSON line of kernel results (launches: the counts of the serve path,
+each route's, the train paths, the pipeline, the api, pretrained, regions,
+train_7b, unet_3d, resenc_3d, unet_2d and cascade phases), and as the last
 line {"ok": true, "device": {...}}. Without a CUDA device the
 script raises before printing any result.
 """
@@ -270,6 +303,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -338,10 +372,14 @@ from dinounet_tpu_torch.planning.resenc_planner import nnUNetPlannerResEncM
 from dinounet_tpu_torch.preprocessing.preprocessor import DefaultPreprocessor
 from dinounet_tpu_torch.run import get_trainer_from_args, run_training
 from dinounet_tpu_torch.training import dinounet_trainer as dinounet_trainer_module
+from dinounet_tpu_torch.training.augmentation import (CascadeDraws, RemoveDraws,
+                                                      cascade_onehot_augment)
+from dinounet_tpu_torch.training.dataloading import nnUNetDataset
 from dinounet_tpu_torch.training.dinounet_trainer import (DinoUNetTrainer, DinoUNetTrainer_7b,
                                                           DinoUNetTrainer_b)
 from dinounet_tpu_torch.training.losses import dc_and_ce_loss
 from dinounet_tpu_torch.training.trainer import clip_and_step, nnUNetTrainer, sgd_nesterov
+from dinounet_tpu_torch.utilities.label_handling import convert_labelmap_to_one_hot
 from dinounet_tpu_torch.utilities.plans_handler import PlansManager
 from dinounet_tpu_torch.utilities.synthetic_dataset import (disk_ring_case,
                                                             write_disk_ring_dataset,
@@ -522,7 +560,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 # fold 0 validates UNET3D_VAL cases; a 3-D network's mirror TTA has 8
 # variants and its predictor's tile batch is TILE_BATCH // 4
 UNET3D_ID, UNET3D_DATASET = 993, "Dataset993_Smoke3d"
-UNET3D_TRAIN, UNET3D_TEST, UNET3D_VAL = 8, 2, 2
+UNET3D_TRAIN, UNET3D_TEST, UNET3D_VAL = 5, 1, 1
 UNET3D_SIZE = (160, 192, 192)
 MIRRORS_3D = 8
 PLANNED_3D = {"nnUNetPlans": ([128, 128, 128], 2), "nnUNetResEncUNetMPlans": ([160] * 3, 2)}
@@ -537,6 +575,28 @@ RESENC_STEPS = 5
 UNET2D_ID, UNET2D_DATASET = 992, "Dataset992_Smoke2d"
 UNET2D_CASES, UNET2D_SIZE, UNET2D_STEPS = 8, 512, 5
 PER_FORWARD_UNET2D_CHAIN = {"conv3x3_cm": 6, "transpconv2x2_cm": 3, "seg_head_cm": 1}
+# the cascade phase: a raw NIfTI set of CASCADE_TRAIN labelled and
+# CASCADE_TEST test volumes of CASCADE_SIZE at 1 mm (the sphere and shell
+# cases). 256^3 is the smallest cube of 8-voxel steps for which the default
+# planner makes the cascade pair (a lowres stage needs the median case over 4x
+# the fullres patch and a spacing that halves it: 248^3 plans none): 3d_lowres
+# at ~1.267 mm (~202^3 a case), 3d_fullres, and 3d_cascade_fullres inheriting
+# it, each 128^3 patches, batch 2 (PLANNED_CASCADE). Both stages train the two
+# folds of CASCADE_SPLITS; the augmentation check crops CASCADE_CROP^3 of two
+# previous-stage maps (a step's batch), timed over CASCADE_AUG_ITERS calls
+CASCADE_ID, CASCADE_DATASET = 991, "Dataset991_SmokeCascade"
+CASCADE_TRAIN, CASCADE_TEST = 4, 1
+CASCADE_SIZE = (256, 256, 256)
+CASCADE_STAGES = ("3d_lowres", "3d_cascade_fullres")
+CASCADE_FOLDS = (0, 1)
+CASCADE_CASES = [f"case_{i:03d}" for i in range(CASCADE_TRAIN)]
+CASCADE_SPLITS = [{"train": CASCADE_CASES[2:], "val": CASCADE_CASES[:2]},
+                  {"train": CASCADE_CASES[:2], "val": CASCADE_CASES[2:]}]
+PLANNED_CASCADE = {"3d_lowres": ([128, 128, 128], 2), "3d_fullres": ([128, 128, 128], 2)}
+CASCADE_CROP, CASCADE_AUG_ITERS = 128, 5
+# the step profile: CASCADE_PROFILE_BATCHES loaded batches, each pass over
+# them once, the synchronised split over them CASCADE_PROFILE_SPLIT times
+CASCADE_PROFILE_BATCHES, CASCADE_PROFILE_SPLIT = 6, 3
 # the logits of one case accumulated on the host against on the device: the
 # same fp32 additions in the same order, so equal; held to one fp16 ulp
 HOST_ACCUM_RTOL = 2.0 ** -10
@@ -2762,6 +2822,434 @@ def phase_unet_2d(dev, root: str) -> dict:
     return counts
 
 
+def _cascade_plans(plans_id: str) -> dict:
+    """The plans of the cascade set, holding the checked cascade pair."""
+    with open(os.path.join(os.environ["nnUNet_preprocessed"], CASCADE_DATASET,
+                           plans_id + ".json")) as f:
+        plans = json.load(f)
+    configs = plans["configurations"]
+    for name, want in PLANNED_CASCADE.items():
+        got = (configs[name]["patch_size"], configs[name]["batch_size"])
+        if got != want:
+            raise AssertionError(f"cascade: {name} patch and batch {got}, not {want}")
+    if configs["3d_lowres"].get("next_stage") != "3d_cascade_fullres" or configs.get(
+            "3d_cascade_fullres", {}).get("previous_stage") != "3d_lowres":
+        raise AssertionError(f"cascade: the plans hold no cascade pair: {sorted(configs)}")
+    return plans
+
+
+def _cascade_stage(dev, plans_id: str, configuration: str, raw: str) -> dict:
+    """run_training of nnUNetTrainer on `configuration`, each fold of
+    CASCADE_FOLDS, shortened, with the validation's probabilities exported:
+    finite, falling losses, every validation file on its raw case's
+    geometry. Returns the model folder, the network's input channels, the
+    steps and the peak memory of each fold's run."""
+    out = {"steps": [], "peak": []}
+    for fold in CASCADE_FOLDS:
+        steps = {}
+        torch.cuda.reset_peak_memory_stats(dev)
+        with recorded_steps(steps), shortened_training(nnUNetTrainer):
+            trainer = run_training(CASCADE_ID, configuration, fold, "nnUNetTrainer", plans_id,
+                                   export_validation_probabilities=True, device=dev)
+        torch.cuda.synchronize()
+        out["peak"].append(torch.cuda.max_memory_allocated(dev) / 2**30)
+        losses = steps["losses"]
+        if len(losses) != TRAIN_EPOCHS * TRAIN_ITERS or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"cascade {configuration} fold {fold}: losses {losses}")
+        if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            raise AssertionError(f"cascade {configuration} fold {fold}: the losses do not "
+                                 f"fall: {losses}")
+        for k in CASCADE_SPLITS[fold]["val"]:
+            check_segmentation_file(
+                os.path.join(trainer.output_folder, "validation", k + ".nii.gz"),
+                os.path.join(raw, "imagesTr", k + "_0000.nii.gz"))
+        out["steps"].append(steps)
+        out["folder"] = trainer.output_folder_base
+        out["input_channels"] = trainer.network.input_channels
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def _cascade_augment(dev, maps: dict) -> None:
+    """The cascade's one-hot augmentation of a batch of two CASCADE_CROP^3
+    crops of previous-stage maps: its ms a batch on the card with and
+    without a removal drawn (the flood fill's cost) for each set of maps,
+    and for the first set (the path's input) the card's output against the
+    CPU's for the same draws (0/1 maps: equal)."""
+    labels = (1, 2)
+    morph = ((0, 2), (3, 1))  # dilation radius 2, closing radius 1
+    draws = {"with a removal": [CascadeDraws(morph, RemoveDraws(True, (0.3, 0.7)))] * 2,
+             "without": [CascadeDraws(morph, RemoveDraws())] * 2}
+
+    def batch(prev, ds):
+        return torch.stack([cascade_onehot_augment(prev[b], labels, ds[b])
+                            for b in range(prev.shape[0])])
+
+    for i, (source, prev) in enumerate(maps.items()):
+        parts, outs = [], {}
+        on_card = prev.to(dev)
+        for name, ds in draws.items():
+            outs[name] = got = batch(on_card, ds).cpu()
+            if i == 0:
+                t0 = time.perf_counter()
+                want = batch(prev, ds)
+                cpu_s = time.perf_counter() - t0
+                if not torch.equal(got, want):
+                    raise AssertionError(f"cascade augmentation ({source}, {name}): the "
+                                         f"card differs from the CPU in "
+                                         f"{int((got != want).sum())} voxels")
+            ms = median_ms(lambda: batch(on_card, ds), CASCADE_AUG_ITERS, warmup=1)
+            parts.append(f"{name} {ms:.1f} ms" + (f" (CPU {cpu_s:.1f} s)" if i == 0 else ""))
+        removed = float((outs["without"] - outs["with a removal"]).sum())
+        parts.append(f"{removed:.0f} voxels removed of "
+                     f"{float(outs['without'].sum()):.0f} foreground")
+        log(f"[cascade] {card_line()}: the one-hot augmentation of a step's batch of 2 x "
+            f"{CASCADE_CROP}^3 {source} maps"
+            + (", card equal to the CPU" if i == 0 else "")
+            + f", ms a batch (median of {CASCADE_AUG_ITERS}): " + "; ".join(parts))
+
+
+def _cascade_step_profile(dev, plans_id: str) -> None:
+    """Where a train step's time goes, for each stage, on a fresh fold-0
+    trainer over the preprocessed data: (1) the loader alone on this thread,
+    CASCADE_PROFILE_BATCHES batches: ms a batch and, within it, ms a case of
+    nnUNetDataset.load_case (for the cascade also the previous stage's map,
+    a compressed .npz read whole); (2) steps on those batches, synchronised
+    after each part: the upload, the spatial augmentation, the one-hot
+    augmentation (its flood fills and their growth steps counted), the
+    network's forward, and the rest (loss, backward, clip, SGD step);
+    (3) the same steps whole and unsynchronised, then under torch.profiler:
+    the device's busy ms a step and its idle share; (4) steps as
+    run_training takes them, the prefetcher thread loading beside each:
+    ms a step and ms waiting for a batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dinounet_tpu_torch.training import augmentation as augmentation_module
+
+    for configuration in CASCADE_STAGES:
+        trainer = get_trainer_from_args(CASCADE_ID, configuration, 0, "nnUNetTrainer",
+                                        plans_id, device=dev)
+        trainer.seed = 0
+        trainer.on_train_start()
+        r = {"load_case": [], "batch": []}
+        load_case = nnUNetDataset.load_case
+
+        def timed_load(self, key, _load=load_case, _ms=r["load_case"]):
+            t0 = time.perf_counter()
+            case = _load(self, key)
+            _ms.append((time.perf_counter() - t0) * 1e3)
+            return case
+
+        batches = []
+        nnUNetDataset.load_case = timed_load
+        try:
+            for _ in range(CASCADE_PROFILE_BATCHES):
+                t0 = time.perf_counter()
+                batches.append(trainer.dataloader_train.generate_train_batch())
+                r["batch"].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            nnUNetDataset.load_case = load_case
+
+        def step(batch) -> float:
+            t0 = time.perf_counter()
+            float(trainer.train_step_host(batch))  # synchronises
+            return (time.perf_counter() - t0) * 1e3
+
+        step(batches[0])  # warm-up
+        parts = {k: [] for k in ("upload", "spatial augmentation", "one-hot augmentation",
+                                 "forward")}
+        fills = {"fills": 0, "growth steps": 0}
+
+        def synced(name, fn):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                result = fn(*args, **kwargs)
+                torch.cuda.synchronize(dev)
+                parts[name][-1] += (time.perf_counter() - t0) * 1e3
+                return result
+            return run
+
+        def counted(name, fn):
+            def run(*args, **kwargs):
+                fills[name] += 1
+                return fn(*args, **kwargs)
+            return run
+
+        methods = {"_batch_to_device": "upload", "_augment": "spatial augmentation",
+                   "_with_previous_stage": "one-hot augmentation"}
+        for attr, name in methods.items():
+            setattr(trainer, attr, synced(name, getattr(trainer, attr)))
+        trainer.network.forward = synced("forward", trainer.network.forward)
+        module_fns = {"component_of_seed": "fills", "_dilate_in_mask": "growth steps"}
+        originals = {attr: getattr(augmentation_module, attr) for attr in module_fns}
+        for attr, name in module_fns.items():
+            setattr(augmentation_module, attr, counted(name, originals[attr]))
+        split, split_fills = [], []
+        try:
+            for batch in batches * CASCADE_PROFILE_SPLIT:
+                for v in parts.values():
+                    v.append(0.0)
+                before = fills["fills"]
+                split.append(step(batch))
+                split_fills.append(fills["fills"] - before)
+        finally:
+            for attr in methods:
+                delattr(trainer, attr)
+            del trainer.network.forward
+            for attr, fn in originals.items():
+                setattr(augmentation_module, attr, fn)
+        r.update(split=split, parts=parts, split_fills=split_fills, **fills)
+
+        r["plain"] = [step(b) for b in batches]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for b in batches:
+                step(b)
+            profiled_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+        busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / len(batches)
+        r["busy"] = busy if busy > 0 else None
+        r["profiled"] = profiled_ms
+
+        waits, trained = [], []
+        prefetch = trainer._BatchPrefetcher(trainer.dataloader_train)
+        try:
+            for _ in range(CASCADE_PROFILE_BATCHES):
+                t0 = time.perf_counter()
+                batch = prefetch.next()
+                waits.append((time.perf_counter() - t0) * 1e3)
+                trained.append(step(batch))
+        finally:
+            prefetch.close()
+        r.update(waits=waits, trained=trained)
+        del trainer, batches
+        torch.cuda.empty_cache()
+
+        med = lambda v: float(np.median(v)) if v else 0.0  # noqa: E731
+        mean_step = float(np.mean(split))
+        shares = {k: float(np.sum(v)) / float(np.sum(split)) for k, v in parts.items()}
+        rest = mean_step - sum(float(np.mean(v)) for v in parts.values())
+        with_fill = [t for t, f in zip(split, split_fills) if f]
+        without = [t for t, f in zip(split, split_fills) if not f]
+        busy_text = (f"device busy {busy:.1f} ms a step under the profiler ({profiled_ms:.1f} ms "
+                     f"a step there; busy {busy / med(r['plain']):.1%} of the unprofiled step, "
+                     f"idle {1 - busy / med(r['plain']):.1%})" if r["busy"] else
+                     "device busy not measured (the profiler recorded no device activity)")
+        log(f"[cascade] {card_line()}: step profile, nnUNetTrainer {configuration}, fold 0, "
+            f"fresh weights: the loader alone {med(r['batch']):.1f} ms a batch (median of "
+            f"{len(r['batch'])}; load_case {med(r['load_case']):.1f} ms a case); "
+            f"{len(split)} synchronised steps, mean {mean_step:.1f} ms: "
+            + ", ".join(f"{k} {float(np.mean(v)):.1f} ms ({shares[k]:.1%})"
+                        for k, v in parts.items())
+            + f", the rest (loss, backward, clip, step) {rest:.1f} ms; "
+            f"{fills['fills']} flood fills in {sum(1 for f in split_fills if f)} of "
+            f"{len(split)} steps, {fills['growth steps']} growth steps; steps with a fill "
+            f"{med(with_fill):.1f} ms median, without {med(without):.1f}; unsynchronised on "
+            f"loaded batches {med(r['plain']):.1f} ms median; {busy_text}; as run_training "
+            f"steps (the prefetcher loading beside) {med(trained):.1f} ms median, waiting "
+            f"{med(waits):.1f} ms median for a batch")
+
+
+def phase_cascade(dev, root: str) -> dict:
+    """nnU-Net's cascade and its post-training tools: raw volumes ->
+    fingerprint -> the default planner's cascade pair -> 3d_lowres and
+    3d_fullres preprocessing -> 3d_lowres on two folds (exporting the next
+    stage's inputs) -> 3d_cascade_fullres on two folds -> find_best_configuration
+    -> a held-out case predicted in two stages, ensembled where the ensemble
+    won, postprocessed."""
+    from dinounet_tpu_torch.ensembling.ensemble import ensemble_folders
+    from dinounet_tpu_torch.evaluation import find_best_configuration as fbc_module
+    from dinounet_tpu_torch.postprocessing.remove_connected_components import (
+        apply_postprocessing_to_folder)
+
+    _nnunet_env(root)
+    times, secs = {}, {}
+    t0 = time.perf_counter()
+    raw = write_sphere_shell_raw_dataset(os.environ["nnUNet_raw"], CASCADE_DATASET,
+                                         CASCADE_TRAIN, CASCADE_TEST, CASCADE_SIZE, seed=4)
+    secs["write"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    extract_fingerprints([CASCADE_ID], num_processes=4)
+    plans_id = plan_experiments([CASCADE_ID])
+    secs["plan"] = time.perf_counter() - t0
+    plans = _cascade_plans(plans_id)
+    lowres = plans["configurations"]["3d_lowres"]
+    t0 = time.perf_counter()
+    preprocess([CASCADE_ID], plans_id, ["3d_lowres", "3d_fullres"], [4, 4])
+    secs["preprocess"] = time.perf_counter() - t0
+    pre = os.path.join(os.environ["nnUNet_preprocessed"], CASCADE_DATASET)
+    with open(os.path.join(pre, "splits_final.json"), "w") as f:
+        json.dump(CASCADE_SPLITS, f)
+    log(f"[cascade] {CASCADE_TRAIN} + {CASCADE_TEST} raw cases of {CASCADE_SIZE} at 1 mm "
+        f"(written in {secs['write']:.1f} s); fingerprint + default planner "
+        f"{secs['plan']:.1f} s: 3d_lowres at {[round(s, 4) for s in lowres['spacing']]} mm, "
+        f"median case {lowres['median_image_size_in_voxels']}, patch {lowres['patch_size']}, "
+        f"batch {lowres['batch_size']}, next stage {lowres['next_stage']}; "
+        f"3d_cascade_fullres {plans['configurations']['3d_cascade_fullres']}; preprocess "
+        f"(3d_lowres, 3d_fullres) {secs['preprocess']:.1f} s")
+
+    _build.reset_launch_counts()
+    stages, stage_times = {}, {}
+    next_stage = (export_module, "resample_and_save", "next stage export")
+    for configuration in CASCADE_STAGES:
+        with timed_calls(times, (next_stage,)):
+            t0 = time.perf_counter()
+            stages[configuration] = _cascade_stage(dev, plans_id, configuration, raw)
+            secs[configuration] = time.perf_counter() - t0
+        stage_times[configuration] = {k: times.pop(k) for k in list(times)}
+    next_dir = os.path.join(stages["3d_lowres"]["folder"], "predicted_next_stage",
+                            "3d_cascade_fullres")
+    exported = sorted(os.listdir(next_dir))
+    if exported != [c + ".npz" for c in CASCADE_CASES]:
+        raise AssertionError(f"cascade: 3d_lowres exported {exported} for the next stage")
+    channels = stages["3d_cascade_fullres"]["input_channels"]
+    if channels != 3 or stages["3d_lowres"]["input_channels"] != 1:
+        raise AssertionError(f"cascade: input channels {channels} (want 1 + 2 one-hot)")
+    for configuration in CASCADE_STAGES:
+        st, tt = stages[configuration], stage_times[configuration]
+        ms = [t for s in st["steps"] for t in s["step_ms"][1:]]
+        line = (f"[cascade] {card_line()}: nnUNetTrainer {configuration} "
+                f"({stages[configuration]['input_channels']} input channels), folds "
+                f"{CASCADE_FOLDS} of {TRAIN_EPOCHS} epochs x {TRAIN_ITERS} steps in "
+                f"{secs[configuration]:.1f} s: step {float(np.median(ms)):.1f} ms median "
+                f"(after each fold's first); losses "
+                + "; ".join(f"fold {f} {[round(x, 3) for x in s['losses']]}"
+                            for f, s in zip(CASCADE_FOLDS, st["steps"]))
+                + "; step ms " + "; ".join(
+                    f"fold {f} " + ", ".join(f"{t:.0f}" for t in s["step_ms"])
+                    for f, s in zip(CASCADE_FOLDS, st["steps"]))
+                + f"; peak device memory {max(st['peak']):.2f} GiB; final validation "
+                f"{_per_case([v / len(CASCADE_SPLITS[0]['val']) for v in tt['validation']])} "
+                f"(prediction on the device "
+                f"{_per_case(tt['predict'])}, export with the probabilities "
+                f"{_per_case(tt['export'])}")
+        if "next stage export" in tt:
+            line += f", next stage export {_per_case(tt['next stage export'])}"
+        log(line + ")")
+
+    _cascade_step_profile(dev, plans_id)
+
+    # the augmentation on the card against the CPU, timed: the exported lowres
+    # predictions, and the labels as a trained lowres stage's stand-in
+    crops = {"predicted (3d_lowres)": [], "label": []}
+    cases = nnUNetDataset(os.path.join(pre, plans_id + "_3d_fullres"), CASCADE_CASES[:2],
+                          folder_with_segs_from_previous_stage=next_dir)
+    for k in CASCADE_CASES[:2]:
+        seg = np.asarray(cases.load_case(k)[1])
+        fg = np.argwhere(seg[0] > 0)
+        lo = np.clip(fg.mean(0).astype(int) - CASCADE_CROP // 2, 0,
+                     np.array(seg.shape[1:]) - CASCADE_CROP)
+        box = tuple(slice(a, a + CASCADE_CROP) for a in lo)
+        crops["predicted (3d_lowres)"].append(seg[-1][box])
+        crops["label"].append(seg[0][box])
+    _cascade_augment(dev, {k: torch.from_numpy(np.stack(v).astype(np.int64))
+                           for k, v in crops.items()})
+
+    # the selection
+    models = [{"plans": plans_id, "configuration": c, "trainer": "nnUNetTrainer"}
+              for c in CASCADE_STAGES]
+    t0 = time.perf_counter()
+    info = fbc_module.find_best_configuration(CASCADE_ID, models, num_processes=8,
+                                              folds=CASCADE_FOLDS)
+    secs["select"] = time.perf_counter() - t0
+    best = info["best_model_or_ensemble"]
+    ensemble = "ensemble___" + "___".join(os.path.basename(stages[c]["folder"])
+                                          for c in CASCADE_STAGES) + "___0_1"
+    if ensemble not in info["all_results"] or not os.path.isfile(
+            best["postprocessing_file"]) or not os.path.isfile(os.path.join(
+            os.environ["nnUNet_results"], CASCADE_DATASET, "inference_information.json")):
+        raise AssertionError(f"cascade: find_best_configuration wrote {info}")
+    with open(best["postprocessing_file"], "rb") as f:
+        pp_fns, pp_kwargs = pickle.load(f)
+    members = [m["configuration"] for m in best["selected_model_or_models"]]
+    log(f"[cascade] find_best_configuration {secs['select']:.1f} s over folds "
+        f"{CASCADE_FOLDS}: foreground mean Dice {info['all_results']}; best {members} "
+        f"({best['result_on_crossval_pre_pp']:.4f}, postprocessed "
+        f"{best['result_on_crossval_post_pp']:.4f}); postprocessing "
+        f"{[fn.__name__ for fn in pp_fns]} {pp_kwargs}")
+
+    # the held-out case in two stages, the ensemble where it won, the postprocessing
+    case = os.path.join(raw, "imagesTs", f"case_{CASCADE_TRAIN:03d}_0000.nii.gz")
+    outputs, predictors = {}, {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for configuration, prev in zip(CASCADE_STAGES, (None, CASCADE_STAGES[0])):
+        predictors[configuration] = nnUNetPredictor(device=dev)
+        predictors[configuration].initialize_from_trained_model_folder(
+            stages[configuration]["folder"], use_folds=CASCADE_FOLDS)
+        outputs[configuration] = os.path.join(root, "predicted_" + configuration)
+        t0 = time.perf_counter()
+        predictors[configuration].predict_from_files(
+            [[case]], outputs[configuration], save_probabilities=True,
+            folder_with_segs_from_prev_stage=outputs.get(prev))
+        torch.cuda.synchronize()
+        secs["predict " + configuration] = time.perf_counter() - t0
+    predict_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    source = outputs[members[0]]
+    t0 = time.perf_counter()
+    if len(members) == 2:
+        source = os.path.join(root, "ensembled")
+        ensemble_folders([outputs[m] for m in members], source, num_processes=8)
+    secs["ensemble"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    final = os.path.join(root, "postprocessed")
+    apply_postprocessing_to_folder(source, final, pp_fns, pp_kwargs,
+                                   plans_file_or_dict=best["some_plans_file"],
+                                   num_processes=8)
+    secs["postprocess"] = time.perf_counter() - t0
+    name = f"case_{CASCADE_TRAIN:03d}"
+    check_segmentation_file(os.path.join(final, name + ".nii.gz"), case)
+    counts = _build.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"cascade: the 3-D path runs stock convs, launches {counts}")
+    log(f"[cascade] {card_line()}: {name} predicted in two stages from the trained "
+        f"folders (folds {CASCADE_FOLDS}, mirroring, probabilities saved): 3d_lowres "
+        f"{secs['predict 3d_lowres']:.2f} s, 3d_cascade_fullres on its output "
+        f"{secs['predict 3d_cascade_fullres']:.2f} s, peak device memory {predict_peak:.2f} "
+        f"GiB; " + (f"ensembled in {secs['ensemble']:.2f} s; " if len(members) == 2 else "")
+        + f"postprocessed in {secs['postprocess']:.2f} s; the final file on the raw case's "
+        f"geometry; launches {counts}")
+
+    # one tile of the cascade network with its one-hot input: card bf16 vs CPU fp32
+    cascade = predictors["3d_cascade_fullres"]
+    cm = cascade.configuration_manager
+    image, props = NiftiIO().read_images([case])
+    prev = NiftiIO().read_seg(os.path.join(outputs["3d_lowres"], name + ".nii.gz"))[0]
+    data, seg = cm.preprocessor_class().run_case_npy(image, prev, props,
+                                                    cascade.plans_manager, cm,
+                                                    cascade.dataset_json)
+    data = np.vstack((data, convert_labelmap_to_one_hot(
+        seg[0], cascade.label_manager.foreground_labels, data.dtype)))
+    pz, py, px = cm.patch_size
+    tile = torch.from_numpy(np.ascontiguousarray(data[None, :, :pz, :py, :px],
+                                                 dtype=np.float32))
+    network = cascade.network
+    with torch.inference_mode():
+        got = network(tile.to(dev)).float().cpu()
+        ref = type(network)(dataclasses.replace(network.cfg, dtype="float32"),
+                            network.input_channels).eval()
+        ref.load_state_dict({k: v.cpu() for k, v in network.state_dict().items()})
+        t0 = time.perf_counter()
+        want = ref(tile)
+        cpu_s = time.perf_counter() - t0
+    del ref
+    rel = rel_l2(got, want)
+    log(f"[cascade] parity: one {cm.patch_size} tile of 3d_cascade_fullres (1 + 2 one-hot "
+        f"channels), card bf16 vs CPU fp32 ({cpu_s:.1f} s): relative L2 error {rel:.4e} "
+        f"(bound {PARITY_BOUND})")
+    if not rel <= PARITY_BOUND:
+        raise AssertionError(f"cascade parity {rel} over {PARITY_BOUND}")
+    try:
+        import matplotlib
+        plots = f"matplotlib {matplotlib.__version__} imports"
+    except ImportError as e:
+        plots = f"matplotlib does not import ({e}): overlay_plots cannot write PNGs here"
+    log(f"[cascade] {plots}")
+    del predictors, cascade, network
+    torch.cuda.empty_cache()
+    return counts
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2777,8 +3265,17 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     log(f"[env] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; python {sys.version.split()[0]}")
+    spent, clock = {}, [time.perf_counter()]
+
+    def stamp(name: str) -> None:
+        now = time.perf_counter()
+        spent[name] = now - clock[-1]
+        clock.append(now)
+
     phase_build()
+    stamp("build")
     kernel_results = phase_kernels(dev)
+    stamp("kernels")
     model = build_model()
     counts = {"serve": phase_serve(dev, model)}
     phase_layer_times(dev, model, "serve")
@@ -2806,6 +3303,7 @@ def main() -> int:
             phase_route_parity(dev, model, tile, route_want, path, card_stock)
     del model
     torch.cuda.empty_cache()
+    stamp("serve, parity, routes")
     model7 = build_model_7b(dev)
     counts_7b, got_7b = phase_serve_7b(dev, model7, tile)
     counts.update(counts_7b)
@@ -2817,6 +3315,7 @@ def main() -> int:
     phase_parity_7b(dev, cfg7, state7, tile, got_7b)
     del state7
     torch.cuda.empty_cache()
+    stamp("serve_7b")
     with tempfile.TemporaryDirectory() as root:
         _train_env(root)
         counts["train"] = phase_train(dev)
@@ -2826,8 +3325,10 @@ def main() -> int:
         counts["train_l"] = phase_train_steps(dev, "DinoUNetTrainer_l", "train_l",
                                               PER_TRAIN_STEP_L)
     phase_train_parity(dev)
+    stamp("train")
     with tempfile.TemporaryDirectory() as root:
         counts["pipeline"] = phase_pipeline(dev, root)
+    stamp("pipeline")
     with tempfile.TemporaryDirectory() as root:
         counts["api"] = phase_api(dev, root)
         torch.cuda.empty_cache()
@@ -2836,12 +3337,19 @@ def main() -> int:
         counts["regions"] = phase_regions(dev, root)
         torch.cuda.empty_cache()
         counts["train_7b"] = phase_train_7b(dev, root)
+    stamp("api, pretrained, regions, train_7b")
     with tempfile.TemporaryDirectory() as root:
         counts["unet_3d"] = phase_unet_3d(dev, root)
         counts["resenc_3d"] = phase_resenc_3d(dev)
     with tempfile.TemporaryDirectory() as root:
         counts["unet_2d"] = phase_unet_2d(dev, root)
+    stamp("unet_3d, resenc_3d, unet_2d")
+    with tempfile.TemporaryDirectory() as root:
+        counts["cascade"] = phase_cascade(dev, root)
+    stamp("cascade")
 
+    log("[time] " + ", ".join(f"{name} {s:.1f} s" for name, s in spent.items())
+        + f"; all phases {clock[-1] - clock[0]:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

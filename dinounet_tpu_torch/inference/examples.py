@@ -38,8 +38,6 @@ seg = predictor.predict_single_npy_array(img, props, None, None, False)
 """
 
 EXAMPLE_CASCADE = """
-# the cascade is not ported yet: predict_from_files raises NotImplementedError
-# for folder_with_segs_from_prev_stage
 # stage 1: predict with the lowres model into OUTPUT_LOWRES (as above), then:
 predictor.predict_from_files(
     'INPUT_FOLDER', 'OUTPUT_CASCADE',

@@ -24,10 +24,14 @@ inference/predict_from_raw_data.py:38-871):
     bounded thread pool (``data_iterators``) and export (resampling and
     writing) behind it in a second one. The pools hold numpy work only; the
     device's work runs on the calling thread;
-  * the CLIs ``predict_entry_point`` and ``predict_entry_point_modelfolder``.
+  * a cascade stage's previous-stage segmentations (an array per case, or
+    ``<folder>/<case><file_ending>`` from files): preprocessed as the
+    case's segmentation and appended to its data as one-hot channels;
+  * the CLIs ``predict_entry_point`` and ``predict_entry_point_modelfolder``
+    (``-prev_stage_predictions`` for a cascade stage).
 
-Not ported: sharding the cases over ``num_parts``, and previous-stage
-segmentations (the cascade); they raise ``NotImplementedError``.
+Not ported: sharding the cases over ``num_parts``; it raises
+``NotImplementedError``.
 """
 
 import os
@@ -50,16 +54,10 @@ from dinounet_tpu_torch.inference.sliding_window import (
 from dinounet_tpu_torch.planning.dataset_utils import create_lists_from_splitted_dataset_folder
 from dinounet_tpu_torch.utilities import registry
 from dinounet_tpu_torch.utilities.json_export import load_json, save_json
-from dinounet_tpu_torch.utilities.label_handling import determine_num_input_channels
+from dinounet_tpu_torch.utilities.label_handling import (convert_labelmap_to_one_hot,
+                                                        determine_num_input_channels)
 from dinounet_tpu_torch.utilities.plans_handler import (ConfigurationManager,
                                                         PlansManager)
-
-
-def _no_cascade(segs_from_prev_stage) -> None:
-    if segs_from_prev_stage is not None:
-        raise NotImplementedError(
-            "previous-stage segmentations (the cascade) are not ported yet "
-            "(ROADMAP.md, queue item 8)")
 
 
 class nnUNetPredictor:
@@ -163,9 +161,9 @@ class nnUNetPredictor:
             folder_with_segs_from_prev_stage: Optional[str] = None,
             overwrite: bool = True, part_id: int = 0, num_parts: int = 1,
             save_probabilities: bool = False):
-        """Input cases and output names; with overwrite off, the cases whose
-        outputs exist are dropped (ref :167-205)."""
-        _no_cascade(folder_with_segs_from_prev_stage)
+        """Input cases, output names and each case's previous-stage
+        segmentation file (None without a folder); with overwrite off, the
+        cases whose outputs exist are dropped (ref :167-205)."""
         if num_parts != 1 or part_id != 0:
             raise NotImplementedError(
                 "sharding the cases over num_parts is not ported yet "
@@ -187,6 +185,10 @@ class nnUNetPredictor:
         else:
             output_filename_truncated = list(
                 output_folder_or_list_of_truncated_output_files)
+        seg_from_prev_stage_files = [
+            None if folder_with_segs_from_prev_stage is None
+            else os.path.join(folder_with_segs_from_prev_stage, c + file_ending)
+            for c in caseids]
 
         if not overwrite and output_filename_truncated is not None:
             keep = [i for i, o in enumerate(output_filename_truncated)
@@ -194,7 +196,8 @@ class nnUNetPredictor:
                         not save_probabilities or os.path.isfile(o + ".npz")))]
             output_filename_truncated = [output_filename_truncated[i] for i in keep]
             list_of_lists = [list_of_lists[i] for i in keep]
-        return list_of_lists, output_filename_truncated
+            seg_from_prev_stage_files = [seg_from_prev_stage_files[i] for i in keep]
+        return list_of_lists, output_filename_truncated, seg_from_prev_stage_files
 
     @property
     def _mirror_axes(self) -> Optional[Sequence[int]]:
@@ -276,13 +279,20 @@ class nnUNetPredictor:
                                  output_file_truncated: str = None,
                                  save_or_return_probabilities: bool = False):
         """Preprocess, predict and export one case given as an array
-        (ref :429-464). With `output_file_truncated` the result is written
-        and None returned; else the segmentation (and the probabilities)."""
-        _no_cascade(segmentation_previous_stage)
+        (ref :429-464); a cascade stage's previous-stage segmentation
+        (*spatial) is preprocessed as the case's segmentation and appended
+        as one-hot channels. With `output_file_truncated` the result is
+        written and None returned; else the segmentation (and the
+        probabilities)."""
         preprocessor = self.configuration_manager.preprocessor_class(verbose=self.verbose)
-        data, _ = preprocessor.run_case_npy(
-            input_image, None, image_properties, self.plans_manager,
-            self.configuration_manager, self.dataset_json)
+        data, seg = preprocessor.run_case_npy(
+            input_image,
+            None if segmentation_previous_stage is None else segmentation_previous_stage[None],
+            image_properties, self.plans_manager, self.configuration_manager,
+            self.dataset_json)
+        if segmentation_previous_stage is not None:
+            data = np.vstack((data, convert_labelmap_to_one_hot(
+                seg[0], self.label_manager.foreground_labels, data.dtype)))
         logits = self.predict_logits_from_preprocessed_data(data)
         if output_file_truncated is not None:
             export_prediction_from_logits(
@@ -301,20 +311,23 @@ class nnUNetPredictor:
             num_processes: int = 3):
         """Preprocessing iterator over in-memory arrays (ref :291-328): yields
         {'data', 'data_properties', 'ofile'}, preprocessed a bounded number
-        of cases ahead in a thread pool (``data_iterators``)."""
+        of cases ahead in a thread pool (``data_iterators``); a case's
+        previous-stage segmentation (*spatial), where given, becomes one-hot
+        channels."""
         images = image_or_list_of_images
         if not isinstance(images, list):
             images = [images]
         segs_prev = segs_from_prev_stage_or_list_of_segs_from_prev_stage
-        for seg in segs_prev if isinstance(segs_prev, list) else [segs_prev]:
-            _no_cascade(seg)
+        if not isinstance(segs_prev, list):
+            segs_prev = [segs_prev] * len(images)
+        segs_prev = [None if s is None else s[None] for s in segs_prev]
         props = properties_or_list_of_properties
         if isinstance(props, dict):
             props = [props] * len(images)
         if truncated_ofname is None or isinstance(truncated_ofname, str):
             truncated_ofname = [truncated_ofname] * len(images)
         return preprocessing_iterator_fromnpy(
-            images, None, props, truncated_ofname, self.plans_manager, self.dataset_json,
+            images, segs_prev, props, truncated_ofname, self.plans_manager, self.dataset_json,
             self.configuration_manager, num_processes, verbose=self.verbose_preprocessing)
 
     def predict_from_data_iterator(self, data_iterator, save_probabilities: bool = False,
@@ -377,8 +390,10 @@ class nnUNetPredictor:
                            num_parts: int = 1, part_id: int = 0):
         """Predict raw image files (ref :207-346): preprocessing runs up to
         `num_processes_preprocessing` + 1 cases ahead of the device in a
-        thread pool, export behind it (``predict_from_data_iterator``)."""
-        list_of_lists, output_files = self._manage_input_and_output_lists(
+        thread pool, export behind it (``predict_from_data_iterator``). A
+        cascade stage reads each case's previous-stage segmentation from
+        `folder_with_segs_from_prev_stage`."""
+        list_of_lists, output_files, seg_prev = self._manage_input_and_output_lists(
             list_of_lists_or_source_folder,
             output_folder_or_list_of_truncated_output_files,
             folder_with_segs_from_prev_stage, overwrite, part_id, num_parts,
@@ -392,7 +407,7 @@ class nnUNetPredictor:
         if not list_of_lists:
             return []
         iterator = preprocessing_iterator_fromfiles(
-            list_of_lists, None, output_files, self.plans_manager, self.dataset_json,
+            list_of_lists, seg_prev, output_files, self.plans_manager, self.dataset_json,
             self.configuration_manager, max(1, num_processes_preprocessing),
             verbose=self.verbose_preprocessing)
         return self.predict_from_data_iterator(iterator, save_probabilities,

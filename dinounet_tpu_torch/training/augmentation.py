@@ -1,7 +1,6 @@
 """2-D and 3-D training augmentation on the device, PyTorch.
 
-Counterpart of ``dinounet_tpu/training/augmentation.py`` up to its cascade
-part
+Counterpart of ``dinounet_tpu/training/augmentation.py``
 (ref: nnUNetTrainer.py:683-805 and training/data_augmentation/*): rotation and
 scaling with a centre crop from the enlarged loader patch, Gaussian noise,
 Gaussian blur, multiplicative brightness, range-preserving contrast,
@@ -28,8 +27,13 @@ targets come from ``downsample_seg_for_ds``.
 Layout is the port's: data (C, H, W) or (C, D, H, W) float32 per sample,
 (B, C, ...) per batch; labels (H, W) / (D, H, W) or (S, ...) integers per
 sample (extra channels, as the cascade's previous-stage map, follow the same
-spatial transform). The cascade one-hot augmentation and
-``remove_random_component`` are not ported yet.
+spatial transform).
+
+The cascade's one-hot input (``draw_cascade`` / ``cascade_onehot_augment``,
+JAX ``augmentation.py:541-700``) keeps the same split: the host draws each
+channel's binary-operator coin, operator and radius, the sample's
+remove-component coin and each channel's seed as a uniform number, which
+picks the foreground voxel of that rank; the device computes the rest.
 """
 
 import dataclasses
@@ -571,3 +575,214 @@ def augment_batch_3d(data: torch.Tensor, seg: torch.Tensor, cfg: AugmentConfig3D
     outs = [apply_augment_3d(data[b], seg[b], draw_augment_3d(gen, data.shape[1], cfg), cfg)
             for b in range(data.shape[0])]
     return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+# ------------------------------------------------------------------- cascade
+
+
+def _max_pool_axis(x: torch.Tensor, axis: int, radius: int) -> torch.Tensor:
+    """Max over a window of 2 * radius + 1 along spatial `axis` of x
+    (N, *spatial), -inf outside (lax.reduce_window's padding for a max)."""
+    nd = x.dim() - 1
+    kernel, pad = [1] * nd, [0] * nd
+    kernel[axis], pad[axis] = 2 * radius + 1, radius
+    pool = F.max_pool2d if nd == 2 else F.max_pool3d
+    return pool(x[:, None], tuple(kernel), stride=1, padding=tuple(pad))[:, 0]
+
+
+def _box_max(x: torch.Tensor, radius: int) -> torch.Tensor:
+    """Max over a cube of side 2 * radius + 1: one axis at a time (a max is
+    exact, so equal to the cube's)."""
+    for axis in range(x.dim() - 1):
+        x = _max_pool_axis(x, axis, radius)
+    return x
+
+
+def _box_min(x: torch.Tensor, radius: int) -> torch.Tensor:
+    """Min over the cube, +inf outside: -max(-x)."""
+    return -_box_max(-x, radius)
+
+
+def _morph(ch: torch.Tensor, op: int, radius: int) -> torch.Tensor:
+    """Binary operator `op` of (N, *spatial) maps: 0 dilation, 1 erosion,
+    2 opening, 3 closing, with a cube of the given radius."""
+    if op == 0:
+        return _box_max(ch, radius)
+    if op == 1:
+        return _box_min(ch, radius)
+    if op == 2:
+        return _box_max(_box_min(ch, radius), radius)
+    return _box_min(_box_max(ch, radius), radius)
+
+
+def _dilate_in_mask(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """One cross-shaped growth step of x (N, *spatial), bool, within mask:
+    each voxel ORed with its two neighbours along one axis at a time,
+    ANDed with the mask after each axis, so a diagonal neighbour is reached
+    only through the mask: 4- (6-)connectivity, scipy.ndimage.label's
+    default (JAX ``:544-558``, its 3-wide max pool and clamp on 0/1 maps)."""
+    for axis in range(1, x.dim()):
+        n = x.shape[axis]
+        grown = x.clone()
+        grown.narrow(axis, 1, n - 1).logical_or_(x.narrow(axis, 0, n - 1))
+        grown.narrow(axis, 0, n - 1).logical_or_(x.narrow(axis, 1, n - 1))
+        x = grown.logical_and_(mask)
+    return x
+
+
+# Growth steps between the flood fill's reads of whether anything grew: each
+# read syncs the host with the device.
+_FILL_CHECK_EVERY = 16
+
+
+def component_of_seed(mask: torch.Tensor, seed: torch.Tensor,
+                      max_iters: int = 512) -> torch.Tensor:
+    """The connected component of each mask (N, *spatial), float 0/1, that
+    holds its seed (a 0/1 map of one voxel), as a float 0/1 map: growth
+    steps on bool maps to the fixpoint, at most `max_iters` (JAX
+    ``component_of_seed``'s while_loop). The host reads whether anything
+    grew every `_FILL_CHECK_EVERY` steps only: steps past the fixpoint
+    change nothing, and a fill that has not converged stops after exactly
+    `max_iters` steps, as JAX's does."""
+    inside = mask > 0.5
+    comp = (seed > 0.5) & inside
+    done = 0
+    while done < max_iters:
+        start = comp
+        steps = min(_FILL_CHECK_EVERY, max_iters - done)
+        for _ in range(steps):
+            comp = _dilate_in_mask(comp, inside)
+        done += steps
+        if torch.equal(comp, start):
+            break
+    return comp.to(mask.dtype)
+
+
+def _seed_maps(mask: torch.Tensor, seed_u: Sequence[float]) -> torch.Tensor:
+    """0/1 maps (N, *spatial) of one foreground voxel each: the
+    floor(u * n)-th of the n foreground voxels of each mask in flat order,
+    u drawn uniform in [0, 1) (the same distribution as JAX's argmax of a
+    uniform score field over the foreground). A mask without foreground gets
+    a voxel outside it, which its component then drops."""
+    flat = mask.reshape(mask.shape[0], -1)
+    csum = torch.cumsum(flat > 0, dim=1)
+    u = torch.tensor(seed_u, dtype=torch.float64, device=mask.device)
+    rank = torch.floor(u * csum[:, -1]).long()
+    idx = torch.searchsorted(csum, rank[:, None] + 1).clamp_(max=flat.shape[1] - 1)
+    return torch.zeros_like(flat).scatter_(1, idx, 1.0).reshape(mask.shape)
+
+
+@dataclasses.dataclass
+class RemoveDraws:
+    """The random part of remove_random_component for one sample: the
+    sample's coin, and per channel the seed's uniform number, whether the
+    removed region is marked in another channel, and which."""
+    apply: bool = False
+    seed_u: Tuple[float, ...] = ()
+    fill: Tuple[bool, ...] = ()
+    other: Tuple[int, ...] = ()
+
+
+@dataclasses.dataclass
+class CascadeDraws:
+    """The random part of cascade_onehot_augment for one sample: per channel
+    (operator, radius) of a binary operator or None, and the removal's
+    draws."""
+    morph: Tuple[Optional[Tuple[int, int]], ...] = ()
+    remove: RemoveDraws = dataclasses.field(default_factory=RemoveDraws)
+
+
+def draw_remove_component(gen: torch.Generator, n_channels: int,
+                          p_per_sample: float = 0.2,
+                          fill_with_other_class_p: float = 0.0) -> RemoveDraws:
+    """One sample's removal draws from a CPU generator, with the JAX
+    function's probabilities."""
+    def u() -> float:
+        return float(torch.rand((), generator=gen))
+
+    if not u() < p_per_sample:
+        return RemoveDraws()
+    seed_u = tuple(u() for _ in range(n_channels))
+    fill, other = [], []
+    for c in range(n_channels):
+        marks = (n_channels > 1 and fill_with_other_class_p > 0
+                 and u() < fill_with_other_class_p)
+        o = int(torch.randint(0, n_channels - 1, (), generator=gen)) if marks else 0
+        fill.append(marks)
+        other.append(o + 1 if marks and o >= c else o)
+    return RemoveDraws(True, seed_u, tuple(fill), tuple(other))
+
+
+def draw_cascade(gen: torch.Generator, n_channels: int, p_binary_op: float = 0.4,
+                 strel_radii: Tuple[int, ...] = (1, 2, 3),
+                 p_remove_component: float = 0.2) -> CascadeDraws:
+    """One sample's cascade draws from a CPU generator (the JAX function's
+    probabilities: an operator of the four, a radius of strel_radii)."""
+    morph = []
+    for _ in range(n_channels):
+        if float(torch.rand((), generator=gen)) < p_binary_op:
+            op = int(torch.randint(0, 4, (), generator=gen))
+            radius = strel_radii[int(torch.randint(0, len(strel_radii), (), generator=gen))]
+            morph.append((op, radius))
+        else:
+            morph.append(None)
+    remove = (draw_remove_component(gen, n_channels, p_remove_component)
+              if p_remove_component > 0 else RemoveDraws())
+    return CascadeDraws(tuple(morph), remove)
+
+
+def remove_random_component(onehot: torch.Tensor, d: RemoveDraws,
+                            max_covered_frac: float = 0.15,
+                            max_iters: int = 512) -> torch.Tensor:
+    """RemoveRandomConnectedComponentFromOneHotEncodingTransform (JAX
+    ``remove_random_component``; ref cascade_transforms.py:99-125): onehot
+    (F, *spatial) float 0/1. Where the sample's coin says so, each channel
+    loses the connected component of its seed if that covers less than
+    `max_covered_frac` of the patch, and the region may be marked in another
+    channel. Without marking the channels are independent and filled at
+    once; with it they go in order, each on the channels as the ones before
+    left them. No coin, no fill: the output is the input either way."""
+    if not d.apply:
+        return onehot
+    n_vox = float(np.prod(onehot.shape[1:]))
+
+    def components(chans: torch.Tensor, channels) -> torch.Tensor:
+        mask = (chans > 0.5).float()
+        comp = component_of_seed(mask, _seed_maps(mask, [d.seed_u[c] for c in channels]),
+                                 max_iters)
+        keep = (comp.flatten(1).sum(1) < max_covered_frac * n_vox) & mask.flatten(1).any(1)
+        return comp * keep.view(-1, *[1] * (comp.dim() - 1))
+
+    if not any(d.fill):
+        return onehot * (1.0 - components(onehot, range(onehot.shape[0])))
+    chans = list(onehot.unbind(0))
+    for c in range(len(chans)):
+        comp = components(chans[c][None], [c])[0]
+        chans[c] = chans[c] * (1.0 - comp)
+        if d.fill[c]:
+            chans[d.other[c]] = torch.maximum(chans[d.other[c]], comp)
+    return torch.stack(chans)
+
+
+def cascade_onehot_augment(prev: torch.Tensor, foreground_labels: Sequence[int],
+                           d: CascadeDraws) -> torch.Tensor:
+    """Previous-stage label map (*spatial) integers -> augmented one-hot
+    input channels (F, *spatial) float32 (JAX ``cascade_onehot_augment``;
+    ref cascade_transforms.py:10-125, wired at nnUNetTrainer.py:743-759): a
+    channel per foreground label, each given its binary operator where drawn
+    (max / min pools over a cube), then a connected component removed where
+    drawn."""
+    onehot = torch.stack([(prev == label) for label in foreground_labels]).float()
+    out = torch.stack([ch if m is None else _morph(ch[None], *m)[0]
+                       for ch, m in zip(onehot, d.morph)])
+    return remove_random_component(out, d.remove)
+
+
+def cascade_augment_batch(prev: torch.Tensor, foreground_labels: Sequence[int],
+                          gen: torch.Generator) -> torch.Tensor:
+    """prev (B, *spatial) integers -> (B, F, *spatial) float32; draws from
+    the CPU generator `gen`, compute on prev's device."""
+    return torch.stack([
+        cascade_onehot_augment(prev[b], foreground_labels,
+                               draw_cascade(gen, len(foreground_labels)))
+        for b in range(prev.shape[0])])

@@ -32,14 +32,23 @@ nnUNetTrainer/nnUNetTrainer.py) for 2-D and 3-D configurations on one device:
     the trainer class builds it there itself (``DinoUNetTrainer_7b``);
   * labels declared as regions train with DC+BCE on sigmoid outputs, the
     region targets made from the label map on the device, and validate with
-    per-region counts of sigmoid > 0.5 (JAX ``trainer.py:386-412,494-505``).
+    per-region counts of sigmoid > 0.5 (JAX ``trainer.py:386-412,494-505``);
+  * the cascade: a configuration with a previous stage (3d_cascade_fullres
+    after 3d_lowres) reads that stage's validation segmentations as a
+    second label channel, which the spatial augmentation moves with the
+    labels; the train step then turns it into augmented one-hot input
+    channels (``cascade_augment_batch``), the validation step into plain
+    one-hot ones (JAX ``trainer.py:425-449,476-483``).
 
 The final validation (``perform_actual_validation``) predicts the
 validation cases by sliding window with mirror TTA on the trainer's device,
 exports them through the plans' reader/writer and writes their metrics to
 ``validation/summary.json``, as the JAX trainer does.
 
-The cascade is not ported yet and raises ``NotImplementedError``.
+A configuration with next stages (3d_lowres) also writes each validation
+case's segmentation, resampled to every next stage's preprocessed shape, to
+``predicted_next_stage/<stage>/<case>.npz`` (``export.resample_and_save``),
+which the next stage trains and validates on.
 """
 
 import os
@@ -53,6 +62,7 @@ from dinounet_tpu_torch import paths
 from dinounet_tpu_torch.configuration import ANISO_THRESHOLD
 from dinounet_tpu_torch.training.augmentation import (AugmentConfig, AugmentConfig3D,
                                                       augment_batch_2d, augment_batch_3d,
+                                                      cascade_augment_batch,
                                                       downsample_seg_for_ds,
                                                       get_enlarged_patch_size,
                                                       get_enlarged_patch_size_3d)
@@ -67,7 +77,8 @@ from dinounet_tpu_torch.training.losses import (dc_and_bce_loss, dc_and_ce_loss,
 from dinounet_tpu_torch.training.lr_scheduler import poly_lr
 from dinounet_tpu_torch.utilities import registry
 from dinounet_tpu_torch.utilities.json_export import load_json, save_json
-from dinounet_tpu_torch.utilities.label_handling import determine_num_input_channels
+from dinounet_tpu_torch.utilities.label_handling import (convert_labelmap_to_one_hot,
+                                                        determine_num_input_channels)
 from dinounet_tpu_torch.utilities.misc import generate_crossval_split
 from dinounet_tpu_torch.utilities.plans_handler import PlansManager
 
@@ -108,8 +119,6 @@ class nnUNetTrainer:
         self.dataset_json = dataset_json
         self.fold = fold
         self.unpack_dataset = unpack_dataset
-        if self.configuration_manager.previous_stage_name is not None:
-            raise NotImplementedError("cascade training is not ported yet")
 
         self.preprocessed_dataset_folder_base = os.path.join(
             paths.nnUNet_preprocessed(), self.plans_manager.dataset_name)
@@ -161,6 +170,23 @@ class nnUNetTrainer:
         print(msg, flush=True)
 
     # ------------------------------------------------------------------ setup
+
+    @property
+    def is_cascaded(self) -> bool:
+        """A cascade stage: the configuration names a previous stage."""
+        return self.configuration_manager.previous_stage_name is not None
+
+    @property
+    def folder_with_segs_from_previous_stage(self):
+        """results/<dataset>/<Trainer>__<plans>__<previous stage>/
+        predicted_next_stage/<configuration> (ref nnUNetTrainer.py:131-137)."""
+        if not self.is_cascaded:
+            return None
+        return os.path.join(
+            paths.nnUNet_results(), self.plans_manager.dataset_name,
+            self.__class__.__name__ + "__" + self.plans_manager.plans_name + "__"
+            + self.configuration_manager.previous_stage_name,
+            "predicted_next_stage", self.configuration_name)
 
     @staticmethod
     def build_network_architecture(architecture_class_name: str, arch_init_kwargs: dict,
@@ -298,8 +324,11 @@ class nnUNetTrainer:
         rotation, do_dummy_2d, initial_patch_size, mirror_axes = \
             self._configure_rotation_dummyDA_mirroring_and_initial_patch_size()
         tr_keys, val_keys = self.do_split()
-        dataset_tr = nnUNetDataset(self.preprocessed_dataset_folder, tr_keys)
-        dataset_val = nnUNetDataset(self.preprocessed_dataset_folder, val_keys)
+        prev = self.folder_with_segs_from_previous_stage
+        dataset_tr = nnUNetDataset(self.preprocessed_dataset_folder, tr_keys,
+                                   folder_with_segs_from_previous_stage=prev)
+        dataset_val = nnUNetDataset(self.preprocessed_dataset_folder, val_keys,
+                                    folder_with_segs_from_previous_stage=prev)
         cm = self.configuration_manager
         loader = nnUNetDataLoader2D if len(cm.patch_size) == 2 else nnUNetDataLoader3D
         self.dataloader_train = loader(
@@ -366,10 +395,25 @@ class nnUNetTrainer:
 
     def _batch_to_device(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Loader batch -> data (B, C, *spatial) float32 and labels
-        (B, *spatial) int64 on the device."""
+        (B, *spatial) int64 on the device; a cascade stage keeps both label
+        channels, (B, 2, *spatial): the labels, then the previous stage's
+        segmentation."""
         data = torch.from_numpy(batch["data"]).to(self.device, non_blocking=True)
-        seg = torch.from_numpy(batch["seg"][:, 0]).to(self.device, non_blocking=True)
-        return data, seg.long()
+        seg = batch["seg"] if self.is_cascaded else batch["seg"][:, 0]
+        return data, torch.from_numpy(seg).to(self.device, non_blocking=True).long()
+
+    def _with_previous_stage(self, data: torch.Tensor, seg: torch.Tensor, augment: bool):
+        """A cascade batch's (data, seg with its two channels) -> data with the
+        previous stage's one-hot channels appended (augmented in training),
+        and the labels alone."""
+        labels = self.label_manager.foreground_labels
+        prev = seg[:, 1]
+        if augment:
+            onehot = cascade_augment_batch(prev, labels, self._aug_gen)
+        else:
+            prev = torch.where(prev < 0, torch.zeros_like(prev), prev)
+            onehot = torch.stack([prev == label for label in labels], 1)
+        return torch.cat([data, onehot.to(data.dtype)], 1), seg[:, 0]
 
     def train_step_host(self, batch) -> torch.Tensor:
         """Augment on the device, forward, DC+CE (over the deep-supervision
@@ -377,6 +421,8 @@ class nnUNetTrainer:
         Returns the loss as a device scalar (reading it synchronises)."""
         data, seg = self._batch_to_device(batch)
         data, seg = self._augment(data, seg)
+        if self.is_cascaded:
+            data, seg = self._with_previous_stage(data, seg, augment=True)
         self.network.train()
         self.optimizer.zero_grad(set_to_none=True)
         loss = self._train_loss(self.network(data), seg)
@@ -391,6 +437,8 @@ class nnUNetTrainer:
         0.5 against each region's target, outside the ignore label
         (ref :946-1008)."""
         data, seg = self._batch_to_device(batch)
+        if self.is_cascaded:
+            data, seg = self._with_previous_stage(data, seg, augment=False)
         seg = torch.where(seg < 0, torch.zeros_like(seg), seg)
         self.network.eval()
         out = self.network(data)
@@ -599,16 +647,21 @@ class nnUNetTrainer:
         """Sliding-window prediction of every validation case of the split
         on the trainer's device, export to <output_folder>/validation, and
         the metrics against gt_segmentations into its summary.json
-        (ref :1146-1293). Returns the metrics (None without
-        gt_segmentations)."""
+        (ref :1146-1293). A cascade stage feeds the previous stage's
+        segmentation in as one-hot channels; each case is also exported,
+        resampled, for every next stage (ref :1240-1256). Each case's exports
+        (host resampling and writing: the case's, each next stage's) run
+        behind the device in a thread pool, each its own task, at most two
+        cases behind, as ``predict_from_files`` exports (the reference's
+        export pool). Returns the metrics (None without gt_segmentations)."""
+        from collections import deque
+        from concurrent.futures import ThreadPoolExecutor
+
         from dinounet_tpu_torch.evaluation.metrics import compute_metrics_on_folder
-        from dinounet_tpu_torch.inference.export import export_prediction_from_logits
+        from dinounet_tpu_torch.inference.export import (export_prediction_from_logits,
+                                                         resample_and_save)
         from dinounet_tpu_torch.inference.predictor import nnUNetPredictor
 
-        if self.configuration_manager.next_stage_names:
-            raise NotImplementedError(
-                "exporting the validation for a cascade's next stage is not "
-                "ported yet (ROADMAP.md, queue item 8)")
         inference_network = self.build_network(
             self.device, self.configuration_manager, self.num_input_channels,
             self.label_manager.num_segmentation_heads, enable_deep_supervision=False)
@@ -622,15 +675,45 @@ class nnUNetTrainer:
         validation_output_folder = os.path.join(self.output_folder, "validation")
         os.makedirs(validation_output_folder, exist_ok=True)
         _, val_keys = self.do_split()
-        dataset_val = nnUNetDataset(self.preprocessed_dataset_folder, val_keys)
-        for k in val_keys:
-            self.print_to_log_file(f"predicting {k}")
-            data, _, properties = dataset_val.load_case(k)
-            prediction = predictor.predict_logits_from_preprocessed_data(np.asarray(data))
-            export_prediction_from_logits(
-                prediction, properties, self.configuration_manager, self.plans_manager,
-                self.dataset_json, os.path.join(validation_output_folder, k),
-                save_probabilities)
+        dataset_val = nnUNetDataset(
+            self.preprocessed_dataset_folder, val_keys,
+            folder_with_segs_from_previous_stage=self.folder_with_segs_from_previous_stage)
+        next_stages = self.configuration_manager.next_stage_names or []
+        for n in next_stages:
+            os.makedirs(os.path.join(self.output_folder_base, "predicted_next_stage", n),
+                        exist_ok=True)
+
+        def export_next_stage(prediction, properties, k, n):
+            next_cfg = self.plans_manager.get_configuration(n)
+            next_case = nnUNetDataset(os.path.join(self.preprocessed_dataset_folder_base,
+                                                   next_cfg.data_identifier), [k])
+            resample_and_save(
+                prediction, next_case.load_case(k)[0].shape[1:],
+                os.path.join(self.output_folder_base, "predicted_next_stage", n, k + ".npz"),
+                self.plans_manager, self.configuration_manager, properties,
+                self.dataset_json)
+
+        with ThreadPoolExecutor(max_workers=2 * (1 + len(next_stages))) as pool:
+            exports = deque()
+            for k in val_keys:
+                self.print_to_log_file(f"predicting {k}")
+                data, seg, properties = dataset_val.load_case(k)
+                data = np.asarray(data)
+                if self.is_cascaded:
+                    data = np.vstack((data, convert_labelmap_to_one_hot(
+                        np.asarray(seg[-1]), self.label_manager.foreground_labels,
+                        data.dtype)))
+                prediction = predictor.predict_logits_from_preprocessed_data(data)
+                exports.append([pool.submit(
+                    export_prediction_from_logits, prediction, properties,
+                    self.configuration_manager, self.plans_manager, self.dataset_json,
+                    os.path.join(validation_output_folder, k), save_probabilities)] + [
+                    pool.submit(export_next_stage, prediction, properties, k, n)
+                    for n in next_stages])
+                while len(exports) > 2:
+                    [f.result() for f in exports.popleft()]
+            while exports:
+                [f.result() for f in exports.popleft()]
 
         gt_folder = os.path.join(self.preprocessed_dataset_folder_base, "gt_segmentations")
         if not os.path.isdir(gt_folder):

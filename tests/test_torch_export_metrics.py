@@ -250,3 +250,42 @@ def test_compute_metrics_on_folder2_and_simple_match_jax(tmp_path):
                                            num_processes=1)
     _assert_same_results(got, want)
     assert (tmp_path / "ps.json").read_text() == (tmp_path / "js.json").read_text()
+
+
+@pytest.mark.parametrize("num_processes", [1, 3])
+def test_compute_metrics_on_folder_runs_at_most_num_processes_transforms(
+        tmp_path, monkeypatch, num_processes):
+    """A folder's distance transforms, each a float64 volume, run at most
+    `num_processes` at once, however many cases, labels and directions there
+    are (here 3 x 3 x 2), and the summary is the JAX package's all the same."""
+    import threading
+    import time
+
+    from dinounet_tpu.evaluation.metrics import compute_metrics_on_folder as jax_metrics
+
+    from dinounet_tpu_torch.evaluation import metrics
+
+    lock, running, peak = threading.Lock(), [0], [0]
+    edt = metrics.distance_transform_edt
+
+    def counted_edt(*args, **kwargs):
+        with lock:
+            running[0] += 1
+            peak[0] = max(peak[0], running[0])
+        time.sleep(0.02)
+        try:
+            return edt(*args, **kwargs)
+        finally:
+            with lock:
+                running[0] -= 1
+
+    monkeypatch.setattr(metrics, "distance_transform_edt", counted_edt)
+    gt, pred = _seg_folders(tmp_path, ".nii.gz")
+    got = metrics.compute_metrics_on_folder(gt, pred, None, NiftiIO(), ".nii.gz", [1, 2, 3],
+                                            num_processes=num_processes)
+    assert 1 <= peak[0] <= num_processes
+    if num_processes > 1:
+        assert peak[0] > 1  # the pool is used
+    from dinounet_tpu.imageio.nifti import NiftiIO as JaxNiftiIO
+    want = jax_metrics(gt, pred, None, JaxNiftiIO(), ".nii.gz", [1, 2, 3], num_processes=1)
+    _assert_same_results(got, want)

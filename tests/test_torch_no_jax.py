@@ -72,3 +72,26 @@ def test_importing_every_port_module_needs_no_pil():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_importing_every_port_module_needs_no_matplotlib():
+    """Nor matplotlib: only writing an overlay PNG or the progress plot
+    imports it, inside the function. The post-training tools are among the
+    modules imported."""
+    modules = _port_modules()
+    for name in ("postprocessing.remove_connected_components", "ensembling.ensemble",
+                 "evaluation.accumulate_cv_results", "evaluation.find_best_configuration",
+                 "utilities.overlay_plots"):
+        assert "dinounet_tpu_torch." + name in modules
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['PIL'] = None\n"
+        "sys.modules['matplotlib'] = None\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "print(sorted(k for k in sys.modules if k.split('.')[0] == 'matplotlib'"
+        " and sys.modules[k] is not None))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"

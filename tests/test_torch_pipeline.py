@@ -292,9 +292,11 @@ def test_unported_options_raise(trained, tmp_path):
     cases = _raw_cases(root, 1)
     with pytest.raises(NotImplementedError):
         p.predict_from_files(cases, str(tmp_path / "o"), num_parts=2, part_id=1)
-    with pytest.raises(NotImplementedError):
-        p.predict_from_files(cases, str(tmp_path / "o"),
-                             folder_with_segs_from_prev_stage=str(tmp_path))
+    # the cascade is ported: each case is paired with its previous stage's file
+    _, _, prev = p._manage_input_and_output_lists(cases, str(tmp_path / "o"), str(tmp_path))
+    ending = p.dataset_json["file_ending"]
+    assert prev == [str(tmp_path / (os.path.basename(c[0])[:-(len(ending) + 5)] + ending))
+                    for c in cases]
     from dinounet_tpu_torch.run import run_training
 
     with pytest.raises(NotImplementedError):

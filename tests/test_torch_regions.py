@@ -52,7 +52,7 @@ def _port_trainer(labels: dict, batch_dice: bool, logits: torch.Tensor):
 
     ns = SimpleNamespace(label_manager=LabelManager(labels, ORDER),
                          configuration_manager=SimpleNamespace(batch_dice=batch_dice),
-                         network=Fixed())
+                         network=Fixed(), is_cascaded=False)
     ns._seg_to_region_onehot = functools.partial(nnUNetTrainer._seg_to_region_onehot, ns)
     ns._loss = functools.partial(nnUNetTrainer._loss, ns)
     ns._batch_to_device = lambda batch: (torch.from_numpy(batch["data"]),

@@ -459,8 +459,8 @@ def test_batch_prefetcher_orders_batches_and_surfaces_errors():
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """The cascade still raises; 3-D configurations and DinoUNet's
-    deep-supervision outputs are ported (tests/test_torch_3d.py,
+    """The cascade, 3-D configurations and DinoUNet's deep-supervision
+    outputs are ported (tests/test_torch_cascade.py, tests/test_torch_3d.py,
     tests/test_torch_unet.py) and build."""
     from dinounet_tpu_torch.training.dinounet_trainer import DinoUNetTrainer_7b
     from dinounet_tpu_torch.training.trainer import nnUNetTrainer
@@ -474,8 +474,11 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
                  "3d_cascade_fullres": {"inherits_from": "3d_fullres",
                                         "previous_stage": "3d_lowres"}}}
     labels = {"labels": {"background": 0, "a": 1}}
-    with pytest.raises(NotImplementedError):  # the cascade
-        nnUNetTrainer(plans, "3d_cascade_fullres", 0, labels, device="cpu")
+    cascade = nnUNetTrainer(plans, "3d_cascade_fullres", 0, labels, device="cpu")
+    assert cascade.is_cascaded
+    assert cascade.folder_with_segs_from_previous_stage == os.path.join(
+        str(tmp_path), "Dataset992_Tiny", "nnUNetTrainer__nnUNetPlans__3d_lowres",
+        "predicted_next_stage", "3d_cascade_fullres")
     trainer = DinoUNetTrainer_7b(plans, "3d_fullres", 0, labels, device="cpu")
     assert trainer.configuration_manager.patch_size == [HW, HW, HW]
     model = TorchDinoUNet(TorchConfig(vit=TorchViTConfig(**VIT_KW), deep_supervision=True,
