@@ -15,8 +15,9 @@ not 0:
               the card, at the shapes the dinounet_b tile forward gives it
               (tile batch 8; the MSDA backward at the train step's batch 2;
               the prepped-input MSDA forward also over two levels) and
-              those of dinounet_7b (the row-major attention, the Dh-major
-              one at Dh = 128, the MSDA forward at 128 channels a head, the
+              those of dinounet_7b (the row-major attention, also on a
+              model-axis rank's 16 heads as the parallel phase gives it,
+              the Dh-major one at Dh = 128, the MSDA forward at 128 channels a head, the
               two extractor junctions at D = 4096); the MSDA backward also
               at dinounet_l's and the 7B's train shapes and at a 1024^2
               patch, the MSDA forward at D = 32 on a 1024^2 patch, the
@@ -130,7 +131,28 @@ not 0:
               loss within TRAIN_LOSS_BOUND;
               an optimizer step on the card leaves every backbone parameter
               as it was.
-9. pipeline -- the path from raw files to segmentation files. A raw NIfTI
+9. parallel -- the multi-GPU path on the one card. (a) World size 1
+              through NCCL: PARALLEL_STEPS DinoUNetTrainer_b steps (the
+              train phase's dataset) through DistributedDataParallel, the
+              synchronised BatchNorm and the global batch Dice, the losses
+              equal to the plain trainer's on the same seed and batches
+              within 1e-6 relative, the steps' launches exactly
+              PER_TRAIN_STEP each. (b)-(d) Two ranks on the one card through
+              gloo, started by the port's launcher (parallel/launch.py; NCCL
+              takes one card a rank): (b) one step at the global batch of 4
+              (2 a rank) against one process at batch 4 on the same
+              batches, within the train-parity bounds (loss
+              TRAIN_LOSS_BOUND, gradients TRAIN_GRAD_BOUND, MSDA projections
+              TRAIN_MSDA_GRAD_BOUND), then PARALLEL_STEPS whole steps timed
+              on each side; (c) the 7B backbone at full width and depth
+              PARALLEL_7B_DEPTH in bf16, its blocks split over a model axis
+              of 2 (16 of 32 heads a rank), against the whole backbone on
+              the card within PARALLEL_7B_BOUND, kernel #9 launched once a
+              block at M = 16, each rank's peak; (d) (c)'s shards written as
+              a torch.distributed.checkpoint directory, read back onto both
+              ranks' shards and into one process as whole tensors equal to
+              the whole backbone. The ranks' launches join the phase's.
+10. pipeline -- the path from raw files to segmentation files. A raw NIfTI
               dataset (RAW_DATASET: RAW_TRAIN labelled and RAW_TEST test
               cases of one 800 x 800 slice at 0.8 mm, the disk and ring
               cases) with a hand-written plans file (2d, 1.0 mm: each case
@@ -156,7 +178,7 @@ not 0:
               agreement for information. Seconds a case for preprocessing,
               prediction and export, the validation's total and
               predict_from_files' cases/s for information.
-10. api     -- the end-to-end CLI's path. A raw PNG dataset (API_DATASET:
+11. api     -- the end-to-end CLI's path. A raw PNG dataset (API_DATASET:
               API_CASES labelled grey cases of 800 x 800, the disk and ring
               cases) with a dataset.json and no plans file;
               dinounet_training_torch.main_dinov3("dinounet_b") on the card:
@@ -178,7 +200,7 @@ not 0:
               memory for information. The injection is class-level and
               stays for the rest of the process: the phases after it put it
               back as they found it.
-11. pretrained -- a synthetic published-layout dinov3_vitb16 .pth (the
+12. pretrained -- a synthetic published-layout dinov3_vitb16 .pth (the
               manifest's keys and shapes, seeded fp32 values drawn on the
               card, bias_mask 1/0/1 over q/k/v, the ignored keys the layout
               has) in the api phase's directory; DinoUNetTrainer_b pointed at
@@ -190,7 +212,7 @@ not 0:
               kernels) vs CPU fp32 (the plain versions) within PARITY_BOUND;
               the launches exactly ROUTE_STEPS x PER_TRAIN_STEP plus one
               PER_FORWARD. Load seconds for information.
-12. regions -- the api phase's PNG generator (API_CASES cases of 800^2),
+13. regions -- the api phase's PNG generator (API_CASES cases of 800^2),
               its labels declared as the overlapping regions REGION_LABELS
               with REGIONS_CLASS_ORDER; api.plan_and_preprocess (512^2, 4
               stages), the network configuration injected into
@@ -201,7 +223,7 @@ not 0:
               foreground mean Dice finite, each exported validation case
               800^2 with labels in {0, 1, 2}, the launches exactly the train
               steps' PER_TRAIN_STEP plus PER_FORWARD for every tile batch.
-13. train_7b -- a synthetic published-layout dinov3_vit7b16 .pth in bf16
+14. train_7b -- a synthetic published-layout dinov3_vit7b16 .pth in bf16
               (13.4 GB, drawn on the card as the pretrained phase draws;
               the free disk space checked first), then DinoUNetTrainer_7b
               through run.run_training on the api phase's set, shortened as
@@ -224,7 +246,7 @@ not 0:
               no RssAnon; 1 GiB written on the host must show as 1 GiB),
               the predicted case 800^2 with labels in {0, 1, 2}. Seconds to write, load, step, save and reload, and the
               peak device memory for information.
-14. unet_3d -- nnU-Net's own 3-D network. A raw NIfTI set (UNET3D_DATASET:
+15. unet_3d -- nnU-Net's own 3-D network. A raw NIfTI set (UNET3D_DATASET:
               UNET3D_TRAIN labelled and UNET3D_TEST test volumes of
               UNET3D_SIZE at 1 mm, a sphere and a shell) with no plans
               file; extract_fingerprints, plan_experiments (the default
@@ -245,11 +267,11 @@ not 0:
               (DINOUNET_TPU_SW_ACCUM_BUDGET_BYTES=0) against on the card
               within HOST_ACCUM_RTOL. Step ms, peak memory, seconds a case
               for information.
-15. resenc_3d -- nnUNetPlannerResEncM on the same set (its 3d_fullres
+16. resenc_3d -- nnUNetPlannerResEncM on the same set (its 3d_fullres
               reuses the preprocessed data): ResidualEncoderUNet (160^3,
               batch 2), RESENC_STEPS steps with deep supervision; finite
               losses, no kernel launch; step ms and peak memory.
-16. unet_2d -- the default planner's 2d PlainConvUNet on a raw PNG set of
+17. unet_2d -- the default planner's 2d PlainConvUNet on a raw PNG set of
               UNET2D_CASES cases of UNET2D_SIZE^2 (512^2 patches, 8
               stages): UNET2D_STEPS steps with deep supervision (no
               launch), then one tile batch of TILE_BATCH through the
@@ -257,7 +279,7 @@ not 0:
               DINOUNET_TPU_DECODER_TAIL=auto: the chain's launches exactly
               PER_FORWARD_UNET2D_CHAIN (#14, #16, #15), its logits within
               PARITY_BOUND of the stock stages'.
-17. cascade -- nnU-Net's cascade and its post-training tools. A raw NIfTI
+18. cascade -- nnU-Net's cascade and its post-training tools. A raw NIfTI
               set (CASCADE_DATASET: CASCADE_TRAIN labelled and CASCADE_TEST
               test volumes of CASCADE_SIZE at 1 mm, the sphere and shell
               cases) with no plans file; extract_fingerprints,
@@ -272,15 +294,17 @@ not 0:
               previous stage's map as augmented one-hot channels);
               find_best_configuration over the two models; the held-out
               case predicted in two stages from the trained folders (both
-              folds, probabilities saved), ensembled where the ensemble won,
+              folds; the probabilities saved where the ensemble that won
+              reads them), ensembled where the ensemble won,
               postprocessed with the chosen functions. Checks: each run's
               losses finite and falling, every validation file on its raw
               case's geometry, predicted_next_stage holding every case, the
               cascade network's 3 input channels, find_best_configuration's
               inference_information.json with the ensemble among its
               results and its postprocessing.pkl, the final file on the raw
-              case's geometry, no kernel launch; a step profile of each
-              stage on a fresh fold-0 trainer (_cascade_step_profile: the
+              case's geometry, no kernel launch; a step profile of the
+              cascade stage (PROFILED_STAGES) on a fresh fold-0 trainer
+              (_cascade_step_profile: the
               loader alone, the step's synchronised parts with the flood
               fills counted, the device's busy share under torch.profiler,
               the steps beside the prefetcher); the one-hot augmentation of
@@ -293,7 +317,8 @@ not 0:
 
 Then the seconds of each group of phases, the card's name and power limit,
 one JSON line of kernel results (launches: the counts of the serve path,
-each route's, the train paths, the pipeline, the api, pretrained, regions,
+each route's, the train paths, the parallel phase's (its processes' too),
+the pipeline, the api, pretrained, regions,
 train_7b, unet_3d, resenc_3d, unet_2d and cascade phases), and as the last
 line {"ok": true, "device": {...}}. Without a CUDA device the
 script raises before printing any result.
@@ -594,9 +619,11 @@ CASCADE_SPLITS = [{"train": CASCADE_CASES[2:], "val": CASCADE_CASES[:2]},
                   {"train": CASCADE_CASES[:2], "val": CASCADE_CASES[2:]}]
 PLANNED_CASCADE = {"3d_lowres": ([128, 128, 128], 2), "3d_fullres": ([128, 128, 128], 2)}
 CASCADE_CROP, CASCADE_AUG_ITERS = 128, 5
-# the step profile: CASCADE_PROFILE_BATCHES loaded batches, each pass over
+# the step profile of PROFILED_STAGES (the cascade stage, whose loader sets
+# its training rate): CASCADE_PROFILE_BATCHES loaded batches, each pass over
 # them once, the synchronised split over them CASCADE_PROFILE_SPLIT times
-CASCADE_PROFILE_BATCHES, CASCADE_PROFILE_SPLIT = 6, 3
+PROFILED_STAGES = ("3d_cascade_fullres",)
+CASCADE_PROFILE_BATCHES, CASCADE_PROFILE_SPLIT = 6, 1
 # the logits of one case accumulated on the host against on the device: the
 # same fp32 additions in the same order, so equal; held to one fp16 ulp
 HOST_ACCUM_RTOL = 2.0 ** -10
@@ -950,9 +977,11 @@ def phase_kernels(dev) -> dict:
         del qkv, q, k, v
 
     # the row-major attention of dinounet_7b's SwiGLU blocks: 32 heads of 128,
-    # at the tile batch on a 512^2 tile and at batch 2 on a 1024^2 patch
-    M, Dh = 32, 128
-    for Bq, side in ((B, 32), (2, 64)):
+    # at the tile batch on a 512^2 tile and at batch 2 on a 1024^2 patch; then
+    # a model-axis rank's 16 heads (the parallel phase's split 7B: batch 2 of
+    # 512^2 tiles, N 1029) and at N 4101
+    Dh = 128
+    for Bq, M, side in ((B, 32, 32), (2, 32, 64), (2, 16, 32), (2, 16, 64)):
         N = 5 + side * side
         qkv = randn(Bq, N, 3, M, Dh).to(bf)
         sin, cos = vit_tables(Dh, side)
@@ -1910,6 +1939,295 @@ def phase_train_parity(dev) -> None:
         raise AssertionError("the optimizer step changed a backbone parameter")
     log(f"[train parity] an optimizer step left all {len(backbone)} backbone "
         "tensors unchanged")
+
+
+# the parallel phase: PARALLEL_STEPS steps a run; (b)'s global batch of 4 on
+# two ranks; (c) the 7B backbone at depth PARALLEL_7B_DEPTH on a model axis
+# of 2, its LayerScale at INT8_LAYERSCALE so that the split blocks reach the
+# outputs, held to PARALLEL_7B_BOUND (relative L2, the split bf16 backbone
+# against the whole one on the card: the row-parallel sums round once more)
+PARALLEL_STEPS, PARALLEL_7B_DEPTH, PARALLEL_7B_BOUND = 3, 2, 0.05
+# the split backbone's forward: the row-major attention a block, on the
+# rank's 16 of 32 heads (its dense layers are cuBLAS GEMMs)
+PER_FORWARD_7B_SPLIT = {**dict.fromkeys(PER_FORWARD, 0), "rope_attention_rm": PARALLEL_7B_DEPTH}
+
+
+def _step_grads(trainer, x, seg):
+    """One forward and backward through the trainer's train network (the
+    data-parallel wrapper in a process group), no optimizer step: the loss
+    (the rank's share) and the trainable gradients (fp32, on the host)."""
+    trainer.network.train()
+    trainer.optimizer.zero_grad(set_to_none=True)
+    loss = trainer._train_loss(trainer.train_network(x), seg)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.float().flatten().cpu()
+                                  for n, p in trainer.network.named_parameters()
+                                  if p.grad is not None}
+
+
+def _timed_steps(trainer, x, seg, n: int) -> list:
+    """n whole train steps (forward, backward with the gradients' all-reduce,
+    clip, SGD) on fixed tensors: each one's loss and ms, synchronised."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.optimizer.zero_grad(set_to_none=True)
+        loss = trainer._train_loss(trainer.train_network(x), seg)
+        loss.backward()
+        clip_and_step(trainer.optimizer, 12.0)
+        torch.cuda.synchronize()
+        out.append((float(loss.detach()), (time.perf_counter() - t0) * 1e3))
+    return out
+
+
+def _vit7b(dev, shard=None, seed: int = 0):
+    """The ViT-7B at depth PARALLEL_7B_DEPTH, built on the card (as a model
+    axis rank's shard with `shard`), weights drawn there in fp32 from `seed`
+    and held in bf16, LayerScale INT8_LAYERSCALE."""
+    from dinounet_tpu_torch.models.layers import init_module
+    from dinounet_tpu_torch.models.vit import DinoViT
+
+    cfg = dataclasses.replace(VIT_CONFIGS["dinov3_vit7b16"], depth=PARALLEL_7B_DEPTH)
+    with torch.device(dev):
+        vit = DinoViT(cfg, shard=shard)
+    if shard is None:
+        init_module(vit, torch.Generator(device=dev).manual_seed(seed))
+    vit.hold_weights_(torch.bfloat16)
+    with torch.no_grad():
+        for blk in vit.blocks:
+            blk.ls1.gamma.fill_(INT8_LAYERSCALE)
+            blk.ls2.gamma.fill_(INT8_LAYERSCALE)
+    return vit.eval().requires_grad_(False)
+
+
+def _parallel_rank(dev, data: np.ndarray, seg: np.ndarray, directory: str) -> dict:
+    """One of two ranks on the card under gloo: (b) DinoUNetTrainer_b's
+    data-parallel step on its half of the global batch; (c) the 7B backbone
+    split over a model axis of 2, against the whole backbone; (d) its
+    shards' sharded checkpoint written and read back."""
+    from dinounet_tpu_torch.models import vit as vit_module
+    from dinounet_tpu_torch.parallel.mesh import MODEL_AXIS, make_mesh
+    from dinounet_tpu_torch.parallel.sharding import (ModelShard, dcp_state_dict,
+                                                      shard_state_dict)
+    from dinounet_tpu_torch.training.checkpointing import (CHECKPOINT_KEYS,
+                                                           load_checkpoint,
+                                                           save_checkpoint)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = torch.distributed.get_rank()
+    out = {}
+    trainer = get_trainer_from_args(TRAIN_DATASET, "2d", 0, "DinoUNetTrainer_b", device=dev)
+    trainer.seed = 0
+    trainer.initialize()
+    part = slice(2 * rank, 2 * rank + 2)
+    x = torch.from_numpy(data[part]).to(dev)
+    y = torch.from_numpy(seg[part]).to(dev).long()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    loss, grads = _step_grads(trainer, x, y)
+    steps = _timed_steps(trainer, x, y, PARALLEL_STEPS)
+    torch.cuda.synchronize()
+    out["b"] = {"loss": loss, "grads": grads if rank == 0 else None, "steps": steps,
+                "launches": _build.launch_counts(),
+                "peak": torch.cuda.max_memory_allocated(dev)}
+    del trainer, grads
+    torch.cuda.empty_cache()
+
+    mesh = make_mesh(2, dev.type)
+    shard = ModelShard(rank % 2, 2, mesh.get_group(MODEL_AXIS))
+    whole = _vit7b(dev)
+    state = {k: v.clone() for k, v in
+             shard_state_dict(whole.state_dict(), shard.rank, shard.size).items()}
+    tile = torch.randn((2, 3, PATCH, PATCH), generator=torch.Generator(device=dev).manual_seed(1),
+                       device=dev)
+    take = tuple(range(PARALLEL_7B_DEPTH))
+    with torch.no_grad():
+        want = [t.float() for t, _ in whole(tile, take)]
+    del whole
+    torch.cuda.empty_cache()
+    split = _vit7b(dev, shard)
+    split.load_state_dict(state)
+    heads = []
+    attention = vit_module.fused_rope_attention
+
+    def recording(qkv, sin, cos):
+        heads.append(qkv.shape[3])
+        return attention(qkv, sin, cos)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    vit_module.fused_rope_attention = recording
+    try:
+        with torch.no_grad():
+            got = [t.float() for t, _ in split(tile, take)]
+        torch.cuda.synchronize()
+    finally:
+        vit_module.fused_rope_attention = attention
+    out["c"] = {"rel_l2": [rel_l2(g, w) for g, w in zip(got, want)], "heads": heads,
+                "launches": _build.launch_counts(),
+                "peak": torch.cuda.max_memory_allocated(dev),
+                "held": {k: tuple(v.shape) for k, v in state.items() if "blocks.0." in k}}
+
+    weights, views = dcp_state_dict(split.state_dict(), mesh, 2)
+    checkpoint = dict.fromkeys(CHECKPOINT_KEYS)
+    checkpoint.update(network_weights=weights, current_epoch=1,
+                      trainer_name="DinoUNetTrainer_7b", logging={})
+    t0 = time.perf_counter()
+    save_checkpoint(checkpoint, directory, sharded_views=views)
+    save_s = time.perf_counter() - t0
+    fresh = {k: torch.zeros_like(v) for k, v in split.state_dict().items()}
+    template, _ = dcp_state_dict(fresh, mesh, 2)
+    t0 = time.perf_counter()
+    load_checkpoint(directory, network_template=template)
+    torch.cuda.synchronize()
+    out["d"] = {"equal": all(torch.equal(fresh[k], v) for k, v in split.state_dict().items()),
+                "save_s": save_s, "load_s": time.perf_counter() - t0}
+    return out
+
+
+def phase_parallel(dev) -> dict:
+    """(a) world size 1 through NCCL: PARALLEL_STEPS DinoUNetTrainer_b steps
+    on the data-parallel path against the plain trainer's on the same seed
+    and batches; (b)-(d) two ranks on the one card through gloo
+    (``_parallel_rank``). Launches: (a)'s steps and the ranks' own."""
+    from dinounet_tpu_torch.parallel.launch import spawn
+    from dinounet_tpu_torch.parallel.mesh import init_distributed
+
+    # (a)
+    plain = _trainer(dev)
+    plain.initialize()
+    plain.get_dataloaders()
+    batches = [plain.dataloader_train.generate_train_batch() for _ in range(PARALLEL_STEPS)]
+    plain_losses = [float(plain.train_step_host(b)) for b in batches]
+    del plain
+    torch.cuda.empty_cache()
+    # NCCL on the card (gloo where the phase is rehearsed on the CPU)
+    store = tempfile.mkdtemp()
+    init_distributed(0, 1, "nccl" if dev.type == "cuda" else "gloo",
+                     f"file://{os.path.join(store, 'store')}", device_type=dev.type)
+    try:
+        ddp = _trainer(dev)
+        ddp.initialize()
+        if ddp._ddp is None:
+            raise AssertionError("the trainer in a process group did not take the "
+                                 "data-parallel path")
+        ddp.get_dataloaders()
+        _build.reset_launch_counts()
+        ddp_losses = [float(ddp.train_step_host(b)) for b in batches]
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        del ddp
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    worst = max(abs(a - b) / abs(b) for a, b in zip(ddp_losses, plain_losses))
+    log(f"[parallel] (a) world size 1 through NCCL: {PARALLEL_STEPS} DinoUNetTrainer_b "
+        f"steps through DistributedDataParallel, losses "
+        f"{[round(v, 6) for v in ddp_losses]} vs the plain trainer's "
+        f"{[round(v, 6) for v in plain_losses]} (largest relative difference "
+        f"{worst:.3e}, bound 1e-6); launches {counts}")
+    want = {k: PARALLEL_STEPS * n for k, n in PER_TRAIN_STEP.items()}
+    if counts != want:
+        raise AssertionError(f"parallel (a): kernel launches {counts}, the steps make {want}")
+    if not worst <= 1e-6:
+        raise AssertionError(f"parallel (a): losses {ddp_losses} vs {plain_losses}")
+
+    # (b)-(d): the reference, one process at the global batch of 4
+    ref = _trainer(dev)
+    ref.initialize()
+    ref.get_dataloaders()
+    val = [ref.dataloader_val.generate_train_batch() for _ in range(2)]
+    data = np.concatenate([b["data"] for b in val])
+    seg = np.concatenate([b["seg"][:, 0] for b in val])
+    x, y = torch.from_numpy(data).to(dev), torch.from_numpy(seg).to(dev).long()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ref_loss, ref_grads = _step_grads(ref, x, y)
+    ref_steps = _timed_steps(ref, x, y, PARALLEL_STEPS)
+    ref_peak = torch.cuda.max_memory_allocated(dev)
+    del ref, x, y
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        directory = os.path.join(tmp, "checkpoint_7b")
+        t0 = time.perf_counter()
+        ranks = spawn(_parallel_rank, 2, data, seg, directory, backend="gloo",
+                      devices=[dev, dev])
+        spawn_s = time.perf_counter() - t0
+        b = [r["b"] for r in ranks]
+        names = sorted(ref_grads)
+        msda = [n for n in names if ".attn." in n and "dinov3_adapter.interactions" in n]
+
+        def rel(names):
+            g = torch.cat([b[0]["grads"][n] for n in names])
+            w = torch.cat([ref_grads[n] for n in names])
+            return float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
+
+        loss = float(np.mean([r["loss"] for r in b]))
+        loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+        grad_rel, msda_rel = rel(names), rel(msda)
+        step_ms = [float(np.median([ms for _, ms in r["steps"][1:]])) for r in b]
+        log(f"[parallel] (b) two ranks on the one card through gloo ({spawn_s:.1f} s "
+            f"for the spawn and every rank's work): one step at the global batch of 4 "
+            f"(2 x {PATCH}^2 a rank) against one process at batch 4 on the same batches: "
+            f"loss {loss:.5f} vs {ref_loss:.5f} (rel {loss_rel:.3e}, bound "
+            f"{TRAIN_LOSS_BOUND}); relative L2 of the {len(names)} trainable gradient "
+            f"tensors {grad_rel:.4e} (bound {TRAIN_GRAD_BOUND}), of the {len(msda)} MSDA "
+            f"projections' {msda_rel:.4e} (bound {TRAIN_MSDA_GRAD_BOUND}); a whole step "
+            f"(forward, backward with the gradients' all-reduce through the host, clip, "
+            f"SGD) {step_ms[0]:.1f} / {step_ms[1]:.1f} ms on ranks 0 / 1 (median of the "
+            f"last {PARALLEL_STEPS - 1}) against "
+            f"{float(np.median([ms for _, ms in ref_steps[1:]])):.1f} ms in one process "
+            f"at batch 4; peak {b[0]['peak'] / 2**30:.2f} / {b[1]['peak'] / 2**30:.2f} "
+            f"GiB a rank, {ref_peak / 2**30:.2f} GiB the one process")
+        if not (loss_rel <= TRAIN_LOSS_BOUND and grad_rel <= TRAIN_GRAD_BOUND
+                and msda_rel <= TRAIN_MSDA_GRAD_BOUND):
+            raise AssertionError(f"parallel (b): loss {loss_rel}, gradients {grad_rel}, "
+                                 f"MSDA projections {msda_rel}")
+        for r in b:
+            want = {k: (1 + PARALLEL_STEPS) * n for k, n in PER_TRAIN_STEP.items()}
+            if r["launches"] != want:
+                raise AssertionError(f"parallel (b): launches {r['launches']}, want {want}")
+
+        c = [r["c"] for r in ranks]
+        log(f"[parallel] (c) the 7B backbone (4096 wide, depth {PARALLEL_7B_DEPTH}, bf16) "
+            f"split over a model axis of 2 (gloo): rank 0 holds {c[0]['held']}; outputs "
+            f"against the whole backbone, relative L2 "
+            f"{[[round(v, 5) for v in r['rel_l2']] for r in c]} (bound {PARALLEL_7B_BOUND});"
+            f" kernel #9 (rope_attention_rm) launched "
+            f"{[r['launches']['rope_attention_rm'] for r in c]} times at M = "
+            f"{[r['heads'] for r in c]}; peak {c[0]['peak'] / 2**30:.2f} / "
+            f"{c[1]['peak'] / 2**30:.2f} GiB on ranks 0 / 1")
+        for r in c:
+            if not max(r["rel_l2"]) <= PARALLEL_7B_BOUND:
+                raise AssertionError(f"parallel (c): relative L2 {r['rel_l2']}")
+            if r["heads"] != [VIT_CONFIGS["dinov3_vit7b16"].num_heads // 2] * PARALLEL_7B_DEPTH:
+                raise AssertionError(f"parallel (c): attention heads {r['heads']}")
+            if r["launches"] != PER_FORWARD_7B_SPLIT:
+                raise AssertionError(f"parallel (c): launches {r['launches']}, want "
+                                     f"{PER_FORWARD_7B_SPLIT}")
+
+        from dinounet_tpu_torch.training.checkpointing import load_checkpoint
+
+        d = [r["d"] for r in ranks]
+        t0 = time.perf_counter()
+        back = load_checkpoint(directory)["network_weights"]
+        full_s = time.perf_counter() - t0
+        whole = {k: v.cpu() for k, v in _vit7b(dev).state_dict().items()}
+        same = back.keys() == whole.keys() and all(
+            torch.equal(back[k], v) for k, v in whole.items())
+        log(f"[parallel] (d) the sharded checkpoint of (c): written by both ranks in "
+            f"{d[0]['save_s']:.2f} s, read back onto their shards in {d[0]['load_s']:.2f} / "
+            f"{d[1]['load_s']:.2f} s (equal: {[r['equal'] for r in d]}); read into one "
+            f"process as whole CPU tensors in {full_s:.2f} s, equal to the whole "
+            f"backbone: {same}")
+        if not (same and all(r["equal"] for r in d)):
+            raise AssertionError("parallel (d): the sharded checkpoint did not round-trip")
+    for r in b + c:
+        for k, n in r["launches"].items():
+            counts[k] += n
+    return counts
 
 
 def raw_tiles() -> int:
@@ -2911,8 +3229,8 @@ def _cascade_augment(dev, maps: dict) -> None:
 
 
 def _cascade_step_profile(dev, plans_id: str) -> None:
-    """Where a train step's time goes, for each stage, on a fresh fold-0
-    trainer over the preprocessed data: (1) the loader alone on this thread,
+    """Where a train step's time goes, for each of PROFILED_STAGES, on a
+    fresh fold-0 trainer over the preprocessed data: (1) the loader alone on this thread,
     CASCADE_PROFILE_BATCHES batches: ms a batch and, within it, ms a case of
     nnUNetDataset.load_case (for the cascade also the previous stage's map,
     a compressed .npz read whole); (2) steps on those batches, synchronised
@@ -2927,7 +3245,7 @@ def _cascade_step_profile(dev, plans_id: str) -> None:
 
     from dinounet_tpu_torch.training import augmentation as augmentation_module
 
-    for configuration in CASCADE_STAGES:
+    for configuration in PROFILED_STAGES:
         trainer = get_trainer_from_args(CASCADE_ID, configuration, 0, "nnUNetTrainer",
                                         plans_id, device=dev)
         trainer.seed = 0
@@ -3179,8 +3497,9 @@ def phase_cascade(dev, root: str) -> dict:
             stages[configuration]["folder"], use_folds=CASCADE_FOLDS)
         outputs[configuration] = os.path.join(root, "predicted_" + configuration)
         t0 = time.perf_counter()
+        # probabilities only where the ensemble that won reads them
         predictors[configuration].predict_from_files(
-            [[case]], outputs[configuration], save_probabilities=True,
+            [[case]], outputs[configuration], save_probabilities=len(members) == 2,
             folder_with_segs_from_prev_stage=outputs.get(prev))
         torch.cuda.synchronize()
         secs["predict " + configuration] = time.perf_counter() - t0
@@ -3203,7 +3522,8 @@ def phase_cascade(dev, root: str) -> dict:
     if any(counts.values()):
         raise AssertionError(f"cascade: the 3-D path runs stock convs, launches {counts}")
     log(f"[cascade] {card_line()}: {name} predicted in two stages from the trained "
-        f"folders (folds {CASCADE_FOLDS}, mirroring, probabilities saved): 3d_lowres "
+        f"folders (folds {CASCADE_FOLDS}, mirroring, probabilities "
+        f"{'saved' if len(members) == 2 else 'not saved: no ensemble won'}): 3d_lowres "
         f"{secs['predict 3d_lowres']:.2f} s, 3d_cascade_fullres on its output "
         f"{secs['predict 3d_cascade_fullres']:.2f} s, peak device memory {predict_peak:.2f} "
         f"GiB; " + (f"ensembled in {secs['ensemble']:.2f} s; " if len(members) == 2 else "")
@@ -3324,8 +3644,10 @@ def main() -> int:
                 dev, "DinoUNetTrainer_b", "train_msda_xla", PER_TRAIN_STEP_XLA)
         counts["train_l"] = phase_train_steps(dev, "DinoUNetTrainer_l", "train_l",
                                               PER_TRAIN_STEP_L)
-    phase_train_parity(dev)
-    stamp("train")
+        phase_train_parity(dev)
+        stamp("train")
+        counts["parallel"] = phase_parallel(dev)
+        stamp("parallel")
     with tempfile.TemporaryDirectory() as root:
         counts["pipeline"] = phase_pipeline(dev, root)
     stamp("pipeline")

@@ -3,12 +3,14 @@
 Capability parity with ref: dinounet/api.py:15-656, same signatures and return
 values. The reference spawns a child process per pipeline stage to isolate CUDA
 contexts (ref :363-391); here the stages run in-process, as in the JAX
-package: one process trains on one device.
+package: one process trains on one device, or with ``num_gpus`` > 1 one
+process a rank (``run.py``).
 
 JAX-free copy of ``dinounet_tpu/api.py``. ``training`` runs on ``device``
 (``None`` means ``cuda``, through the trainer; a trainer asked for CUDA
 without a card raises), and ``_load_training_log_from_folder`` reads the
-port's ``torch.save`` checkpoints (``training/checkpointing.py``).
+port's ``torch.save`` checkpoints, or a sharded checkpoint's sidecar
+(``training/checkpointing.py``).
 """
 
 import os
@@ -43,12 +45,12 @@ def _extract_training_log(logger) -> dict:
 
 def _load_training_log_from_folder(output_folder: str) -> dict:
     """ref api.py:123-160: recover the log from a checkpoint on disk."""
-    from dinounet_tpu_torch.training.checkpointing import load_checkpoint
+    from dinounet_tpu_torch.training.checkpointing import load_checkpoint_meta
 
     for name in ("checkpoint_final.pth", "checkpoint_latest.pth", "checkpoint_best.pth"):
         f = os.path.join(output_folder, name)
-        if os.path.isfile(f):
-            ckpt = load_checkpoint(f)
+        if os.path.exists(f):
+            ckpt = load_checkpoint_meta(f)
             logging_ = ckpt.get("logging", {})
             n = len(logging_.get("train_losses", []))
             return {
@@ -211,8 +213,13 @@ def training(
     num_epochs: Optional[int] = None,
     batch_size: Optional[int] = None,
 ) -> Tuple[str, dict]:
-    """ref api.py:399-587. Returns (output_folder, training_log)."""
+    """ref api.py:399-587. Returns (output_folder, training_log); with
+    `num_gpus` > 1, rank 0's (``run.data_parallel`` starts the ranks)."""
+    import torch.distributed as dist
+
     from dinounet_tpu_torch.run import (
+        data_parallel,
+        injected_config,
         load_pretrained_weights,
         maybe_load_checkpoint,
         run_training,
@@ -223,6 +230,21 @@ def training(
         dataset_id = str(dataset_id)
 
     custom = initial_lr is not None or num_epochs is not None or batch_size is not None
+    if custom and num_gpus > 1 and not dist.is_initialized():
+        kwargs = dict(dataset_id=dataset_id, configuration=configuration, fold=fold,
+                      trainer_class=trainer_class, plans_identifier=plans_identifier,
+                      pretrained_weights=pretrained_weights, num_gpus=num_gpus,
+                      use_compressed_data=use_compressed_data,
+                      export_validation_probabilities=export_validation_probabilities,
+                      continue_training=continue_training,
+                      only_run_validation=only_run_validation,
+                      disable_checkpointing=disable_checkpointing,
+                      val_with_best=val_with_best, initial_lr=initial_lr,
+                      num_epochs=num_epochs, batch_size=batch_size)
+        cls = (registry.trainers.get(trainer_class) if isinstance(trainer_class, str)
+               else trainer_class)
+        return data_parallel(_training_rank, num_gpus, device, kwargs,
+                             injected_config(cls))[0]
     if custom:
         # instantiate the trainer directly and override hyperparameters before
         # initialize (ref :459-507)
@@ -286,6 +308,17 @@ def training(
         device=device,
     )
     return trainer.output_folder, _extract_training_log(trainer.logger)
+
+
+def _training_rank(device, kwargs: dict, injection) -> Tuple[str, dict]:
+    if injection is not None:
+        trainer_class = kwargs["trainer_class"]
+        if isinstance(trainer_class, str):
+            from dinounet_tpu_torch.utilities import registry
+
+            trainer_class = registry.trainers.get(trainer_class)
+        trainer_class.set_network_config(*injection)
+    return training(**kwargs, device=device)
 
 
 def evaluate(

@@ -30,8 +30,12 @@ inference/predict_from_raw_data.py:38-871):
   * the CLIs ``predict_entry_point`` and ``predict_entry_point_modelfolder``
     (``-prev_stage_predictions`` for a cascade stage).
 
-Not ported: sharding the cases over ``num_parts``; it raises
-``NotImplementedError``.
+Several cards predict as several processes, each given its part of the
+cases: ``num_parts`` / ``part_id`` (the CLI's ``-num_parts`` / ``-part_id``)
+take every ``num_parts``-th case from ``part_id`` on (JAX
+``predictor.py:147,160``, ref :167-205). The JAX package's sharding of one
+process's tile batches over a device mesh (``predictor.py:309-328``) has no
+counterpart: one process drives one card.
 """
 
 import os
@@ -162,17 +166,17 @@ class nnUNetPredictor:
             overwrite: bool = True, part_id: int = 0, num_parts: int = 1,
             save_probabilities: bool = False):
         """Input cases, output names and each case's previous-stage
-        segmentation file (None without a folder); with overwrite off, the
-        cases whose outputs exist are dropped (ref :167-205)."""
-        if num_parts != 1 or part_id != 0:
-            raise NotImplementedError(
-                "sharding the cases over num_parts is not ported yet "
-                "(ROADMAP.md, queue item 11)")
+        segmentation file (None without a folder) of part `part_id` of
+        `num_parts` (every num_parts-th case from part_id on); with
+        overwrite off, the cases whose outputs exist are dropped (ref
+        :167-205)."""
+        if not 0 <= part_id < num_parts:
+            raise ValueError(f"part_id {part_id} is not a part of {num_parts}")
         file_ending = self.dataset_json["file_ending"]
         if isinstance(list_of_lists_or_source_folder, str):
             list_of_lists_or_source_folder = create_lists_from_splitted_dataset_folder(
                 list_of_lists_or_source_folder, file_ending)
-        list_of_lists = list(list_of_lists_or_source_folder)
+        list_of_lists = list(list_of_lists_or_source_folder)[part_id::num_parts]
         caseids = [os.path.basename(i[0])[: -(len(file_ending) + 5)]
                    for i in list_of_lists]
 
@@ -184,7 +188,7 @@ class nnUNetPredictor:
             output_filename_truncated = None
         else:
             output_filename_truncated = list(
-                output_folder_or_list_of_truncated_output_files)
+                output_folder_or_list_of_truncated_output_files)[part_id::num_parts]
         seg_from_prev_stage_files = [
             None if folder_with_segs_from_prev_stage is None
             else os.path.join(folder_with_segs_from_prev_stage, c + file_ending)

@@ -59,6 +59,7 @@ from torch import nn
 
 from dinounet_tpu_torch.compression.minimsgpack import Ext, unpack_from
 from dinounet_tpu_torch.models.vit import VIT_CONFIGS, ViTConfig
+from dinounet_tpu_torch.parallel.sharding import shard_state_dict
 
 # (flax module path pattern, torch module path), per top-level subtree
 _RULES = {
@@ -418,7 +419,9 @@ def load_dinov3_backbone_(backbone: nn.Module, path: str,
     over. Every parameter of the module must be in the file with its shape
     (KeyError, ValueError), which is checked before anything is copied.
     Then each tensor is copied on its own into its parameter, converted to
-    that parameter's dtype on its device. Returns the number of tensors."""
+    that parameter's dtype on its device; a backbone built as a rank's
+    shards of the model axis takes its shards of the file's tensors.
+    Returns the number of tensors."""
     if path.endswith(".msgpack"):
         loaded = load_backbone_params(path)
     else:
@@ -427,6 +430,9 @@ def load_dinov3_backbone_(backbone: nn.Module, path: str,
             verify_state_dict_against_manifest(
                 {k: tuple(v.shape) for k, v in sd.items()}, model_name)
         loaded = backbone_state_dict_from_dinov3(sd, backbone.cfg, strict=True)
+    shard = getattr(backbone, "shard", None)
+    if shard is not None:  # a rank's shards of the model axis
+        loaded = shard_state_dict(loaded, shard.rank, shard.size)
     state = backbone.state_dict(keep_vars=True)
     for name, t in state.items():
         if name not in loaded:

@@ -100,16 +100,18 @@ class DinoUNetConfig:
 
 
 class DinoUNet(nn.Module):
-    """forward(x (B, C, H, W)) -> fp32 logits (B, classes, H, W)."""
+    """forward(x (B, C, H, W)) -> fp32 logits (B, classes, H, W). With a
+    `shard` (``parallel/sharding.py``'s ``ModelShard``) the backbone's
+    blocks are that rank's shards of the model axis."""
 
-    def __init__(self, cfg: DinoUNetConfig):
+    def __init__(self, cfg: DinoUNetConfig, shard=None):
         super().__init__()
         self.cfg = cfg
         cdt = getattr(torch, cfg.dtype)
         self.compute_dtype = cdt
         vit_cfg = dataclasses.replace(cfg.vit, dtype=cfg.dtype)
         adapter = DINOv3Adapter(
-            DinoViT(vit_cfg), cfg.interaction_indexes, cfg.vit.embed_dim,
+            DinoViT(vit_cfg, shard=shard), cfg.interaction_indexes, cfg.vit.embed_dim,
             conv_inplane=cfg.conv_inplane, n_points=cfg.n_points,
             deform_num_heads=cfg.deform_num_heads, cffn_ratio=cfg.cffn_ratio,
             deform_ratio=cfg.deform_ratio, patch_size=cfg.vit.patch_size,

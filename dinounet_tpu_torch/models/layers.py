@@ -18,6 +18,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -276,7 +277,16 @@ class BatchNorm(nn.BatchNorm2d):
     batch mean and the biased batch variance, E[x^2] - E[x]^2 clamped at 0
     as flax computes it, and updates ra = 0.9 ra + 0.1 batch_stat with the
     *biased* variance too. F.batch_norm(training=True) would put the
-    unbiased variance into running_var, so the update is done here."""
+    unbiased variance into running_var, so the update is done here.
+
+    With a `process_group` (set by the data-parallel trainer) the batch
+    statistics are those of the global batch, as under the JAX package's
+    sharded batch: the ranks' E[x] and E[x^2] are averaged over the group
+    with their gradient (the reference's SyncBatchNorm), every rank holding
+    a local batch of the same size (a group of one gives the one-process
+    numbers bit for bit)."""
+
+    process_group = None
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__(num_features, eps=eps, momentum=0.1)
@@ -287,8 +297,16 @@ class BatchNorm(nn.BatchNorm2d):
             return F.batch_norm(xf, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         axes = (0,) + tuple(range(2, x.dim()))
-        mean = xf.mean(dim=axes)
-        var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+        if self.process_group is None:
+            mean = xf.mean(dim=axes)
+            mean2 = (xf * xf).mean(dim=axes)
+        else:
+            from dinounet_tpu_torch.parallel.mesh import all_reduce_sum
+
+            means = all_reduce_sum(torch.stack([xf.mean(dim=axes), (xf * xf).mean(dim=axes)]),
+                                   self.process_group) / dist.get_world_size(self.process_group)
+            mean, mean2 = means[0], means[1]
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
         with torch.no_grad():
             keep = 1.0 - self.momentum
             self.running_mean.mul_(keep).add_(self.momentum * mean)

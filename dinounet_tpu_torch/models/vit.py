@@ -34,6 +34,12 @@ statistics. The unfused SwiGLU blocks run qkv, proj, w1, w2 and w3 as
 in both. The weights are quantized when applied, so the parameters (and
 ``models/convert.py``) are the same in both modes.
 
+Under a model axis (``DINOUNET_TPU_MODEL_AXIS``, ``parallel/sharding.py``)
+the SwiGLU blocks are built as one rank's shards: qkv, w1 and w2 hold the
+rank's output rows (whole heads of q, k and v), proj and w3 its input
+columns, whose partial products are summed over the model group in fp32
+before the bias is added, once a matrix pair.
+
 ``DinoViT.hold_weights_`` keeps the frozen backbone's matrices at the
 compute dtype (the vectors stay fp32), as the JAX package's bench holds the
 7B (``bench.py:83-97``): every use rounds a weight to the compute dtype
@@ -181,19 +187,30 @@ def backbone_dense(layer: Linear, x: torch.Tensor) -> torch.Tensor:
     rounded to the compute dtype, then the bias added in it), or
     ``QuantDense`` in the int8 serving mode."""
     cdt = layer.compute_dtype
+    group = getattr(layer, "reduce_group", None)
     if vit_int8():
+        if group is not None:
+            raise NotImplementedError("the int8 serving mode (QuantDense) does not run "
+                                      "under a model axis yet")
         return quant_dense(x, layer.weight, layer.bias, cdt)
     y = F.linear(x.to(cdt), layer.weight.to(cdt))
+    if group is not None:  # row-parallel: sum the ranks' partial products in fp32
+        partial = y.float()
+        torch.distributed.all_reduce(partial, group=group)
+        y = partial.to(cdt)
     return y if layer.bias is None else y + layer.bias.to(cdt)
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ViTConfig, dtype: torch.dtype):
+    def __init__(self, cfg: ViTConfig, dtype: torch.dtype, shard=None):
         super().__init__()
         C = cfg.embed_dim
-        self.num_heads = cfg.num_heads
-        self.qkv = Linear(C, 3 * C, bias=cfg.qkv_bias, dtype=dtype)
-        self.proj = Linear(C, C, bias=cfg.proj_bias, dtype=dtype)
+        n = 1 if shard is None else shard.size
+        self.num_heads = cfg.num_heads // n
+        self.qkv = Linear(C, 3 * C // n, bias=cfg.qkv_bias, dtype=dtype)
+        self.proj = Linear(C // n, C, bias=cfg.proj_bias, dtype=dtype)
+        if shard is not None:
+            self.proj.reduce_group = shard.group
 
     def forward(self, x, rope, residual, ls_gamma):
         """x: normed (B, N, C); returns (residual + gamma * proj(attn(x)),
@@ -223,11 +240,12 @@ class Attention(nn.Module):
     def unfused(self, x, rope):
         """x: normed (B, N, C); returns proj(attn(x)) (the residual is the
         block's): the qkv projection, the row-major fused RoPE attention,
-        the output projection."""
-        B, N, C = x.shape
+        the output projection. Under a model axis the rank's heads only,
+        its output projection summed over the axis."""
+        B, N, _ = x.shape
         M = self.num_heads
-        qkv = backbone_dense(self.qkv, x).view(B, N, 3, M, C // M)
-        return backbone_dense(self.proj, fused_rope_attention(qkv, *rope).reshape(B, N, C))
+        qkv = backbone_dense(self.qkv, x).view(B, N, 3, M, -1)
+        return backbone_dense(self.proj, fused_rope_attention(qkv, *rope).reshape(B, N, -1))
 
 
 class Mlp(nn.Module):
@@ -253,12 +271,15 @@ class SwiGLU(nn.Module):
     """w3(silu(w1 x) * w2 x), each product rounded to the compute dtype as
     the JAX package's silu (x * sigmoid(x)) and gate are."""
 
-    def __init__(self, cfg: ViTConfig, dtype: torch.dtype):
+    def __init__(self, cfg: ViTConfig, dtype: torch.dtype, shard=None):
         super().__init__()
-        E, hidden = cfg.embed_dim, cfg.ffn_hidden
+        E = cfg.embed_dim
+        hidden = cfg.ffn_hidden // (1 if shard is None else shard.size)
         self.w1 = Linear(E, hidden, bias=cfg.ffn_bias, dtype=dtype)
         self.w2 = Linear(E, hidden, bias=cfg.ffn_bias, dtype=dtype)
         self.w3 = Linear(hidden, E, bias=cfg.ffn_bias, dtype=dtype)
+        if shard is not None:
+            self.w3.reduce_group = shard.group
 
     def forward(self, x):
         x1 = backbone_dense(self.w1, x)
@@ -268,17 +289,23 @@ class SwiGLU(nn.Module):
 
 class Block(nn.Module):
     """Pre-norm attention and FFN, each with a LayerScale residual: the
-    stats-threaded chain for the mlp configs, the unfused block for SwiGLU."""
+    stats-threaded chain for the mlp configs, the unfused block for SwiGLU.
+    With a `shard` (``parallel/sharding.py``'s ``ModelShard``) the SwiGLU
+    block holds the rank's heads and FFN columns only."""
 
-    def __init__(self, cfg: ViTConfig, dtype: torch.dtype):
+    def __init__(self, cfg: ViTConfig, dtype: torch.dtype, shard=None):
         super().__init__()
         C = cfg.embed_dim
         self.stats_threaded = cfg.ffn_layer == "mlp"
+        if shard is not None and self.stats_threaded:
+            raise NotImplementedError(
+                "the model axis splits the unfused SwiGLU blocks (the ViT-7B) only; the "
+                "mlp blocks' fused dense + residual + statistics chain is not split")
         self.norm1 = LayerNormFp32(C, cfg.norm_eps)
-        self.attn = Attention(cfg, dtype)
+        self.attn = Attention(cfg, dtype, shard)
         self.ls1 = LayerScale(C, cfg.layerscale_init)
         self.norm2 = LayerNormFp32(C, cfg.norm_eps)
-        self.mlp = Mlp(cfg, dtype) if self.stats_threaded else SwiGLU(cfg, dtype)
+        self.mlp = Mlp(cfg, dtype) if self.stats_threaded else SwiGLU(cfg, dtype, shard)
         self.ls2 = LayerScale(C, cfg.layerscale_init)
 
     def forward(self, x, rope, stats=None):
@@ -298,18 +325,22 @@ class Block(nn.Module):
 
 class DinoViT(nn.Module):
     """Returns normed (patch_tokens (B, h*w, E), cls_token (B, E)) after the
-    blocks in `take_indices` (get_intermediate_layers(norm=True))."""
+    blocks in `take_indices` (get_intermediate_layers(norm=True)). With a
+    `shard` (a ``ModelShard``) its blocks are that rank's shards."""
 
-    def __init__(self, cfg: ViTConfig, dtype: Optional[torch.dtype] = None):
+    def __init__(self, cfg: ViTConfig, dtype: Optional[torch.dtype] = None, shard=None):
         super().__init__()
         dtype = dtype or getattr(torch, cfg.dtype)
         self.cfg = cfg
         self.compute_dtype = dtype
+        if shard is not None and cfg.num_heads % shard.size:
+            raise ValueError(f"{cfg.num_heads} heads do not split {shard.size} ways")
+        self.shard = shard
         E = cfg.embed_dim
         self.patch_embed = PatchEmbed(3, E, cfg.patch_size, dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, E))
         self.storage_tokens = nn.Parameter(torch.zeros(1, cfg.n_storage_tokens, E))
-        self.blocks = nn.ModuleList([Block(cfg, dtype) for _ in range(cfg.depth)])
+        self.blocks = nn.ModuleList([Block(cfg, dtype, shard) for _ in range(cfg.depth)])
         self.norm = LayerNormFp32(E, cfg.norm_eps)
 
     def init_params(self, gen):

@@ -1,4 +1,4 @@
-"""Trainer checkpoints as ``torch.save`` files.
+"""Trainer checkpoints: ``torch.save`` files, and sharded directories.
 
 The reference's single-file checkpoint (ref: nnUNetTrainer.py:1083-1144;
 ``dinounet_tpu/training/checkpointing.py`` keeps the same key set in a
@@ -18,30 +18,146 @@ they load onto the CPU. ``load_checkpoint`` maps the file instead of
 reading it: the tensors are views of the page cache (no anonymous host
 memory), copied wherever a ``load_state_dict`` puts them. The file holds
 only tensors and plain Python values, so it loads with
-``weights_only=True``. The JAX package's orbax directories (a
-model-sharded 7B) are not ported (ROADMAP.md, queue item 11).
+``weights_only=True``.
+
+A trainer whose backbone is split over a model axis writes a directory at
+the same name instead (JAX ``checkpointing.py:64-145`` writes orbax
+directories; the port uses ``torch.distributed.checkpoint``, as the
+reference's dormant checkpointer does, ref dinov3/checkpointer/
+checkpointer.py:45-330): every rank writes its shards of the tensors
+(network weights as DTensors over the mesh, the optimizer's tensors) under
+``arrays/``, replicated tensors once; the other keys, the optimizer's
+other entries and the full shapes of the entries saved as views go to a
+sidecar, ``meta.pth``. ``load_checkpoint`` on such a directory reads the
+arrays onto a template's tensors in place (a rank's shards), or, without
+one, as whole CPU tensors in one process. The JAX package's orbax
+directories are not read.
 """
 
 import os
-from typing import Any, Dict
+import shutil
+from typing import Any, Dict, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
 CHECKPOINT_KEYS = ("network_weights", "optimizer_state", "grad_scaler_state",
                    "logging", "_best_ema", "current_epoch", "init_args",
                    "trainer_name", "inference_allowed_mirroring_axes")
+_WEIGHTS, _OPT = "network_weights", "optimizer_state"
 
 
-def save_checkpoint(checkpoint: Dict[str, Any], filename: str) -> None:
-    """Write atomically (a temporary file renamed over `filename`)."""
+def save_checkpoint(checkpoint: Dict[str, Any], filename: str,
+                    sharded_views: Optional[Mapping[str, tuple]] = None) -> None:
+    """Write atomically (a temporary file renamed over `filename`). With
+    `sharded_views` (``parallel.sharding.dcp_state_dict``'s second value),
+    every rank calls this and a directory is written."""
     missing = set(CHECKPOINT_KEYS) - set(checkpoint)
     if missing:
         raise KeyError(f"checkpoint lacks {sorted(missing)}")
+    if sharded_views is not None:
+        _save_sharded(checkpoint, filename, dict(sharded_views))
+        return
     tmp = filename + ".tmp"
     torch.save(checkpoint, tmp)
     os.replace(tmp, filename)
 
 
-def load_checkpoint(filename: str) -> Dict[str, Any]:
-    """The checkpoint with its tensors on the CPU, mapped from the file."""
+def load_checkpoint(filename: str, network_template: Optional[Mapping] = None
+                    ) -> Dict[str, Any]:
+    """The checkpoint with its tensors on the CPU, mapped from the file; or,
+    from a sharded directory, the network weights read into
+    `network_template`'s tensors in place (whole CPU tensors without one)."""
+    if os.path.isdir(filename):
+        return _load_sharded(filename, network_template)
     return torch.load(filename, map_location="cpu", weights_only=True, mmap=True)
+
+
+def load_checkpoint_meta(filename: str) -> Dict[str, Any]:
+    """The checkpoint's keys other than its tensors' (the training log, the
+    epoch, ...): a file mapped as ``load_checkpoint`` maps it, or a sharded
+    directory's sidecar alone."""
+    if os.path.isdir(filename):
+        return torch.load(os.path.join(filename, "meta.pth"), weights_only=True)
+    return load_checkpoint(filename)
+
+
+def _split_optimizer_state(state: Optional[dict]):
+    """An optimizer state_dict -> its tensors by flat name, and the rest."""
+    if state is None:
+        return {}, None
+    tensors, rest = {}, {"param_groups": state["param_groups"], "state": {}}
+    for pid, entry in state["state"].items():
+        rest["state"][pid] = {}
+        for key, value in entry.items():
+            if isinstance(value, torch.Tensor):
+                tensors[f"{pid}.{key}"] = value
+            else:
+                rest["state"][pid][key] = value
+    return tensors, rest
+
+
+def _join_optimizer_state(tensors: Mapping[str, torch.Tensor], rest: Optional[dict]):
+    if rest is None:
+        return None
+    state = {pid: dict(entry) for pid, entry in rest["state"].items()}
+    for name, value in tensors.items():
+        pid, key = name.split(".", 1)
+        state[int(pid)][key] = value
+    return {"state": state, "param_groups": rest["param_groups"]}
+
+
+def _save_sharded(checkpoint: Dict[str, Any], directory: str, views: dict) -> None:
+    import torch.distributed.checkpoint as dcp
+
+    opt_tensors, opt_rest = _split_optimizer_state(checkpoint[_OPT])
+    arrays = {_WEIGHTS: dict(checkpoint[_WEIGHTS]), _OPT: opt_tensors}
+    meta = {k: v for k, v in checkpoint.items() if k not in (_WEIGHTS, _OPT)}
+    meta.update(optimizer_rest=opt_rest, views=views)
+    main = dist.get_rank() == 0
+    tmp = directory + ".tmp"
+    if main:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+    dist.barrier()
+    dcp.save(arrays, storage_writer=dcp.FileSystemWriter(os.path.join(tmp, "arrays")))
+    if main:
+        torch.save(meta, os.path.join(tmp, "meta.pth"))
+        if os.path.isfile(directory):
+            os.remove(directory)  # a single file of an earlier run
+        shutil.rmtree(directory, ignore_errors=True)
+        os.replace(tmp, directory)
+    dist.barrier()
+
+
+def _load_sharded(directory: str, network_template: Optional[Mapping]) -> Dict[str, Any]:
+    import torch.distributed.checkpoint as dcp
+
+    meta = torch.load(os.path.join(directory, "meta.pth"), weights_only=True)
+    views = meta.pop("views")
+    reader = dcp.FileSystemReader(os.path.join(directory, "arrays"))
+    stored = reader.read_metadata().state_dict_metadata
+
+    def whole(key):
+        md = stored[key]
+        return torch.empty(tuple(md.size), dtype=md.properties.dtype)
+
+    prefix = {k: k.split(".", 1) for k in stored}
+    opt = {name: whole(k) for k, (top, name) in prefix.items() if top == _OPT}
+    if network_template is None:
+        weights = {name: whole(k) for k, (top, name) in prefix.items() if top == _WEIGHTS}
+    else:  # a whole tensor held as a view in the directory is read as that view
+        weights = {name: t.view(stored[f"{_WEIGHTS}.{name}"].size)
+                   if name in views and not hasattr(t, "placements")
+                   and tuple(t.shape) == tuple(views[name]) else t
+                   for name, t in network_template.items()}
+    no_dist = not (dist.is_available() and dist.is_initialized())
+    dcp.load({_WEIGHTS: weights, _OPT: opt}, storage_reader=reader, no_dist=no_dist)
+    if network_template is None:
+        weights = {name: t.reshape(views[name]) if name in views else t
+                   for name, t in weights.items()}
+    else:
+        weights = dict(network_template)
+    meta[_WEIGHTS] = weights
+    meta[_OPT] = _join_optimizer_state(opt, meta.pop("optimizer_rest"))
+    return meta

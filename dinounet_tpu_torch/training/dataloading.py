@@ -14,6 +14,10 @@ batches as the JAX package's loader:
     the chosen class (ref data_loader_2d.py:41-58).
   * nnUNetDataLoader3D: the same sampling, a patch of the whole volume
     (ref data_loader_3d.py).
+  * under data parallelism a rank's loader draws its part of the global
+    batch (`global_batch_size`, its samples from `global_offset` on): a
+    sample is forced to foreground by its index in the global batch, so
+    the global batch's share of such samples is one loader's.
 
 The loader emits numpy batches (B, C, *patch) / (B, 1, *patch); the trainer
 moves them to the device, where the augmentation runs.
@@ -116,9 +120,12 @@ class nnUNetDataLoaderBase:
                  oversample_foreground_percent: float = 0.0,
                  sampling_probabilities=None, pad_sides=None,
                  probabilistic_oversampling: bool = False,
-                 rng: Optional[np.random.Generator] = None):
+                 rng: Optional[np.random.Generator] = None,
+                 global_batch_size: Optional[int] = None, global_offset: int = 0):
         self._data = data
         self.batch_size = batch_size
+        self.global_batch_size = global_batch_size or batch_size
+        self.global_offset = global_offset
         self.indices = list(data.keys())
         self.oversample_foreground_percent = oversample_foreground_percent
         self.final_patch_size = np.array(final_patch_size, dtype=int)
@@ -137,8 +144,8 @@ class nnUNetDataLoaderBase:
     def get_do_oversample(self, sample_idx: int) -> bool:
         if self.probabilistic_oversampling:
             return self.rng.uniform() < self.oversample_foreground_percent
-        return not sample_idx < round(
-            self.batch_size * (1 - self.oversample_foreground_percent)
+        return not self.global_offset + sample_idx < round(
+            self.global_batch_size * (1 - self.oversample_foreground_percent)
         )
 
     def determine_shapes(self):

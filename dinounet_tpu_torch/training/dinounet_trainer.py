@@ -33,7 +33,11 @@ the size trainer's own on purpose.
 frozen backbone's matrices held at the compute dtype (bf16: 12.5 GiB where
 fp32 would take 27 GB), as ``DinoUNet.random_on`` builds it for serving,
 and only then draws the weights or has them loaded. Every number is the
-same as with fp32 matrices cast at each use.
+same as with fp32 matrices cast at each use. Under a model axis
+(``DINOUNET_TPU_MODEL_AXIS`` > 1, several ranks) it builds each rank's shard
+of the backbone's blocks (``parallel/sharding.py``), and the pretrained
+backbone is read into those shards; the bf16 path only: ``QuantDense``
+under a model axis is not ported.
 """
 
 import os
@@ -72,9 +76,11 @@ class DinoUNetTrainer(nnUNetTrainerNoDeepSupervision):
     def build_network_architecture(cls, architecture_class_name: str, arch_init_kwargs: dict,
                                    arch_init_kwargs_req_import, num_input_channels: int,
                                    num_output_channels: int,
-                                   enable_deep_supervision: bool = True) -> DinoUNet:
+                                   enable_deep_supervision: bool = True,
+                                   shard=None) -> DinoUNet:
         """Ignores the plans' network class; returns DinoUNet (ref :857-881),
-        from the injected configuration and model where there is one."""
+        from the injected configuration and model where there is one; with
+        `shard`, its backbone's blocks are that rank's shards."""
         if DinoUNetTrainer._network_config is not None:
             arch = dict(DinoUNetTrainer._network_config["architecture"])
             model_name = DinoUNetTrainer._dinov3_model_name
@@ -85,7 +91,7 @@ class DinoUNetTrainer(nnUNetTrainerNoDeepSupervision):
         cfg = DinoUNetConfig.from_plans_arch(
             arch, num_classes=num_output_channels, model_name=model_name,
             deep_supervision=enable_deep_supervision)
-        return DinoUNet(cfg)
+        return DinoUNet(cfg) if shard is None else DinoUNet(cfg, shard=shard)
 
     def initialize(self):
         super().initialize()
@@ -136,16 +142,20 @@ class DinoUNetTrainer_7b(DinoUNetTrainer):
     @classmethod
     def build_network(cls, device, configuration_manager, num_input_channels: int,
                       num_output_channels: int, enable_deep_supervision: bool = True,
-                      seed=None) -> DinoUNet:
+                      seed=None, shard=None) -> DinoUNet:
         """Built on `device` with the backbone's matrices at the compute
         dtype before any weight is drawn or loaded (``DinoUNet.random_on``'s
         build): nothing of it passes through the host, and the device holds
         the backbone in fp32 only while it is constructed. With `seed` the
-        draws are ``init_weights``' on that device's generator."""
+        draws are ``init_weights``' on that device's generator. With `shard`
+        the backbone's blocks are built as that rank's shards."""
+        cm = configuration_manager
         with torch.device(device):
-            network = super().build_network(
-                device, configuration_manager, num_input_channels, num_output_channels,
-                enable_deep_supervision)
+            network = cls.build_network_architecture(
+                cm.network_arch_class_name, cm.network_arch_init_kwargs,
+                cm.network_arch_init_kwargs_req_import, num_input_channels,
+                num_output_channels, enable_deep_supervision,
+                **({} if shard is None else {"shard": shard}))
         network.encoder.dinov3_adapter.backbone.hold_weights_(network.compute_dtype)
         return network if seed is None else network.init_weights(seed)
 

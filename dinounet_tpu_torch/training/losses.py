@@ -10,12 +10,43 @@ weighting. The arithmetic and its rounding points follow the JAX functions
 batch for batch Dice). Layout is the port's NCHW: logits (B, C, *spatial),
 integer targets (B, *spatial), one-hot targets and masks (B, C, *spatial) /
 (B, 1, *spatial).
+
+Under data parallelism the losses take the data axis's process group
+(`reduce_group`) and stay those of the global batch, as the JAX package's
+losses are over its sharded batch: batch Dice's per-class sums are
+all-reduced with their gradient (the reference's ``AllGatherGrad``,
+ref ddp_allgather.py:25-48), and a masked cross-entropy divides by the
+global count of valid voxels over the number of ranks, so that the ranks'
+mean is the global loss. Each rank's loss is its share: the
+data-parallel wrapper's mean of the ranks' gradients is the global loss's
+gradient (the all-reduce's backward sums the ranks' gradients of the
+shared sums; the mean divides by the ranks).
 """
 
 from typing import List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+
+def _global_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """`t` summed over the ranks of `group` with its gradient, or `t`."""
+    if group is None:
+        return t
+    from dinounet_tpu_torch.parallel.mesh import all_reduce_sum
+
+    return all_reduce_sum(t, group)
+
+
+def _share_of_global(local: torch.Tensor, group) -> torch.Tensor:
+    """A count over the global batch, divided by the ranks (no gradient): a
+    local sum over it gives the rank's share of a global mean."""
+    if group is None:
+        return local
+    total = local.detach().clone()
+    dist.all_reduce(total, group=group)
+    return total / dist.get_world_size(group)
 
 
 def one_hot_channels(target: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -30,10 +61,12 @@ def one_hot_channels(target: torch.Tensor, num_classes: int) -> torch.Tensor:
 def soft_dice_loss(probs: torch.Tensor, target: torch.Tensor, *,
                    batch_dice: bool = False, do_bg: bool = True,
                    smooth: float = 1.0,
-                   loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   loss_mask: Optional[torch.Tensor] = None,
+                   reduce_group=None) -> torch.Tensor:
     """Memory-efficient soft Dice (ref dice.py:58-120). probs (B, C, ...)
     post-nonlin; target (B, ...) int labels or (B, C, ...) one-hot;
-    loss_mask (B, 1, ...) with 1 = valid."""
+    loss_mask (B, 1, ...) with 1 = valid. Batch Dice sums over the global
+    batch of `reduce_group`'s ranks."""
     num_classes = probs.shape[1]
     if target.ndim == probs.ndim:
         y_onehot = target.to(probs.dtype)
@@ -56,9 +89,8 @@ def soft_dice_loss(probs: torch.Tensor, target: torch.Tensor, *,
         sum_gt = y_onehot.sum(axes)
 
     if batch_dice:
-        intersect = intersect.sum(0)
-        sum_pred = sum_pred.sum(0)
-        sum_gt = sum_gt.sum(0)
+        intersect, sum_pred, sum_gt = _global_sum(
+            torch.stack([intersect.sum(0), sum_pred.sum(0), sum_gt.sum(0)]), reduce_group)
 
     dc = (2 * intersect + smooth) / torch.clamp(sum_gt + sum_pred + smooth, min=1e-8)
     return -dc.mean()
@@ -70,14 +102,16 @@ def _nll_at_labels(logp: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def robust_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
-                         loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         loss_mask: Optional[torch.Tensor] = None,
+                         reduce_group=None) -> torch.Tensor:
     """Softmax CE over the channel axis; target int labels
-    (ref robust_ce_loss.py:6)."""
+    (ref robust_ce_loss.py:6). A mask's count is the global batch's."""
     logp = torch.log_softmax(logits.float(), dim=1)
     nll = _nll_at_labels(logp, target)
     if loss_mask is not None:
         m = loss_mask[:, 0] if loss_mask.ndim == nll.ndim + 1 else loss_mask
-        return (nll * m).sum() / torch.clamp(m.sum(), min=1e-8)
+        return (nll * m).sum() / torch.clamp(_share_of_global(m.sum(), reduce_group),
+                                             min=1e-8)
     return nll.mean()
 
 
@@ -95,13 +129,14 @@ def dc_and_ce_loss(logits: torch.Tensor, target: torch.Tensor, *,
                    weight_ce: float = 1.0, weight_dice: float = 1.0,
                    batch_dice: bool = False, smooth: float = 1e-5,
                    do_bg: bool = False,
-                   ignore_label: Optional[int] = None) -> torch.Tensor:
+                   ignore_label: Optional[int] = None,
+                   reduce_group=None) -> torch.Tensor:
     """ref compound_losses.py:8-56. logits (B, C, ...); target (B, ...) int."""
     if ignore_label is not None:
         mask = target != ignore_label
         target_dice = torch.where(mask, target, 0)
         loss_mask = mask[:, None].to(logits.dtype)
-        num_fg = mask.sum()
+        num_fg = _share_of_global(mask.sum(), reduce_group)
     else:
         target_dice = target
         loss_mask = None
@@ -109,8 +144,10 @@ def dc_and_ce_loss(logits: torch.Tensor, target: torch.Tensor, *,
 
     probs = torch.softmax(logits.float(), dim=1)
     dc = soft_dice_loss(probs, target_dice, batch_dice=batch_dice, do_bg=do_bg,
-                        smooth=smooth, loss_mask=loss_mask) if weight_dice != 0 else 0.0
-    ce = robust_cross_entropy(logits, target_dice, loss_mask) if weight_ce != 0 else 0.0
+                        smooth=smooth, loss_mask=loss_mask,
+                        reduce_group=reduce_group) if weight_dice != 0 else 0.0
+    ce = (robust_cross_entropy(logits, target_dice, loss_mask, reduce_group)
+          if weight_ce != 0 else 0.0)
     if ignore_label is not None and weight_ce != 0:
         ce = torch.where(num_fg > 0, ce, torch.zeros_like(ce))
     return weight_ce * ce + weight_dice * dc
@@ -119,7 +156,7 @@ def dc_and_ce_loss(logits: torch.Tensor, target: torch.Tensor, *,
 def dc_and_bce_loss(logits: torch.Tensor, target_onehot: torch.Tensor, *,
                     weight_ce: float = 1.0, weight_dice: float = 1.0,
                     batch_dice: bool = True, smooth: float = 1e-5,
-                    use_ignore_label: bool = False) -> torch.Tensor:
+                    use_ignore_label: bool = False, reduce_group=None) -> torch.Tensor:
     """Region-based training: sigmoid + BCE over one-hot region targets
     (B, R, ...) (ref compound_losses.py:59-100). With use_ignore_label the
     LAST channel of target_onehot marks ignored voxels."""
@@ -134,11 +171,12 @@ def dc_and_bce_loss(logits: torch.Tensor, target_onehot: torch.Tensor, *,
     logits = logits.float()
     probs = torch.sigmoid(logits)
     dc = soft_dice_loss(probs, target_regions, batch_dice=batch_dice, do_bg=True,
-                        smooth=smooth, loss_mask=mask)
+                        smooth=smooth, loss_mask=mask, reduce_group=reduce_group)
     bce = (torch.clamp(logits, min=0) - logits * target_regions
            + torch.log1p(torch.exp(-logits.abs())))
     if mask is not None:
-        ce = (bce * mask).sum() / torch.clamp(mask.sum(), min=1e-8)
+        ce = (bce * mask).sum() / torch.clamp(
+            _share_of_global(mask.sum(), reduce_group), min=1e-8)
     else:
         ce = bce.mean()
     return weight_ce * ce + weight_dice * dc

@@ -40,6 +40,34 @@ nnUNetTrainer/nnUNetTrainer.py) for 2-D and 3-D configurations on one device:
     channels (``cascade_augment_batch``), the validation step into plain
     one-hot ones (JAX ``trainer.py:425-449,476-483``).
 
+Data parallelism (``parallel/``): where the process belongs to an initialised
+``torch.distributed`` group (one process a card, started by ``run.py``'s
+``num_gpus`` or by ``torchrun``), the trainer lays a ('data', 'model') mesh
+over the ranks, the model axis from ``DINOUNET_TPU_MODEL_AXIS`` (default 1,
+JAX ``trainer.py:146-165``), and
+  * wraps the network in ``DistributedDataParallel`` for the train step.
+    The frozen backbone is left out of it (no broadcast of its weights, no
+    gradient buckets); a head that the loss weighs 0 (deep supervision's
+    lowest, as in JAX) comes out of it detached and goes without a
+    gradient, as in one process. The wrapper spans every rank: the ranks of one model group hold one batch,
+    and averaging their equal gradients too keeps their trainable weights
+    equal bit for bit;
+  * takes the plans' batch as the global batch, rounded up to a multiple of
+    the data axis, each data rank loading its part (JAX
+    ``trainer.py:348-351``), the foreground oversampling decided by a
+    sample's index in the global batch;
+  * draws each data rank's loader, augmentation and drop-path from its own
+    streams (seeded from the trainer's seed and the data rank; the ranks of
+    one model group share them);
+  * makes batch Dice, a masked cross-entropy's count and the BatchNorm
+    statistics those of the global batch (all-reduced over 'data', with
+    their gradients), and the logged losses and validation counts too;
+  * writes files on rank 0 only (log, ``debug.json``, plans copies, splits,
+    checkpoints), except that with a model axis every rank writes its
+    shards of a ``torch.distributed.checkpoint`` directory;
+  * predicts the final validation's cases a data rank a case in turn, then
+    rank 0 computes the metrics.
+
 The final validation (``perform_actual_validation``) predicts the
 validation cases by sliding window with mirror TTA on the trainer's device,
 exports them through the plans' reader/writer and writes their metrics to
@@ -52,14 +80,19 @@ which the next stage trains and validates on.
 """
 
 import os
+import shutil
 import time
 from typing import List, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dinounet_tpu_torch import paths
 from dinounet_tpu_torch.configuration import ANISO_THRESHOLD
+from dinounet_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, make_mesh,
+                                              wrap_data_parallel)
+from dinounet_tpu_torch.parallel.sharding import ModelShard, dcp_state_dict
 from dinounet_tpu_torch.training.augmentation import (AugmentConfig, AugmentConfig3D,
                                                       augment_batch_2d, augment_batch_3d,
                                                       cascade_augment_batch,
@@ -106,6 +139,32 @@ def _device(device) -> torch.device:
         raise RuntimeError("the trainer was asked for a CUDA device and none is "
                            "available; pass device='cpu' to train on the CPU")
     return dev
+
+
+class _UnweightedDetached(torch.nn.Module):
+    """What the data-parallel wrapper runs: the network, its outputs that the
+    loss weighs 0 (deep supervision's lowest head, JAX
+    ``trainer.py:449-468``) detached. DDP traces the graph back from the
+    outputs to learn which parameters get a gradient; a head left in the
+    graph that no loss term reaches is waited for, and the next step's
+    gradients are not reduced."""
+
+    def __init__(self, network: torch.nn.Module):
+        super().__init__()
+        self.network = network
+
+    def forward(self, x):
+        out = self.network(x)
+        if not isinstance(out, (list, tuple)):
+            return out
+        return [o if w else o.detach()
+                for w, o in zip(deep_supervision_weights(len(out)), out)]
+
+
+def model_axis() -> int:
+    """The model axis's size, ``DINOUNET_TPU_MODEL_AXIS`` (JAX
+    ``trainer.py:157``), 1 by default."""
+    return int(os.environ.get("DINOUNET_TPU_MODEL_AXIS", "1"))
 
 
 @registry.trainers.register("nnUNetTrainer")
@@ -157,12 +216,59 @@ class nnUNetTrainer:
         self._best_ema = None
         self.inference_allowed_mirroring_axes = None
         self.was_initialized = False
+        self._init_ranks()
 
         os.makedirs(self.output_folder, exist_ok=True)
         self.log_file = os.path.join(self.output_folder,
                                      f"training_log_{int(time.time())}.txt")
 
+    def _init_ranks(self):
+        """The rank's place on the ('data', 'model') mesh: one data rank of
+        one, no groups, outside a process group."""
+        self.distributed = dist.is_available() and dist.is_initialized()
+        n_model = model_axis()
+        self.mesh = self.data_group = self.model_shard = self._ddp = None
+        if not self.distributed:
+            if n_model != 1:
+                raise ValueError(f"DINOUNET_TPU_MODEL_AXIS={n_model} needs {n_model} or "
+                                 "more ranks; this process is not in a process group")
+            self.rank, self.world_size, self.n_model = 0, 1, 1
+            self.data_rank, self.n_data = 0, 1
+            return
+        self.rank, self.world_size = dist.get_rank(), dist.get_world_size()
+        self.n_model = n_model
+        self.mesh = make_mesh(n_model, self.device.type)
+        self.data_rank, self.n_data = self.rank // n_model, self.world_size // n_model
+        self.data_group = self.mesh.get_group(DATA_AXIS)
+        if n_model > 1:
+            self.model_shard = ModelShard(self.rank % n_model, n_model,
+                                          self.mesh.get_group(MODEL_AXIS))
+
+    @property
+    def is_main(self) -> bool:
+        return self.rank == 0
+
+    @property
+    def train_network(self) -> torch.nn.Module:
+        """What the train step calls: the DistributedDataParallel wrapper in
+        a process group, else the network."""
+        return self.network if self._ddp is None else self._ddp
+
+    def _barrier(self):
+        if self.distributed:
+            dist.barrier()
+
+    def _stream_seed(self, k: int) -> int:
+        """The seed of the k-th random stream of this data rank (the
+        trainer's seed + k on data rank 0)."""
+        return (self.seed + k + self.data_rank * 0x9E3779B97F4A7C15) % 2 ** 64
+
+    def _shard_kw(self) -> dict:
+        return {} if self.model_shard is None else {"shard": self.model_shard}
+
     def print_to_log_file(self, *args):
+        if not self.is_main:
+            return
         msg = " ".join(str(a) for a in args)
         timestamp = time.strftime("%Y-%m-%d %H:%M:%S")
         with open(self.log_file, "a") as f:
@@ -213,13 +319,18 @@ class nnUNetTrainer:
     @classmethod
     def build_network(cls, device, configuration_manager, num_input_channels: int,
                       num_output_channels: int, enable_deep_supervision: bool = True,
-                      seed=None):
+                      seed=None, shard=None):
         """The configuration's network on `device`, its weights drawn from
         `seed` where one is given (else left for a state_dict to fill). The
         trainer, its final validation and the predictor all build through
         here. This one builds on the host, draws there and moves the
         network; a trainer class whose network should not pass through the
-        host in full builds it on the device itself."""
+        host in full builds it on the device itself. `shard`, a rank's place
+        on a model axis, is taken by ``DinoUNetTrainer_7b`` only."""
+        if shard is not None:
+            raise NotImplementedError(
+                f"{cls.__name__}: the model axis (DINOUNET_TPU_MODEL_AXIS > 1) splits the "
+                "ViT-7B backbone of DinoUNetTrainer_7b only")
         network = cls.build_network_architecture(
             configuration_manager.network_arch_class_name,
             configuration_manager.network_arch_init_kwargs,
@@ -237,17 +348,24 @@ class nnUNetTrainer:
         self.network = self.build_network(
             self.device, self.configuration_manager, self.num_input_channels,
             self.label_manager.num_segmentation_heads, self.enable_deep_supervision,
-            seed=self.seed)
+            seed=self.seed, **self._shard_kw())
         adapter = getattr(getattr(self.network, "encoder", None), "dinov3_adapter", None)
         if adapter is not None:
-            adapter.drop_path_generator = torch.Generator().manual_seed(self.seed + 1)
-        self._aug_gen = torch.Generator().manual_seed(self.seed + 2)
+            adapter.drop_path_generator = torch.Generator().manual_seed(
+                self._stream_seed(1))
+        self._aug_gen = torch.Generator().manual_seed(self._stream_seed(2))
         self.optimizer = self.configure_optimizers()
+        if self.distributed:
+            self._ddp = wrap_data_parallel(_UnweightedDetached(self.network),
+                                           self.data_group, self.device)
         n_params = sum(p.numel() for p in self.network.parameters())
         n_train = sum(p.numel() for p in self.trainable_parameters())
         self.print_to_log_file(f"Network initialized: {n_params / 1e6:.2f}M parameters, "
-                               f"{n_train / 1e6:.2f}M trainable, on {self.device}")
+                               f"{n_train / 1e6:.2f}M trainable, on {self.device}"
+                               + (f", rank 0 of {self.world_size} (data axis {self.n_data}, "
+                                  f"model axis {self.n_model})" if self.distributed else ""))
         self.was_initialized = True
+
 
     def trainable_parameters(self) -> List[torch.nn.Parameter]:
         return [p for p in self.network.parameters() if p.requires_grad]
@@ -273,11 +391,11 @@ class nnUNetTrainer:
         if self.fold == "all":
             keys = sorted(dataset.keys())
             return keys, keys
-        if not os.path.isfile(splits_file):
-            splits = generate_crossval_split(sorted(dataset.keys()), seed=12345, n_splits=5)
-            save_json(splits, splits_file)
-        else:
-            splits = load_json(splits_file)
+        if not os.path.isfile(splits_file) and self.is_main:
+            save_json(generate_crossval_split(sorted(dataset.keys()), seed=12345, n_splits=5),
+                      splits_file)
+        self._barrier()
+        splits = load_json(splits_file)
         if self.fold < len(splits):
             return splits[self.fold]["train"], splits[self.fold]["val"]
         # fold outside the split file: random 80/20 (ref :570-580)
@@ -331,12 +449,19 @@ class nnUNetTrainer:
                                     folder_with_segs_from_previous_stage=prev)
         cm = self.configuration_manager
         loader = nnUNetDataLoader2D if len(cm.patch_size) == 2 else nnUNetDataLoader3D
+        # the plans' batch is the global batch, rounded up to a multiple of
+        # the data axis; this data rank loads its part of it
+        global_batch = -(-cm.batch_size // self.n_data) * self.n_data
+        local = global_batch // self.n_data
+        part = dict(global_batch_size=global_batch, global_offset=self.data_rank * local)
         self.dataloader_train = loader(
-            dataset_tr, cm.batch_size, initial_patch_size, cm.patch_size,
-            self.label_manager, self.oversample_foreground_percent)
+            dataset_tr, local, initial_patch_size, cm.patch_size,
+            self.label_manager, self.oversample_foreground_percent,
+            rng=np.random.default_rng(self._stream_seed(3)), **part)
         self.dataloader_val = loader(
-            dataset_val, cm.batch_size, cm.patch_size, cm.patch_size,
-            self.label_manager, self.oversample_foreground_percent)
+            dataset_val, local, cm.patch_size, cm.patch_size,
+            self.label_manager, self.oversample_foreground_percent,
+            rng=np.random.default_rng(self._stream_seed(4)), **part)
         if len(cm.patch_size) == 2:
             self.augment_cfg = AugmentConfig(
                 patch_size=tuple(cm.patch_size)[-2:], rotation_range=rotation,
@@ -366,13 +491,18 @@ class nnUNetTrainer:
         return torch.stack(channels, dim=1).float()
 
     def _loss(self, logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """The rank's share of the global batch's loss (its loss outside a
+        process group)."""
+        group = getattr(self, "data_group", None)
         if self.label_manager.has_regions:
             return dc_and_bce_loss(logits, self._seg_to_region_onehot(target),
                                    batch_dice=self.configuration_manager.batch_dice,
-                                   use_ignore_label=self.label_manager.has_ignore_label)
+                                   use_ignore_label=self.label_manager.has_ignore_label,
+                                   reduce_group=group)
         return dc_and_ce_loss(logits, target, batch_dice=self.configuration_manager.batch_dice,
                               smooth=1e-5, do_bg=False,
-                              ignore_label=self.label_manager.ignore_label)
+                              ignore_label=self.label_manager.ignore_label,
+                              reduce_group=group)
 
     def _train_loss(self, output, target: torch.Tensor) -> torch.Tensor:
         """The loss of a train-mode forward: with deep supervision (a list of
@@ -425,7 +555,7 @@ class nnUNetTrainer:
             data, seg = self._with_previous_stage(data, seg, augment=True)
         self.network.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self._train_loss(self.network(data), seg)
+        loss = self._train_loss(self.train_network(data), seg)
         loss.backward()
         clip_and_step(self.optimizer, 12.0)
         return loss.detach()
@@ -477,12 +607,15 @@ class nnUNetTrainer:
             self.initialize()
         if self.unpack_dataset:
             self.print_to_log_file("unpacking dataset...")
-            unpack_dataset(self.preprocessed_dataset_folder)
+            if self.is_main:
+                unpack_dataset(self.preprocessed_dataset_folder)
+            self._barrier()
         self.get_dataloaders()
-        save_json(self.plans_manager.plans,
-                  os.path.join(self.output_folder_base, "plans.json"), sort_keys=False)
-        save_json(self.dataset_json, os.path.join(self.output_folder_base, "dataset.json"))
-        self._save_debug_information()
+        if self.is_main:
+            save_json(self.plans_manager.plans,
+                      os.path.join(self.output_folder_base, "plans.json"), sort_keys=False)
+            save_json(self.dataset_json, os.path.join(self.output_folder_base, "dataset.json"))
+            self._save_debug_information()
 
     def _save_debug_information(self):
         dct = {k: str(v) for k, v in self.__dict__.items()
@@ -560,14 +693,22 @@ class nnUNetTrainer:
 
             losses = [self.train_step_host(prefetch.next())
                       for _ in range(self.num_iterations_per_epoch)]
-            self.logger.log("train_losses", float(torch.stack(losses).mean()), epoch)
-
             val = [self.validation_step_host(self.dataloader_val.generate_train_batch())
                    for _ in range(self.num_val_iterations_per_epoch)]
-            val_loss = float(torch.stack([v[0] for v in val]).mean())
-            tp, fp, fn = (torch.stack([v[i] for v in val]).sum(0).cpu().numpy()
-                          for i in (1, 2, 3))
-            self.on_validation_epoch_end(val_loss, tp, fp, fn, epoch)
+            # the two mean losses and the summed counts; over the data axis
+            # the ranks' shares of the losses average to the global ones
+            C = val[0][1].numel()
+            packed = torch.cat([torch.stack(losses).mean().view(1).float(),
+                                torch.stack([v[0] for v in val]).mean().view(1).float()]
+                               + [torch.stack([v[i] for v in val]).sum(0).float()
+                                  for i in (1, 2, 3)])
+            if self.distributed:
+                dist.all_reduce(packed, group=self.data_group)
+                packed[:2] /= self.n_data
+            packed = packed.cpu().numpy()
+            self.logger.log("train_losses", float(packed[0]), epoch)
+            tp, fp, fn = (packed[2 + i * C:2 + (i + 1) * C] for i in range(3))
+            self.on_validation_epoch_end(float(packed[1]), tp, fp, fn, epoch)
 
             self.logger.log("epoch_end_timestamps", time.time(), epoch)
             self.logger.log("lrs", lr, epoch)
@@ -599,23 +740,34 @@ class nnUNetTrainer:
             self._best_ema = ema
             self.print_to_log_file(f"Yayy! New best EMA pseudo Dice: {round(ema, 4)}")
             self.save_checkpoint(os.path.join(self.output_folder, "checkpoint_best.pth"))
-        self.logger.plot_progress_png(self.output_folder)
+        if self.is_main:
+            self.logger.plot_progress_png(self.output_folder)
 
     def on_train_end(self):
         self.current_epoch -= 1
         self.save_checkpoint(os.path.join(self.output_folder, "checkpoint_final.pth"))
         self.current_epoch += 1
         latest = os.path.join(self.output_folder, "checkpoint_latest.pth")
-        if os.path.isfile(latest):
+        if self.is_main and os.path.isfile(latest):
             os.remove(latest)
+        elif self.is_main and os.path.isdir(latest):  # a sharded checkpoint
+            shutil.rmtree(latest)
         self.print_to_log_file("Training done.")
 
     # ------------------------------------------------------------ checkpoints
 
     def save_checkpoint(self, filename: str):
-        """ref :1083-1106 (the same key set)."""
+        """ref :1083-1106 (the same key set). Rank 0 writes the file; with a
+        model axis every rank writes its shards of a
+        ``torch.distributed.checkpoint`` directory at `filename`."""
+        sharded = self.n_model > 1
+        if not (sharded or self.is_main):
+            return
+        weights, views = self.network.state_dict(), None
+        if sharded:
+            weights, views = dcp_state_dict(weights, self.mesh, self.n_model)
         save_checkpoint({
-            "network_weights": self.network.state_dict(),
+            "network_weights": weights,
             "optimizer_state": self.optimizer.state_dict(),
             "grad_scaler_state": None,
             "logging": self.logger.get_checkpoint(),
@@ -624,15 +776,23 @@ class nnUNetTrainer:
             "init_args": {"configuration": self.configuration_name, "fold": self.fold},
             "trainer_name": self.__class__.__name__,
             "inference_allowed_mirroring_axes": self.inference_allowed_mirroring_axes,
-        }, filename)
+        }, filename, sharded_views=views)
 
     def load_checkpoint(self, filename_or_checkpoint: Union[str, dict]):
-        """ref :1108-1144."""
+        """ref :1108-1144. A sharded checkpoint's directory is read onto this
+        rank's shards in place (in one process, into the whole network)."""
         if not self.was_initialized:
             self.initialize()
-        checkpoint = (load_checkpoint(filename_or_checkpoint)
-                      if isinstance(filename_or_checkpoint, str) else filename_or_checkpoint)
-        self.network.load_state_dict(checkpoint["network_weights"])
+        if isinstance(filename_or_checkpoint, str) and os.path.isdir(filename_or_checkpoint):
+            weights = self.network.state_dict()
+            if self.n_model > 1:
+                weights, _ = dcp_state_dict(weights, self.mesh, self.n_model)
+            checkpoint = load_checkpoint(filename_or_checkpoint, network_template=weights)
+        else:
+            checkpoint = (load_checkpoint(filename_or_checkpoint)
+                          if isinstance(filename_or_checkpoint, str)
+                          else filename_or_checkpoint)
+            self.network.load_state_dict(checkpoint["network_weights"])
         if checkpoint.get("optimizer_state") is not None:
             self.optimizer.load_state_dict(checkpoint["optimizer_state"])
         self.logger.load_checkpoint(checkpoint["logging"])
@@ -653,7 +813,11 @@ class nnUNetTrainer:
         (host resampling and writing: the case's, each next stage's) run
         behind the device in a thread pool, each its own task, at most two
         cases behind, as ``predict_from_files`` exports (the reference's
-        export pool). Returns the metrics (None without gt_segmentations)."""
+        export pool). In a process group the data ranks take the cases in
+        turn (the ranks of one model group predict a case together, the
+        first of them exports it); after a barrier rank 0 computes the
+        metrics (ref :1146-1293). Returns the metrics (None without
+        gt_segmentations, and on the other ranks)."""
         from collections import deque
         from concurrent.futures import ThreadPoolExecutor
 
@@ -664,7 +828,8 @@ class nnUNetTrainer:
 
         inference_network = self.build_network(
             self.device, self.configuration_manager, self.num_input_channels,
-            self.label_manager.num_segmentation_heads, enable_deep_supervision=False)
+            self.label_manager.num_segmentation_heads, enable_deep_supervision=False,
+            **self._shard_kw())
         predictor = nnUNetPredictor(tile_step_size=0.5, use_gaussian=True,
                                     use_mirroring=True, device=self.device)
         predictor.manual_initialization(
@@ -693,9 +858,10 @@ class nnUNetTrainer:
                 self.plans_manager, self.configuration_manager, properties,
                 self.dataset_json)
 
+        exporting = self.model_shard is None or self.model_shard.rank == 0
         with ThreadPoolExecutor(max_workers=2 * (1 + len(next_stages))) as pool:
             exports = deque()
-            for k in val_keys:
+            for k in val_keys[self.data_rank::self.n_data]:
                 self.print_to_log_file(f"predicting {k}")
                 data, seg, properties = dataset_val.load_case(k)
                 data = np.asarray(data)
@@ -704,6 +870,8 @@ class nnUNetTrainer:
                         np.asarray(seg[-1]), self.label_manager.foreground_labels,
                         data.dtype)))
                 prediction = predictor.predict_logits_from_preprocessed_data(data)
+                if not exporting:
+                    continue
                 exports.append([pool.submit(
                     export_prediction_from_logits, prediction, properties,
                     self.configuration_manager, self.plans_manager, self.dataset_json,
@@ -715,8 +883,9 @@ class nnUNetTrainer:
             while exports:
                 [f.result() for f in exports.popleft()]
 
+        self._barrier()
         gt_folder = os.path.join(self.preprocessed_dataset_folder_base, "gt_segmentations")
-        if not os.path.isdir(gt_folder):
+        if not self.is_main or not os.path.isdir(gt_folder):
             return None
         metrics = compute_metrics_on_folder(
             gt_folder, validation_output_folder,

@@ -1,0 +1,578 @@
+"""The port's ``parallel/`` against the JAX package's, on CPU ranks.
+
+The rank bodies live in ``tests/torch_ranks.py`` (no JAX) and in the port's
+``parallel/dryrun.py``; ``parallel.launch.spawn`` starts them as gloo ranks
+on the CPU. This process computes the JAX side and hands every rank the same
+numpy-made tensors. One spawn of two ranks holds the mesh, the repeated and
+the conflicting ``init_distributed``, a data-parallel train step of the tiny
+DinoUNet of tests/test_torch_models.py (batch Dice off and on), the narrow
+SwiGLU block split over a model axis, and a sharded checkpoint's round
+trip. Tolerances, fp32 (each gradient tensor's error is taken over its
+largest entry, that scale floored at 0.1 of the model's largest gradient:
+the biases in front of an InstanceNorm have a true gradient of 0 and hold
+rounding noise on both sides):
+- the two-rank step against the JAX train step on a 2-device mesh: the loss
+  to 1e-5 relative, the whole trainable gradient to 1e-5 relative L2, each
+  tensor to 2e-5 (1.1e-5 measured, on the SPM's first BatchNorm: the port's
+  fp32 arithmetic against JAX's, which the one-process step shows too), the
+  BatchNorm statistics to 1e-5 relative (1e-6 absolute);
+- the two-rank step against the port's one-process step on the whole
+  batch: the loss to 1e-6 relative, the whole gradient and each tensor to
+  1e-5 -- where a stray factor of the ranks, a local batch Dice or local
+  BatchNorm statistics would be off by their own size;
+- the split block against JAX ``Block``: 1e-5.
+"""
+
+import dataclasses
+import json
+import os
+from concurrent.futures import ThreadPoolExecutor
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dinounet_tpu_torch.models.convert import state_dict_from_flax
+from dinounet_tpu_torch.models.dinounet import DinoUNet as TorchDinoUNet
+from dinounet_tpu_torch.models.dinounet import DinoUNetConfig as TorchConfig
+from dinounet_tpu_torch.models.vit import Block as TorchBlock
+from dinounet_tpu_torch.models.vit import DinoViT as TorchDinoViT
+from dinounet_tpu_torch.models.vit import VIT_CONFIGS as TORCH_VIT_CONFIGS
+from dinounet_tpu_torch.models.vit import ViTConfig as TorchViTConfig
+from dinounet_tpu_torch.parallel import launch
+from dinounet_tpu_torch.parallel.mesh import init_distributed
+from dinounet_tpu_torch.parallel.sharding import ModelShard, shard_dim
+from dinounet_tpu_torch.training.checkpointing import load_checkpoint
+from dinounet_tpu_torch.training.losses import dc_and_ce_loss
+from tests import torch_ranks
+from tests.test_torch_models import CFG_KW, HW, N_CLASSES, VIT_KW, variables  # noqa: F401
+
+BACKBONE = "encoder.dinov3_adapter.backbone."
+# the narrow SwiGLU block: the 7B's structure at width 64
+BLOCK_KW = dict(embed_dim=64, depth=1, num_heads=4, ffn_ratio=2.0, ffn_layer="swiglu",
+                qkv_bias=False, n_storage_tokens=4)
+# per-tensor gradient scales are floored at this fraction of the model's
+# largest gradient: the biases in front of an InstanceNorm have a true
+# gradient of 0, and both sides hold rounding noise there (~1e-7 of it)
+GRAD_FLOOR = 0.1
+
+
+def _fill(shapes, seed: int):
+    """Seeded values for a JAX variable tree (kernels of variance 1/fan_in)."""
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        noise = rng.standard_normal(leaf.shape).astype(np.float32)
+        if jax.tree_util.keystr(path).endswith("['kernel']"):
+            return noise / np.float32(np.sqrt(np.prod(leaf.shape[:-1])))
+        return 0.2 * noise
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def _rope(n_prefix: int, Dh: int):
+    from dinounet_tpu.models.vit import rope_sincos
+
+    sin, cos = rope_sincos(4, 4, Dh)
+    return (np.concatenate([np.zeros((n_prefix, Dh), np.float32), np.asarray(sin)]),
+            np.concatenate([np.ones((n_prefix, Dh), np.float32), np.asarray(cos)]))
+
+
+@pytest.fixture(scope="module")
+def step_inputs():
+    rng = np.random.default_rng(31)
+    return (rng.standard_normal((4, 1, HW, HW)).astype(np.float32),
+            rng.integers(0, N_CLASSES, (4, HW, HW)))
+
+
+@pytest.fixture(scope="module")
+def jax_block():
+    """The JAX SwiGLU ``Block`` at width 64, seeded weights, and its output
+    (its plain attention: ``DINOUNET_TPU_ATTN_IMPL=jax``)."""
+    from dinounet_tpu.models.vit import Block, ViTConfig
+
+    cfg = ViTConfig(**BLOCK_KW, dtype="float32")
+    sin, cos = _rope(cfg.n_prefix_tokens, cfg.head_dim)
+    x = np.random.default_rng(32).standard_normal((2, 21, 64)).astype(np.float32)
+    block = Block(cfg)
+    params = _fill(jax.eval_shape(lambda: block.init(jax.random.PRNGKey(0), jnp.asarray(x),
+                                                     (sin, cos))), 1)["params"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DINOUNET_TPU_ATTN_IMPL", "jax")
+        out = np.asarray(jax.jit(lambda p, x: block.apply({"params": p}, x, (sin, cos)))(
+            params, jnp.asarray(x)))
+    state = state_dict_from_flax({"params": {"backbone": {"block0": params}}})
+    prefix = BACKBONE + "blocks.0."
+    state = {k[len(prefix):]: v for k, v in state.items()}
+    return state, x, (sin, cos), out
+
+
+def jax_mesh_step(variables, image, target):  # noqa: F811
+    """The JAX train step's loss, gradients and batch statistics, the batch
+    sharded over a 2-device mesh, for batch Dice off and on."""
+    from dinounet_tpu.models.dinounet import DinoUNet, DinoUNetConfig
+    from dinounet_tpu.models.vit import ViTConfig
+    from dinounet_tpu.parallel import batch_sharding, make_mesh
+    from dinounet_tpu.training.losses import dc_and_ce_loss as jax_loss
+
+    model = DinoUNet(DinoUNetConfig(vit=ViTConfig(**VIT_KW, dtype="float32"),
+                                    dtype="float32", drop_path_rate=0.0, **CFG_KW))
+    mesh = make_mesh(1, jax.devices("cpu")[:2])
+
+    @jax.jit
+    def step(params, batch_stats, x, t):
+        def loss_of(p, batch_dice):
+            out, mut = model.apply({"params": p, "batch_stats": batch_stats}, x,
+                                   train=True, mutable=["batch_stats"])
+            return (jax_loss(out, t, batch_dice=batch_dice, smooth=1e-5, do_bg=False),
+                    mut["batch_stats"])
+        return [jax.value_and_grad(loss_of, has_aux=True)(params, bd) for bd in (False, True)]
+
+    sharding = batch_sharding(mesh)
+    with mesh:
+        res = step(variables["params"], variables["batch_stats"],
+                   jax.device_put(jnp.asarray(np.moveaxis(image, 1, -1)), sharding),
+                   jax.device_put(jnp.asarray(target), sharding))
+    return {bd: (float(loss), state_dict_from_flax({"params": grads}),
+                 state_dict_from_flax({"batch_stats": stats}))
+            for bd, ((loss, stats), grads) in zip((False, True), res)}
+
+
+@pytest.fixture(scope="module")
+def planned_set(tmp_path_factory):
+    """tests/helpers.py's PNG set planned by the port (64 x 64, the plans'
+    batch set to 3), the nnUNet_* variables pointing at it for the module."""
+    from dinounet_tpu_torch import api
+    from dinounet_tpu_torch.planning import fingerprint
+    from dinounet_tpu_torch.utilities.json_export import load_json, save_json
+    from tests.helpers import make_png_dataset
+    from tests.test_torch_api import DATASET, DATASET_ID, TINY_KW
+
+    root = str(tmp_path_factory.mktemp("ddp"))
+    with pytest.MonkeyPatch.context() as mp:
+        for sub, var in (("raw", "nnUNet_raw"), ("pre", "nnUNet_preprocessed"),
+                         ("res", "nnUNet_results")):
+            os.makedirs(os.path.join(root, sub))
+            mp.setenv(var, os.path.join(root, sub))
+        init = fingerprint.DatasetFingerprintExtractor.__init__
+
+        def fast(self, *args, **kwargs):
+            init(self, *args, **kwargs)
+            self.num_foreground_voxels_for_intensitystats = 10 ** 5
+
+        mp.setattr(fingerprint.DatasetFingerprintExtractor, "__init__", fast)
+        make_png_dataset(os.path.join(root, "raw"), n_cases=6)
+        api.plan_and_preprocess(DATASET_ID, **TINY_KW)
+        plans_file = os.path.join(root, "pre", DATASET, "nnUNetPlans.json")
+        plans = load_json(plans_file)
+        plans["configurations"]["2d"]["batch_size"] = 3
+        save_json(plans, plans_file, sort_keys=False)
+        yield root, DATASET_ID
+
+
+def _train_two_cpu_ranks(dataset_id):
+    from dinounet_tpu_torch.run import run_training
+    from dinounet_tpu_torch.utilities import registry
+
+    registry.trainers.add("TinyParallelTrainer", torch_ranks.TinyParallelTrainer)
+    return run_training(dataset_id, "2d", 0, "TinyParallelTrainer", num_gpus=2,
+                        device="cpu")
+
+
+@pytest.fixture(scope="module")
+def two_ranks(variables, step_inputs, jax_block, planned_set, tmp_path_factory):  # noqa: F811
+    """Every spawn of the module, started together while JAX compiles here:
+    two gloo ranks running ``torch_ranks.parallel_checks``, the two-rank
+    ``run_training`` (``torch_ranks.TinyParallelTrainer`` on the planned
+    set) and the two dry runs on four ranks each. The payload, the ranks'
+    results, ``jax_mesh_step``'s, and the other runs' results by name."""
+    image, target = step_inputs
+    block_state, x, rope, _ = jax_block
+    vit = TorchDinoViT(TorchViTConfig(**{**BLOCK_KW, "depth": 2}, dtype="float32"))
+    gen = torch.Generator().manual_seed(33)
+    vit_state = {k: torch.randn(v.shape, generator=gen) for k, v in vit.state_dict().items()}
+    params = [torch.nn.Parameter(torch.zeros(3)), torch.nn.Parameter(torch.zeros(2, 2))]
+    opt = torch.optim.SGD(params, lr=0.1, momentum=0.99, nesterov=True)
+    for p in params:
+        p.grad = torch.randn(p.shape, generator=gen)
+    opt.step()
+    directory = str(tmp_path_factory.mktemp("dcp") / "checkpoint_final.pth")
+    payload = dict(
+        cfg=TorchConfig(vit=TorchViTConfig(**VIT_KW, dtype="float32"), dtype="float32",
+                        drop_path_rate=0.0, **CFG_KW),
+        state=state_dict_from_flax(variables), image=torch.from_numpy(image),
+        target=torch.from_numpy(target),
+        block_cfg=TorchViTConfig(**BLOCK_KW, dtype="float32"), block_state=block_state,
+        x=torch.from_numpy(x), rope=tuple(torch.from_numpy(t) for t in rope),
+        vit_state=vit_state, optimizer_state=opt.state_dict(), directory=directory)
+    from dinounet_tpu_torch.parallel.dryrun import dryrun_7b_block, dryrun_multichip
+
+    with ThreadPoolExecutor(4) as pool:
+        ranks = pool.submit(launch.spawn, torch_ranks.parallel_checks, 2, payload,
+                            devices="cpu")
+        others = {"training": pool.submit(_train_two_cpu_ranks, planned_set[1]),
+                  "model_axis": pool.submit(launch.spawn, torch_ranks.train_on_model_axis,
+                                            2, planned_set[1], devices="cpu"),
+                  "multichip": pool.submit(dryrun_multichip, 4),
+                  "7b_block": pool.submit(dryrun_7b_block, 4)}
+        want = jax_mesh_step(variables, image, target)
+        return (payload, ranks.result(), want,
+                {name: f.result() for name, f in others.items()})
+
+
+# ------------------------------------------------------------- mesh, init
+
+
+def test_mesh_shapes_and_divisibility(two_ranks):
+    for rank in two_ranks[1]:
+        assert rank["mesh"]["meshes"] == {1: (2, 1), 2: (1, 2)}
+        assert rank["mesh"]["indivisible_raises"]
+
+
+def test_repeated_init_tolerated_and_conflicting_raises(two_ranks):
+    assert all(rank["mesh"]["repeat_conflict_raises"] for rank in two_ranks[1])
+
+
+@pytest.mark.parametrize("kwargs, env, error", [
+    (dict(rank=0, world_size=2, init_method="localhost:29500"), {}, "tcp://"),
+    (dict(rank=0, world_size=2, init_method="tcp://localhost:0"), {}, "tcp://"),
+    (dict(rank=0, world_size=2, init_method="file://relative/store"), {}, "file:///"),
+    (dict(rank=2, world_size=2, init_method="tcp://localhost:29500"), {}, "outside"),
+    (dict(rank=0, world_size=2, init_method="tcp://localhost:29500"),
+     {"WORLD_SIZE": "4"}, "WORLD_SIZE"),
+    (dict(rank=0, world_size=2), {}, "MASTER_ADDR"),
+    (dict(rank=0, world_size=2, backend="nccl", init_method="tcp://localhost:29500"),
+     {}, "NCCL"),
+    (dict(), {}, "rank and a world size"),
+])
+def test_init_distributed_misconfiguration_raises(kwargs, env, error, monkeypatch):
+    """Each raises before any connection is tried (no process group is
+    made): nothing degrades to one process."""
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda *a, **k: pytest.fail("init_process_group reached"))
+    with pytest.raises(ValueError, match=error):
+        init_distributed(device_type="cpu", **kwargs)
+    assert not torch.distributed.is_initialized()
+
+
+# ------------------------------------------------------------ the plan
+
+
+def _jax_7b_structured_tree():
+    from dinounet_tpu.models.dinounet import DinoUNet, DinoUNetConfig
+    from dinounet_tpu.models.vit import ViTConfig
+
+    cfg = DinoUNetConfig(vit=ViTConfig(**{**BLOCK_KW, "depth": 4}, dtype="float32"),
+                         **{**CFG_KW, "interaction_indexes": (0, 1, 2, 3)})
+    x = jnp.zeros((1, HW, HW, 1), jnp.float32)
+    return jax.eval_shape(lambda: DinoUNet(cfg).init(jax.random.PRNGKey(0), x,
+                                                     train=False))
+
+
+def test_plan_shards_what_param_spec_tree_shards():
+    """Every leaf of a tiny 7B-structured DinoUNet's JAX tree carried
+    through the bridge: the port's plan splits exactly the tensors that
+    ``param_spec_tree`` splits, along the same dim (each sharded leaf is
+    filled with its index along the 'model' dim, so the bridge's
+    transposes show where it went), and nothing trainable."""
+    from dinounet_tpu.parallel import MODEL_AXIS, param_spec_tree
+
+    shapes = _jax_7b_structured_tree()
+    specs = param_spec_tree(shapes["params"])
+
+    def mark(leaf, spec):
+        dims = [d for d, axis in enumerate(spec) if axis == MODEL_AXIS]
+        if not dims:
+            return np.zeros(leaf.shape, np.float32)
+        shape = [1] * len(leaf.shape)
+        shape[dims[0]] = leaf.shape[dims[0]]
+        ramp = np.arange(1, leaf.shape[dims[0]] + 1, dtype=np.float32).reshape(shape)
+        return np.broadcast_to(ramp, leaf.shape).copy()
+
+    marked = jax.tree_util.tree_map(mark, shapes["params"], specs,
+                                    is_leaf=lambda x: isinstance(x, jax.ShapeDtypeStruct))
+    bridged = state_dict_from_flax({"params": marked,
+                                    "batch_stats": jax.tree_util.tree_map(
+                                        lambda s: np.zeros(s.shape, np.float32),
+                                        shapes["batch_stats"])})
+    want = {}
+    for name, t in bridged.items():
+        varying = [d for d in range(t.dim()) if t.shape[d] > 1
+                   and not torch.equal(t, t.narrow(d, 0, 1).expand_as(t))]
+        if t.abs().sum() > 0:
+            want[name] = varying[0] if varying else 0
+    port = TorchDinoUNet(TorchConfig(vit=TorchViTConfig(**{**BLOCK_KW, "depth": 4}),
+                                     **{**CFG_KW, "interaction_indexes": (0, 1, 2, 3)}))
+    got = {n: shard_dim(n) for n in port.state_dict() if shard_dim(n) is not None}
+    assert set(port.state_dict()) == set(bridged)
+    assert got == want and len(got) == 4 * 7  # qkv, proj, w1 and w2 (+ biases), w3
+    trainable = {n for n, p in port.named_parameters() if p.requires_grad}
+    assert not trainable & set(got)
+    assert all(n.startswith(BACKBONE + "blocks.") for n in got)
+
+
+def test_real_size_shard_shapes_equal_jax():
+    """The ViT-7B block built as each rank's shard on ``meta``: the shapes
+    JAX's specs give its shards at embed 4096, 32 heads, hidden 8192
+    (``__graft_entry__.py:309-313``), transposed to (out, in)."""
+    from dinounet_tpu.models.vit import VIT_CONFIGS, Block
+    from dinounet_tpu.parallel import MODEL_AXIS, param_spec_tree
+
+    n_model = 2
+    jcfg = dataclasses.replace(VIT_CONFIGS["dinov3_vit7b16"], depth=1, dtype="float32")
+    x = jax.ShapeDtypeStruct((1, 21, 4096), jnp.float32)
+    sin = jax.ShapeDtypeStruct((21, 128), jnp.float32)
+    params = jax.eval_shape(lambda x, s: Block(jcfg).init(jax.random.PRNGKey(0), x, (s, s)),
+                            x, sin)["params"]
+    specs = param_spec_tree({"backbone": params})["backbone"]
+    want = {}
+    for layer, parent in (("qkv", "attn"), ("proj", "attn"), ("w1", "mlp"), ("w2", "mlp"),
+                          ("w3", "mlp")):
+        shape = list(params[parent][layer]["kernel"].shape)
+        for d, axis in enumerate(specs[parent][layer]["kernel"]):
+            if axis == MODEL_AXIS:
+                shape[d] //= n_model
+        want[f"{parent}.{layer}.weight"] = tuple(reversed(shape))
+    assert want["attn.qkv.weight"] == (12288 // n_model, 4096)
+    tcfg = dataclasses.replace(TORCH_VIT_CONFIGS["dinov3_vit7b16"], depth=1)
+    with torch.device("meta"):
+        for rank in range(n_model):
+            block = TorchBlock(tcfg, torch.bfloat16, ModelShard(rank, n_model))
+            held = {k: tuple(v.shape) for k, v in block.state_dict().items()}
+            assert {k: held[k] for k in want} == want
+
+
+# ------------------------------------------------------ the data-parallel step
+
+
+def _grad_errors(got: dict, want: dict) -> dict:
+    """Each trainable tensor's largest difference over its largest entry,
+    floored at GRAD_FLOOR of the model's largest gradient; under "all", the
+    relative L2 of the whole trainable gradient."""
+    floor = GRAD_FLOOR * max(float(g.abs().max()) for g in want.values())
+    out = {n: float((got[n] - want[n]).abs().max())
+           / max(float(want[n].abs().max()), floor) for n in got}
+    flat = [torch.cat([d[n].flatten() for n in sorted(got)]) for d in (got, want)]
+    out["all"] = float((flat[0] - flat[1]).norm() / flat[1].norm())
+    return out
+
+
+def _worst(errors: dict) -> list:
+    return sorted(errors.items(), key=lambda kv: -kv[1])[:5]
+
+
+@pytest.mark.parametrize("batch_dice", [False, True])
+def test_two_rank_step_matches_jax_mesh_step(two_ranks, batch_dice):
+    ranks = [r["ddp"][batch_dice] for r in two_ranks[1]]
+    want_loss, want_grads, want_stats = two_ranks[2][batch_dice]
+    # each rank's loss is its share: their mean is the global batch's loss
+    loss = np.mean([r["loss"] for r in ranks])
+    assert loss == pytest.approx(want_loss, rel=1e-5)
+    for name, g in ranks[0]["grads"].items():
+        assert torch.equal(g, ranks[1]["grads"][name]), name
+    grads = ranks[0]["grads"]
+    assert not any(n.startswith(BACKBONE) for n in grads) and len(grads) > 100
+    errors = _grad_errors(grads, {n: want_grads[n] for n in grads})
+    assert errors.pop("all") <= 1e-5
+    assert max(errors.values()) <= 2e-5, _worst(errors)
+    assert len(ranks[0]["stats"]) > 10
+    for name, got in ranks[0]["stats"].items():
+        assert torch.equal(ranks[1]["stats"][name], got), name
+        np.testing.assert_allclose(got.numpy(), want_stats[name].numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("batch_dice", [False, True])
+def test_two_rank_step_matches_one_process(two_ranks, batch_dice):
+    """The port's step on the whole batch in this process, against the two
+    ranks' halves: a stray factor of the ranks, a local batch Dice or local
+    BatchNorm statistics would be off by their own size."""
+    payload, ranks = two_ranks[0], [r["ddp"][batch_dice] for r in two_ranks[1]]
+    model = TorchDinoUNet(payload["cfg"])
+    model.load_state_dict(payload["state"], strict=True)
+    model.train()
+    loss = dc_and_ce_loss(model(payload["image"]), payload["target"],
+                          batch_dice=batch_dice, smooth=1e-5, do_bg=False)
+    loss.backward()
+    assert np.mean([r["loss"] for r in ranks]) == pytest.approx(float(loss.detach()),
+                                                                rel=1e-6)
+    want = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    assert set(ranks[0]["grads"]) == set(want)
+    errors = _grad_errors(ranks[0]["grads"], want)
+    assert errors.pop("all") <= 1e-5
+    assert max(errors.values()) <= 1e-5, _worst(errors)
+    buffers = dict(model.named_buffers())
+    for name, got in ranks[0]["stats"].items():
+        torch.testing.assert_close(got, buffers[name], rtol=1e-6, atol=1e-7)
+
+
+# ------------------------------------------------------------ the model axis
+
+
+def test_split_block_matches_jax_block(two_ranks, jax_block):
+    want = jax_block[3]
+    for rank in two_ranks[1]:
+        np.testing.assert_allclose(rank["block"].numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_sharded_checkpoint_round_trip(two_ranks):
+    """Written by two ranks, read back onto their shards, and into this
+    process as whole tensors (the qkv weight back at (3C, C))."""
+    payload, ranks = two_ranks[:2]
+    for rank in ranks:
+        assert rank["dcp"]["equal"] and rank["dcp"]["optimizer_equal"]
+        assert rank["dcp"]["meta"] == (3, "DinoUNetTrainer_7b", {"train_losses": [0.5]})
+        assert rank["dcp"]["sharded"] == ["blocks.0.attn.qkv.weight",
+                                          "blocks.1.attn.qkv.weight"]
+    back = load_checkpoint(payload["directory"])
+    assert back["network_weights"].keys() == payload["vit_state"].keys()
+    for name, t in payload["vit_state"].items():
+        assert torch.equal(back["network_weights"][name], t), name
+    opt = back["optimizer_state"]
+    assert opt["param_groups"] == payload["optimizer_state"]["param_groups"]
+    for i, entry in payload["optimizer_state"]["state"].items():
+        assert torch.equal(opt["state"][i]["momentum_buffer"], entry["momentum_buffer"])
+    assert back["current_epoch"] == 3
+
+
+# --------------------------------------------------------- dry runs
+
+
+def test_dryrun_multichip_four_ranks(two_ranks):
+    losses = two_ranks[3]["multichip"]
+    assert len(losses) == 4 and np.all(np.isfinite(losses))
+    assert losses[0] == losses[1] and losses[2] == losses[3]  # one batch a model group
+
+
+def test_dryrun_7b_block_four_ranks(two_ranks):
+    assert max(two_ranks[3]["7b_block"]) <= 1e-5
+
+
+# ------------------------------------------------------ training, prediction
+
+
+def test_run_training_on_two_cpu_ranks(planned_set, two_ranks, tmp_path):
+    """``run_training(num_gpus=2, device="cpu")``: the ranks train the
+    global batch of 4 (the plans' 3 rounded up to the data axis), rank 0
+    alone writes the log and checkpoint, the validation's two cases are
+    split over the ranks, and rank 0's summary.json has both: the files
+    one process's final validation writes from checkpoint_final."""
+    from dinounet_tpu_torch.run import get_trainer_from_args
+
+    result = two_ranks[3]["training"]
+    folder = result.output_folder
+    assert folder.endswith(os.path.join("TinyParallelTrainer__nnUNetPlans__2d", "fold_0"))
+    log = result.logger.my_fantastic_logging
+    assert len(log["train_losses"]) == 1 and np.isfinite(log["train_losses"][0])
+    assert os.path.isfile(os.path.join(folder, "checkpoint_final.pth"))
+    logs = [f for f in os.listdir(folder) if f.startswith("training_log_")]
+    assert len(logs) == 1
+    with open(os.path.join(folder, logs[0])) as f:
+        text = f.read()
+    assert text.count("Training done.") == 1
+    assert "rank 0 of 2 (data axis 2, model axis 1)" in text
+    with open(os.path.join(folder, "validation", "summary.json")) as f:
+        summary = json.load(f)
+    cases = sorted(os.path.basename(c["prediction_file"]) for c in summary["metric_per_case"])
+    assert cases == sorted(f for f in os.listdir(os.path.join(folder, "validation"))
+                           if f.endswith(".png")) and len(cases) == 2
+    checkpoint = load_checkpoint(os.path.join(folder, "checkpoint_final.pth"))
+    assert not any(k.startswith("module.") for k in checkpoint["network_weights"])
+    validation = os.path.join(folder, "validation")
+    by_ranks = {f: open(os.path.join(validation, f), "rb").read()
+                for f in os.listdir(validation)}
+    one = get_trainer_from_args(planned_set[1], "2d", 0, "TinyParallelTrainer", device="cpu")
+    one.load_checkpoint(checkpoint)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(launch.cpu_threads(2))  # the ranks' sums, in their order
+    try:
+        one.perform_actual_validation()
+    finally:
+        torch.set_num_threads(threads)
+    assert {f: open(os.path.join(validation, f), "rb").read()
+            for f in os.listdir(validation)} == by_ranks
+
+
+def test_run_training_on_a_model_axis(two_ranks):
+    """``DinoUNetTrainer_7b``'s build (a 7B-structured DinoUNet at width 64)
+    on two CPU ranks with ``DINOUNET_TPU_MODEL_AXIS=2``: each rank holds
+    its shards, checkpoint_final is a sharded checkpoint's directory that
+    a fresh trainer reads back onto its shards, and that reads into one
+    process as the whole network's state; the final validation predicted
+    both cases (the model group together)."""
+    ranks = two_ranks[3]["model_axis"]
+    folder = ranks[0]["output_folder"]
+    qkv = "encoder.dinov3_adapter.backbone.blocks.0.attn.qkv.weight"
+    for rank in ranks:
+        assert rank["resumed_equal"] and rank["epoch"] == 1
+        assert rank["shards"][qkv] == (3 * 64 // 2, 64)
+    final = os.path.join(folder, "checkpoint_final.pth")
+    assert os.path.isdir(final) and os.path.isfile(os.path.join(final, "meta.pth"))
+    whole = torch_ranks.Tiny7bParallelTrainer.build_network_architecture(
+        None, {}, [], 1, 3, False)
+    whole.load_state_dict(load_checkpoint(final)["network_weights"])
+    assert tuple(whole.state_dict()[qkv].shape) == (3 * 64, 64)
+    with open(os.path.join(folder, "validation", "summary.json")) as f:
+        assert len(json.load(f)["metric_per_case"]) == 2
+    texts = []
+    for name in os.listdir(folder):  # the training's and the fresh trainer's
+        if name.startswith("training_log_"):
+            with open(os.path.join(folder, name)) as f:
+                texts.append(f.read())
+    assert len(texts) == 2 and sum(t.count("Training done.") for t in texts) == 1
+    assert all("rank 0 of 2 (data axis 1, model axis 2)" in t for t in texts)
+
+
+def test_more_gpus_than_visible_raise():
+    from dinounet_tpu_torch.run import run_training
+
+    with pytest.raises(ValueError, match="visible CUDA"):
+        run_training(501, "2d", 0, num_gpus=torch.cuda.device_count() + 2, device="cuda")
+
+
+def test_predictor_parts_match_jax_and_one_run(planned_set, two_ranks, tmp_path):
+    """Each part's cases are the JAX predictor's striding of the same list,
+    and the parts' files together are one run's."""
+    from dinounet_tpu.inference.predictor import nnUNetPredictor as JaxPredictor
+
+    from dinounet_tpu_torch.inference.predictor import nnUNetPredictor
+
+    root, result = planned_set[0], two_ranks[3]["training"]
+    images = os.path.join(root, "raw", "Dataset501_Toy2d", "imagesTr")
+    model_folder = os.path.dirname(result.output_folder)
+
+    def predictor(cls, **kw):
+        p = cls(use_mirroring=False, **kw)
+        p.dataset_json = {"file_ending": ".png"}
+        return p
+
+    jax_p, port_p = predictor(JaxPredictor), predictor(nnUNetPredictor, device="cpu")
+    for n in (1, 2, 4):
+        for k in range(n):
+            want = jax_p._manage_input_and_output_lists(images, "out", part_id=k,
+                                                        num_parts=n)
+            got = port_p._manage_input_and_output_lists(images, "out", part_id=k,
+                                                        num_parts=n)
+            assert [list(x) if x is not None else None for x in got] == \
+                [list(x) if x is not None else None for x in want]
+    with pytest.raises(ValueError, match="part"):
+        port_p._manage_input_and_output_lists(images, "out", part_id=2, num_parts=2)
+
+    port_p.initialize_from_trained_model_folder(model_folder, (0,))
+    port_p.predict_from_files(images, str(tmp_path / "whole"), num_processes_preprocessing=1,
+                              num_processes_segmentation_export=1)
+    for k in range(2):
+        port_p.predict_from_files(images, str(tmp_path / "parts"), num_parts=2, part_id=k,
+                                  num_processes_preprocessing=1,
+                                  num_processes_segmentation_export=1)
+    whole = sorted(f for f in os.listdir(tmp_path / "whole") if f.endswith(".png"))
+    assert len(whole) == 6
+    assert whole == sorted(f for f in os.listdir(tmp_path / "parts") if f.endswith(".png"))
+    for f in whole:
+        assert (tmp_path / "whole" / f).read_bytes() == (tmp_path / "parts" / f).read_bytes()

@@ -286,19 +286,25 @@ def test_load_pretrained_weights_skips_the_segmentation_head(trained):
 
 
 def test_unported_options_raise(trained, tmp_path):
+    """What is not ported raises: the model axis for a trainer without the
+    ViT-7B backbone. Striding the cases over ``num_parts`` and the
+    cascade's previous-stage files are ported (multi-GPU training, in
+    tests/test_torch_parallel.py)."""
+    from dinounet_tpu_torch.parallel.sharding import ModelShard
+
     root, trainer = trained
     p = nnUNetPredictor(device="cpu")
     p.initialize_from_trained_model_folder(trainer.output_folder_base, (0,))
     cases = _raw_cases(root, 1)
-    with pytest.raises(NotImplementedError):
-        p.predict_from_files(cases, str(tmp_path / "o"), num_parts=2, part_id=1)
+    # part 1 of 2 of one case holds none; a part outside them raises
+    assert p.predict_from_files(cases, str(tmp_path / "o"), num_parts=2, part_id=1) == []
+    with pytest.raises(ValueError, match="part"):
+        p.predict_from_files(cases, str(tmp_path / "o"), num_parts=2, part_id=2)
     # the cascade is ported: each case is paired with its previous stage's file
     _, _, prev = p._manage_input_and_output_lists(cases, str(tmp_path / "o"), str(tmp_path))
     ending = p.dataset_json["file_ending"]
     assert prev == [str(tmp_path / (os.path.basename(c[0])[:-(len(ending) + 5)] + ending))
                     for c in cases]
-    from dinounet_tpu_torch.run import run_training
-
-    with pytest.raises(NotImplementedError):
-        run_training(501, "2d", 0, "PipelineTinyDinoUNetTrainer", num_gpus=2,
-                     device="cpu")
+    with pytest.raises(NotImplementedError, match="model axis"):
+        PipelineTinyDinoUNetTrainer.build_network(
+            "cpu", trainer.configuration_manager, 1, 3, shard=ModelShard(0, 2))

@@ -1,0 +1,179 @@
+"""Rank bodies for tests/test_torch_parallel.py, run in processes that
+``dinounet_tpu_torch.parallel.launch.spawn`` starts (gloo on the CPU).
+
+This module imports no JAX: a spawned rank imports it afresh, and the JAX
+side of every comparison is computed in the parent pytest process, which
+hands each rank the same numpy-made tensors.
+"""
+
+import os
+
+import torch
+import torch.distributed as dist
+
+from dinounet_tpu_torch.models.dinounet import DinoUNet, DinoUNetConfig
+from dinounet_tpu_torch.models.vit import Block, ViTConfig
+from dinounet_tpu_torch.parallel.mesh import (MODEL_AXIS, init_distributed, make_mesh,
+                                              wrap_data_parallel)
+from dinounet_tpu_torch.parallel.sharding import (ModelShard, dcp_state_dict,
+                                                  shard_state_dict)
+from dinounet_tpu_torch.training.checkpointing import (CHECKPOINT_KEYS, load_checkpoint,
+                                                       save_checkpoint)
+from dinounet_tpu_torch.training.dinounet_trainer import DinoUNetTrainer_7b
+from dinounet_tpu_torch.training.losses import dc_and_ce_loss
+from dinounet_tpu_torch.training.trainer import nnUNetTrainer
+
+
+def _raises(exc, fn, *args, **kwargs) -> bool:
+    try:
+        fn(*args, **kwargs)
+    except exc:
+        return True
+    return False
+
+
+def mesh_checks() -> dict:
+    """The repeated and the conflicting initialisation, and the meshes."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    init_distributed(rank, world, "gloo", device_type="cpu")  # tolerated
+    meshes = {n: tuple(make_mesh(n, "cpu").mesh.shape) for n in (1, world)}
+    return {"repeat_conflict_raises": _raises(RuntimeError, init_distributed, rank, world,
+                                              "nccl", device_type="cpu"),
+            "indivisible_raises": _raises(ValueError, make_mesh, world + 1, "cpu"),
+            "meshes": meshes}
+
+
+def ddp_steps(device, payload: dict) -> dict:
+    """One train-mode step of the tiny DinoUNet a batch-Dice setting, each
+    rank on its half of the batch through the trainer's data-parallel
+    wrapper: the rank's loss share, the trainable gradients and the updated
+    BatchNorm statistics."""
+    mesh = make_mesh(1, "cpu")
+    data_group = mesh.get_group("data")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    local = payload["image"].shape[0] // world
+    part = slice(rank * local, (rank + 1) * local)
+    out = {}
+    for batch_dice in (False, True):
+        model = DinoUNet(payload["cfg"])
+        model.load_state_dict(payload["state"], strict=True)
+        model.train()
+        ddp = wrap_data_parallel(model, data_group, device)
+        loss = dc_and_ce_loss(ddp(payload["image"][part]), payload["target"][part],
+                              batch_dice=batch_dice, smooth=1e-5, do_bg=False,
+                              reduce_group=data_group)
+        loss.backward()
+        out[batch_dice] = {
+            "loss": float(loss.detach()),
+            "grads": {n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None},
+            "stats": {n: b.clone() for n, b in model.named_buffers()
+                      if n.endswith(("running_mean", "running_var"))}}
+    return out
+
+
+def sharded_block(payload: dict) -> torch.Tensor:
+    """The narrow SwiGLU block built as this rank's shard of a model axis
+    over every rank, fed the full block's weights through
+    ``shard_state_dict``: its output (the whole (B, N, C))."""
+    mesh = make_mesh(dist.get_world_size(), "cpu")
+    shard = ModelShard(dist.get_rank(), dist.get_world_size(), mesh.get_group(MODEL_AXIS))
+    block = Block(payload["block_cfg"], torch.float32, shard)
+    block.load_state_dict(shard_state_dict(payload["block_state"], shard.rank, shard.size))
+    with torch.no_grad():
+        return block(payload["x"], payload["rope"])
+
+
+def dcp_round_trip(payload: dict) -> dict:
+    """A narrow 7B-structured backbone's shards and an optimizer state
+    written as a sharded checkpoint, then read back onto zeroed shards on
+    the same ranks."""
+    n = dist.get_world_size()
+    mesh = make_mesh(n, "cpu")
+    rank = dist.get_rank()
+    full = payload["vit_state"]
+    mine = shard_state_dict(full, rank, n)
+    weights, views = dcp_state_dict(mine, mesh, n)
+    checkpoint = dict.fromkeys(CHECKPOINT_KEYS)
+    checkpoint.update(network_weights=weights, optimizer_state=payload["optimizer_state"],
+                      current_epoch=3, trainer_name="DinoUNetTrainer_7b",
+                      logging={"train_losses": [0.5]})
+    save_checkpoint(checkpoint, payload["directory"], sharded_views=views)
+    fresh = {k: torch.zeros_like(v) for k, v in mine.items()}
+    template, _ = dcp_state_dict(fresh, mesh, n)
+    back = load_checkpoint(payload["directory"], network_template=template)
+    opt = back["optimizer_state"]
+    return {"equal": all(torch.equal(fresh[k], mine[k]) for k in mine),
+            "sharded": sorted(views),
+            "meta": (back["current_epoch"], back["trainer_name"], back["logging"]),
+            "optimizer_equal": opt["param_groups"] == payload["optimizer_state"]["param_groups"]
+            and all(torch.equal(opt["state"][i]["momentum_buffer"], e["momentum_buffer"])
+                    for i, e in payload["optimizer_state"]["state"].items())}
+
+
+def parallel_checks(device, payload: dict) -> dict:
+    """Everything the test file holds on two ranks, in one spawn."""
+    torch.set_num_threads(1)
+    return {"mesh": mesh_checks(), "ddp": ddp_steps(device, payload),
+            "block": sharded_block(payload), "dcp": dcp_round_trip(payload)}
+
+
+class TinyParallelTrainer(nnUNetTrainer):
+    """The plans' plain network (deep supervision on), 1 epoch of 2 steps
+    and 1 validation batch: ``run_training(num_gpus=2, device="cpu")``."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.seed = 0
+        self.num_epochs = 1
+        self.num_iterations_per_epoch = 2
+        self.num_val_iterations_per_epoch = 1
+
+
+
+class Tiny7bParallelTrainer(DinoUNetTrainer_7b):
+    """DinoUNetTrainer_7b's build over a depth-4 SwiGLU DinoUNet of the 7B's
+    structure at width 64, 1 epoch of 2 steps and 1 validation batch."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.seed = 0
+        self.num_epochs = 1
+        self.num_iterations_per_epoch = 2
+        self.num_val_iterations_per_epoch = 1
+
+    @classmethod
+    def build_network_architecture(cls, architecture_class_name, arch_init_kwargs,
+                                   arch_init_kwargs_req_import, num_input_channels,
+                                   num_output_channels, enable_deep_supervision=True,
+                                   shard=None):
+        vit = ViTConfig(embed_dim=64, depth=4, num_heads=4, ffn_ratio=2.0,
+                        ffn_layer="swiglu", qkv_bias=False)
+        cfg = DinoUNetConfig(vit=vit, interaction_indexes=(0, 1, 2, 3),
+                             num_classes=num_output_channels,
+                             features_per_stage=(8, 16, 32, 64), fapm_rank=8, conv_inplane=8,
+                             deform_num_heads=2, deep_supervision=enable_deep_supervision)
+        return DinoUNet(cfg, shard=shard)
+
+
+def train_on_model_axis(device, dataset_id) -> dict:
+    """``run_training`` of Tiny7bParallelTrainer in this rank's process group
+    with ``DINOUNET_TPU_MODEL_AXIS=2``; then a fresh trainer reads the
+    sharded checkpoint_final back onto its shards."""
+    from dinounet_tpu_torch.run import get_trainer_from_args, run_training
+    from dinounet_tpu_torch.utilities import registry
+
+    os.environ["DINOUNET_TPU_MODEL_AXIS"] = "2"
+    torch.set_num_threads(2)
+    registry.trainers.add("Tiny7bParallelTrainer", Tiny7bParallelTrainer)
+    trainer = run_training(dataset_id, "2d", 0, "Tiny7bParallelTrainer", num_gpus=2,
+                           device=device)
+    final = os.path.join(trainer.output_folder, "checkpoint_final.pth")
+    fresh = get_trainer_from_args(dataset_id, "2d", 0, "Tiny7bParallelTrainer",
+                                  device=device)
+    fresh.load_checkpoint(final)
+    trained = trainer.network.state_dict()
+    return {"output_folder": trainer.output_folder, "epoch": fresh.current_epoch,
+            "shards": {k: tuple(v.shape) for k, v in trained.items()},
+            "resumed_equal": all(torch.equal(v, trained[k])
+                                 for k, v in fresh.network.state_dict().items())}
