@@ -12,7 +12,10 @@ not 0:
               qkv_q8_dmaj.cu) and of the 3x3 conv's four Cout instances
               (conv3x3_stats.cu) from ptxas.log.
 2. kernels -- each of the 17 kernels against its plain PyTorch version on
-              the card, at the shapes the dinounet_b tile forward gives it
+              the card (and the row-parallel mode of #3 and #4 and the
+              post-reduce pass at a model-axis rank's dinounet_b shapes: K
+              384 and 1536, the pass's output bit for bit), at the shapes
+              the dinounet_b tile forward gives it
               (tile batch 8; the MSDA backward at the train step's batch 2;
               the prepped-input MSDA forward also over two levels) and
               those of dinounet_7b (the row-major attention, also on a
@@ -151,7 +154,16 @@ not 0:
               block at M = 16, each rank's peak; (d) (c)'s shards written as
               a torch.distributed.checkpoint directory, read back onto both
               ranks' shards and into one process as whole tensors equal to
-              the whole backbone. The ranks' launches join the phase's.
+              the whole backbone; (e) dinounet_b's ViT-B at full width and
+              depth in bf16 split over the model axis of 2 (6 of 12 heads a
+              rank) on TILE_BATCH tiles, against the whole backbone within
+              PARALLEL_B_BOUND, each block running #2 at M = 6, the
+              row-parallel mode of #3 and #4 and the post-reduce pass
+              (PER_FORWARD_B_SPLIT), each rank's peak; (f) one
+              DinoUNetTrainer_b step with DINOUNET_TPU_MODEL_AXIS=2 (the
+              global batch of 4 on both ranks) against one process at batch
+              4 within the train-parity bounds, its launches
+              PER_TRAIN_STEP_B_SPLIT. The ranks' launches join the phase's.
 10. pipeline -- the path from raw files to segmentation files. A raw NIfTI
               dataset (RAW_DATASET: RAW_TRAIN labelled and RAW_TEST test
               cases of one 800 x 800 slice at 0.8 mm, the disk and ring
@@ -267,6 +279,21 @@ not 0:
               (DINOUNET_TPU_SW_ACCUM_BUDGET_BYTES=0) against on the card
               within HOST_ACCUM_RTOL. Step ms, peak memory, seconds a case
               for information.
+15b. datasets -- the new-style dataset backends on unet_3d's preprocessed
+              3d_fullres folder: its cases converted to a .b2nd folder
+              (nnUNetDatasetBlosc2.save_case with comp_blosc2_params at the
+              plan's patch; python-blosc2 where installed, else the in-tree
+              engine, zstd where zstandard imports, else zlib),
+              infer_dataset_class on both folders, nnUNetDataLoader over each
+              backend from one seed at the plan's patch and batch
+              (DATASETS_BATCHES batches, equal across the backends), then
+              DATASETS_STEPS forward + backward steps of the plan's 3-D
+              PlainConvUNet on them on the card (finite losses, no launch);
+              and a previous stage's CASCADE_SIZE map read as .npz and as
+              .b2nd with the crop of one CASCADE_CROP^3 patch (equal).
+              Seconds to write a case, bytes on disk against the .npz,
+              load_case ms and ms a batch for each backend, step ms and the
+              map's read ms for information.
 16. resenc_3d -- nnUNetPlannerResEncM on the same set (its 3d_fullres
               reuses the preprocessed data): ResidualEncoderUNet (160^3,
               batch 2), RESENC_STEPS steps with deep supervision; finite
@@ -319,7 +346,7 @@ Then the seconds of each group of phases, the card's name and power limit,
 one JSON line of kernel results (launches: the counts of the serve path,
 each route's, the train paths, the parallel phase's (its processes' too),
 the pipeline, the api, pretrained, regions,
-train_7b, unet_3d, resenc_3d, unet_2d and cascade phases), and as the last
+train_7b, unet_3d, datasets, resenc_3d, unet_2d and cascade phases), and as the last
 line {"ok": true, "device": {...}}. Without a CUDA device the
 script raises before printing any result.
 """
@@ -373,10 +400,14 @@ from dinounet_tpu_torch.ops.dense_q8 import (CACHE_ATTR, dense_cm_q8_residual_st
                                              dense_q8_residual_stats_plain, qkv_q8_dmaj,
                                              qkv_q8_dmaj_plain, quantize_act_tokens,
                                              quantize_weight_dk, quantized_weight)
-from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
+from dinounet_tpu_torch.ops.dense_stats import (dense_cm_partial, dense_cm_partial_plain,
+                                                dense_cm_residual_stats,
                                                 dense_cm_residual_stats_plain,
+                                                dense_partial_plain, dense_residual_partial,
                                                 dense_residual_stats,
-                                                dense_residual_stats_plain)
+                                                dense_residual_stats_plain,
+                                                post_reduce_residual_stats,
+                                                post_reduce_residual_stats_plain)
 from dinounet_tpu_torch.ops.kernel_check import (KERNEL_TOLERANCES, STATS_TOLERANCE,
                                                  max_abs_err, max_excess, median_ms)
 from dinounet_tpu_torch.ops.msda import (ms_deform_attn_premapped_backward_plain,
@@ -434,7 +465,10 @@ PER_FORWARD = {"rope_attention": 12, "rope_attention_rm": 0, "rope_attention_ndh
                "dense_cm_stats": 18, "dense_rm_stats": 18, "msda_fwd": 6,
                "msda_fwd_premapped": 0, "msda_fwd_merged": 0, "msda_bwd": 0,
                "conv3x3_cm": 0, "transpconv2x2_cm": 0, "seg_head_cm": 0, "conv3x3_hwbc": 0,
-               **dict.fromkeys(INT8_KERNELS, 0)}
+               **dict.fromkeys(INT8_KERNELS, 0),
+               # the row-parallel mode of #3 / #4 and the post-reduce pass run
+               # only on a model axis (the parallel phase)
+               "dense_cm_partial": 0, "dense_rm_partial": 0, "post_reduce_stats": 0}
 # the routes, as environment settings, and the launches per tile-batch
 # forward each sets (the others keep PER_FORWARD's). serve_cm: conv3x3_cm 2
 # per decoder stage at 128^2, 256^2, 512^2 and the 2 SPM stem convs at 256^2;
@@ -577,6 +611,15 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                        "dinounet_tpu/ops/dense_q8_pallas.py:109"),
     "dense_cm_q8_stats": ("dinounet_tpu_torch/csrc/dense_q8.cu",
                           "dinounet_tpu/ops/dense_q8_pallas.py:130"),
+    # the row-parallel mode of #3 and #4 (the rank's fp32 product on its K
+    # columns), and the post-reduce pass that finishes their epilogue after
+    # the all-reduce: a port-side kernel under the same TPU kernels
+    "dense_cm_partial": ("dinounet_tpu_torch/csrc/dense_stats.cu",
+                         "dinounet_tpu/ops/dense_stats_pallas.py:241"),
+    "dense_rm_partial": ("dinounet_tpu_torch/csrc/dense_stats.cu",
+                         "dinounet_tpu/ops/dense_stats_pallas.py:71"),
+    "post_reduce_stats": ("dinounet_tpu_torch/csrc/dense_stats.cu",
+                          "dinounet_tpu/ops/dense_stats_pallas.py:241"),
 }
 # the unet_3d and resenc_3d phases: a raw 3-D NIfTI set of UNET3D_TRAIN
 # labelled and UNET3D_TEST test cases of UNET3D_SIZE voxels at 1 mm (a sphere
@@ -1063,6 +1106,45 @@ def phase_kernels(dev) -> dict:
         if D != D7:
             results.setdefault(name, r)
         del h, w, res
+
+    # the row-parallel mode at a model-axis rank's shapes (dinounet_b's ViT-B
+    # split over 2: the attention projection's K = 384 of 768, channel-major,
+    # and fc2's K = 1536 of 3072 with the GELU), the fp32 product only; then
+    # the post-reduce pass on the summed (B, N, 768) product. Library: the
+    # cuBLAS GEMM alone at the rank's K; none for the post-reduce pass
+    for K, cm, where in ((384, True, "split vit proj"), (1536, False, "split vit fc2 +GELU")):
+        N, D = 1029, 768
+        h = randn(B, K, N).to(bf) if cm else randn(B, N, K).to(bf)
+        w = randn(D, K, scale=K ** -0.5).t()
+        wb, hl = w.to(bf), (h.transpose(1, 2) if cm else h)
+        name = "dense_cm_partial" if cm else "dense_rm_partial"
+        if cm:
+            kernel_fn = lambda: dense_cm_partial(h, w)
+            plain_fn = lambda: dense_cm_partial_plain(h, w)
+        else:
+            kernel_fn = lambda: dense_residual_partial(h, w, apply_gelu=True)
+            plain_fn = lambda: dense_partial_plain(h, w, True)
+        flops = 2.0 * B * N * K * D
+        desc = f"{where} K={K} N={N} D={D} (a rank of 2)"
+        r = _compare(name, desc, kernel_fn, plain_fn, (h, w), flops, BF16_FLOP_S,
+                     lambda: torch.matmul(hl, wb))
+        log_dense(name, desc, r, kernel_fn, flops, _nbytes(h, w) + B * N * D * 4)
+        results[name] = r
+        del h, w
+    N, D = 1029, 768
+    acc, b = randn(B, N, D), randn(D, scale=0.1)
+    res, gamma = randn(B, N, D).to(bf), randn(D, scale=0.5)
+    post_fn = lambda: post_reduce_residual_stats(acc, b, res, gamma)
+    r = _compare("post_reduce_stats", f"(B, N, D) = ({B}, {N}, {D}), the summed fp32 product",
+                 post_fn, lambda: post_reduce_residual_stats_plain(acc, b, res, gamma),
+                 (acc, b, res, gamma), 6.0 * B * N * D, FP32_FLOP_S, exact=True)
+    nbytes = _nbytes(acc, b, res, gamma) + B * N * (2 * D + 8)
+    busy = sum(device_times(post_fn).values())
+    log(f"[kernels] post_reduce_stats: {nbytes / r['ms'] / 1e6:.1f} GB/s by event time "
+        f"({r['ms']:.4f} ms), device time {busy:.4f} ms = {nbytes / busy / 1e6:.1f} GB/s "
+        f"({100 * r['bound_ms'] / busy:.1f} % of the bound's rate)")
+    results["post_reduce_stats"] = r
+    del acc, res
 
     # MSDA: 16 heads over the 32 x 32 ViT grid, 5376 queries around the
     # adapter's reference grid, 4 points: 24 channels a head (dinounet_b),
@@ -1950,6 +2032,19 @@ PARALLEL_STEPS, PARALLEL_7B_DEPTH, PARALLEL_7B_BOUND = 3, 2, 0.05
 # the split backbone's forward: the row-major attention a block, on the
 # rank's 16 of 32 heads (its dense layers are cuBLAS GEMMs)
 PER_FORWARD_7B_SPLIT = {**dict.fromkeys(PER_FORWARD, 0), "rope_attention_rm": PARALLEL_7B_DEPTH}
+# (e) dinounet_b's ViT-B (12 blocks) split over a model axis of 2 on a tile
+# batch of TILE_BATCH, held to PARALLEL_B_BOUND against the whole backbone:
+# a block runs #2 on the rank's 6 of 12 heads, the row-parallel #3 (the
+# attention projection) and #4 (fc2 with the GELU), and the post-reduce pass
+# after each of the two all-reduces
+PARALLEL_B_BOUND = PARITY_BOUND
+PER_FORWARD_B_SPLIT = {**dict.fromkeys(PER_FORWARD, 0), "rope_attention": 12,
+                       "dense_cm_partial": 12, "dense_rm_partial": 12, "post_reduce_stats": 24}
+# (f) a DinoUNetTrainer_b step on that model axis: the frozen backbone's
+# blocks split as in (e), the adapter's MSDA as in PER_TRAIN_STEP
+PER_TRAIN_STEP_B_SPLIT = {**PER_TRAIN_STEP, "dense_cm_stats": 0, "dense_rm_stats": 0,
+                          "dense_cm_partial": 12, "dense_rm_partial": 12,
+                          "post_reduce_stats": 24}
 
 
 def _step_grads(trainer, x, seg):
@@ -1981,14 +2076,15 @@ def _timed_steps(trainer, x, seg, n: int) -> list:
     return out
 
 
-def _vit7b(dev, shard=None, seed: int = 0):
-    """The ViT-7B at depth PARALLEL_7B_DEPTH, built on the card (as a model
-    axis rank's shard with `shard`), weights drawn there in fp32 from `seed`
-    and held in bf16, LayerScale INT8_LAYERSCALE."""
+def _vit7b(dev, shard=None, seed: int = 0, name: str = "dinov3_vit7b16",
+           depth: int = PARALLEL_7B_DEPTH):
+    """The ViT-7B (or the backbone `name`) at `depth`, built on the card (as
+    a model axis rank's shard with `shard`), weights drawn there in fp32
+    from `seed` and held in bf16, LayerScale INT8_LAYERSCALE."""
     from dinounet_tpu_torch.models.layers import init_module
     from dinounet_tpu_torch.models.vit import DinoViT
 
-    cfg = dataclasses.replace(VIT_CONFIGS["dinov3_vit7b16"], depth=PARALLEL_7B_DEPTH)
+    cfg = dataclasses.replace(VIT_CONFIGS[name], depth=depth)
     with torch.device(dev):
         vit = DinoViT(cfg, shard=shard)
     if shard is None:
@@ -2001,15 +2097,60 @@ def _vit7b(dev, shard=None, seed: int = 0):
     return vit.eval().requires_grad_(False)
 
 
+def _split_backbone(dev, shard, name: str, depth: int, tile, patched: str) -> dict:
+    """The backbone `name` at `depth`, whole and split over the model axis of
+    `shard` (the shards loaded from the whole one's state), on `tile`: the
+    relative L2 of the split's outputs against the whole one's (every
+    block's), the head counts the attention op `patched` of models/vit.py
+    was called with, the split forward's launches and peak, and the shapes
+    of block 0's shards."""
+    from dinounet_tpu_torch.models import vit as vit_module
+    from dinounet_tpu_torch.parallel.sharding import shard_state_dict
+
+    whole = _vit7b(dev, name=name, depth=depth)
+    state = {k: v.clone() for k, v in
+             shard_state_dict(whole.state_dict(), shard.rank, shard.size).items()}
+    take = tuple(range(depth))
+    with torch.no_grad():
+        want = [t.float() for t, _ in whole(tile, take)]
+    del whole
+    torch.cuda.empty_cache()
+    split = _vit7b(dev, shard, name=name, depth=depth)
+    split.load_state_dict(state)
+    heads = []
+    attention = getattr(vit_module, patched)
+    head_dim = 3 if patched == "fused_rope_attention" else 2  # (B, N, 3, M, Dh) / (B, 3, M, ...)
+
+    def recording(qkv, sin, cos):
+        heads.append(qkv.shape[head_dim])
+        return attention(qkv, sin, cos)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    setattr(vit_module, patched, recording)
+    try:
+        with torch.no_grad():
+            got = [t.float() for t, _ in split(tile, take)]
+        torch.cuda.synchronize()
+    finally:
+        setattr(vit_module, patched, attention)
+    return {"split": split, "rel_l2": [rel_l2(g, w) for g, w in zip(got, want)],
+            "heads": heads, "launches": _build.launch_counts(),
+            "peak": torch.cuda.max_memory_allocated(dev),
+            "held": {k: tuple(v.shape) for k, v in state.items() if "blocks.0." in k}}
+
+
 def _parallel_rank(dev, data: np.ndarray, seg: np.ndarray, directory: str) -> dict:
     """One of two ranks on the card under gloo: (b) DinoUNetTrainer_b's
     data-parallel step on its half of the global batch; (c) the 7B backbone
     split over a model axis of 2, against the whole backbone; (d) its
-    shards' sharded checkpoint written and read back."""
-    from dinounet_tpu_torch.models import vit as vit_module
+    shards' sharded checkpoint written and read back; (e) dinounet_b's ViT-B
+    split over the model axis against the whole one; (f) one
+    DinoUNetTrainer_b step on the model axis (the global batch on both
+    ranks)."""
     from dinounet_tpu_torch.parallel.mesh import MODEL_AXIS, make_mesh
-    from dinounet_tpu_torch.parallel.sharding import (ModelShard, dcp_state_dict,
-                                                      shard_state_dict)
+    from dinounet_tpu_torch.parallel.sharding import ModelShard, dcp_state_dict
     from dinounet_tpu_torch.training.checkpointing import (CHECKPOINT_KEYS,
                                                            load_checkpoint,
                                                            save_checkpoint)
@@ -2037,39 +2178,11 @@ def _parallel_rank(dev, data: np.ndarray, seg: np.ndarray, directory: str) -> di
 
     mesh = make_mesh(2, dev.type)
     shard = ModelShard(rank % 2, 2, mesh.get_group(MODEL_AXIS))
-    whole = _vit7b(dev)
-    state = {k: v.clone() for k, v in
-             shard_state_dict(whole.state_dict(), shard.rank, shard.size).items()}
     tile = torch.randn((2, 3, PATCH, PATCH), generator=torch.Generator(device=dev).manual_seed(1),
                        device=dev)
-    take = tuple(range(PARALLEL_7B_DEPTH))
-    with torch.no_grad():
-        want = [t.float() for t, _ in whole(tile, take)]
-    del whole
-    torch.cuda.empty_cache()
-    split = _vit7b(dev, shard)
-    split.load_state_dict(state)
-    heads = []
-    attention = vit_module.fused_rope_attention
-
-    def recording(qkv, sin, cos):
-        heads.append(qkv.shape[3])
-        return attention(qkv, sin, cos)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    _build.reset_launch_counts()
-    vit_module.fused_rope_attention = recording
-    try:
-        with torch.no_grad():
-            got = [t.float() for t, _ in split(tile, take)]
-        torch.cuda.synchronize()
-    finally:
-        vit_module.fused_rope_attention = attention
-    out["c"] = {"rel_l2": [rel_l2(g, w) for g, w in zip(got, want)], "heads": heads,
-                "launches": _build.launch_counts(),
-                "peak": torch.cuda.max_memory_allocated(dev),
-                "held": {k: tuple(v.shape) for k, v in state.items() if "blocks.0." in k}}
+    out["c"] = _split_backbone(dev, shard, "dinov3_vit7b16", PARALLEL_7B_DEPTH, tile,
+                               "fused_rope_attention")
+    split = out["c"].pop("split")
 
     weights, views = dcp_state_dict(split.state_dict(), mesh, 2)
     checkpoint = dict.fromkeys(CHECKPOINT_KEYS)
@@ -2085,13 +2198,42 @@ def _parallel_rank(dev, data: np.ndarray, seg: np.ndarray, directory: str) -> di
     torch.cuda.synchronize()
     out["d"] = {"equal": all(torch.equal(fresh[k], v) for k, v in split.state_dict().items()),
                 "save_s": save_s, "load_s": time.perf_counter() - t0}
+    del split, fresh, template, weights, checkpoint
+    torch.cuda.empty_cache()
+
+    tiles = torch.randn((TILE_BATCH, 3, PATCH, PATCH),
+                        generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    out["e"] = _split_backbone(dev, shard, "dinov3_vitb16",
+                               VIT_CONFIGS["dinov3_vitb16"].depth, tiles,
+                               "fused_rope_attention_premapped_dmaj")
+    del out["e"]["split"], tiles
+    torch.cuda.empty_cache()
+
+    os.environ["DINOUNET_TPU_MODEL_AXIS"] = "2"
+    try:
+        trainer = get_trainer_from_args(TRAIN_DATASET, "2d", 0, "DinoUNetTrainer_b",
+                                        device=dev)
+        trainer.seed = 0
+        trainer.initialize()
+    finally:
+        del os.environ["DINOUNET_TPU_MODEL_AXIS"]
+    x = torch.from_numpy(data).to(dev)
+    y = torch.from_numpy(seg).to(dev).long()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    loss, grads = _step_grads(trainer, x, y)
+    torch.cuda.synchronize()
+    out["f"] = {"loss": loss, "grads": grads if rank == 0 else None,
+                "axes": (trainer.n_data, trainer.n_model),
+                "launches": _build.launch_counts(),
+                "peak": torch.cuda.max_memory_allocated(dev)}
     return out
 
 
 def phase_parallel(dev) -> dict:
     """(a) world size 1 through NCCL: PARALLEL_STEPS DinoUNetTrainer_b steps
     on the data-parallel path against the plain trainer's on the same seed
-    and batches; (b)-(d) two ranks on the one card through gloo
+    and batches; (b)-(f) two ranks on the one card through gloo
     (``_parallel_rank``). Launches: (a)'s steps and the ranks' own."""
     from dinounet_tpu_torch.parallel.launch import spawn
     from dinounet_tpu_torch.parallel.mesh import init_distributed
@@ -2159,8 +2301,9 @@ def phase_parallel(dev) -> dict:
         names = sorted(ref_grads)
         msda = [n for n in names if ".attn." in n and "dinov3_adapter.interactions" in n]
 
-        def rel(names):
-            g = torch.cat([b[0]["grads"][n] for n in names])
+        def rel(names, grads=b[0]["grads"]):
+            """The relative L2 of `grads` against one process's over `names`."""
+            g = torch.cat([grads[n] for n in names])
             w = torch.cat([ref_grads[n] for n in names])
             return float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
 
@@ -2224,7 +2367,54 @@ def phase_parallel(dev) -> dict:
             f"backbone: {same}")
         if not (same and all(r["equal"] for r in d)):
             raise AssertionError("parallel (d): the sharded checkpoint did not round-trip")
-    for r in b + c:
+
+        e = [r["e"] for r in ranks]
+        heads_b = VIT_CONFIGS["dinov3_vitb16"].num_heads // 2
+        log(f"[parallel] (e) dinounet_b's ViT-B (768 wide, 12 heads, fc 3072, 12 blocks, "
+            f"bf16) split over a model axis of 2 (gloo) on {TILE_BATCH} tiles of {PATCH}^2: "
+            f"rank 0 holds {e[0]['held']}; every block's output against the whole "
+            f"backbone, relative L2 largest {[round(max(r['rel_l2']), 6) for r in e]} "
+            f"(bound {PARALLEL_B_BOUND}); kernel #2 (rope_attention) launched "
+            f"{[r['launches']['rope_attention'] for r in e]} times at M = "
+            f"{sorted({m for r in e for m in r['heads']})}, the row-parallel #3 / #4 "
+            f"{[r['launches']['dense_cm_partial'] for r in e]} / "
+            f"{[r['launches']['dense_rm_partial'] for r in e]}, the post-reduce pass "
+            f"{[r['launches']['post_reduce_stats'] for r in e]} a rank; peak "
+            f"{e[0]['peak'] / 2**30:.2f} / {e[1]['peak'] / 2**30:.2f} GiB on ranks 0 / 1 "
+            f"(the modes' times at the rank's K: the [kernels] rows dense_cm_partial, "
+            f"dense_rm_partial, post_reduce_stats)")
+        for r in e:
+            if not max(r["rel_l2"]) <= PARALLEL_B_BOUND:
+                raise AssertionError(f"parallel (e): relative L2 {r['rel_l2']}")
+            if r["heads"] != [heads_b] * VIT_CONFIGS["dinov3_vitb16"].depth:
+                raise AssertionError(f"parallel (e): attention heads {r['heads']}")
+            if r["launches"] != PER_FORWARD_B_SPLIT:
+                raise AssertionError(f"parallel (e): launches {r['launches']}, want "
+                                     f"{PER_FORWARD_B_SPLIT}")
+
+        f = [r["f"] for r in ranks]
+        grad_f, msda_f = rel(names, f[0]["grads"]), rel(msda, f[0]["grads"])
+        loss_f = max(abs(r["loss"] - ref_loss) / abs(ref_loss) for r in f)
+        log(f"[parallel] (f) DinoUNetTrainer_b on a model axis of 2 (data axis "
+            f"{f[0]['axes'][0]}, model axis {f[0]['axes'][1]}: the global batch of 4 on both "
+            f"ranks, the backbone's blocks split as in (e)): one step against one process "
+            f"at batch 4: loss {[round(r['loss'], 5) for r in f]} vs {ref_loss:.5f} (rel "
+            f"{loss_f:.3e}, bound {TRAIN_LOSS_BOUND}); relative L2 of the trainable "
+            f"gradients {grad_f:.4e} (bound {TRAIN_GRAD_BOUND}), of the MSDA projections' "
+            f"{msda_f:.4e} (bound {TRAIN_MSDA_GRAD_BOUND}); peak "
+            f"{f[0]['peak'] / 2**30:.2f} / {f[1]['peak'] / 2**30:.2f} GiB; launches "
+            f"{f[0]['launches']}")
+        if f[0]["axes"] != (1, 2):
+            raise AssertionError(f"parallel (f): the trainer's axes {f[0]['axes']}")
+        if not (loss_f <= TRAIN_LOSS_BOUND and grad_f <= TRAIN_GRAD_BOUND
+                and msda_f <= TRAIN_MSDA_GRAD_BOUND):
+            raise AssertionError(f"parallel (f): loss {loss_f}, gradients {grad_f}, "
+                                 f"MSDA projections {msda_f}")
+        for r in f:
+            if r["launches"] != PER_TRAIN_STEP_B_SPLIT:
+                raise AssertionError(f"parallel (f): launches {r['launches']}, want "
+                                     f"{PER_TRAIN_STEP_B_SPLIT}")
+    for r in b + c + e + f:
         for k, n in r["launches"].items():
             counts[k] += n
     return counts
@@ -3040,6 +3230,185 @@ def phase_unet_3d(dev, root: str) -> dict:
     return counts
 
 
+# the datasets phase: DATASETS_BATCHES batches of the new-style loader over
+# each backend (the plan's patch and batch), DATASETS_STEPS forward + backward
+# steps of the plan's 3-D PlainConvUNet on them; a previous stage's
+# CASCADE_SIZE map read as .npz and as .b2nd with the crop of one
+# CASCADE_CROP^3 patch, DATASETS_READS times each
+DATASETS_BATCHES, DATASETS_STEPS, DATASETS_READS = 4, 3, 3
+
+
+def phase_datasets(dev, root: str) -> dict:
+    """The new-style dataset backends and loader on the unet_3d phase's
+    preprocessed 3d_fullres cases: the folder converted to .b2nd with
+    comp_blosc2_params at the plan's patch, infer_dataset_class on both
+    folders, nnUNetDataLoader over each backend from one seed (equal
+    batches), then DATASETS_STEPS train steps of the plan's network on the
+    card; and a previous stage's 256^3 map read as .npz and as .b2nd, with
+    the crop of one 128^3 patch (a measurement only: no trainer reads
+    .b2nd)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dinounet_tpu_torch.compression import blosc1_chunk
+    from dinounet_tpu_torch.training import nnunet_dataset
+    from dinounet_tpu_torch.training.data_loader import crop_and_pad_nd, nnUNetDataLoader
+    from dinounet_tpu_torch.training.nnunet_dataset import (comp_blosc2_params,
+                                                            infer_dataset_class,
+                                                            nnUNetDatasetBlosc2,
+                                                            nnUNetDatasetNumpy)
+
+    _build.reset_launch_counts()
+    try:  # without zstandard installed the files are zlib-coded
+        blosc1_chunk._zstandard()
+        codec = nnunet_dataset.blosc2.Codec.ZSTD
+    except RuntimeError:
+        codec = nnunet_dataset.blosc2.Codec.ZLIB
+    pre = os.path.join(os.environ["nnUNet_preprocessed"], UNET3D_DATASET)
+    plans = PlansManager(json.load(open(os.path.join(pre, "nnUNetPlans.json"))))
+    cm = plans.get_configuration("3d_fullres")
+    labels = plans.get_label_manager(json.load(open(os.path.join(pre, "dataset.json"))))
+    patch, batch = tuple(cm.patch_size), cm.batch_size
+    npz_dir = os.path.join(pre, cm.data_identifier)
+    b2nd_dir = os.path.join(root, "b2nd_3d_fullres")
+    os.makedirs(b2nd_dir)
+    numpy_ds = nnUNetDatasetNumpy(npz_dir)
+    if infer_dataset_class(npz_dir) is not nnUNetDatasetNumpy:
+        raise AssertionError(f"datasets: {npz_dir} inferred as {infer_dataset_class(npz_dir)}")
+
+    def convert(key):
+        data, seg, _, props = numpy_ds.load_case(key)
+        data, seg = np.asarray(data), np.asarray(seg)
+        blocks, chunks = comp_blosc2_params(data.shape, patch, data.itemsize)
+        blocks_seg, chunks_seg = comp_blosc2_params(seg.shape, patch, seg.itemsize)
+        t0 = time.perf_counter()
+        nnUNetDatasetBlosc2.save_case(data, seg, props, os.path.join(b2nd_dir, key),
+                                      chunks=chunks, blocks=blocks, chunks_seg=chunks_seg,
+                                      blocks_seg=blocks_seg, codec=codec)
+        return time.perf_counter() - t0, blocks, chunks, data.shape
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as pool:
+        written = list(pool.map(convert, numpy_ds.keys()))
+    convert_s = time.perf_counter() - t0
+    if infer_dataset_class(b2nd_dir) is not nnUNetDatasetBlosc2:
+        raise AssertionError(f"datasets: {b2nd_dir} inferred as {infer_dataset_class(b2nd_dir)}")
+
+    def size(folder, endings):
+        return sum(os.path.getsize(os.path.join(folder, f)) for f in os.listdir(folder)
+                   if f.endswith(endings))
+
+    npz_bytes, b2nd_bytes = size(npz_dir, ".npz"), size(b2nd_dir, ".b2nd")
+    backends = {"numpy": numpy_ds, "blosc2": nnUNetDatasetBlosc2(b2nd_dir)}
+    batches, timing = {}, {}
+    for name, ds in backends.items():
+        key = ds.keys()[0]
+        load_ms = []
+        for _ in range(DATASETS_READS):
+            t0 = time.perf_counter()
+            data, seg, _, props = ds.load_case(key)
+            crop = [[0, p] for p in patch]
+            np.asarray(crop_and_pad_nd(data, crop)), np.asarray(crop_and_pad_nd(seg, crop))
+            load_ms.append((time.perf_counter() - t0) * 1e3)
+        loader = nnUNetDataLoader(ds, batch, patch, patch, labels,
+                                  oversample_foreground_percent=0.33, seed=0)
+        batch_ms, batches[name] = [], []
+        for _ in range(DATASETS_BATCHES):
+            t0 = time.perf_counter()
+            batches[name].append(next(loader))
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+        timing[name] = (load_ms, batch_ms)
+    for a, b in zip(batches["numpy"], batches["blosc2"]):
+        if not (list(a["keys"]) == list(b["keys"]) and np.array_equal(a["data"], b["data"])
+                and np.array_equal(a["target"], b["target"])):
+            raise AssertionError("datasets: the two backends' batches differ")
+
+    network = nnUNetTrainer.build_network(dev, cm, 1, labels.num_segmentation_heads,
+                                          False, seed=0)
+    network.train()
+    optimizer = sgd_nesterov(network.parameters(), 1e-2, 3e-5)
+    losses, step_ms = [], []
+    for i in range(DATASETS_STEPS):
+        b = batches["blosc2"][i % DATASETS_BATCHES]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = torch.from_numpy(b["data"]).to(dev, non_blocking=True)
+        y = torch.from_numpy(np.maximum(b["target"][:, 0], 0)).to(dev).long()
+        optimizer.zero_grad(set_to_none=True)
+        loss = dc_and_ce_loss(network(x), y, batch_dice=True, smooth=1e-5, do_bg=False)
+        loss.backward()
+        clip_and_step(optimizer, 12.0)
+        losses.append(float(loss.detach()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"datasets: losses {losses}")
+    del network, optimizer
+    torch.cuda.empty_cache()
+
+    # a previous stage's map of CASCADE_SIZE: the sphere and shell labels
+    grid = np.stack(np.meshgrid(*[np.arange(n) - n / 2 for n in CASCADE_SIZE],
+                                indexing="ij"))
+    r = np.sqrt((grid.astype(np.float32) ** 2).sum(0))
+    prev = np.where(r < 60, 2, np.where(r < 90, 1, 0)).astype(np.int8)
+    del grid, r
+    prev_np, prev_b2 = os.path.join(root, "prev_npz"), os.path.join(root, "prev_b2nd")
+    os.makedirs(prev_np), os.makedirs(prev_b2)
+    blocks_prev, chunks_prev = comp_blosc2_params((1,) + CASCADE_SIZE, (CASCADE_CROP,) * 3, 1)
+    t0 = time.perf_counter()
+    nnUNetDatasetNumpy.save_seg(prev, os.path.join(prev_np, "case"))
+    npz_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nnunet_dataset.blosc2.asarray(prev, urlpath=os.path.join(prev_b2, "case.b2nd"),
+                                  chunks=chunks_prev[1:], blocks=blocks_prev[1:],
+                                  cparams={"codec": codec, "clevel": 8})
+    b2nd_write_s = time.perf_counter() - t0
+    lo = (np.array(CASCADE_SIZE) - CASCADE_CROP) // 3
+    bbox = [[int(a), int(a) + CASCADE_CROP] for a in lo]
+    want = prev[tuple(slice(a, b) for a, b in bbox)]
+    reads = {}
+    for name, read in (("npz", lambda: np.load(os.path.join(prev_np, "case.npz"))["seg"]),
+                       ("b2nd", lambda: nnUNetDatasetBlosc2._open(
+                           os.path.join(prev_b2, "case.b2nd")))):
+        ms = []
+        for _ in range(DATASETS_READS):
+            t0 = time.perf_counter()
+            got = np.asarray(crop_and_pad_nd(read(), bbox, -1))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"datasets: the {name} map's crop differs")
+        reads[name] = ms
+    counts = _build.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"datasets: the 3-D path runs stock convs, launches {counts}")
+
+    def med(ms):
+        return float(np.median(ms))
+
+    write_s = [w[0] for w in written]
+    log(f"[datasets] {len(written)} preprocessed 3d_fullres cases {written[0][3]} converted "
+        f"to .b2nd ({nnunet_dataset._BLOSC2_IMPL}, codec {codec.name}, blocks "
+        f"{written[0][1]}, chunks {written[0][2]} at the plan's patch {patch}) in "
+        f"{convert_s:.2f} s, {np.mean(write_s):.2f} s a case (4 threads); "
+        f"{b2nd_bytes / 1e6:.1f} MB of .b2nd against {npz_bytes / 1e6:.1f} MB of .npz; "
+        f"infer_dataset_class: {type(numpy_ds).__name__} / nnUNetDatasetBlosc2")
+    log(f"[datasets] {card_line()}: load_case + one {patch} crop, median of "
+        f"{DATASETS_READS}: numpy (the unpacked .npy, mapped) {med(timing['numpy'][0]):.1f} ms, "
+        f"blosc2 {med(timing['blosc2'][0]):.1f} ms; nnUNetDataLoader (batch {batch}, seed 0) "
+        f"ms a batch, numpy {[round(v, 1) for v in timing['numpy'][1]]}, blosc2 "
+        f"{[round(v, 1) for v in timing['blosc2'][1]]}: {DATASETS_BATCHES} batches equal "
+        f"across the backends; {DATASETS_STEPS} forward + backward steps of the plan's "
+        f"PlainConvUNet on the blosc2 batches: losses {[round(v, 4) for v in losses]}, "
+        f"ms {[round(v, 1) for v in step_ms]} (upload included)")
+    log(f"[datasets] a previous stage's {CASCADE_SIZE} map: written as .npz in "
+        f"{npz_write_s:.2f} s ({os.path.getsize(os.path.join(prev_np, 'case.npz')) / 1e3:.1f} "
+        f"kB), as .b2nd in {b2nd_write_s:.2f} s "
+        f"({os.path.getsize(os.path.join(prev_b2, 'case.b2nd')) / 1e3:.1f} kB, chunks "
+        f"{chunks_prev[1:]}, blocks {blocks_prev[1:]}); read + the crop of one "
+        f"{CASCADE_CROP}^3 patch, median of {DATASETS_READS}: .npz {med(reads['npz']):.1f} ms "
+        f"(the whole map decompressed), .b2nd {med(reads['b2nd']):.1f} ms (the patch's "
+        f"blocks only); launches {counts}")
+    return counts
+
+
 def _plans_steps(dev, dataset_id, configuration: str, plans_id: str, n_steps: int,
                  tag: str):
     """nnUNetTrainer of the plans on the card: set-up, then `n_steps` train
@@ -3662,10 +4031,13 @@ def main() -> int:
     stamp("api, pretrained, regions, train_7b")
     with tempfile.TemporaryDirectory() as root:
         counts["unet_3d"] = phase_unet_3d(dev, root)
+        stamp("unet_3d")
+        counts["datasets"] = phase_datasets(dev, root)
+        stamp("datasets")
         counts["resenc_3d"] = phase_resenc_3d(dev)
     with tempfile.TemporaryDirectory() as root:
         counts["unet_2d"] = phase_unet_2d(dev, root)
-    stamp("unet_3d, resenc_3d, unet_2d")
+    stamp("resenc_3d, unet_2d")
     with tempfile.TemporaryDirectory() as root:
         counts["cascade"] = phase_cascade(dev, root)
     stamp("cascade")

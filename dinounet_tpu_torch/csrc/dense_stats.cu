@@ -58,6 +58,22 @@
 // (half the blocks: the ViT fc2's 8232 rows fill 65 SMs), and clusters of 2
 // or 4 blocks sharing each weight tile by TMA multicast with the residual
 // in and the output out by TMA; both were slower at the path's shapes.
+//
+// The row-parallel mode (dense_partial), for a backbone block split over a
+// model axis: a rank holds K/n input columns of proj / fc2 and so only a
+// part of each output's sum; the epilogue must follow the all-reduce. The
+// same kernel, instantiated with kPartial, runs the same producer, ring and
+// wgmma loop (#3's channel-major A, #4's GELU pre-pass) and stores the fp32
+// accumulators (B N, D) as they stand, two features a lane as 8-byte
+// stores, and nothing else. After the caller's fp32 all-reduce,
+// post_reduce_stats_kernel finishes the epilogue in one pass over the sum:
+// a warp a row, 4 features a lane a step (16-byte loads of the sum, 8-byte
+// loads of the residual and stores of out), the bias, LayerScale and
+// residual rounded to bf16 at the fused epilogue's points, the row's sums of
+// the stored values and their squares met by shuffles. It moves 8 bytes an
+// element (the sum read, the residual read, out written), the bound of such
+// a pass; a warp a row keeps the rows' sums in registers with no shared
+// memory and no second pass.
 
 #include <math.h>
 #include <string.h>
@@ -182,15 +198,18 @@ struct Args {
   const float* gamma;
   const __nv_bfloat16* res;  // (B N, D)
   __nv_bfloat16* out;        // (B N, D)
+  float* partial;            // (B N, D) fp32: the row-parallel mode's only output
   float* mu;                 // (B N)
   float* var;
   int B, N, K, D;
   int a_tma, w_tma;  // operand through its tensor map, else the producer's loads
   int vec;           // res and out rows start 16-byte aligned
+  int vec2;          // partial rows start 8-byte aligned (D even)
 };
 
-// grid (row tiles, 1) row-major, (token tiles, B) channel-major
-template <bool kCM>
+// grid (row tiles, 1) row-major, (token tiles, B) channel-major; kPartial:
+// the row-parallel mode, the fp32 product stored and no epilogue
+template <bool kCM, bool kPartial>
 __global__ void __launch_bounds__(kThreads, 1)
 dense_stats_kernel(const __grid_constant__ CUtensorMap a_map,
                    const __grid_constant__ CUtensorMap w_map, const Args p) {
@@ -289,69 +308,90 @@ dense_stats_kernel(const __grid_constant__ CUtensorMap a_map,
     fence_regs(acc);
     mbar_arrive(empty + 8 * ((it - 1) % kStages));
 
-    // bias and LayerScale on the accumulators: acc[4 j + 2 h + {0, 1}] is
-    // row ar + 8 h, features 8 j + 2 (lane % 4) + {0, 1} of the warpgroup's 128
+    // acc[4 j + 2 h + {0, 1}] is row ar + 8 h, features 8 j + 2 (lane % 4) +
+    // {0, 1} of the warpgroup's 128
     const int d_base = pass * kCols + 128 * cw;
+    if constexpr (kPartial) {  // the product as it stands
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int c = 8 * j + 2 * (lane % 4);
-      const int d = d_base + c;
-      const float bb0 = d < p.D ? bf16_round(p.bias[d]) : 0.f;
-      const float bb1 = d + 1 < p.D ? bf16_round(p.bias[d + 1]) : 0.f;
-      const float gg0 = d < p.D ? bf16_round(p.gamma[d]) : 0.f;
-      const float gg1 = d + 1 < p.D ? bf16_round(p.gamma[d + 1]) : 0.f;
+      for (int j = 0; j < 16; ++j) {
+        const int d = d_base + 8 * j + 2 * (lane % 4);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float y0 = bf16_round(bf16_round(acc[4 * j + 2 * h]) + bb0);
-        const float y1 = bf16_round(bf16_round(acc[4 * j + 2 * h + 1]) + bb1);
-        *reinterpret_cast<__nv_bfloat162*>(st + (ar + 8 * h) * kLdS + c) =
-            __floats2bfloat162_rn(y0 * gg0, y1 * gg1);
-      }
-    }
-    named_barrier(1 + cw, 128);
-    // + residual, stored; the stored values summed per row. The residual's
-    // 16-byte vectors of all 8 rows are requested before the first is used
-    const int col = d_base + 8 * vq;
-    uint4 rv[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = rq + 8 * i;
-      rv[i] = p.vec && r < rows_valid && col < p.D
-                  ? __ldg(reinterpret_cast<const uint4*>(p.res + (out_row0 + r) * p.D + col))
-                  : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = rq + 8 * i;
-      if (r < rows_valid && col < p.D) {
-        const size_t o = (out_row0 + r) * p.D + col;
-        const uint4 lv = *reinterpret_cast<const uint4*>(st + r * kLdS + 8 * vq);
-        const __nv_bfloat16* l8 = reinterpret_cast<const __nv_bfloat16*>(&lv);
-        if (p.vec) {
-          __nv_bfloat16* r8 = reinterpret_cast<__nv_bfloat16*>(&rv[i]);
-#pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            r8[u] = __float2bfloat16(__bfloat162float(r8[u]) + __bfloat162float(l8[u]));
-            const float f = __bfloat162float(r8[u]);
-            s1[i] += f;
-            s2[i] += f * f;
-          }
-          *reinterpret_cast<uint4*>(p.out + o) = rv[i];
-        } else {
-          for (int u = 0; u < 8 && col + u < p.D; ++u) {
-            const __nv_bfloat16 ov =
-                __float2bfloat16(__bfloat162float(p.res[o + u]) + __bfloat162float(l8[u]));
-            p.out[o + u] = ov;
-            const float f = __bfloat162float(ov);
-            s1[i] += f;
-            s2[i] += f * f;
+        for (int h = 0; h < 2; ++h) {
+          const int r = ar + 8 * h;
+          if (r >= rows_valid || d >= p.D) continue;
+          float* o = p.partial + (out_row0 + r) * p.D + d;
+          if (p.vec2) {
+            *reinterpret_cast<float2*>(o) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          } else {
+            o[0] = acc[4 * j + 2 * h];
+            if (d + 1 < p.D) o[1] = acc[4 * j + 2 * h + 1];
           }
         }
       }
+    } else {  // bias, LayerScale, residual and the rows' sums
+      // bias and LayerScale on the accumulators
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = 8 * j + 2 * (lane % 4);
+        const int d = d_base + c;
+        const float bb0 = d < p.D ? bf16_round(p.bias[d]) : 0.f;
+        const float bb1 = d + 1 < p.D ? bf16_round(p.bias[d + 1]) : 0.f;
+        const float gg0 = d < p.D ? bf16_round(p.gamma[d]) : 0.f;
+        const float gg1 = d + 1 < p.D ? bf16_round(p.gamma[d + 1]) : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float y0 = bf16_round(bf16_round(acc[4 * j + 2 * h]) + bb0);
+          const float y1 = bf16_round(bf16_round(acc[4 * j + 2 * h + 1]) + bb1);
+          *reinterpret_cast<__nv_bfloat162*>(st + (ar + 8 * h) * kLdS + c) =
+              __floats2bfloat162_rn(y0 * gg0, y1 * gg1);
+        }
+      }
+      named_barrier(1 + cw, 128);
+      // + residual, stored; the stored values summed per row. The residual's
+      // 16-byte vectors of all 8 rows are requested before the first is used
+      const int col = d_base + 8 * vq;
+      uint4 rv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = rq + 8 * i;
+        rv[i] = p.vec && r < rows_valid && col < p.D
+                    ? __ldg(reinterpret_cast<const uint4*>(p.res + (out_row0 + r) * p.D + col))
+                    : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = rq + 8 * i;
+        if (r < rows_valid && col < p.D) {
+          const size_t o = (out_row0 + r) * p.D + col;
+          const uint4 lv = *reinterpret_cast<const uint4*>(st + r * kLdS + 8 * vq);
+          const __nv_bfloat16* l8 = reinterpret_cast<const __nv_bfloat16*>(&lv);
+          if (p.vec) {
+            __nv_bfloat16* r8 = reinterpret_cast<__nv_bfloat16*>(&rv[i]);
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+              r8[u] = __float2bfloat16(__bfloat162float(r8[u]) + __bfloat162float(l8[u]));
+              const float f = __bfloat162float(r8[u]);
+              s1[i] += f;
+              s2[i] += f * f;
+            }
+            *reinterpret_cast<uint4*>(p.out + o) = rv[i];
+          } else {
+            for (int u = 0; u < 8 && col + u < p.D; ++u) {
+              const __nv_bfloat16 ov =
+                  __float2bfloat16(__bfloat162float(p.res[o + u]) + __bfloat162float(l8[u]));
+              p.out[o + u] = ov;
+              const float f = __bfloat162float(ov);
+              s1[i] += f;
+              s2[i] += f * f;
+            }
+          }
+        }
+      }
+      named_barrier(1 + cw, 128);  // the staging tile is free for the next pass
     }
-    named_barrier(1 + cw, 128);  // the staging tile is free for the next pass
   }
 
+  if constexpr (kPartial) return;
   // row sums: 16 lanes a row, then the block's two warpgroups
   float* stats = reinterpret_cast<float*>(sbase + kOffStats);  // [2][64 rows][2]
 #pragma unroll
@@ -376,7 +416,7 @@ dense_stats_kernel(const __grid_constant__ CUtensorMap a_map,
   }
 }
 
-template <bool kCM>
+template <bool kCM, bool kPartial>
 int launch(const Args& p, cudaStream_t stream) {
   CUtensorMap a_map, w_map;
   memset(&a_map, 0, sizeof(a_map));
@@ -405,11 +445,79 @@ int launch(const Args& p, cudaStream_t stream) {
     if (err != 0) return err;
   }
   static unsigned long long ready = 0;  // one bit a device
-  const cudaError_t err = set_smem_once(dense_stats_kernel<kCM>, (int)kSmemBytes, &ready);
+  const cudaError_t err =
+      set_smem_once(dense_stats_kernel<kCM, kPartial>, (int)kSmemBytes, &ready);
   if (err != cudaSuccess) return (int)err;
   const int tiles = ((kCM ? p.N : p.B * p.N) + kRows - 1) / kRows;
-  dense_stats_kernel<kCM>
+  dense_stats_kernel<kCM, kPartial>
       <<<dim3(tiles, kCM ? p.B : 1), kThreads, kSmemBytes, stream>>>(a_map, w_map, p);
+  return (int)cudaGetLastError();
+}
+
+// out = bf16(res + bf16(bf16(bf16(acc) + bf16(b)) * bf16(g))), the fused
+// epilogue's roundings
+__device__ __forceinline__ float post_one(float a, float b, float g, float r) {
+  const float y = bf16_round(bf16_round(a) + bf16_round(b));
+  return bf16_round(r + bf16_round(y * bf16_round(g)));
+}
+
+// a warp a row (rows grid-strided): the epilogue of the row-parallel mode on
+// the all-reduced fp32 product, and the stored row's mean and variance
+__global__ void post_reduce_stats_kernel(const float* __restrict__ acc,
+                                         const float* __restrict__ bias,
+                                         const __nv_bfloat16* __restrict__ res,
+                                         const float* __restrict__ gamma,
+                                         __nv_bfloat16* __restrict__ out, float* __restrict__ mu,
+                                         float* __restrict__ var, int rows, int D, int vec) {
+  const int warps = blockDim.x / 32, lane = threadIdx.x % 32;
+  for (int row = blockIdx.x * warps + threadIdx.x / 32; row < rows; row += gridDim.x * warps) {
+    const size_t o = (size_t)row * D;
+    float s1 = 0.f, s2 = 0.f;
+    if (vec) {
+      for (int d = 4 * lane; d < D; d += 128) {
+        const float4 a = __ldg(reinterpret_cast<const float4*>(acc + o + d));
+        const float4 b = __ldg(reinterpret_cast<const float4*>(bias + d));
+        const float4 g = __ldg(reinterpret_cast<const float4*>(gamma + d));
+        uint2 rv = __ldg(reinterpret_cast<const uint2*>(res + o + d));
+        __nv_bfloat16* r4 = reinterpret_cast<__nv_bfloat16*>(&rv);
+        const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+        const float gv[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float f = post_one(av[u], bv[u], gv[u], __bfloat162float(r4[u]));
+          r4[u] = __float2bfloat16(f);
+          s1 += f;
+          s2 += f * f;
+        }
+        *reinterpret_cast<uint2*>(out + o + d) = rv;
+      }
+    } else {
+      for (int d = lane; d < D; d += 32) {
+        const float f = post_one(acc[o + d], bias[d], gamma[d], __bfloat162float(res[o + d]));
+        out[o + d] = __float2bfloat16(f);
+        s1 += f;
+        s2 += f * f;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+    }
+    if (lane == 0) {
+      const float m = s1 / D;
+      mu[row] = m;
+      var[row] = fmaxf(s2 / D - m * m, 0.f);
+    }
+  }
+}
+
+// bf16(gelu(h)) of the B N K elements of h into scratch
+int gelu_prepass(const __nv_bfloat16* h, void* scratch, size_t n, cudaStream_t s) {
+  const int vec = n % 8 == 0 && aligned16(h) && aligned16(scratch);
+  const size_t items = vec ? n / 8 : n;
+  const int blocks = (int)((items + 255) / 256 < 8192 ? (items + 255) / 256 : 8192);
+  gelu_prepass_kernel<<<blocks, 256, 0, s>>>(h, static_cast<__nv_bfloat16*>(scratch), n, vec);
   return (int)cudaGetLastError();
 }
 
@@ -428,16 +536,12 @@ extern "C" int dense_residual_stats(const void* h, const void* wt, const void* b
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(h);
   if (gelu) {
-    const size_t n = (size_t)B * N * K;
-    const int vec = n % 8 == 0 && aligned16(h) && aligned16(scratch);
-    const size_t items = vec ? n / 8 : n;
-    const int blocks = (int)((items + 255) / 256 < 8192 ? (items + 255) / 256 : 8192);
-    gelu_prepass_kernel<<<blocks, 256, 0, s>>>(a, static_cast<__nv_bfloat16*>(scratch), n, vec);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    const int err = gelu_prepass(a, scratch, (size_t)B * N * K, s);
+    if (err != 0) return err;
     a = static_cast<const __nv_bfloat16*>(scratch);
   }
   Args p;
+  memset(&p, 0, sizeof(p));
   p.h = a;
   p.wt = static_cast<const __nv_bfloat16*>(wt);
   p.bias = static_cast<const float*>(b);
@@ -454,5 +558,53 @@ extern "C" int dense_residual_stats(const void* h, const void* wt, const void* b
   p.a_tma = (channel_major ? N % 8 == 0 : K % 8 == 0) && aligned16(a);
   p.w_tma = K % 8 == 0 && aligned16(wt);
   p.vec = D % 8 == 0 && aligned16(res) && aligned16(out);
-  return channel_major ? launch<true>(p, s) : launch<false>(p, s);
+  return channel_major ? launch<true, false>(p, s) : launch<false, false>(p, s);
+}
+
+// The row-parallel mode: the same GEMM (and GELU pre-pass), its fp32 product
+// (B, N, D) written to out and nothing else.
+extern "C" int dense_partial(const void* h, const void* wt, void* out, void* scratch, int B,
+                             int N, int K, int D, int channel_major, int gelu, void* stream) {
+  if (B < 1 || N < 1 || K < 1 || D < 1 || out == nullptr ||
+      (gelu && (channel_major || scratch == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(h);
+  if (gelu) {
+    const int err = gelu_prepass(a, scratch, (size_t)B * N * K, s);
+    if (err != 0) return err;
+    a = static_cast<const __nv_bfloat16*>(scratch);
+  }
+  Args p;
+  memset(&p, 0, sizeof(p));
+  p.h = a;
+  p.wt = static_cast<const __nv_bfloat16*>(wt);
+  p.partial = static_cast<float*>(out);
+  p.B = B;
+  p.N = N;
+  p.K = K;
+  p.D = D;
+  p.a_tma = (channel_major ? N % 8 == 0 : K % 8 == 0) && aligned16(a);
+  p.w_tma = K % 8 == 0 && aligned16(wt);
+  p.vec2 = D % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  return channel_major ? launch<true, true>(p, s) : launch<false, true>(p, s);
+}
+
+// acc (rows, D) fp32 summed over the ranks, b and gamma (D,) fp32, res and
+// out (rows, D) bf16, mu and var (rows,) fp32.
+extern "C" int post_reduce_stats(const void* acc, const void* b, const void* res,
+                                 const void* gamma, void* out, void* mu, void* var, int rows,
+                                 int D, void* stream) {
+  if (rows < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  const int vec = D % 4 == 0 && aligned16(acc) && aligned16(b) && aligned16(gamma) &&
+                  reinterpret_cast<uintptr_t>(res) % 8 == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  constexpr int kWarps = 8;
+  const int blocks = (rows + kWarps - 1) / kWarps;
+  post_reduce_stats_kernel<<<blocks, 32 * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(acc), static_cast<const float*>(b),
+      static_cast<const __nv_bfloat16*>(res), static_cast<const float*>(gamma),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(mu), static_cast<float*>(var),
+      rows, D, vec);
+  return (int)cudaGetLastError();
 }

@@ -35,10 +35,17 @@ in both. The weights are quantized when applied, so the parameters (and
 ``models/convert.py``) are the same in both modes.
 
 Under a model axis (``DINOUNET_TPU_MODEL_AXIS``, ``parallel/sharding.py``)
-the SwiGLU blocks are built as one rank's shards: qkv, w1 and w2 hold the
-rank's output rows (whole heads of q, k and v), proj and w3 its input
+every block is built as one rank's shards: qkv, fc1, w1 and w2 hold the
+rank's output rows (whole heads of q, k and v), proj, fc2 and w3 its input
 columns, whose partial products are summed over the model group in fp32
-before the bias is added, once a matrix pair.
+before the bias is added, once a matrix pair. In the mlp blocks the rank's
+heads go to the fused attention (M / n heads), its output to #3's kernel in
+the row-parallel mode (``ops/dense_stats.py::dense_cm_partial``: the fp32
+product only), fc1 runs on the rank's columns and fc2 as #4's row-parallel
+mode with the GELU prologue; after each fp32 all-reduce one post-reduce pass
+(``post_reduce_residual_stats``) adds the bias, LayerScale and residual at
+the fused epilogue's rounding points and emits the next LayerNorm's
+statistics. The int8 serving mode does not run under a model axis.
 
 ``DinoViT.hold_weights_`` keeps the frozen backbone's matrices at the
 compute dtype (the vectors stay fp32), as the JAX package's bench holds the
@@ -64,8 +71,14 @@ from dinounet_tpu_torch.ops.attention import (fused_rope_attention,
 from dinounet_tpu_torch.ops.dense_q8 import (dense_cm_q8_residual_stats, dense_q8,
                                              dense_q8_residual_stats, qkv_q8_dmaj,
                                              qkv_q8_premapped, quant_dense)
-from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
-                                                dense_residual_stats, row_stats)
+from dinounet_tpu_torch.ops.dense_stats import (dense_cm_partial, dense_cm_residual_stats,
+                                                dense_residual_partial, dense_residual_stats,
+                                                post_reduce_residual_stats, row_stats)
+from dinounet_tpu_torch.parallel.sharding import local_shape, shard_dim, shard_tensor
+
+INT8_SHARD_QUEUED = ("the int8 serving mode does not run under a model axis "
+                     "(DINOUNET_TPU_MODEL_AXIS > 1) yet: its split is queued; serve the "
+                     "split backbone in bf16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,9 +202,8 @@ def backbone_dense(layer: Linear, x: torch.Tensor) -> torch.Tensor:
     cdt = layer.compute_dtype
     group = getattr(layer, "reduce_group", None)
     if vit_int8():
-        if group is not None:
-            raise NotImplementedError("the int8 serving mode (QuantDense) does not run "
-                                      "under a model axis yet")
+        if isinstance(layer, ShardLinear):
+            raise NotImplementedError(INT8_SHARD_QUEUED)
         return quant_dense(x, layer.weight, layer.bias, cdt)
     y = F.linear(x.to(cdt), layer.weight.to(cdt))
     if group is not None:  # row-parallel: sum the ranks' partial products in fp32
@@ -201,16 +213,55 @@ def backbone_dense(layer: Linear, x: torch.Tensor) -> torch.Tensor:
     return y if layer.bias is None else y + layer.bias.to(cdt)
 
 
+def row_parallel_tail(partial, group, bias, residual, ls_gamma):
+    """The end of a row-parallel projection of the mlp blocks: the ranks'
+    fp32 products summed over the model group, then the epilogue and the
+    next LayerNorm's statistics (out, mean, var)."""
+    torch.distributed.all_reduce(partial, group=group)
+    return post_reduce_residual_stats(partial, bias, residual, ls_gamma)
+
+
+class ShardLinear(Linear):
+    """A rank's shard of the block's dense layer `name` (``attn.qkv``,
+    ``mlp.fc2``, ...) on a model axis (``parallel/sharding.py``): its init
+    draws the whole (out, in) matrix, as one process draws it, and keeps the
+    rank's part, so the shard is one process's and the generator's later
+    draws (the trainable layers') are one process's too. A row-parallel
+    layer sums its ranks' products over ``reduce_group``."""
+
+    def __init__(self, name: str, in_features: int, out_features: int, shard,
+                 bias: bool, dtype: torch.dtype):
+        self.shard_name, self.rank, self.n_model = name + ".weight", shard.rank, shard.size
+        self.full_shape = (out_features, in_features)
+        out_local, in_local = local_shape(self.shard_name, self.full_shape, shard.size)
+        super().__init__(in_local, out_local, bias=bias, dtype=dtype)
+        if shard_dim(self.shard_name) == 1:
+            self.reduce_group = shard.group
+
+    def init_params(self, gen):
+        full = torch.empty(self.full_shape, device=self.weight.device)
+        lecun_normal_(full, self.full_shape[1], gen)
+        with torch.no_grad():
+            self.weight.copy_(shard_tensor(self.shard_name, full, self.rank, self.n_model))
+            if self.bias is not None:
+                self.bias.zero_()
+
+
+def block_dense(name: str, in_features: int, out_features: int, shard, bias: bool,
+                dtype: torch.dtype) -> Linear:
+    """The block's dense layer `name`: whole, or the rank's shard of it."""
+    if shard is None:
+        return Linear(in_features, out_features, bias=bias, dtype=dtype)
+    return ShardLinear(name, in_features, out_features, shard, bias, dtype)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype, shard=None):
         super().__init__()
         C = cfg.embed_dim
-        n = 1 if shard is None else shard.size
-        self.num_heads = cfg.num_heads // n
-        self.qkv = Linear(C, 3 * C // n, bias=cfg.qkv_bias, dtype=dtype)
-        self.proj = Linear(C // n, C, bias=cfg.proj_bias, dtype=dtype)
-        if shard is not None:
-            self.proj.reduce_group = shard.group
+        self.num_heads = cfg.num_heads // (1 if shard is None else shard.size)
+        self.qkv = block_dense("attn.qkv", C, 3 * C, shard, cfg.qkv_bias, dtype)
+        self.proj = block_dense("attn.proj", C, C, shard, cfg.proj_bias, dtype)
 
     def forward(self, x, rope, residual, ls_gamma):
         """x: normed (B, N, C); returns (residual + gamma * proj(attn(x)),
@@ -218,24 +269,30 @@ class Attention(nn.Module):
         emits the attention's layout, (B, 3, M, Dh, N) or with
         ``attn_premapped_layout() == "ndh"`` (B, 3, M, N, Dh)."""
         B, N, C = x.shape
-        M = self.num_heads
+        M = self.num_heads  # the rank's heads under a model axis
+        Dh = self.qkv.out_features // (3 * M)
         int8 = vit_int8()
+        if int8 and isinstance(self.proj, ShardLinear):
+            raise NotImplementedError(INT8_SHARD_QUEUED)
         if attn_premapped_layout() == "ndh":
             if int8 and int8_qkv():
-                qkv = qkv_q8_premapped(x, self.qkv.weight.t(), self.qkv.bias, M, C // M)
+                qkv = qkv_q8_premapped(x, self.qkv.weight.t(), self.qkv.bias, M, Dh)
             else:
-                qkv = self.qkv(x).view(B, N, 3, M, C // M).permute(0, 2, 3, 1, 4)
+                qkv = self.qkv(x).view(B, N, 3, M, Dh).permute(0, 2, 3, 1, 4)
             o_t = fused_rope_attention_premapped(qkv.contiguous(), *rope)
         else:
             if int8 and int8_qkv():
-                qkv = qkv_q8_dmaj(x, self.qkv.weight.t(), self.qkv.bias, M, C // M)
+                qkv = qkv_q8_dmaj(x, self.qkv.weight.t(), self.qkv.bias, M, Dh)
             else:
-                qkv = self.qkv(x).view(B, N, 3, M, C // M).permute(0, 2, 3, 4, 1)
+                qkv = self.qkv(x).view(B, N, 3, M, Dh).permute(0, 2, 3, 4, 1)
             o_t = fused_rope_attention_premapped_dmaj(qkv.contiguous(), *rope)
         bias = self.proj.bias if self.proj.bias is not None else torch.zeros_like(ls_gamma)
+        o_t = o_t.reshape(B, M * Dh, N)
+        if isinstance(self.proj, ShardLinear):
+            return row_parallel_tail(dense_cm_partial(o_t, self.proj.weight.t()),
+                                     self.proj.reduce_group, bias, residual, ls_gamma)
         dense = dense_cm_q8_residual_stats if int8 else dense_cm_residual_stats
-        return dense(o_t.reshape(B, C, N), self.proj.weight.t(), bias, residual,
-                     ls_gamma)
+        return dense(o_t, self.proj.weight.t(), bias, residual, ls_gamma)
 
     def unfused(self, x, rope):
         """x: normed (B, N, C); returns proj(attn(x)) (the residual is the
@@ -249,14 +306,20 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, cfg: ViTConfig, dtype: torch.dtype):
+    def __init__(self, cfg: ViTConfig, dtype: torch.dtype, shard=None):
         super().__init__()
-        self.fc1 = Linear(cfg.embed_dim, cfg.ffn_hidden, bias=cfg.ffn_bias, dtype=dtype)
-        self.fc2 = Linear(cfg.ffn_hidden, cfg.embed_dim, bias=cfg.ffn_bias, dtype=dtype)
+        E, hidden = cfg.embed_dim, cfg.ffn_hidden
+        self.fc1 = block_dense("mlp.fc1", E, hidden, shard, cfg.ffn_bias, dtype)
+        self.fc2 = block_dense("mlp.fc2", hidden, E, shard, cfg.ffn_bias, dtype)
 
     def forward(self, x, residual, ls_gamma):
         """Returns (residual + gamma * fc2(gelu(fc1(x))), mean, var)."""
         bias = self.fc2.bias if self.fc2.bias is not None else torch.zeros_like(ls_gamma)
+        if isinstance(self.fc2, ShardLinear):
+            if vit_int8():
+                raise NotImplementedError(INT8_SHARD_QUEUED)
+            partial = dense_residual_partial(self.fc1(x), self.fc2.weight.t(), apply_gelu=True)
+            return row_parallel_tail(partial, self.fc2.reduce_group, bias, residual, ls_gamma)
         if vit_int8():
             b1 = (self.fc1.bias if self.fc1.bias is not None
                   else torch.zeros(self.fc1.out_features, device=x.device))
@@ -273,13 +336,10 @@ class SwiGLU(nn.Module):
 
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype, shard=None):
         super().__init__()
-        E = cfg.embed_dim
-        hidden = cfg.ffn_hidden // (1 if shard is None else shard.size)
-        self.w1 = Linear(E, hidden, bias=cfg.ffn_bias, dtype=dtype)
-        self.w2 = Linear(E, hidden, bias=cfg.ffn_bias, dtype=dtype)
-        self.w3 = Linear(hidden, E, bias=cfg.ffn_bias, dtype=dtype)
-        if shard is not None:
-            self.w3.reduce_group = shard.group
+        E, hidden = cfg.embed_dim, cfg.ffn_hidden
+        self.w1 = block_dense("mlp.w1", E, hidden, shard, cfg.ffn_bias, dtype)
+        self.w2 = block_dense("mlp.w2", E, hidden, shard, cfg.ffn_bias, dtype)
+        self.w3 = block_dense("mlp.w3", hidden, E, shard, cfg.ffn_bias, dtype)
 
     def forward(self, x):
         x1 = backbone_dense(self.w1, x)
@@ -290,22 +350,18 @@ class SwiGLU(nn.Module):
 class Block(nn.Module):
     """Pre-norm attention and FFN, each with a LayerScale residual: the
     stats-threaded chain for the mlp configs, the unfused block for SwiGLU.
-    With a `shard` (``parallel/sharding.py``'s ``ModelShard``) the SwiGLU
-    block holds the rank's heads and FFN columns only."""
+    With a `shard` (``parallel/sharding.py``'s ``ModelShard``) the block
+    holds the rank's heads and FFN columns only."""
 
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype, shard=None):
         super().__init__()
         C = cfg.embed_dim
         self.stats_threaded = cfg.ffn_layer == "mlp"
-        if shard is not None and self.stats_threaded:
-            raise NotImplementedError(
-                "the model axis splits the unfused SwiGLU blocks (the ViT-7B) only; the "
-                "mlp blocks' fused dense + residual + statistics chain is not split")
         self.norm1 = LayerNormFp32(C, cfg.norm_eps)
         self.attn = Attention(cfg, dtype, shard)
         self.ls1 = LayerScale(C, cfg.layerscale_init)
         self.norm2 = LayerNormFp32(C, cfg.norm_eps)
-        self.mlp = Mlp(cfg, dtype) if self.stats_threaded else SwiGLU(cfg, dtype, shard)
+        self.mlp = (Mlp if self.stats_threaded else SwiGLU)(cfg, dtype, shard)
         self.ls2 = LayerScale(C, cfg.layerscale_init)
 
     def forward(self, x, rope, stats=None):

@@ -58,6 +58,11 @@ _SIGNATURES = {
     # h, wt (D, K), b, res, gamma, out, mu, var, scratch (gelu(h) or null), B, N,
     # K, D, channel_major, gelu, stream
     "dense_residual_stats": [_P] * 9 + [_I] * 6 + [_P],
+    # h, wt (D, K), out (fp32), scratch (gelu(h) or null), B, N, K, D,
+    # channel_major, gelu, stream
+    "dense_partial": [_P] * 4 + [_I] * 6 + [_P],
+    # acc (fp32), b, res, gamma, out, mu, var, rows, D, stream
+    "post_reduce_stats": [_P] * 7 + [_I] * 2 + [_P],
     # x, x2, c1, c2, x strides (b, c, h, w), x2 strides, packed w, bias, s, t,
     # slope, y, y strides, sum, ssq, B, H, W, Cout, stream
     "conv3x3_stats": [_P] * 2 + [_I] * 10 + [_P] * 4 + [_F, _P] + [_I] * 4
@@ -213,8 +218,11 @@ def _wrappers():
                                                      transpconv2x2_cm)
     from dinounet_tpu_torch.ops.dense_q8 import (dense_cm_q8_residual_stats, dense_q8,
                                                  dense_q8_residual_stats, qkv_q8_dmaj)
-    from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
-                                                    dense_residual_stats)
+    from dinounet_tpu_torch.ops.dense_stats import (dense_cm_partial,
+                                                    dense_cm_residual_stats,
+                                                    dense_residual_partial,
+                                                    dense_residual_stats,
+                                                    post_reduce_residual_stats)
     from dinounet_tpu_torch.ops.msda_kernel import (
         ms_deform_attn_premapped, ms_deform_attn_premapped_backward,
         ms_deform_attn_premapped_fused, ms_deform_attn_premapped_fused_merged)
@@ -237,6 +245,9 @@ def _wrappers():
         "dense_q8": dense_q8,
         "dense_q8_stats": dense_q8_residual_stats,
         "dense_cm_q8_stats": dense_cm_q8_residual_stats,
+        "dense_cm_partial": dense_cm_partial,
+        "dense_rm_partial": dense_residual_partial,
+        "post_reduce_stats": post_reduce_residual_stats,
     }
 
 

@@ -19,8 +19,10 @@ gloo; each rank runs the same training in a process group. Under ``torchrun`` (`
 ``WORLD_SIZE`` set, ``WORLD_SIZE`` == ``num_gpus``) the process joins the
 group itself and trains on ``cuda:LOCAL_RANK``. Rank 0's output folder and
 training log come back as a ``RankZero``. ``num_gpus == 1`` is one
-plain process. ``DINOUNET_TPU_MODEL_AXIS`` splits the 7B backbone over a
-model axis of that many ranks (``training/dinounet_trainer.py``).
+plain process. ``DINOUNET_TPU_MODEL_AXIS`` splits a DinoUNet trainer's
+backbone (s / b / l / 7b) over a model axis of that many ranks
+(``training/dinounet_trainer.py``); a network without a backbone is whole on
+every rank.
 """
 
 import dataclasses

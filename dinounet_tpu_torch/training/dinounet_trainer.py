@@ -33,11 +33,15 @@ the size trainer's own on purpose.
 frozen backbone's matrices held at the compute dtype (bf16: 12.5 GiB where
 fp32 would take 27 GB), as ``DinoUNet.random_on`` builds it for serving,
 and only then draws the weights or has them loaded. Every number is the
-same as with fp32 matrices cast at each use. Under a model axis
-(``DINOUNET_TPU_MODEL_AXIS`` > 1, several ranks) it builds each rank's shard
-of the backbone's blocks (``parallel/sharding.py``), and the pretrained
-backbone is read into those shards; the bf16 path only: ``QuantDense``
-under a model axis is not ported.
+same as with fp32 matrices cast at each use.
+
+Under a model axis (``DINOUNET_TPU_MODEL_AXIS`` > 1, several ranks) every
+DinoUNet trainer, s / b / l and 7b, builds each rank's shards of the
+backbone's blocks (``parallel/sharding.py``: the heads and FFN columns of
+the mlp and SwiGLU blocks alike), and the pretrained backbone's ``.pth`` or
+``.msgpack`` is read into those shards; everything trainable is whole on
+every rank. In bf16: the int8 serving mode under a model axis raises (it is
+queued).
 """
 
 import os

@@ -298,11 +298,12 @@ class nnUNetTrainer:
     def build_network_architecture(architecture_class_name: str, arch_init_kwargs: dict,
                                    arch_init_kwargs_req_import, num_input_channels: int,
                                    num_output_channels: int,
-                                   enable_deep_supervision: bool = True):
+                                   enable_deep_supervision: bool = True, shard=None):
         """The conv U-Net the plans name (ref get_network_from_plans.py:9):
         dotted torch class paths map onto the port's networks by their
         trailing class name, PlainConvUNet by default. Built on the host,
-        fp32 parameters, weights not yet drawn."""
+        fp32 parameters, weights not yet drawn. It has no backbone, so a
+        `shard` of a model axis leaves it whole."""
         from dinounet_tpu_torch.models.plain_unet import PlainConvUNet, PlainUNetConfig
         from dinounet_tpu_torch.models.residual_unet import (ResidualEncoderUNet,
                                                              ResidualUNetConfig)
@@ -325,17 +326,18 @@ class nnUNetTrainer:
         trainer, its final validation and the predictor all build through
         here. This one builds on the host, draws there and moves the
         network; a trainer class whose network should not pass through the
-        host in full builds it on the device itself. `shard`, a rank's place
-        on a model axis, is taken by ``DinoUNetTrainer_7b`` only."""
-        if shard is not None:
-            raise NotImplementedError(
-                f"{cls.__name__}: the model axis (DINOUNET_TPU_MODEL_AXIS > 1) splits the "
-                "ViT-7B backbone of DinoUNetTrainer_7b only")
+        host in full builds it on the device itself. `shard` is a rank's
+        place on a model axis, passed on to ``build_network_architecture``:
+        the model axis splits only a DINOv3 backbone's blocks (the DinoUNet
+        trainers build them as the rank's shards); a network without a
+        backbone (the plans' conv U-Nets) is built whole on every rank, as
+        GSPMD replicates it in the JAX package."""
+        cm = configuration_manager
         network = cls.build_network_architecture(
-            configuration_manager.network_arch_class_name,
-            configuration_manager.network_arch_init_kwargs,
-            configuration_manager.network_arch_init_kwargs_req_import,
-            num_input_channels, num_output_channels, enable_deep_supervision)
+            cm.network_arch_class_name, cm.network_arch_init_kwargs,
+            cm.network_arch_init_kwargs_req_import, num_input_channels,
+            num_output_channels, enable_deep_supervision,
+            **({} if shard is None else {"shard": shard}))
         if seed is not None:
             network.init_weights(seed)
         return network.to(device)

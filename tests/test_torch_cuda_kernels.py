@@ -23,10 +23,14 @@ from dinounet_tpu_torch.ops.attention import (fused_rope_attention,
                                               rope_attention_ndh_plain,
                                               rope_attention_plain, rope_tables,
                                               rope_tables_dmaj)
-from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats,
+from dinounet_tpu_torch.ops.dense_stats import (dense_cm_partial, dense_cm_partial_plain,
+                                                dense_cm_residual_stats,
                                                 dense_cm_residual_stats_plain,
+                                                dense_partial_plain, dense_residual_partial,
                                                 dense_residual_stats,
-                                                dense_residual_stats_plain)
+                                                dense_residual_stats_plain,
+                                                post_reduce_residual_stats,
+                                                post_reduce_residual_stats_plain)
 from dinounet_tpu_torch.ops import dense_q8 as q8
 from dinounet_tpu_torch.ops.kernel_check import (KERNEL_TOLERANCES, STATS_TOLERANCE,
                                                  max_excess)
@@ -504,6 +508,55 @@ def test_dense_kernel_edges_match_plain(dev, B, N, K, D, layout, weight):
     for gt, wt in zip(got, want):
         assert gt.shape == wt.shape
         assert max_excess(gt, wt, KERNEL_TOLERANCES[name]) <= 0
+
+
+@pytest.mark.parametrize("layout", ["rm", "rm_gelu", "cm"])
+@pytest.mark.parametrize("B,N,K,D", DENSE_EDGE_SHAPES + [(2, 21, 37, 25)])  # D odd
+def test_row_parallel_mode_matches_plain(dev, B, N, K, D, layout):
+    """The row-parallel mode of the dense kernel (the fp32 product, no
+    epilogue), then the post-reduce pass on it: each against its plain
+    version, the pass's output bit for bit."""
+    g = torch.Generator().manual_seed(4)
+    bf = torch.bfloat16
+    cm = layout == "cm"
+    h = _randn(g, (B, K, N) if cm else (B, N, K), dev).to(bf)
+    w = _randn(g, (K, D), dev, K ** -0.5).t().contiguous().to(bf).t()
+    if cm:
+        got, want, name = dense_cm_partial(h, w), dense_cm_partial_plain(h, w), "dense_cm_partial"
+    else:
+        gelu = layout == "rm_gelu"
+        got = dense_residual_partial(h, w, apply_gelu=gelu)
+        want, name = dense_partial_plain(h, w, gelu), "dense_rm_partial"
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape == (B, N, D)
+    assert max_excess(got, want, KERNEL_TOLERANCES[name]) <= 0
+    b = _randn(g, (D,), dev, 0.1)
+    res = _randn(g, (B, N, D), dev).to(bf)
+    gamma = _randn(g, (D,), dev, 0.5)
+    outs = post_reduce_residual_stats(want, b, res, gamma)
+    plain = post_reduce_residual_stats_plain(want, b, res, gamma)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], plain[0])
+    for gt, wt in zip(outs[1:], plain[1:]):
+        assert max_excess(gt, wt, KERNEL_TOLERANCES["post_reduce_stats"]) <= 0
+
+
+@pytest.mark.parametrize("rows,D,offset", [(1, 24, 0), (37, 136, 0), (8232, 768, 0),
+                                          (100, 25, 0), (5, 4096, 0), (9, 64, 1)])
+def test_post_reduce_pass_matches_plain(dev, rows, D, offset):
+    """The post-reduce pass's 16-byte path and its element path (D not a
+    multiple of 4; a residual view at an odd element): the output bit for
+    bit, the statistics within the kernel's bound."""
+    g = torch.Generator().manual_seed(5)
+    acc = _randn(g, (1, rows, D), dev, 2.0)
+    b, gamma = _randn(g, (D,), dev, 0.1), _randn(g, (D,), dev, 0.5)
+    res = _randn(g, (rows * D + offset,), dev).to(torch.bfloat16)[offset:].view(1, rows, D)
+    got = post_reduce_residual_stats(acc, b, res, gamma)
+    want = post_reduce_residual_stats_plain(acc, b, res, gamma)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    for gt, wt in zip(got[1:], want[1:]):
+        assert max_excess(gt, wt, KERNEL_TOLERANCES["post_reduce_stats"]) <= 0
 
 
 # the int8 ops: ragged N (not a multiple of the GEMM's 64- or 128-row tile),

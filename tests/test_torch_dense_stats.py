@@ -13,6 +13,11 @@ reach a variance near 2, and the two sides' bf16 outputs may differ by one
 ulp (2^-8 relative) at a few elements, each moving the variance by about
 2 |x| 2^-8 / D. The TPU kernel's GELU uses an Abramowitz-Stegun erf (error
 1.5e-7), well inside both.
+
+The row-parallel mode (a rank's fp32 product on its K columns) and the
+post-reduce pass, on K split by hand into ranks' slices and the products
+summed in fp32, against the JAX ``_reference`` / ``_cm_reference`` on the
+whole K: the same tolerances (the split only reorders fp32 sums).
 """
 
 import jax.numpy as jnp
@@ -21,9 +26,13 @@ import pytest
 import torch
 
 from dinounet_tpu.ops import dense_stats_pallas as jax_dense
-from dinounet_tpu_torch.ops.dense_stats import (dense_cm_residual_stats_plain,
+from dinounet_tpu_torch.ops.dense_stats import (dense_cm_partial, dense_cm_partial_plain,
+                                                dense_cm_residual_stats_plain,
+                                                dense_partial_plain, dense_residual_partial,
                                                 dense_residual_stats,
-                                                dense_residual_stats_plain)
+                                                dense_residual_stats_plain,
+                                                post_reduce_residual_stats,
+                                                post_reduce_residual_stats_plain)
 
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}
@@ -110,3 +119,53 @@ def test_wrapper_takes_both_weight_layouts(gelu):
         assert torch.equal(a, b)
     for a, b in zip(grads_lin, grads_kd):
         assert torch.equal(a, b)
+
+
+def _split_k(h, w, n, channel_major):
+    """h and w cut into n slices along K, as a row-parallel layer's ranks
+    hold them (the last slice the shortest)."""
+    K = w.shape[0]
+    bounds = [round(K * i / n) for i in range(n + 1)]
+    k_dim = 1 if channel_major else 2
+    return [(h.narrow(k_dim, a, b - a), w[a:b]) for a, b in zip(bounds, bounds[1:])]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_ranks", [2, 3])
+@pytest.mark.parametrize("op", ["rm_gelu", "cm"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_row_parallel_mode_matches_reference_split_over_k(shape, op, n_ranks, dtype):
+    cm = op == "cm"
+    targs, jargs = _inputs(13, *shape, dtype, cm)
+    h, w, b, res, gamma = targs
+    acc = sum(dense_cm_partial_plain(hk, wk) if cm else dense_partial_plain(hk, wk, True)
+              for hk, wk in _split_k(h, w, n_ranks, cm))
+    assert acc.dtype == torch.float32 and acc.shape == res.shape
+    got = post_reduce_residual_stats_plain(acc, b, res, gamma)
+    ref = jax_dense._cm_reference if cm else (
+        lambda *a: jax_dense._reference(*a, apply_gelu=True))
+    want = ref(*jargs)
+    assert got[0].dtype == res.dtype and got[1].dtype == got[2].dtype == torch.float32
+    if dtype == "float32":
+        for g, w_ in zip(got, want):
+            np.testing.assert_allclose(_np(g), _np(w_), rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_allclose(_np(got[0]), _np(want[0]), rtol=0.011, atol=1e-5)
+        np.testing.assert_allclose(_np(got[1]), _np(want[1]), atol=2e-3)
+        np.testing.assert_allclose(_np(got[2]), _np(want[2]), rtol=4e-3, atol=4e-3)
+
+
+@pytest.mark.parametrize("op", ["rm", "rm_gelu", "cm"])
+def test_row_parallel_mode_on_one_rank_is_the_fused_op(op):
+    """One rank's product then the post-reduce pass are the fused op, bit
+    for bit, through the wrappers (the CPU path)."""
+    cm = op == "cm"
+    h, w, b, res, gamma = _inputs(14, 2, 21, 40, 136, "bfloat16", cm)[0]
+    if cm:
+        acc, want = dense_cm_partial(h, w), dense_cm_residual_stats_plain(h, w, b, res, gamma)
+    else:
+        gelu = op == "rm_gelu"
+        acc = dense_residual_partial(h, w, apply_gelu=gelu)
+        want = dense_residual_stats_plain(h, w, b, res, gamma, gelu)
+    for g, w_ in zip(post_reduce_residual_stats(acc, b, res, gamma), want):
+        assert torch.equal(g, w_)

@@ -95,3 +95,23 @@ def test_importing_every_port_module_needs_no_matplotlib():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_importing_every_port_module_needs_no_zstandard():
+    """Nor zstandard: only the Blosc zstd codec imports it, on first use
+    (``compression/blosc1_chunk.py``). The dataset backends, the loader
+    and the ``.b2nd`` engine are among the modules imported."""
+    modules = _port_modules()
+    for name in ("compression.blosc1_chunk", "compression.b2nd", "compression.blosc2_shim",
+                 "training.nnunet_dataset", "training.data_loader"):
+        assert "dinounet_tpu_torch." + name in modules
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['zstandard'] = None\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "ok"

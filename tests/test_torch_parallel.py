@@ -6,8 +6,12 @@ on the CPU. This process computes the JAX side and hands every rank the same
 numpy-made tensors. One spawn of two ranks holds the mesh, the repeated and
 the conflicting ``init_distributed``, a data-parallel train step of the tiny
 DinoUNet of tests/test_torch_models.py (batch Dice off and on), the narrow
-SwiGLU block split over a model axis, and a sharded checkpoint's round
-trip. Tolerances, fp32 (each gradient tensor's error is taken over its
+SwiGLU and mlp blocks split over a model axis (and their int8 mode's
+refusal), and a sharded checkpoint's round trip; another runs three
+trainers on a model axis of 2 (the 7B-structured, an s-structured one
+reading a published-layout ``.pth`` into its shards, the plans'
+PlainConvUNet), the last two held to one process's run. Tolerances, fp32
+(each gradient tensor's error is taken over its
 largest entry, that scale floored at 0.1 of the model's largest gradient:
 the biases in front of an InstanceNorm have a true gradient of 0 and hold
 rounding noise on both sides):
@@ -20,7 +24,11 @@ rounding noise on both sides):
   batch: the loss to 1e-6 relative, the whole gradient and each tensor to
   1e-5 -- where a stray factor of the ranks, a local batch Dice or local
   BatchNorm statistics would be off by their own size;
-- the split block against JAX ``Block``: 1e-5.
+- the split blocks against JAX ``Block`` (the mlp block's statistics
+  against its output's own): 1e-5;
+- a trainer on the model axis against one process: the logged loss within
+  the train-parity bound (2 %), the trained parameters to 1e-5 relative L2
+  (the split only reorders fp32 sums).
 """
 
 import dataclasses
@@ -53,6 +61,9 @@ BACKBONE = "encoder.dinov3_adapter.backbone."
 # the narrow SwiGLU block: the 7B's structure at width 64
 BLOCK_KW = dict(embed_dim=64, depth=1, num_heads=4, ffn_ratio=2.0, ffn_layer="swiglu",
                 qkv_bias=False, n_storage_tokens=4)
+# the narrow mlp block: the ViT-S/B/L's structure at width 64
+MLP_BLOCK_KW = dict(embed_dim=64, depth=1, num_heads=4, ffn_ratio=2.0, ffn_layer="mlp",
+                    qkv_bias=True, n_storage_tokens=4)
 # per-tensor gradient scales are floored at this fraction of the model's
 # largest gradient: the biases in front of an InstanceNorm have a true
 # gradient of 0, and both sides hold rounding noise there (~1e-7 of it)
@@ -87,18 +98,18 @@ def step_inputs():
             rng.integers(0, N_CLASSES, (4, HW, HW)))
 
 
-@pytest.fixture(scope="module")
-def jax_block():
-    """The JAX SwiGLU ``Block`` at width 64, seeded weights, and its output
-    (its plain attention: ``DINOUNET_TPU_ATTN_IMPL=jax``)."""
+def _jax_block(kw: dict, seed: int):
+    """The JAX ``Block`` of `kw` at width 64, seeded weights, and its output
+    (its plain attention and unfused dense layers: ``DINOUNET_TPU_ATTN_IMPL
+    =jax``, no statistics threaded)."""
     from dinounet_tpu.models.vit import Block, ViTConfig
 
-    cfg = ViTConfig(**BLOCK_KW, dtype="float32")
+    cfg = ViTConfig(**kw, dtype="float32")
     sin, cos = _rope(cfg.n_prefix_tokens, cfg.head_dim)
     x = np.random.default_rng(32).standard_normal((2, 21, 64)).astype(np.float32)
     block = Block(cfg)
     params = _fill(jax.eval_shape(lambda: block.init(jax.random.PRNGKey(0), jnp.asarray(x),
-                                                     (sin, cos))), 1)["params"]
+                                                     (sin, cos))), seed)["params"]
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("DINOUNET_TPU_ATTN_IMPL", "jax")
         out = np.asarray(jax.jit(lambda p, x: block.apply({"params": p}, x, (sin, cos)))(
@@ -107,6 +118,18 @@ def jax_block():
     prefix = BACKBONE + "blocks.0."
     state = {k[len(prefix):]: v for k, v in state.items()}
     return state, x, (sin, cos), out
+
+
+@pytest.fixture(scope="module")
+def jax_block():
+    """The SwiGLU block (the 7B's structure)."""
+    return _jax_block(BLOCK_KW, 1)
+
+
+@pytest.fixture(scope="module")
+def jax_mlp_block():
+    """The mlp block (the ViT-S/B/L's structure)."""
+    return _jax_block(MLP_BLOCK_KW, 2)
 
 
 def jax_mesh_step(variables, image, target):  # noqa: F811
@@ -181,13 +204,59 @@ def _train_two_cpu_ranks(dataset_id):
                         device="cpu")
 
 
+class TinySOneProcess(torch_ranks.TinySParallelTrainer):
+    """TinySParallelTrainer under its own name, for one process."""
+
+
+class TinyPlainOneProcess(torch_ranks.TinyParallelTrainer):
+    """TinyParallelTrainer under its own name, for one process."""
+
+
+# a trainer on the model axis -> its one-process counterpart
+ONE_PROCESS = {"TinySParallelTrainer": TinySOneProcess,
+               "TinyPlainModelAxisTrainer": TinyPlainOneProcess}
+
+
+def _train_one_process(dataset_id, name: str, pretrained: str) -> dict:
+    """``run_training`` of ONE_PROCESS[name] in this process (no model
+    axis): its logged train losses and trained trainable parameters."""
+    from dinounet_tpu_torch.run import run_training
+    from dinounet_tpu_torch.utilities import registry
+
+    cls = ONE_PROCESS[name]
+    cls.pretrained = pretrained
+    registry.trainers.add(cls.__name__, cls)
+    trainer = run_training(dataset_id, "2d", 0, cls.__name__, num_gpus=1, device="cpu")
+    return {"train_losses": trainer.logger.my_fantastic_logging["train_losses"],
+            "trainable": {n: p.detach().clone()
+                          for n, p in trainer.network.named_parameters() if p.requires_grad}}
+
+
+def _published_backbone(path: str) -> str:
+    """TinySParallelTrainer's backbone in the published layout (the port's
+    names, a finite ``bias_mask`` 1 / 0 / 1 over q / k / v a block), seeded,
+    saved to `path`."""
+    vit = TorchDinoViT(TorchViTConfig(**torch_ranks.TINY_S_VIT, dtype="float32"))
+    gen = torch.Generator().manual_seed(34)
+    sd = {k: (0.5 * torch.randn(v.shape, generator=gen) if v.dim() < 2
+              else torch.randn(v.shape, generator=gen) / v.shape[-1] ** 0.5)
+          for k, v in vit.state_dict().items()}
+    for i in range(torch_ranks.TINY_S_VIT["depth"]):
+        sd[f"blocks.{i}.attn.qkv.bias_mask"] = torch.tensor([1.0, 0.0, 1.0]).repeat_interleave(64)
+    torch.save(sd, path)
+    return path
+
+
 @pytest.fixture(scope="module")
-def two_ranks(variables, step_inputs, jax_block, planned_set, tmp_path_factory):  # noqa: F811
+def two_ranks(variables, step_inputs, jax_block, jax_mlp_block, planned_set,  # noqa: F811
+              tmp_path_factory):
     """Every spawn of the module, started together while JAX compiles here:
     two gloo ranks running ``torch_ranks.parallel_checks``, the two-rank
     ``run_training`` (``torch_ranks.TinyParallelTrainer`` on the planned
-    set) and the two dry runs on four ranks each. The payload, the ranks'
-    results, ``jax_mesh_step``'s, and the other runs' results by name."""
+    set), two ranks running ``torch_ranks.train_on_model_axis``, the two dry
+    runs on four ranks each, and the one-process runs the model axis's
+    trainers are held to. The payload, the ranks' results, ``jax_mesh_step``'s,
+    and the other runs' results by name."""
     image, target = step_inputs
     block_state, x, rope, _ = jax_block
     vit = TorchDinoViT(TorchViTConfig(**{**BLOCK_KW, "depth": 2}, dtype="float32"))
@@ -205,18 +274,26 @@ def two_ranks(variables, step_inputs, jax_block, planned_set, tmp_path_factory):
         state=state_dict_from_flax(variables), image=torch.from_numpy(image),
         target=torch.from_numpy(target),
         block_cfg=TorchViTConfig(**BLOCK_KW, dtype="float32"), block_state=block_state,
+        mlp_block_cfg=TorchViTConfig(**MLP_BLOCK_KW, dtype="float32"),
+        mlp_block_state=jax_mlp_block[0],
         x=torch.from_numpy(x), rope=tuple(torch.from_numpy(t) for t in rope),
-        vit_state=vit_state, optimizer_state=opt.state_dict(), directory=directory)
+        vit_state=vit_state, optimizer_state=opt.state_dict(), directory=directory,
+        pretrained=_published_backbone(str(tmp_path_factory.mktemp("pth") / "vits.pth")))
     from dinounet_tpu_torch.parallel.dryrun import dryrun_7b_block, dryrun_multichip
 
+    pretrained = payload["pretrained"]
     with ThreadPoolExecutor(4) as pool:
         ranks = pool.submit(launch.spawn, torch_ranks.parallel_checks, 2, payload,
                             devices="cpu")
         others = {"training": pool.submit(_train_two_cpu_ranks, planned_set[1]),
-                  "model_axis": pool.submit(launch.spawn, torch_ranks.train_on_model_axis,
-                                            2, planned_set[1], devices="cpu"),
+                  "model_axis": pool.submit(launch.spawn, torch_ranks.train_on_model_axis, 2,
+                                            {"dataset_id": planned_set[1],
+                                             "pretrained": pretrained}, devices="cpu"),
                   "multichip": pool.submit(dryrun_multichip, 4),
                   "7b_block": pool.submit(dryrun_7b_block, 4)}
+        others["one_process"] = pool.submit(
+            lambda: {name: _train_one_process(planned_set[1], name, pretrained)
+                     for name in ONE_PROCESS})
         want = jax_mesh_step(variables, image, target)
         return (payload, ranks.result(), want,
                 {name: f.result() for name, f in others.items()})
@@ -346,6 +423,48 @@ def test_real_size_shard_shapes_equal_jax():
             block = TorchBlock(tcfg, torch.bfloat16, ModelShard(rank, n_model))
             held = {k: tuple(v.shape) for k, v in block.state_dict().items()}
             assert {k: held[k] for k in want} == want
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+@pytest.mark.parametrize("model", ["dinov3_vits16", "dinov3_vitb16", "dinov3_vitl16"])
+def test_real_size_mlp_shard_shapes_equal_jax(model, rank):
+    """``shard_state_dict`` on the ViT-S/B/L's whole state dict (built on
+    ``meta``): each block tensor's shard has the shape JAX's
+    ``param_spec_tree`` gives it at full size (the kernels transposed to
+    (out, in)), and the shapes a block built as the rank's shard holds;
+    nothing outside the blocks' dense layers is split."""
+    from dinounet_tpu.models.vit import VIT_CONFIGS, Block
+    from dinounet_tpu.parallel import MODEL_AXIS, param_spec_tree
+    from dinounet_tpu_torch.parallel.sharding import shard_state_dict
+
+    n_model = 2
+    jcfg = dataclasses.replace(VIT_CONFIGS[model], depth=1, dtype="float32")
+    C, Dh = jcfg.embed_dim, jcfg.embed_dim // jcfg.num_heads
+    x = jax.ShapeDtypeStruct((1, 21, C), jnp.float32)
+    sin = jax.ShapeDtypeStruct((21, Dh), jnp.float32)
+    params = jax.eval_shape(lambda x, s: Block(jcfg).init(jax.random.PRNGKey(0), x, (s, s)),
+                            x, sin)["params"]
+    specs = param_spec_tree({"backbone": params})["backbone"]
+    want = {}
+    for parent, layer in (("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"), ("mlp", "fc2")):
+        for kind, torch_kind in (("kernel", "weight"), ("bias", "bias")):
+            shape = list(params[parent][layer][kind].shape)
+            for d, axis in enumerate(specs[parent][layer][kind]):
+                if axis == MODEL_AXIS:
+                    shape[d] //= n_model
+            want[f"blocks.0.{parent}.{layer}.{torch_kind}"] = tuple(reversed(shape))
+    assert want["blocks.0.mlp.fc1.weight"] == (4 * C // n_model, C)
+    assert want["blocks.0.mlp.fc2.bias"] == (C,)
+    tcfg = dataclasses.replace(TORCH_VIT_CONFIGS[model], depth=1)
+    with torch.device("meta"):
+        whole = TorchDinoViT(tcfg, torch.bfloat16).state_dict()
+        block = TorchBlock(tcfg, torch.bfloat16, ModelShard(rank, n_model)).state_dict()
+    mine = shard_state_dict(whole, rank, n_model)
+    got = {k: tuple(v.shape) for k, v in mine.items()}
+    assert {k: got[k] for k in want} == want
+    assert {"blocks.0." + k: tuple(v.shape) for k, v in block.items()} == {
+        k: v for k, v in got.items() if k.startswith("blocks.0.")}
+    assert all(got[k] == tuple(whole[k].shape) for k in got if k not in want)
 
 
 # ------------------------------------------------------ the data-parallel step
@@ -499,6 +618,26 @@ def test_run_training_on_two_cpu_ranks(planned_set, two_ranks, tmp_path):
             for f in os.listdir(validation)} == by_ranks
 
 
+def test_split_mlp_block_matches_jax_block(two_ranks, jax_mlp_block):
+    """The mlp block split over two ranks (its heads, fc1's columns, the
+    row-parallel proj / fc2 and the post-reduce pass) against the JAX mlp
+    block unsplit, fp32: the output, and the statistics it hands the next
+    LayerNorm against the output's own."""
+    want = jax_mlp_block[3]
+    for rank in two_ranks[1]:
+        out, (mu, var) = rank["mlp_block"]
+        np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(mu.numpy(), want.mean(-1), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(var.numpy(), want.var(-1), rtol=1e-5, atol=1e-5)
+
+
+def test_int8_under_a_model_axis_raises(two_ranks):
+    """The int8 serving mode under a model axis raises from the mlp and the
+    SwiGLU blocks alike, saying it is queued."""
+    for rank in two_ranks[1]:
+        assert rank["int8"] == {"mlp": True, "swiglu": True}
+
+
 def test_run_training_on_a_model_axis(two_ranks):
     """``DinoUNetTrainer_7b``'s build (a 7B-structured DinoUNet at width 64)
     on two CPU ranks with ``DINOUNET_TPU_MODEL_AXIS=2``: each rank holds
@@ -506,7 +645,7 @@ def test_run_training_on_a_model_axis(two_ranks):
     a fresh trainer reads back onto its shards, and that reads into one
     process as the whole network's state; the final validation predicted
     both cases (the model group together)."""
-    ranks = two_ranks[3]["model_axis"]
+    ranks = [r["Tiny7bParallelTrainer"] for r in two_ranks[3]["model_axis"]]
     folder = ranks[0]["output_folder"]
     qkv = "encoder.dinov3_adapter.backbone.blocks.0.attn.qkv.weight"
     for rank in ranks:
@@ -527,6 +666,59 @@ def test_run_training_on_a_model_axis(two_ranks):
                 texts.append(f.read())
     assert len(texts) == 2 and sum(t.count("Training done.") for t in texts) == 1
     assert all("rank 0 of 2 (data axis 1, model axis 2)" in t for t in texts)
+
+
+# the train-parity bound on the loss (chip_smoke.py's TRAIN_LOSS_BOUND)
+TRAIN_LOSS_BOUND = 0.02
+
+
+@pytest.mark.parametrize("name", ["TinySParallelTrainer", "TinyPlainModelAxisTrainer"])
+def test_trainer_on_a_model_axis_matches_one_process(two_ranks, tmp_path, name):
+    """``DinoUNetTrainer_s``'s build (an mlp DinoUNet of the ViT-S's
+    structure at width 64, its backbone read from a published-layout
+    ``.pth`` into each rank's shards) and the plans' ``PlainConvUNet``, each
+    on two CPU ranks with ``DINOUNET_TPU_MODEL_AXIS=2``: each rank holds its
+    shards (the plain network whole); its two steps' loss is one process's
+    within the train-parity bound, and the trained parameters are one
+    process's (fp32: the row-parallel sums only reorder); the sharded
+    checkpoint_final reads back onto the shards and into one process as
+    the whole network, its backbone the file's."""
+    from dinounet_tpu_torch.models.convert import backbone_state_dict_from_dinov3
+
+    ranks = [r[name] for r in two_ranks[3]["model_axis"]]
+    one = two_ranks[3]["one_process"][name]
+    for rank in ranks:
+        assert rank["resumed_equal"] and rank["epoch"] == 1
+        assert len(rank["train_losses"]) == 1
+        assert rank["train_losses"][0] == pytest.approx(one["train_losses"][0],
+                                                        rel=TRAIN_LOSS_BOUND)
+        assert rank["trainable"].keys() == one["trainable"].keys()
+        flat = [torch.cat([d[k].flatten() for k in sorted(d)])
+                for d in (rank["trainable"], one["trainable"])]
+        assert float((flat[0] - flat[1]).norm() / flat[1].norm()) <= 1e-5
+    folder = ranks[0]["output_folder"]
+    final = load_checkpoint(os.path.join(folder, "checkpoint_final.pth"))["network_weights"]
+    if name == "TinyPlainModelAxisTrainer":
+        assert ranks[0]["shards"] == {k: tuple(v.shape) for k, v in final.items()}
+        return
+    prefix = BACKBONE + "blocks.0."
+    assert {k: ranks[0]["shards"][prefix + k] for k in (
+        "attn.qkv.weight", "attn.qkv.bias", "attn.proj.weight", "attn.proj.bias",
+        "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight", "mlp.fc2.bias")} == {
+        "attn.qkv.weight": (96, 64), "attn.qkv.bias": (96,), "attn.proj.weight": (64, 32),
+        "attn.proj.bias": (64,), "mlp.fc1.weight": (64, 64), "mlp.fc1.bias": (64,),
+        "mlp.fc2.weight": (64, 64), "mlp.fc2.bias": (64,)}
+    assert all(rank["pretrained_equal"] for rank in ranks)
+    whole = torch_ranks.TinySParallelTrainer.build_network_architecture(None, {}, [], 1, 3,
+                                                                         False)
+    whole.load_state_dict(final)
+    file = backbone_state_dict_from_dinov3(
+        torch.load(two_ranks[0]["pretrained"], weights_only=True),
+        TorchViTConfig(**torch_ranks.TINY_S_VIT))
+    backbone = whole.encoder.dinov3_adapter.backbone.state_dict()
+    assert all(torch.equal(backbone[k], v) for k, v in file.items())
+    for n, t in ranks[0]["trainable"].items():
+        assert torch.equal(final[n], t), n
 
 
 def test_more_gpus_than_visible_raise():

@@ -286,10 +286,11 @@ def test_load_pretrained_weights_skips_the_segmentation_head(trained):
 
 
 def test_unported_options_raise(trained, tmp_path):
-    """What is not ported raises: the model axis for a trainer without the
-    ViT-7B backbone. Striding the cases over ``num_parts`` and the
-    cascade's previous-stage files are ported (multi-GPU training, in
-    tests/test_torch_parallel.py)."""
+    """What is not ported raises: the int8 serving mode under a model axis
+    (queued). Striding the cases over ``num_parts``, the cascade's
+    previous-stage files and the model axis itself are ported (multi-GPU
+    training, in tests/test_torch_parallel.py): a trainer's DinoUNet builds
+    its backbone's blocks as the rank's shards."""
     from dinounet_tpu_torch.parallel.sharding import ModelShard
 
     root, trainer = trained
@@ -305,6 +306,13 @@ def test_unported_options_raise(trained, tmp_path):
     ending = p.dataset_json["file_ending"]
     assert prev == [str(tmp_path / (os.path.basename(c[0])[:-(len(ending) + 5)] + ending))
                     for c in cases]
-    with pytest.raises(NotImplementedError, match="model axis"):
-        PipelineTinyDinoUNetTrainer.build_network(
-            "cpu", trainer.configuration_manager, 1, 3, shard=ModelShard(0, 2))
+    network = DinoUNetTrainer.build_network("cpu", trainer.configuration_manager, 1, 3,
+                                            seed=0, shard=ModelShard(0, 2))
+    C = network.cfg.vit.embed_dim
+    blocks = network.encoder.dinov3_adapter.backbone.blocks
+    assert tuple(blocks[0].attn.qkv.weight.shape) == (3 * C // 2, C)
+    assert tuple(blocks[0].mlp.fc2.weight.shape) == (C, network.cfg.vit.ffn_hidden // 2)
+    with pytest.MonkeyPatch.context() as mp, torch.no_grad():
+        mp.setenv("DINOUNET_TPU_VIT_INT8", "1")
+        with pytest.raises(NotImplementedError, match="model axis.*queued"):
+            network.eval()(torch.zeros((1, 1, *trainer.configuration_manager.patch_size)))

@@ -19,7 +19,7 @@ from dinounet_tpu_torch.parallel.sharding import (ModelShard, dcp_state_dict,
                                                   shard_state_dict)
 from dinounet_tpu_torch.training.checkpointing import (CHECKPOINT_KEYS, load_checkpoint,
                                                        save_checkpoint)
-from dinounet_tpu_torch.training.dinounet_trainer import DinoUNetTrainer_7b
+from dinounet_tpu_torch.training.dinounet_trainer import DinoUNetTrainer_7b, DinoUNetTrainer_s
 from dinounet_tpu_torch.training.losses import dc_and_ce_loss
 from dinounet_tpu_torch.training.trainer import nnUNetTrainer
 
@@ -72,16 +72,38 @@ def ddp_steps(device, payload: dict) -> dict:
     return out
 
 
-def sharded_block(payload: dict) -> torch.Tensor:
-    """The narrow SwiGLU block built as this rank's shard of a model axis
-    over every rank, fed the full block's weights through
-    ``shard_state_dict``: its output (the whole (B, N, C))."""
+def sharded_block(payload: dict, prefix: str = ""):
+    """The narrow SwiGLU block (or, with `prefix` "mlp_", the narrow mlp
+    block) built as this rank's shard of a model axis over every rank, fed
+    the full block's weights through ``shard_state_dict``: its output (the
+    whole (B, N, C); the mlp block's with the next LayerNorm's statistics)."""
     mesh = make_mesh(dist.get_world_size(), "cpu")
     shard = ModelShard(dist.get_rank(), dist.get_world_size(), mesh.get_group(MODEL_AXIS))
-    block = Block(payload["block_cfg"], torch.float32, shard)
-    block.load_state_dict(shard_state_dict(payload["block_state"], shard.rank, shard.size))
+    block = Block(payload[prefix + "block_cfg"], torch.float32, shard)
+    block.load_state_dict(shard_state_dict(payload[prefix + "block_state"], shard.rank,
+                                           shard.size))
     with torch.no_grad():
         return block(payload["x"], payload["rope"])
+
+
+def int8_refused(payload: dict) -> dict:
+    """The narrow mlp and SwiGLU blocks split over the model axis, run in
+    the int8 serving mode: whether each raised NotImplementedError saying
+    the split is queued."""
+    os.environ["DINOUNET_TPU_VIT_INT8"] = "1"
+    try:
+        return {kind: _raises_queued(sharded_block, payload, prefix)
+                for kind, prefix in (("mlp", "mlp_"), ("swiglu", ""))}
+    finally:
+        del os.environ["DINOUNET_TPU_VIT_INT8"]
+
+
+def _raises_queued(fn, *args) -> bool:
+    try:
+        fn(*args)
+    except NotImplementedError as e:
+        return "queued" in str(e)
+    return False
 
 
 def dcp_round_trip(payload: dict) -> dict:
@@ -115,7 +137,8 @@ def parallel_checks(device, payload: dict) -> dict:
     """Everything the test file holds on two ranks, in one spawn."""
     torch.set_num_threads(1)
     return {"mesh": mesh_checks(), "ddp": ddp_steps(device, payload),
-            "block": sharded_block(payload), "dcp": dcp_round_trip(payload)}
+            "block": sharded_block(payload), "mlp_block": sharded_block(payload, "mlp_"),
+            "int8": int8_refused(payload), "dcp": dcp_round_trip(payload)}
 
 
 class TinyParallelTrainer(nnUNetTrainer):
@@ -156,24 +179,89 @@ class Tiny7bParallelTrainer(DinoUNetTrainer_7b):
         return DinoUNet(cfg, shard=shard)
 
 
-def train_on_model_axis(device, dataset_id) -> dict:
-    """``run_training`` of Tiny7bParallelTrainer in this rank's process group
-    with ``DINOUNET_TPU_MODEL_AXIS=2``; then a fresh trainer reads the
-    sharded checkpoint_final back onto its shards."""
+# the narrow ViT-S-structured backbone of TinySParallelTrainer
+TINY_S_VIT = dict(embed_dim=64, depth=4, num_heads=4, ffn_ratio=2.0, ffn_layer="mlp",
+                  qkv_bias=True)
+
+
+class TinySParallelTrainer(DinoUNetTrainer_s):
+    """DinoUNetTrainer_s's build and pretrained load over a depth-4 mlp
+    DinoUNet of the ViT-S's structure at width 64 (4 heads, hidden 128),
+    1 epoch of 2 steps and 1 validation batch; the backbone read from
+    ``pretrained`` (a published-layout ``.pth``) where a caller sets it."""
+    pretrained = None
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.seed = 0
+        self.num_epochs = 1
+        self.num_iterations_per_epoch = 2
+        self.num_val_iterations_per_epoch = 1
+        self._dinov3_pretrained_path = type(self).pretrained
+
+    @classmethod
+    def build_network_architecture(cls, architecture_class_name, arch_init_kwargs,
+                                   arch_init_kwargs_req_import, num_input_channels,
+                                   num_output_channels, enable_deep_supervision=True,
+                                   shard=None):
+        cfg = DinoUNetConfig(vit=ViTConfig(**TINY_S_VIT), interaction_indexes=(0, 1, 2, 3),
+                             num_classes=num_output_channels,
+                             features_per_stage=(8, 16, 32, 64), fapm_rank=8, conv_inplane=8,
+                             deform_num_heads=2, deep_supervision=enable_deep_supervision)
+        return DinoUNet(cfg, shard=shard)
+
+
+
+class TinyPlainModelAxisTrainer(TinyParallelTrainer):
+    """TinyParallelTrainer (the plans' PlainConvUNet) under its own name."""
+
+
+MODEL_AXIS_TRAINERS = {"Tiny7bParallelTrainer": Tiny7bParallelTrainer,
+                       "TinySParallelTrainer": TinySParallelTrainer,
+                       "TinyPlainModelAxisTrainer": TinyPlainModelAxisTrainer}
+
+
+def train_on_model_axis(device, args: dict) -> dict:
+    """``run_training`` of each of MODEL_AXIS_TRAINERS in this rank's process
+    group with ``DINOUNET_TPU_MODEL_AXIS=2`` (TinySParallelTrainer's
+    backbone read from ``args["pretrained"]``); then a fresh trainer reads
+    each sharded checkpoint_final back onto its shards. By trainer name: the
+    output folder, the epoch read back, the shapes the rank holds, whether
+    the read-back network equals the trained one, the logged train losses
+    and the trainable parameters (the whole ones: nothing trainable is
+    split); for TinySParallelTrainer also whether the backbone's shards
+    were the file's before training."""
+    from dinounet_tpu_torch.models.convert import backbone_state_dict_from_dinov3
     from dinounet_tpu_torch.run import get_trainer_from_args, run_training
     from dinounet_tpu_torch.utilities import registry
 
     os.environ["DINOUNET_TPU_MODEL_AXIS"] = "2"
     torch.set_num_threads(2)
-    registry.trainers.add("Tiny7bParallelTrainer", Tiny7bParallelTrainer)
-    trainer = run_training(dataset_id, "2d", 0, "Tiny7bParallelTrainer", num_gpus=2,
-                           device=device)
-    final = os.path.join(trainer.output_folder, "checkpoint_final.pth")
-    fresh = get_trainer_from_args(dataset_id, "2d", 0, "Tiny7bParallelTrainer",
-                                  device=device)
-    fresh.load_checkpoint(final)
-    trained = trainer.network.state_dict()
-    return {"output_folder": trainer.output_folder, "epoch": fresh.current_epoch,
+    TinySParallelTrainer.pretrained = args["pretrained"]
+    out = {}
+    for name, cls in MODEL_AXIS_TRAINERS.items():
+        registry.trainers.add(name, cls)
+        trainer = run_training(args["dataset_id"], "2d", 0, name, num_gpus=2, device=device)
+        final = os.path.join(trainer.output_folder, "checkpoint_final.pth")
+        fresh = get_trainer_from_args(args["dataset_id"], "2d", 0, name, device=device)
+        fresh.load_checkpoint(final)
+        trained = trainer.network.state_dict()
+        out[name] = {
+            "output_folder": trainer.output_folder, "epoch": fresh.current_epoch,
             "shards": {k: tuple(v.shape) for k, v in trained.items()},
             "resumed_equal": all(torch.equal(v, trained[k])
-                                 for k, v in fresh.network.state_dict().items())}
+                                 for k, v in fresh.network.state_dict().items()),
+            "train_losses": trainer.logger.my_fantastic_logging["train_losses"],
+            "trainable": {n: p.detach().clone()
+                          for n, p in trainer.network.named_parameters() if p.requires_grad}}
+        if cls is TinySParallelTrainer:
+            # a trainer set up afresh holds the file's shards (the trained
+            # one's backbone is frozen, so equal to them too)
+            shard = trainer.model_shard
+            want = shard_state_dict(backbone_state_dict_from_dinov3(
+                torch.load(args["pretrained"], weights_only=True), ViTConfig(**TINY_S_VIT)),
+                shard.rank, shard.size)
+            backbone = trainer.network.encoder.dinov3_adapter.backbone.state_dict()
+            out[name]["pretrained_equal"] = (set(backbone) == set(want) and all(
+                torch.equal(backbone[k], want[k].to(backbone[k].dtype)) for k in want))
+    return out
