@@ -14,7 +14,12 @@ not 0:
 2. kernels -- each of the 17 kernels against its plain PyTorch version on
               the card (and the row-parallel mode of #3 and #4 and the
               post-reduce pass at a model-axis rank's dinounet_b shapes: K
-              384 and 1536, the pass's output bit for bit), at the shapes
+              384 and 1536, the pass's output bit for bit; likewise the int8
+              mode's: #13 and #10 on a rank's rows, the quantize pass's two
+              modes, #12's and #11's row-parallel int32 modes and the int8
+              post-reduce pass, with both modes split by hand over the
+              whole K on the card equal to the whole #12 / #11 op's stream
+              bit for bit: phase_kernels_int8_split), at the shapes
               the dinounet_b tile forward gives it
               (tile batch 8; the MSDA backward at the train step's batch 2;
               the prepped-input MSDA forward also over two levels) and
@@ -163,7 +168,18 @@ not 0:
               DinoUNetTrainer_b step with DINOUNET_TPU_MODEL_AXIS=2 (the
               global batch of 4 on both ranks) against one process at batch
               4 within the train-parity bounds, its launches
-              PER_TRAIN_STEP_B_SPLIT. The ranks' launches join the phase's.
+              PER_TRAIN_STEP_B_SPLIT; (g) (e) in the int8 serving mode
+              (DINOUNET_TPU_VIT_INT8=1) against the whole int8 backbone:
+              block 0 bit for bit, every block within PARALLEL_B_BOUND, and
+              against (e)'s whole bf16 backbone within INT8_BF16_BOUND, its
+              launches PER_FORWARD_B_SPLIT_INT8 (#13, #10, #11's and #12's
+              modes, the maxima pass and the int8 post-reduce pass); (h)
+              (c) in the int8 serving mode against the whole int8 7B within
+              PARALLEL_7B_BOUND (bit-equality by block reported); (i) (f)
+              in the int8 serving mode against one int8 process at batch 4
+              within the train-parity bounds, its launches
+              PER_TRAIN_STEP_B_SPLIT_INT8. The ranks' launches join the
+              phase's.
 10. pipeline -- the path from raw files to segmentation files. A raw NIfTI
               dataset (RAW_DATASET: RAW_TRAIN labelled and RAW_TEST test
               cases of one 800 x 800 slice at 0.8 mm, the disk and ring
@@ -394,12 +410,17 @@ from dinounet_tpu_torch.ops.decoder_tail import (conv3x3_cm, conv3x3_cm_plain,
                                                  seg_head_cm, seg_head_cm_plain,
                                                  transpconv2x2_cm,
                                                  transpconv2x2_cm_plain)
-from dinounet_tpu_torch.ops.dense_q8 import (CACHE_ATTR, dense_cm_q8_residual_stats,
+from dinounet_tpu_torch.ops.dense_q8 import (CACHE_ATTR, act_amax, act_amax_plain,
+                                             dense_cm_q8_partial, dense_cm_q8_residual_stats,
                                              dense_cm_q8_residual_stats_plain, dense_q8,
+                                             dense_q8_partial, dense_q8_partial_plain,
                                              dense_q8_plain, dense_q8_residual_stats,
-                                             dense_q8_residual_stats_plain, qkv_q8_dmaj,
+                                             dense_q8_residual_stats_plain,
+                                             post_reduce_q8_residual_stats,
+                                             post_reduce_q8_residual_stats_plain, qkv_q8_dmaj,
                                              qkv_q8_dmaj_plain, quantize_act_tokens,
-                                             quantize_weight_dk, quantized_weight)
+                                             quantize_act_tokens_plain, quantize_weight_dk,
+                                             quantized_weight)
 from dinounet_tpu_torch.ops.dense_stats import (dense_cm_partial, dense_cm_partial_plain,
                                                 dense_cm_residual_stats,
                                                 dense_cm_residual_stats_plain,
@@ -467,8 +488,12 @@ PER_FORWARD = {"rope_attention": 12, "rope_attention_rm": 0, "rope_attention_ndh
                "conv3x3_cm": 0, "transpconv2x2_cm": 0, "seg_head_cm": 0, "conv3x3_hwbc": 0,
                **dict.fromkeys(INT8_KERNELS, 0),
                # the row-parallel mode of #3 / #4 and the post-reduce pass run
-               # only on a model axis (the parallel phase)
-               "dense_cm_partial": 0, "dense_rm_partial": 0, "post_reduce_stats": 0}
+               # only on a model axis (the parallel phase), as do the int8
+               # mode's: the maxima pass, #11's and #12's row-parallel modes
+               # and the int8 post-reduce pass
+               "dense_cm_partial": 0, "dense_rm_partial": 0, "post_reduce_stats": 0,
+               "act_amax": 0, "dense_q8_partial": 0, "dense_cm_q8_partial": 0,
+               "post_reduce_q8_stats": 0}
 # the routes, as environment settings, and the launches per tile-batch
 # forward each sets (the others keep PER_FORWARD's). serve_cm: conv3x3_cm 2
 # per decoder stage at 128^2, 256^2, 512^2 and the 2 SPM stem convs at 256^2;
@@ -620,6 +645,19 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                          "dinounet_tpu/ops/dense_stats_pallas.py:71"),
     "post_reduce_stats": ("dinounet_tpu_torch/csrc/dense_stats.cu",
                           "dinounet_tpu/ops/dense_stats_pallas.py:241"),
+    # the int8 mode on a model axis: the quantize pass's maxima mode, the
+    # row-parallel mode of #11 and #12 (the levels at the all-reduced scales,
+    # the rank's int32 product), and the int8 post-reduce pass that finishes
+    # their epilogue after the int32 all-reduce: port-side kernels under the
+    # same TPU kernels
+    "act_amax": ("dinounet_tpu_torch/csrc/dense_q8.cu",
+                 "dinounet_tpu/ops/dense_q8_pallas.py:109"),
+    "dense_q8_partial": ("dinounet_tpu_torch/csrc/dense_q8.cu",
+                         "dinounet_tpu/ops/dense_q8_pallas.py:109"),
+    "dense_cm_q8_partial": ("dinounet_tpu_torch/csrc/dense_q8.cu",
+                            "dinounet_tpu/ops/dense_q8_pallas.py:130"),
+    "post_reduce_q8_stats": ("dinounet_tpu_torch/csrc/dense_q8.cu",
+                             "dinounet_tpu/ops/dense_q8_pallas.py:130"),
 }
 # the unet_3d and resenc_3d phases: a raw 3-D NIfTI set of UNET3D_TRAIN
 # labelled and UNET3D_TEST test cases of UNET3D_SIZE voxels at 1 mm (a sphere
@@ -703,12 +741,18 @@ def phase_build() -> None:
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s "
         f"({_build.library_path().parent})")
     # the GEMM's instances: q8_gemm_kernel<epilogue, layout>, epilogue 0 the
-    # residual + statistics (#11, #12), 1 plain (#10), 2 token columns (#13)
+    # residual + statistics (#11, #12), 1 plain (#10), 2 token columns (#13),
+    # 3 the row-parallel int32 product (#11's and #12's mode); the quantize
+    # passes by mode: 0 one pass, 1 the maxima, 2 the levels at given maxima
     ptxas_report("dense_q8.cu", {"q8_gemm_kernel (statistics)": "q8_gemm_kernelILi0E",
                                  "q8_gemm_kernel (plain)": "q8_gemm_kernelILi1E",
-                                 "quant_cm_kernel": "quant_cm_kernel",
-                                 "quant_rows_kernel (GELU)": "quant_rows_kernelILb1",
-                                 "quant_rows_kernel": "quant_rows_kernelILb0"})
+                                 "q8_gemm_kernel (int32 partial)": "q8_gemm_kernelILi3E",
+                                 **{f"quant_cm_kernel<{m}>": f"quant_cm_kernelILi{m}E"
+                                    for m in range(3)},
+                                 **{f"quant_rows_kernel<{'GELU, ' * g}{m}>":
+                                    f"quant_rows_kernelILb{g}ELi{m}E"
+                                    for g in (0, 1) for m in range(3)},
+                                 "post_reduce_q8_stats_kernel": "post_reduce_q8_stats_kernel"})
     ptxas_report("qkv_q8_dmaj.cu", {"q8_gemm_kernel (token columns)": "q8_gemm_kernelILi2E"})
     ptxas_report("conv3x3_stats.cu", {f"conv3x3_kernel<{co}>": f"conv3x3_kernelILi{co}E"
                                       for co in (16, 32, 64, 128)})
@@ -1440,6 +1484,7 @@ def phase_kernels(dev) -> dict:
                       lambda: dense_q8_residual_stats_plain(h, w, b, res, gamma, "gelu"),
                       h, w, (b, res, gamma), 2.0 * B * N * K * D, exact=False)
         results.setdefault("dense_q8_stats", r)
+    phase_kernels_int8_split(dev, randn, linear_t, int8_case, results)
     # #11 and #12 at the card tests' edge shapes (not timed): rows not a
     # multiple of the GEMM's 64, D not one of its 256-feature pass, K not a
     # multiple of 16, 32 or 128 (37 not even one of 8)
@@ -1465,6 +1510,127 @@ def phase_kernels(dev) -> dict:
     log("[kernels] dense_q8_stats (+GELU) and dense_cm_q8_stats at 5 edge shapes (N 21-130, "
         "K 37-200, D 24-264): within their tolerances, dense_cm_q8_stats's out bit-equal")
     return results
+
+
+def phase_kernels_int8_split(dev, randn, linear_t, int8_case, results: dict) -> None:
+    """The int8 mode on a model axis of 2 at dinounet_b's rank shapes (tile
+    batch 8, N 1029): #13 on the rank's 1152 qkv rows and #10 on its 1536
+    fc1 columns (their whole-size rows stay the kernels line's); the
+    quantize pass's two modes (the maxima; the levels at given maxima);
+    #12's row-parallel mode at K 384 and #11's at K 1536 with the GELU (the
+    rank's int32 product: exact for #12, and for #11 exact against
+    torch._int_mm on the kernel's own levels; library torch._int_mm on the
+    pre-quantized operands); the int8 post-reduce pass at (8, 1029, 768).
+    Then both modes split by hand over the whole K on this card, the maxima
+    and the products met as the all-reduces meet them: the post-reduce pass
+    on the summed product must equal the whole #12 / #11 op's stream bit for
+    bit (its statistics' equality is reported)."""
+    bf, B, N, D = torch.bfloat16, TILE_BATCH, 1029, 768
+    C = 768
+    x = randn(B, N, C).to(bf)
+    w, b = linear_t(C, 3 * C // 2), randn(3 * C // 2, scale=0.1)
+    int8_case("qkv_q8_dmaj", f"a rank's 6 heads: x {tuple(x.shape)} -> ({B}, 3, 6, 64, {N})",
+              lambda: qkv_q8_dmaj(x, w, b, 6, 64), lambda: qkv_q8_dmaj_plain(x, w, b, 6, 64),
+              x, w, (b,), 2.0 * B * N * C * 3 * C // 2)
+    w, b = linear_t(C, 1536), randn(1536, scale=0.1)
+    int8_case("dense_q8", f"a rank's fc1 K={C} D=1536 N={N}", lambda: dense_q8(x, w, b),
+              lambda: dense_q8_plain(x, w, b), x, w, (b,), 2.0 * B * N * C * 1536)
+    del x
+    for K, cm, where in ((384, True, "split vit proj"), (1536, False, "split vit fc2 +GELU")):
+        name = "dense_cm_q8_partial" if cm else "dense_q8_partial"
+        prologue = "none" if cm else "gelu"
+        h = randn(B, K, N).to(bf) if cm else randn(B, N, K).to(bf)
+        wq, _ = quantized_weight(linear_t(K, D))
+        desc = f"{where} K={K} N={N} D={D} (a rank of 2)"
+        # the maxima pass; library: max|x| as one PyTorch call where one
+        # computes it (no GELU). Operations: abs and max an element, and
+        # with the GELU its ~24 (erff's polynomial counted as 20)
+        elems = B * N * K
+        r = _compare("act_amax", f"{where}: the maxima, K={K} N={N}",
+                     lambda: act_amax(h, cm, prologue), lambda: act_amax_plain(h, cm, prologue),
+                     (h,), elems * (2 + (0 if cm else 24)), FP32_FLOP_S,
+                     (lambda: torch.linalg.vector_norm(h, float("inf"), dim=1)) if cm else None,
+                     library_label="library (linalg.vector_norm(inf): max|x| alone)",
+                     exact=cm)
+        results.setdefault("act_amax", r)
+        # the all-reduced maxima: above this rank's own, as where another
+        # rank holds a token's maximum
+        amax = act_amax(h, cm, prologue) * (1.0 + torch.rand(B * N, device=dev))
+        xq, a = quantize_act_tokens(h, cm, prologue, amax)
+        xq_p, a_p = quantize_act_tokens_plain(h, cm, prologue, amax)
+        torch.cuda.synchronize()
+        flips = int((xq.int() - xq_p.int()).abs().gt(0).sum())
+        worst = int((xq.int() - xq_p.int()).abs().max())
+        if not torch.equal(a, a_p) or worst > (0 if cm else 1):
+            raise AssertionError(f"{name} {desc}: the levels at given maxima differ from the "
+                                 f"plain version's (largest level difference {worst})")
+        log(f"[kernels] the quantize pass at given maxima, {where} K={K}: scales equal, "
+            f"{flips} of {xq.numel()} levels one apart (the GELU's erf), none further")
+        if cm:
+            kernel_fn = lambda: dense_cm_q8_partial(h, wq, amax)
+        else:
+            kernel_fn = lambda: dense_q8_partial(h, wq, amax, prologue)
+        r = _compare(name, desc, kernel_fn,
+                     lambda: dense_q8_partial_plain(h, wq, amax, prologue, cm),
+                     (h, wq, amax), 2.0 * B * N * K * D, INT8_OP_S,
+                     lambda: torch._int_mm(xq, wq.t()), library_label=INT8MM_LABEL, exact=cm)
+        acc, _ = kernel_fn()
+        if not torch.equal(acc.view(B * N, D), torch._int_mm(xq, wq.t())):
+            raise AssertionError(f"{name} {desc}: the int32 product differs from "
+                                 "torch._int_mm's on the kernel's own levels")
+        _log_launch_split(name, desc + ", int32 product equal to torch._int_mm's on its levels",
+                          kernel_fn, {"quantize pass": "quant_", "gemm": "gemm"},
+                          {"quantize pass": 1, "gemm": 1})
+        results[name] = r
+        del h, xq, xq_p, acc
+    g = torch.Generator(device=dev).manual_seed(5)
+    acc = torch.randint(-2 ** 21, 2 ** 21, (B, N, D), generator=g, device=dev,
+                        dtype=torch.int32)
+    a = torch.rand(B * N, generator=g, device=dev) * 0.05
+    ws = torch.rand(D, generator=g, device=dev) * 1e-3
+    b, gamma = randn(D, scale=0.1), randn(D, scale=0.5)
+    res = randn(B, N, D).to(bf)
+    post_fn = lambda: post_reduce_q8_residual_stats(acc, a, ws, b, res, gamma)
+    r = _compare("post_reduce_q8_stats",
+                 f"(B, N, D) = ({B}, {N}, {D}), the summed int32 product", post_fn,
+                 lambda: post_reduce_q8_residual_stats_plain(acc, a, ws, b, res, gamma),
+                 (acc, a, ws, b, res, gamma), 9.0 * B * N * D, FP32_FLOP_S, exact=True)
+    busy = sum(device_times(post_fn).values())
+    log(f"[kernels] post_reduce_q8_stats: device time {busy:.4f} ms "
+        f"({100 * r['bound_ms'] / busy:.1f} % of the bound's rate)")
+    results["post_reduce_q8_stats"] = r
+    del acc, res
+    # the split by hand: the whole op on K, two ranks' halves on this card
+    for K, cm, where in ((768, True, "vit proj"), (3072, False, "vit fc2 +GELU")):
+        prologue = "none" if cm else "gelu"
+        h = randn(B, K, N).to(bf) if cm else randn(B, N, K).to(bf)
+        w, b = linear_t(K, D), randn(D, scale=0.1)
+        res, gamma = randn(B, N, D).to(bf), randn(D, scale=0.5)
+        if cm:
+            whole = dense_cm_q8_residual_stats(h, w, b, res, gamma)
+        else:
+            whole = dense_q8_residual_stats(h, w, b, res, gamma, prologue)
+        halves = [t.contiguous() for t in h.split(K // 2, dim=1 if cm else 2)]
+        w_halves = w.split(K // 2, dim=0)
+        amax = torch.maximum(*(act_amax(t, cm, prologue) for t in halves))
+        wmax = torch.maximum(*(t.abs().amax(0, keepdim=True) for t in w_halves))
+        acc = 0
+        for hr, wr in zip(halves, w_halves):
+            wq, ws = quantize_weight_dk(wr, amax=wmax)
+            part = (dense_cm_q8_partial(hr, wq, amax) if cm
+                    else dense_q8_partial(hr, wq, amax, prologue))
+            acc, a = acc + part[0], part[1]
+        split = post_reduce_q8_residual_stats(acc, a, ws, b, res, gamma)
+        torch.cuda.synchronize()
+        same = [torch.equal(s_, w_) for s_, w_ in zip(split, whole)]
+        log(f"[kernels] {where} K={K} split by hand over 2 ranks' K (maxima and int32 "
+            f"products met on this card) vs the whole int8 op: stream bit-equal {same[0]}, "
+            f"mean {same[1]}, var {same[2]} (max abs {max_abs_err(split[1], whole[1]):.3e} / "
+            f"{max_abs_err(split[2], whole[2]):.3e})")
+        if not same[0]:
+            raise AssertionError(f"{where}: the split int8 mode's stream differs from the "
+                                 f"whole op's (max abs {max_abs_err(split[0], whole[0])})")
+        del h, res, acc
 
 
 def build_model() -> DinoUNet:
@@ -2045,6 +2211,22 @@ PER_FORWARD_B_SPLIT = {**dict.fromkeys(PER_FORWARD, 0), "rope_attention": 12,
 PER_TRAIN_STEP_B_SPLIT = {**PER_TRAIN_STEP, "dense_cm_stats": 0, "dense_rm_stats": 0,
                           "dense_cm_partial": 12, "dense_rm_partial": 12,
                           "post_reduce_stats": 24}
+# (g) the ViT-B of (e) in the int8 serving mode on the model axis: a block
+# runs #13 on the rank's 6 heads' qkv rows, #2 on those heads, #12's
+# row-parallel mode, #10 on the rank's fc1 columns, #11's row-parallel mode
+# with the GELU, the maxima pass before each of the two modes and the int8
+# post-reduce pass after each int32 all-reduce; held to the whole int8
+# backbone (block 0 bit for bit, every block within PARALLEL_B_BOUND) and to
+# the whole bf16 backbone of (e) within INT8_BF16_BOUND
+PER_FORWARD_B_SPLIT_INT8 = {**dict.fromkeys(PER_FORWARD, 0), "rope_attention": 12,
+                            "qkv_q8_dmaj": 12, "dense_q8": 12, "dense_q8_partial": 12,
+                            "dense_cm_q8_partial": 12, "act_amax": 24,
+                            "post_reduce_q8_stats": 24}
+# (i) a DinoUNetTrainer_b step on that model axis in the int8 serving mode:
+# the frozen backbone's blocks as in (g), the adapter's MSDA as in
+# PER_TRAIN_STEP
+PER_TRAIN_STEP_B_SPLIT_INT8 = {**PER_TRAIN_STEP, "dense_cm_stats": 0, "dense_rm_stats": 0,
+                               **{k: n for k, n in PER_FORWARD_B_SPLIT_INT8.items() if n}}
 
 
 def _step_grads(trainer, x, seg):
@@ -2097,13 +2279,18 @@ def _vit7b(dev, shard=None, seed: int = 0, name: str = "dinov3_vit7b16",
     return vit.eval().requires_grad_(False)
 
 
-def _split_backbone(dev, shard, name: str, depth: int, tile, patched: str) -> dict:
+def _split_backbone(dev, shard, name: str, depth: int, tile, patched: str,
+                    keep_want: bool = False, bf16_want=None) -> dict:
     """The backbone `name` at `depth`, whole and split over the model axis of
     `shard` (the shards loaded from the whole one's state), on `tile`: the
     relative L2 of the split's outputs against the whole one's (every
-    block's), the head counts the attention op `patched` of models/vit.py
-    was called with, the split forward's launches and peak, and the shapes
-    of block 0's shards."""
+    block's) and whether each equals it bit for bit, the head counts the
+    attention op `patched` of models/vit.py was called with, the split
+    forward's launches and peak, and the shapes of block 0's shards; whether
+    each block's residual stream (its bf16 output before any norm: the
+    chain's x with the statistics beside it) equals the whole one's; with
+    `keep_want` the whole one's outputs too, with `bf16_want` (another
+    run's whole outputs) the split's relative L2 against those."""
     from dinounet_tpu_torch.models import vit as vit_module
     from dinounet_tpu_torch.parallel.sharding import shard_state_dict
 
@@ -2111,8 +2298,18 @@ def _split_backbone(dev, shard, name: str, depth: int, tile, patched: str) -> di
     state = {k: v.clone() for k, v in
              shard_state_dict(whole.state_dict(), shard.rank, shard.size).items()}
     take = tuple(range(depth))
+
+    def streams(model):
+        """Each block's output stream, kept by forward hooks (and the hooks)."""
+        kept = []
+        keep = lambda m, i, o: kept.append((o[0] if isinstance(o, tuple) else o).clone())
+        return kept, [blk.register_forward_hook(keep) for blk in model.blocks]
+
+    want_streams, hooks = streams(whole)
     with torch.no_grad():
         want = [t.float() for t, _ in whole(tile, take)]
+    for hook in hooks:
+        hook.remove()
     del whole
     torch.cuda.empty_cache()
     split = _vit7b(dev, shard, name=name, depth=depth)
@@ -2128,6 +2325,7 @@ def _split_backbone(dev, shard, name: str, depth: int, tile, patched: str) -> di
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launch_counts()
+    got_streams, hooks = streams(split)
     setattr(vit_module, patched, recording)
     try:
         with torch.no_grad():
@@ -2135,10 +2333,19 @@ def _split_backbone(dev, shard, name: str, depth: int, tile, patched: str) -> di
         torch.cuda.synchronize()
     finally:
         setattr(vit_module, patched, attention)
-    return {"split": split, "rel_l2": [rel_l2(g, w) for g, w in zip(got, want)],
-            "heads": heads, "launches": _build.launch_counts(),
-            "peak": torch.cuda.max_memory_allocated(dev),
-            "held": {k: tuple(v.shape) for k, v in state.items() if "blocks.0." in k}}
+        for hook in hooks:
+            hook.remove()
+    out = {"split": split, "rel_l2": [rel_l2(g, w) for g, w in zip(got, want)],
+           "equal": [torch.equal(g, w) for g, w in zip(got, want)],
+           "stream_equal": [torch.equal(g, w) for g, w in zip(got_streams, want_streams)],
+           "heads": heads, "launches": _build.launch_counts(),
+           "peak": torch.cuda.max_memory_allocated(dev),
+           "held": {k: tuple(v.shape) for k, v in state.items() if "blocks.0." in k}}
+    if keep_want:
+        out["want"] = want
+    if bf16_want is not None:
+        out["rel_l2_bf16"] = [rel_l2(g, w) for g, w in zip(got, bf16_want)]
+    return out
 
 
 def _parallel_rank(dev, data: np.ndarray, seg: np.ndarray, directory: str) -> dict:
@@ -2148,7 +2355,8 @@ def _parallel_rank(dev, data: np.ndarray, seg: np.ndarray, directory: str) -> di
     shards' sharded checkpoint written and read back; (e) dinounet_b's ViT-B
     split over the model axis against the whole one; (f) one
     DinoUNetTrainer_b step on the model axis (the global batch on both
-    ranks)."""
+    ranks); (g) the ViT-B of (e) and (h) the 7B of (c) in the int8 serving
+    mode, split against whole; (i) (f)'s step in the int8 serving mode."""
     from dinounet_tpu_torch.parallel.mesh import MODEL_AXIS, make_mesh
     from dinounet_tpu_torch.parallel.sharding import ModelShard, dcp_state_dict
     from dinounet_tpu_torch.training.checkpointing import (CHECKPOINT_KEYS,
@@ -2203,11 +2411,24 @@ def _parallel_rank(dev, data: np.ndarray, seg: np.ndarray, directory: str) -> di
 
     tiles = torch.randn((TILE_BATCH, 3, PATCH, PATCH),
                         generator=torch.Generator(device=dev).manual_seed(2), device=dev)
-    out["e"] = _split_backbone(dev, shard, "dinov3_vitb16",
-                               VIT_CONFIGS["dinov3_vitb16"].depth, tiles,
-                               "fused_rope_attention_premapped_dmaj")
-    del out["e"]["split"], tiles
+    depth_b = VIT_CONFIGS["dinov3_vitb16"].depth
+    out["e"] = _split_backbone(dev, shard, "dinov3_vitb16", depth_b, tiles,
+                               "fused_rope_attention_premapped_dmaj", keep_want=True)
+    want_bf16 = out["e"].pop("want")
+    del out["e"]["split"]
     torch.cuda.empty_cache()
+    os.environ["DINOUNET_TPU_VIT_INT8"] = "1"
+    try:
+        out["g"] = _split_backbone(dev, shard, "dinov3_vitb16", depth_b, tiles,
+                                   "fused_rope_attention_premapped_dmaj", bf16_want=want_bf16)
+        del out["g"]["split"], tiles, want_bf16
+        torch.cuda.empty_cache()
+        out["h"] = _split_backbone(dev, shard, "dinov3_vit7b16", PARALLEL_7B_DEPTH, tile,
+                                   "fused_rope_attention")
+        del out["h"]["split"], tile
+        torch.cuda.empty_cache()
+    finally:
+        del os.environ["DINOUNET_TPU_VIT_INT8"]
 
     os.environ["DINOUNET_TPU_MODEL_AXIS"] = "2"
     try:
@@ -2224,6 +2445,25 @@ def _parallel_rank(dev, data: np.ndarray, seg: np.ndarray, directory: str) -> di
     loss, grads = _step_grads(trainer, x, y)
     torch.cuda.synchronize()
     out["f"] = {"loss": loss, "grads": grads if rank == 0 else None,
+                "axes": (trainer.n_data, trainer.n_model),
+                "launches": _build.launch_counts(),
+                "peak": torch.cuda.max_memory_allocated(dev)}
+    del trainer, grads
+    torch.cuda.empty_cache()
+
+    os.environ.update(DINOUNET_TPU_MODEL_AXIS="2", DINOUNET_TPU_VIT_INT8="1")
+    try:
+        trainer = get_trainer_from_args(TRAIN_DATASET, "2d", 0, "DinoUNetTrainer_b",
+                                        device=dev)
+        trainer.seed = 0
+        trainer.initialize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launch_counts()
+        loss, grads = _step_grads(trainer, x, y)
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["DINOUNET_TPU_MODEL_AXIS"], os.environ["DINOUNET_TPU_VIT_INT8"]
+    out["i"] = {"loss": loss, "grads": grads if rank == 0 else None,
                 "axes": (trainer.n_data, trainer.n_model),
                 "launches": _build.launch_counts(),
                 "peak": torch.cuda.max_memory_allocated(dev)}
@@ -2289,7 +2529,14 @@ def phase_parallel(dev) -> dict:
     ref_loss, ref_grads = _step_grads(ref, x, y)
     ref_steps = _timed_steps(ref, x, y, PARALLEL_STEPS)
     ref_peak = torch.cuda.max_memory_allocated(dev)
-    del ref, x, y
+    del ref
+    torch.cuda.empty_cache()
+    # (i)'s reference: one process at batch 4 in the int8 serving mode
+    with route_env({"DINOUNET_TPU_VIT_INT8": "1"}):
+        ref8 = _trainer(dev)
+        ref8.initialize()
+        ref8_loss, ref8_grads = _step_grads(ref8, x, y)
+    del ref8, x, y
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         directory = os.path.join(tmp, "checkpoint_7b")
@@ -2414,7 +2661,83 @@ def phase_parallel(dev) -> dict:
             if r["launches"] != PER_TRAIN_STEP_B_SPLIT:
                 raise AssertionError(f"parallel (f): launches {r['launches']}, want "
                                      f"{PER_TRAIN_STEP_B_SPLIT}")
-    for r in b + c + e + f:
+
+        g = [r["g"] for r in ranks]
+        log(f"[parallel] (g) the ViT-B of (e) in the int8 serving mode "
+            f"(DINOUNET_TPU_VIT_INT8=1) split over the model axis of 2 against the whole "
+            f"int8 backbone: each block's bf16 stream bit-equal "
+            f"{[r['stream_equal'] for r in g]}, its normed output "
+            f"{[r['equal'] for r in g]}; relative L2 of the normed outputs by block "
+            f"{[[float(f'{v:.3e}') for v in r['rel_l2']] for r in g]} (bound "
+            f"{PARALLEL_B_BOUND}; block 0's stream bit-equal required); against the whole "
+            f"bf16 "
+            f"backbone of (e), largest relative L2 "
+            f"{[round(max(r['rel_l2_bf16']), 5) for r in g]} (bound {INT8_BF16_BOUND}); "
+            f"launches a rank " + str({k: n for k, n in g[0]["launches"].items() if n})
+            + f"; #2 at M = {sorted({m for r in g for m in r['heads']})}; peak "
+            f"{g[0]['peak'] / 2**30:.2f} / {g[1]['peak'] / 2**30:.2f} GiB on ranks 0 / 1 "
+            f"(the modes' times at the rank's K: the [kernels] rows act_amax, "
+            f"dense_cm_q8_partial, dense_q8_partial, post_reduce_q8_stats)")
+        for r in g:
+            if not (r["stream_equal"][0] and max(r["rel_l2"]) <= PARALLEL_B_BOUND
+                    and max(r["rel_l2_bf16"]) <= INT8_BF16_BOUND):
+                raise AssertionError(f"parallel (g): block 0's stream equal "
+                                     f"{r['stream_equal'][0]}, relative "
+                                     f"L2 {r['rel_l2']}, against bf16 {r['rel_l2_bf16']}")
+            if r["heads"] != [heads_b] * VIT_CONFIGS["dinov3_vitb16"].depth:
+                raise AssertionError(f"parallel (g): attention heads {r['heads']}")
+            if r["launches"] != PER_FORWARD_B_SPLIT_INT8:
+                raise AssertionError(f"parallel (g): launches {r['launches']}, want "
+                                     f"{PER_FORWARD_B_SPLIT_INT8}")
+
+        h = [r["h"] for r in ranks]
+        log(f"[parallel] (h) the 7B backbone of (c) (depth {PARALLEL_7B_DEPTH}) in the int8 "
+            f"serving mode (QuantDense: torch._int_mm, column- and row-parallel) split over "
+            f"the model axis of 2 against the whole int8 backbone: each block's bf16 stream "
+            f"bit-equal {[r['stream_equal'] for r in h]}, its normed output "
+            f"{[r['equal'] for r in h]}; relative L2 "
+            f"{[[float(f'{v:.3e}') for v in r['rel_l2']] for r in h]} (bound "
+            f"{PARALLEL_7B_BOUND}); #9 launched "
+            f"{[r['launches']['rope_attention_rm'] for r in h]} times at M = "
+            f"{sorted({m for r in h for m in r['heads']})}; peak "
+            f"{h[0]['peak'] / 2**30:.2f} / {h[1]['peak'] / 2**30:.2f} GiB on ranks 0 / 1")
+        for r in h:
+            if not max(r["rel_l2"]) <= PARALLEL_7B_BOUND:
+                raise AssertionError(f"parallel (h): relative L2 {r['rel_l2']}")
+            if r["launches"] != PER_FORWARD_7B_SPLIT:
+                raise AssertionError(f"parallel (h): launches {r['launches']}, want "
+                                     f"{PER_FORWARD_7B_SPLIT}")
+
+        i8 = [r["i"] for r in ranks]
+        names8 = sorted(ref8_grads)
+        msda8 = [n for n in names8 if ".attn." in n and "dinov3_adapter.interactions" in n]
+
+        def rel8(names):
+            g_ = torch.cat([i8[0]["grads"][n] for n in names])
+            w_ = torch.cat([ref8_grads[n] for n in names])
+            return float(torch.linalg.vector_norm(g_ - w_) / torch.linalg.vector_norm(w_))
+
+        grad_i, msda_i = rel8(names8), rel8(msda8)
+        loss_i = max(abs(r["loss"] - ref8_loss) / abs(ref8_loss) for r in i8)
+        log(f"[parallel] (i) DinoUNetTrainer_b on the model axis of 2 in the int8 serving "
+            f"mode (the backbone split as in (g)): one step against one process at batch 4 "
+            f"in the int8 mode: loss {[round(r['loss'], 6) for r in i8]} vs {ref8_loss:.6f} "
+            f"(rel {loss_i:.3e}, bound {TRAIN_LOSS_BOUND}; the bf16 step's {ref_loss:.6f}); "
+            f"relative L2 of the trainable gradients {grad_i:.4e} (bound {TRAIN_GRAD_BOUND}), "
+            f"of the MSDA projections' {msda_i:.4e} (bound {TRAIN_MSDA_GRAD_BOUND}); peak "
+            f"{i8[0]['peak'] / 2**30:.2f} / {i8[1]['peak'] / 2**30:.2f} GiB; launches "
+            + str({k: n for k, n in i8[0]["launches"].items() if n}))
+        if i8[0]["axes"] != (1, 2):
+            raise AssertionError(f"parallel (i): the trainer's axes {i8[0]['axes']}")
+        if not (loss_i <= TRAIN_LOSS_BOUND and grad_i <= TRAIN_GRAD_BOUND
+                and msda_i <= TRAIN_MSDA_GRAD_BOUND):
+            raise AssertionError(f"parallel (i): loss {loss_i}, gradients {grad_i}, "
+                                 f"MSDA projections {msda_i}")
+        for r in i8:
+            if r["launches"] != PER_TRAIN_STEP_B_SPLIT_INT8:
+                raise AssertionError(f"parallel (i): launches {r['launches']}, want "
+                                     f"{PER_TRAIN_STEP_B_SPLIT_INT8}")
+    for r in b + c + e + f + g + h + i8:
         for k, n in r["launches"].items():
             counts[k] += n
     return counts

@@ -45,7 +45,15 @@
 //     fixed order (no second pass over out, no atomics);
 //   kPlain (#10): y stored, (rows, D), as 16-byte vectors;
 //   kTokenColumns (#13): y stored transposed, (rows / N, D, N) with tokens
-//     fastest (store_run below).
+//     fastest (store_run below);
+//   kPartial (#11's and #12's row-parallel mode, on a model axis): no
+//     rescale, no bias, no statistics: the int32 accumulators (rows, D) as
+//     they stand, staged 64 features at a time and stored as 16-byte
+//     vectors, for the caller's int32 all-reduce (exact in any order) and
+//     dense_q8.cu's post-reduce pass. A rank holds K/n of the input, so its
+//     activation scale must be the whole row's: the quantize pass then runs
+//     in two modes (QuantMode), the row maxima first (all-reduced by the
+//     caller), then the levels at the scale of the given maximum.
 
 #pragma once
 
@@ -91,6 +99,32 @@ __device__ __forceinline__ uint4 quantize16(uint4 lo, uint4 hi, float a) {
                     pack4(a, f(h, 4), f(h, 5), f(h, 6), f(h, 7)));
 }
 
+// The quantize passes' modes: the one pass of a whole row (its maximum, then
+// its levels); the row maxima alone (max|x| over the rank's K, through the
+// same GELU rounding); the levels at the scale quant_scale(amax) of a given
+// maximum (the all-reduced one), which also writes that scale.
+enum QuantMode { kOnePass = 0, kAmaxOnly = 1, kGivenScale = 2 };
+
+// the 8 bf16 of x row xr at k0 .. k0 + 7 (zeros past K), through the GELU
+// rounded to bf16 as the one-pass loop rounds it
+template <bool kGelu>
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* xr, int k0, int K, int vec) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+  if (vec && k0 + 8 <= K) {
+    v = __ldg(reinterpret_cast<const uint4*>(xr + k0));
+  } else {
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (k0 + u < K) e[u] = xr[k0 + u];
+  }
+  if (kGelu) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) e[u] = __float2bfloat16(gelu_exact(__bfloat162float(e[u])));
+  }
+  return v;
+}
+
 // Row-major x (rows, K) bf16, optionally through the exact GELU rounded to
 // bf16 (the JAX prologue's rounding point) -> xq (rows, ldq) int8, ldq =
 // pad16(K), zero in columns K..ldq-1, and one scale a per row. A row is
@@ -101,16 +135,49 @@ __device__ __forceinline__ uint4 quantize16(uint4 lo, uint4 hi, float a) {
 // element, keeps the bf16 values in shared memory ([row][ldq] bf16) and
 // takes their maximum; the maxima meet by shuffles within the G lanes; the
 // lane then writes its chunks' levels as 16-byte stores.
-template <bool kGelu>
+// kAmaxOnly writes max|x| of each row to scale[row] (no levels, no shared
+// memory); kGivenScale reads the row's maximum from amax[row] and writes
+// the levels as each chunk arrives (no shared memory) and the scale.
+template <bool kGelu, int kMode>
 __global__ void __launch_bounds__(256)
 quant_rows_kernel(const __nv_bfloat16* __restrict__ x, int rows, int K,
-                  int8_t* __restrict__ xq, int ldq, float* __restrict__ scale, int vec,
-                  int lanes_log2) {
+                  int8_t* __restrict__ xq, int ldq, float* __restrict__ scale,
+                  const float* __restrict__ amax, int vec, int lanes_log2) {
   extern __shared__ __align__(16) unsigned char quant_rows_smem[];
   const int G = 1 << lanes_log2;
   const int sub = threadIdx.x & (G - 1), rloc = threadIdx.x >> lanes_log2;
   const int row = blockIdx.x * (blockDim.x >> lanes_log2) + rloc;
   const bool live = row < rows;
+  if constexpr (kMode == kGivenScale) {
+    if (!live) return;
+    const float a = quant_scale(amax[row]);
+    const __nv_bfloat16* xr = x + (size_t)row * K;
+    int8_t* qr = xq + (size_t)row * ldq;
+    for (int c = sub; c < ldq / 16; c += G)
+      *reinterpret_cast<uint4*>(qr + 16 * c) =
+          quantize16(load8<kGelu>(xr, 16 * c, K, vec), load8<kGelu>(xr, 16 * c + 8, K, vec), a);
+    if (sub == 0) scale[row] = a;
+    return;
+  }
+  if constexpr (kMode == kAmaxOnly) {
+    float m = 0.f;
+    if (live) {
+      const __nv_bfloat16* xr = x + (size_t)row * K;
+      for (int c = sub; c < ldq / 16; c += G) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const uint4 v = load8<kGelu>(xr, 16 * c + 8 * half, K, vec);
+          const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+          for (int u = 0; u < 8; ++u) m = fmaxf(m, fabsf(__bfloat162float(e[u])));
+        }
+      }
+    }
+    for (int off = G / 2; off > 0; off >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if (live && sub == 0) scale[row] = m;
+    return;
+  }
   uint4* buf = reinterpret_cast<uint4*>(quant_rows_smem) + (size_t)rloc * (ldq / 8);
   const int chunks = ldq / 16;
   float m = 0.f;
@@ -152,7 +219,7 @@ quant_rows_kernel(const __nv_bfloat16* __restrict__ x, int rows, int K,
 
 // ------------------------------------------------------------------ GEMM
 
-enum Epilogue { kStats = 0, kPlain = 1, kTokenColumns = 2 };
+enum Epilogue { kStats = 0, kPlain = 1, kTokenColumns = 2, kPartial = 3 };
 enum Layout { kSplitFeatures = 0, kSplitRows = 1 };
 
 constexpr int kStages = 4;     // ring stages
@@ -184,11 +251,12 @@ struct Args {
   const float* gamma;        // (D), kStats
   const __nv_bfloat16* res;  // (rows, D), kStats
   __nv_bfloat16* out;        // (rows, D); kTokenColumns (rows / N, D, N)
+  int* acc;                  // (rows, D), kPartial
   float* mu;                 // (rows), kStats
   float* var;
   int rows, K, D;
   int N;                 // kTokenColumns: tokens an image
-  int vec;               // kStats, kPlain: res and out rows start 16-byte aligned
+  int vec;               // kStats, kPlain, kPartial: res, out and acc rows 16-byte aligned
   int passes_per_block;  // block (x, y) takes passes y * passes_per_block ..
 };
 
@@ -201,11 +269,32 @@ __device__ __forceinline__ int row_slot(int r, int c) {
   return r * 128 + ((chunk & 8) | ((chunk ^ r) & 7)) * 8 + (c & 7);
 }
 
+// kPartial's staging tile, 64 rows x 64 int32 (16 KB, the bf16 tile's
+// room): 16-byte chunk c of row r sits at chunk c ^ (2 r % 8) within its
+// group of 8, so that a half-warp's 8-byte writes (4 rows, 2 chunks each)
+// and a quarter-warp's 16-byte reads (one row) meet no bank conflict
+__device__ __forceinline__ int int_slot(int r, int c) {
+  const int chunk = c >> 2;
+  return r * 64 + ((chunk & 8) | ((chunk ^ (2 * r)) & 7)) * 4 + (c & 3);
+}
+
 // element u (a constant after unrolling) of 8 bf16 in a 16-byte vector, read
 // without taking the vector's address (which would put it on the stack)
 __device__ __forceinline__ __nv_bfloat16 lane_of(const uint4& v, int u) {
   const uint32_t w = u < 2 ? v.x : u < 4 ? v.y : u < 6 ? v.z : v.w;
   return __ushort_as_bfloat16((unsigned short)(u & 1 ? w >> 16 : w & 0xffffu));
+}
+
+// The row statistics' arithmetic, each operation rounded on its own
+// (intrinsics nvcc does not contract): the kStats epilogue and dense_q8.cu's
+// post-reduce pass sum the same values in the same order with these, so
+// that their statistics agree bit for bit
+__device__ __forceinline__ float sum_in(float s, float f) { return __fadd_rn(s, f); }
+__device__ __forceinline__ float square_in(float s, float f) { return __fmaf_rn(f, f, s); }
+__device__ __forceinline__ float row_mean(float S1, int D) { return __fdiv_rn(S1, (float)D); }
+__device__ __forceinline__ float row_var(float S1, float S2, int D) {
+  const float m = row_mean(S1, D);
+  return fmaxf(__fsub_rn(__fdiv_rn(S2, (float)D), __fmul_rn(m, m)), 0.f);
 }
 
 // y = (float(acc) * a) * ws + bias, each operation rounded once
@@ -318,9 +407,10 @@ q8_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
       reinterpret_cast<__nv_bfloat16*>(sbase + P::kOffStaging + cw * kStagingBytes);
   const int ar = warp * 16 + lane / 4;     // accumulator rows ar and ar + 8
   const int vq = tid % 16, rq = tid / 16;  // row stores: 16-byte run vq of rows rq + 8 i
-  // the per-token scales of the accumulator rows (0 past the last row)
-  const float a0 = ar < rows_valid ? p.a[rw + ar] : 0.f;
-  const float a1 = ar + 8 < rows_valid ? p.a[rw + ar + 8] : 0.f;
+  // the per-token scales of the accumulator rows (0 past the last row;
+  // kPartial rescales nothing)
+  const float a0 = kEpi != kPartial && ar < rows_valid ? p.a[rw + ar] : 0.f;
+  const float a1 = kEpi != kPartial && ar + 8 < rows_valid ? p.a[rw + ar + 8] : 0.f;
   int acc[64 * P::kHalves];
   float s1[8], s2[8];
 #pragma unroll
@@ -405,10 +495,10 @@ q8_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
               for (int u = 0; u < 4; ++u) {
                 r2[u] = __hadd2(r2[u], l2[u]);
                 const float2 f = __bfloat1622float2(r2[u]);
-                s1[i] += f.x;
-                s2[i] += f.x * f.x;
-                s1[i] += f.y;
-                s2[i] += f.y * f.y;
+                s1[i] = sum_in(s1[i], f.x);
+                s2[i] = square_in(s2[i], f.x);
+                s1[i] = sum_in(s1[i], f.y);
+                s2[i] = square_in(s2[i], f.y);
               }
               *reinterpret_cast<uint4*>(p.out + o) = rv[i];
             } else {
@@ -417,8 +507,8 @@ q8_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
                                                           __bfloat162float(l8[u]));
                 p.out[o + u] = ov;
                 const float f = __bfloat162float(ov);
-                s1[i] += f;
-                s2[i] += f * f;
+                s1[i] = sum_in(s1[i], f);
+                s2[i] = square_in(s2[i], f);
               }
             }
           }
@@ -454,6 +544,40 @@ q8_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
             for (int u = 0; u < 8; ++u)
               if (col + u < p.D) o[u] = lane_of(lv, u);
           }
+        }
+      } else if constexpr (kEpi == kPartial) {
+        // the accumulators as they stand: 64 features of the half at a time
+        // staged as int32 pairs, then stored as 16-byte vectors
+        int* sti = reinterpret_cast<int*>(st);
+#pragma unroll
+        for (int sub = 0; sub < 2; ++sub) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = 8 * j + 2 * (lane % 4);
+            const int jj = 8 * sub + j;
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              *reinterpret_cast<int2*>(sti + int_slot(ar + 8 * hh, c)) =
+                  make_int2(acc[64 * h + 4 * jj + 2 * hh], acc[64 * h + 4 * jj + 2 * hh + 1]);
+          }
+          named_barrier(1 + cw, 128);
+          const int col = d_base + 64 * sub + 4 * vq;  // 16 runs of 4 features a row
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int r = rq + 8 * i;
+            if (r >= rows_valid || col >= p.D) continue;
+            const int4 v = *reinterpret_cast<const int4*>(sti + int_slot(r, 4 * vq));
+            int* o = p.acc + (size_t)(rw + r) * p.D + col;
+            if (p.vec) {
+              *reinterpret_cast<int4*>(o) = v;
+            } else {
+              const int e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+              for (int u = 0; u < 4; ++u)
+                if (col + u < p.D) o[u] = e[u];
+            }
+          }
+          named_barrier(1 + cw, 128);
         }
       } else {  // kTokenColumns
         // y as bf16 pairs (features c, c + 1 of token ar + 8 hh), all parameter
@@ -524,9 +648,8 @@ q8_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
     if (cw == 0 && tid < rows_valid) {
       const float S1 = stats[2 * tid] + stats[2 * (64 + tid)];
       const float S2 = stats[2 * tid + 1] + stats[2 * (64 + tid) + 1];
-      const float m = S1 / p.D;
-      p.mu[rw + tid] = m;
-      p.var[rw + tid] = fmaxf(S2 / p.D - m * m, 0.f);
+      p.mu[rw + tid] = row_mean(S1, p.D);
+      p.var[rw + tid] = row_var(S1, S2, p.D);
     }
   }
 }
@@ -536,7 +659,8 @@ q8_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
 template <int kEpi, int kLayout>
 int launch_gemm(const void* xq, const void* wq, int ldq, Args p, cudaStream_t stream) {
   using P = Plan<kLayout>;
-  if (!aligned16(xq) || !aligned16(wq) || (kEpi == kTokenColumns && !aligned16(p.out)))
+  if (!aligned16(xq) || !aligned16(wq) || (kEpi == kTokenColumns && !aligned16(p.out)) ||
+      (kEpi == kPartial && p.acc == nullptr))
     return (int)cudaErrorInvalidValue;
   CUtensorMap a_map, w_map;
   memset(&a_map, 0, sizeof(a_map));
@@ -556,9 +680,9 @@ int launch_gemm(const void* xq, const void* wq, int ldq, Args p, cudaStream_t st
   // one for the token columns (a 2-D grid: on an H100 0.060 ms for the ViT
   // qkv against 0.071 with pass groups); for kPlain a group, as many groups
   // as fill the card's SMs once beside the row tiles (0.047 ms for the ViT
-  // fc1 against 0.052 on the 2-D grid)
+  // fc1 against 0.052 on the 2-D grid); kPartial as kPlain
   int groups = kEpi == kTokenColumns ? passes : 1;
-  if (kEpi == kPlain) {
+  if (kEpi == kPlain || kEpi == kPartial) {
     const int sms = sm_count();
     if (sms < 1) return (int)cudaErrorInvalidDevice;
     groups = max(1, min(passes, sms / row_tiles));
@@ -575,33 +699,51 @@ int launch_gemm(const void* xq, const void* wq, int ldq, Args p, cudaStream_t st
 
 inline int pad16(int n) { return (n + 15) / 16 * 16; }
 
-// the row pass over x (rows, K) into xq (rows, pad16(K)) and scale (rows):
-// blocks of up to 256 threads, as many rows as 48 KB of staged rows hold
+// the row pass over x (rows, K) in `mode` (QuantMode): into xq (rows,
+// pad16(K)) and scale (rows), or with kAmaxOnly the maxima into scale, with
+// kGivenScale from the maxima amax. Blocks of up to 256 threads, as many rows
+// as 48 KB of staged rows hold where the one pass stages them.
 inline cudaError_t launch_quant_rows(const void* x, int rows, int K, void* xq, void* scale,
-                                     bool gelu, cudaStream_t stream) {
+                                     bool gelu, cudaStream_t stream, int mode = kOnePass,
+                                     const void* amax = nullptr) {
   constexpr int kMaxSmem = 232448;  // the opt-in limit of a block
   const int ldq = pad16(K);
   const int row_bytes = ldq * 2;
-  if (row_bytes > kMaxSmem) return cudaErrorInvalidValue;
+  if (row_bytes > kMaxSmem || (mode == kGivenScale && amax == nullptr))
+    return cudaErrorInvalidValue;
   int lanes_log2 = 0;
   while ((1 << lanes_log2) < 32 && (1 << lanes_log2) < ldq / 16) ++lanes_log2;
-  const int per_block = max(1, min(256 >> lanes_log2, 49152 / row_bytes));
+  const bool staged = mode == kOnePass;
+  const int per_block =
+      staged ? max(1, min(256 >> lanes_log2, 49152 / row_bytes)) : 256 >> lanes_log2;
   const int blocks = (rows + per_block - 1) / per_block;
-  const int threads = per_block << lanes_log2, smem = per_block * row_bytes;
+  const int threads = per_block << lanes_log2, smem = staged ? per_block * row_bytes : 0;
   auto* xp = static_cast<const __nv_bfloat16*>(x);
   auto* qp = static_cast<int8_t*>(xq);
   auto* sp = static_cast<float*>(scale);
+  auto* mp = static_cast<const float*>(amax);
   const int vec = K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   static unsigned long long ready[2] = {0, 0};  // one bit a device, an instance
-  cudaError_t err = gelu ? set_smem_once(quant_rows_kernel<true>, kMaxSmem, &ready[1])
-                         : set_smem_once(quant_rows_kernel<false>, kMaxSmem, &ready[0]);
-  if (err != cudaSuccess) return err;
-  if (gelu)
-    quant_rows_kernel<true><<<blocks, threads, smem, stream>>>(xp, rows, K, qp, ldq, sp, vec,
-                                                              lanes_log2);
+  if (staged) {
+    cudaError_t err =
+        gelu ? set_smem_once(quant_rows_kernel<true, kOnePass>, kMaxSmem, &ready[1])
+             : set_smem_once(quant_rows_kernel<false, kOnePass>, kMaxSmem, &ready[0]);
+    if (err != cudaSuccess) return err;
+  }
+  auto launch = [&](auto kernel) {
+    kernel<<<blocks, threads, smem, stream>>>(xp, rows, K, qp, ldq, sp, mp, vec, lanes_log2);
+  };
+  if (mode == kOnePass)
+    gelu ? launch(quant_rows_kernel<true, kOnePass>)
+         : launch(quant_rows_kernel<false, kOnePass>);
+  else if (mode == kAmaxOnly)
+    gelu ? launch(quant_rows_kernel<true, kAmaxOnly>)
+         : launch(quant_rows_kernel<false, kAmaxOnly>);
+  else if (mode == kGivenScale)
+    gelu ? launch(quant_rows_kernel<true, kGivenScale>)
+         : launch(quant_rows_kernel<false, kGivenScale>);
   else
-    quant_rows_kernel<false><<<blocks, threads, smem, stream>>>(xp, rows, K, qp, ldq, sp, vec,
-                                                               lanes_log2);
+    return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 

@@ -31,8 +31,9 @@ the attention output projection channel-major with the residual and
 statistics, fc1 plain, fc2 with the GELU prologue, the residual and
 statistics. The unfused SwiGLU blocks run qkv, proj, w1, w2 and w3 as
 ``QuantDense`` (``ops/dense_q8.py::quant_dense``). The attention stays bf16
-in both. The weights are quantized when applied, so the parameters (and
-``models/convert.py``) are the same in both modes.
+in both. The weights are quantized when first applied and the levels kept
+on the weight (``ops/dense_q8.py::quantized_weight``), so the parameters
+(and ``models/convert.py``) are the same in both modes.
 
 Under a model axis (``DINOUNET_TPU_MODEL_AXIS``, ``parallel/sharding.py``)
 every block is built as one rank's shards: qkv, fc1, w1 and w2 hold the
@@ -45,7 +46,17 @@ product only), fc1 runs on the rank's columns and fc2 as #4's row-parallel
 mode with the GELU prologue; after each fp32 all-reduce one post-reduce pass
 (``post_reduce_residual_stats``) adds the bias, LayerScale and residual at
 the fused epilogue's rounding points and emits the next LayerNorm's
-statistics. The int8 serving mode does not run under a model axis.
+statistics. The int8 serving mode runs under a model axis too, as GSPMD
+splits it in the JAX package: the column-parallel layers (qkv into the
+attention's layout, fc1, w1, w2) unchanged on the rank's output rows, whose
+scales are already local; the row-parallel ones with their two scales taken
+over the model group (the activation's per-token max|x| by a MAX all-reduce
+of the rank's maxima, the weight's column max|w| when its levels are cached)
+and their int32 partial products summed over it, exact, before the rescale,
+bias and epilogue run once (``row_parallel_q8_tail``: #12's and #11's
+row-parallel modes and the int8 post-reduce pass; ``quant_dense`` with a
+group for the SwiGLU blocks). So the split int8 backbone equals the whole
+int8 backbone bit for bit, where the bf16 split reorders fp32 sums.
 
 ``DinoViT.hold_weights_`` keeps the frozen backbone's matrices at the
 compute dtype (the vectors stay fp32), as the JAX package's bench holds the
@@ -68,18 +79,15 @@ from dinounet_tpu_torch.models.layers import (Linear, lecun_normal_,
 from dinounet_tpu_torch.ops.attention import (fused_rope_attention,
                                               fused_rope_attention_premapped,
                                               fused_rope_attention_premapped_dmaj)
-from dinounet_tpu_torch.ops.dense_q8 import (dense_cm_q8_residual_stats, dense_q8,
-                                             dense_q8_residual_stats, qkv_q8_dmaj,
-                                             qkv_q8_premapped, quant_dense)
+from dinounet_tpu_torch.ops.dense_q8 import (act_amax, all_reduce_max, dense_cm_q8_partial,
+                                             dense_cm_q8_residual_stats, dense_q8,
+                                             dense_q8_partial, dense_q8_residual_stats,
+                                             post_reduce_q8_residual_stats, qkv_q8_dmaj,
+                                             qkv_q8_premapped, quant_dense, quantized_weight)
 from dinounet_tpu_torch.ops.dense_stats import (dense_cm_partial, dense_cm_residual_stats,
                                                 dense_residual_partial, dense_residual_stats,
                                                 post_reduce_residual_stats, row_stats)
 from dinounet_tpu_torch.parallel.sharding import local_shape, shard_dim, shard_tensor
-
-INT8_SHARD_QUEUED = ("the int8 serving mode does not run under a model axis "
-                     "(DINOUNET_TPU_MODEL_AXIS > 1) yet: its split is queued; serve the "
-                     "split backbone in bf16")
-
 
 @dataclasses.dataclass(frozen=True)
 class ViTConfig:
@@ -198,13 +206,12 @@ def backbone_dense(layer: Linear, x: torch.Tensor) -> torch.Tensor:
     """A dense layer of the unfused blocks as the JAX package's
     ``_backbone_dense`` applies it: flax ``nn.Dense(dtype)`` (the product
     rounded to the compute dtype, then the bias added in it), or
-    ``QuantDense`` in the int8 serving mode."""
+    ``QuantDense`` in the int8 serving mode (a row-parallel shard's summed
+    over its model group)."""
     cdt = layer.compute_dtype
     group = getattr(layer, "reduce_group", None)
     if vit_int8():
-        if isinstance(layer, ShardLinear):
-            raise NotImplementedError(INT8_SHARD_QUEUED)
-        return quant_dense(x, layer.weight, layer.bias, cdt)
+        return quant_dense(x, layer.weight, layer.bias, cdt, group)
     y = F.linear(x.to(cdt), layer.weight.to(cdt))
     if group is not None:  # row-parallel: sum the ranks' partial products in fp32
         partial = y.float()
@@ -219,6 +226,26 @@ def row_parallel_tail(partial, group, bias, residual, ls_gamma):
     next LayerNorm's statistics (out, mean, var)."""
     torch.distributed.all_reduce(partial, group=group)
     return post_reduce_residual_stats(partial, bias, residual, ls_gamma)
+
+
+def row_parallel_q8_tail(h, layer, channel_major: bool, prologue: str, bias, residual,
+                         ls_gamma):
+    """The int8 row-parallel projection of the mlp blocks, on a rank's
+    channel-major attention output (#12's mode) or its fc1 output through
+    the GELU (#11's): the weight's levels at its column scales over the
+    model group (cached on the shard at the first call), the rank's
+    per-token maxima all-reduced with MAX, the rank's int32 product at
+    those scales summed over the group (exact), then the epilogue and the
+    next LayerNorm's statistics once (out, mean, var)."""
+    group = layer.reduce_group
+    wq, ws = quantized_weight(layer.weight.t(), group=group)
+    amax = all_reduce_max(act_amax(h, channel_major, prologue), group)
+    if channel_major:
+        acc, a = dense_cm_q8_partial(h, wq, amax)
+    else:
+        acc, a = dense_q8_partial(h, wq, amax, prologue)
+    torch.distributed.all_reduce(acc, group=group)
+    return post_reduce_q8_residual_stats(acc, a, ws, bias, residual, ls_gamma)
 
 
 class ShardLinear(Linear):
@@ -272,8 +299,6 @@ class Attention(nn.Module):
         M = self.num_heads  # the rank's heads under a model axis
         Dh = self.qkv.out_features // (3 * M)
         int8 = vit_int8()
-        if int8 and isinstance(self.proj, ShardLinear):
-            raise NotImplementedError(INT8_SHARD_QUEUED)
         if attn_premapped_layout() == "ndh":
             if int8 and int8_qkv():
                 qkv = qkv_q8_premapped(x, self.qkv.weight.t(), self.qkv.bias, M, Dh)
@@ -289,6 +314,9 @@ class Attention(nn.Module):
         bias = self.proj.bias if self.proj.bias is not None else torch.zeros_like(ls_gamma)
         o_t = o_t.reshape(B, M * Dh, N)
         if isinstance(self.proj, ShardLinear):
+            if int8:
+                return row_parallel_q8_tail(o_t, self.proj, True, "none", bias, residual,
+                                            ls_gamma)
             return row_parallel_tail(dense_cm_partial(o_t, self.proj.weight.t()),
                                      self.proj.reduce_group, bias, residual, ls_gamma)
         dense = dense_cm_q8_residual_stats if int8 else dense_cm_residual_stats
@@ -315,17 +343,19 @@ class Mlp(nn.Module):
     def forward(self, x, residual, ls_gamma):
         """Returns (residual + gamma * fc2(gelu(fc1(x))), mean, var)."""
         bias = self.fc2.bias if self.fc2.bias is not None else torch.zeros_like(ls_gamma)
-        if isinstance(self.fc2, ShardLinear):
-            if vit_int8():
-                raise NotImplementedError(INT8_SHARD_QUEUED)
-            partial = dense_residual_partial(self.fc1(x), self.fc2.weight.t(), apply_gelu=True)
-            return row_parallel_tail(partial, self.fc2.reduce_group, bias, residual, ls_gamma)
+        split = isinstance(self.fc2, ShardLinear)
         if vit_int8():
             b1 = (self.fc1.bias if self.fc1.bias is not None
                   else torch.zeros(self.fc1.out_features, device=x.device))
-            h = dense_q8(x, self.fc1.weight.t(), b1)
+            h = dense_q8(x, self.fc1.weight.t(), b1)  # a rank's fc1 columns when split
+            if split:
+                return row_parallel_q8_tail(h, self.fc2, False, "gelu", bias, residual,
+                                            ls_gamma)
             return dense_q8_residual_stats(h, self.fc2.weight.t(), bias, residual,
                                            ls_gamma, prologue="gelu")
+        if split:
+            partial = dense_residual_partial(self.fc1(x), self.fc2.weight.t(), apply_gelu=True)
+            return row_parallel_tail(partial, self.fc2.reduce_group, bias, residual, ls_gamma)
         return dense_residual_stats(self.fc1(x), self.fc2.weight.t(), bias,
                                     residual, ls_gamma, apply_gelu=True)
 

@@ -75,8 +75,16 @@ _SIGNATURES = {
     # h, wq (D, Kpad), ws, b, res, gamma, xq, a, out, mu, var, B, N, K, D,
     # channel_major, gelu, residual, stream
     "dense_q8": [_P] * 11 + [_I] * 7 + [_P],
-    # h, xq, a, B, N, K, channel_major, gelu, stream
-    "quantize_act": [_P] * 3 + [_I] * 5 + [_P],
+    # h, amax (the given maxima, or null), xq, a, B, N, K, channel_major, gelu,
+    # stream
+    "quantize_act": [_P] * 4 + [_I] * 5 + [_P],
+    # h, amax, B, N, K, channel_major, gelu, stream
+    "quantize_amax": [_P] * 2 + [_I] * 5 + [_P],
+    # h, wq (D, Kpad), amax, xq, a, acc (int32), B, N, K, D, channel_major, gelu,
+    # stream
+    "dense_q8_partial": [_P] * 6 + [_I] * 6 + [_P],
+    # acc (int32), a, ws, b, res, gamma, out, mu, var, rows, D, stream
+    "post_reduce_q8_stats": [_P] * 9 + [_I] * 2 + [_P],
     # x, wq (3C, Cpad), ws, bias, xq, a, out, B, N, C, D3, stream
     "qkv_q8_dmaj": [_P] * 7 + [_I] * 4 + [_P],
 }
@@ -216,8 +224,10 @@ def _wrappers():
     from dinounet_tpu_torch.ops.conv_hwbc import conv3x3_hwbc
     from dinounet_tpu_torch.ops.decoder_tail import (conv3x3_cm, seg_head_cm,
                                                      transpconv2x2_cm)
-    from dinounet_tpu_torch.ops.dense_q8 import (dense_cm_q8_residual_stats, dense_q8,
-                                                 dense_q8_residual_stats, qkv_q8_dmaj)
+    from dinounet_tpu_torch.ops.dense_q8 import (act_amax, dense_cm_q8_partial,
+                                                 dense_cm_q8_residual_stats, dense_q8,
+                                                 dense_q8_partial, dense_q8_residual_stats,
+                                                 post_reduce_q8_residual_stats, qkv_q8_dmaj)
     from dinounet_tpu_torch.ops.dense_stats import (dense_cm_partial,
                                                     dense_cm_residual_stats,
                                                     dense_residual_partial,
@@ -248,6 +258,10 @@ def _wrappers():
         "dense_cm_partial": dense_cm_partial,
         "dense_rm_partial": dense_residual_partial,
         "post_reduce_stats": post_reduce_residual_stats,
+        "act_amax": act_amax,
+        "dense_q8_partial": dense_q8_partial,
+        "dense_cm_q8_partial": dense_cm_q8_partial,
+        "post_reduce_q8_stats": post_reduce_q8_residual_stats,
     }
 
 

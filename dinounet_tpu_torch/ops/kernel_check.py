@@ -61,6 +61,24 @@ why each is what it is:
   which moves the output by under one bf16 ulp (2^-7 relative at most).
   Bound atol 1e-5 + rtol 2^-7: a wrong scale, a dropped K step or a
   misplaced tile moves outputs by O(0.1).
+- ``act_amax`` (the quantize pass's first mode: each token's max|act(h)|):
+  the maximum of the same bf16 values, equal to the plain version's without
+  the GELU; with it, a value whose erf differs by an ulp can cross a bf16
+  edge, which moves a maximum by one bf16 ulp (2^-7 relative at most).
+- ``dense_cm_q8_partial`` (#12's row-parallel mode): the same levels at the
+  same given scales and an exact int32 sum: equal (the int32 product and the
+  per-token scales, checked as such). ``dense_q8_partial`` (#11's, with the
+  GELU): the scales are equal; an erf an ulp apart can move a GELU value
+  across a bf16 edge and its level by one, which moves that token's int32
+  sums by the weight's level there (at most 127); 512 allows four such
+  flips in a row, where a wrong scale or a dropped K step moves them by
+  O(1e4). Its GEMM alone is held exactly: equal to torch._int_mm on the
+  kernel's own levels.
+- ``post_reduce_q8_stats`` (the int8 mode's epilogue on the summed int32
+  product): the same roundings as the plain version, so the output is
+  equal bit for bit (checked as such); the statistics sum the stored rows
+  in another order than PyTorch's mean (~1e-6), in the order of the whole
+  op's kernel, whose statistics they equal.
 """
 
 from typing import Callable, Dict, Tuple
@@ -88,6 +106,10 @@ KERNEL_TOLERANCES: Dict[str, Tuple[float, float]] = {  # (atol, rtol)
     "dense_q8": (1e-5, 2.0 ** -7),
     "dense_q8_stats": (1e-5, 2.0 ** -7),
     "dense_cm_q8_stats": (1e-5, 2.0 ** -7),
+    "act_amax": (0.0, 2.0 ** -7),
+    "dense_q8_partial": (512.0, 0.0),
+    "dense_cm_q8_partial": (0.0, 0.0),
+    "post_reduce_q8_stats": (1e-4, 1e-4),
 }
 STATS_TOLERANCE: Tuple[float, float] = (1e-3, 1e-3)
 

@@ -40,8 +40,10 @@ DinoUNet trainer, s / b / l and 7b, builds each rank's shards of the
 backbone's blocks (``parallel/sharding.py``: the heads and FFN columns of
 the mlp and SwiGLU blocks alike), and the pretrained backbone's ``.pth`` or
 ``.msgpack`` is read into those shards; everything trainable is whole on
-every rank. In bf16: the int8 serving mode under a model axis raises (it is
-queued).
+every rank. The int8 serving mode (``DINOUNET_TPU_VIT_INT8=1``) splits
+too: its row-parallel layers take their scales over the model group and sum
+exact int32 products (``models/vit.py``), so a rank's blocks give the whole
+int8 backbone's output.
 """
 
 import os

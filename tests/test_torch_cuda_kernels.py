@@ -658,6 +658,70 @@ def test_int8_quantize_pass_matches_plain(dev, channel_major, gelu, B, N, K):
         assert torch.equal(xq.cpu(), want_q) and torch.equal(a.cpu(), want_a)
 
 
+# the int8 mode on a model axis of 2: B N rows ragged against the GEMM's
+# 128-row tiles, a rank's K / 2 not a multiple of 16 (37, 20) or of 128, D
+# not a multiple of the 256-feature pass, nor of 8 (130: the post-reduce
+# pass's and the whole op's element paths) nor of 4 (30: the int32 stores'
+# element path); dinounet_b's shapes at one tile
+SPLIT_SHAPES = [(2, 21, 80, 24), (2, 130, 74, 136), (3, 65, 400, 130), (1, 33, 40, 30),
+                (1, 1029, 768, 768)]
+
+
+@pytest.mark.parametrize("form", ["cm", "gelu"])
+@pytest.mark.parametrize("B,N,K,D", SPLIT_SHAPES)
+def test_int8_row_parallel_mode_split_equals_whole(dev, form, B, N, K, D):
+    """#12's (channel-major) and #11's (row-major, with the GELU) row-parallel
+    mode over two ranks' halves of K on one card: each half's maxima (the
+    quantize pass's first mode) as the plain version's (with the GELU within
+    a bf16 ulp: erff against PyTorch's erf); each half's int32 product at
+    the joint maxima equal to the exact product of the kernel's own levels
+    (and #12's to the plain version's); the summed product through the int8
+    post-reduce pass equal to the whole #12 / #11 op bit for bit, stream and
+    statistics, and its stream to the pass's plain version's."""
+    g = torch.Generator().manual_seed(21)
+    cm = form == "cm"
+    prologue = "none" if cm else "gelu"
+    h = _randn(g, (B, K, N) if cm else (B, N, K), dev, 2.0).to(torch.bfloat16)
+    w = _randn(g, (D, K), dev, K ** -0.5).t()  # a Linear weight's transpose
+    b, gamma = _randn(g, (D,), dev, 0.1), _randn(g, (D,), dev, 0.5)
+    res = _randn(g, (B, N, D), dev).to(torch.bfloat16)
+    if cm:
+        whole = q8.dense_cm_q8_residual_stats(h, w, b, res, gamma)
+    else:
+        whole = q8.dense_q8_residual_stats(h, w, b, res, gamma, prologue)
+    halves = [t.contiguous() for t in h.split(K // 2, dim=1 if cm else 2)]
+    w_halves = w.split(K // 2, dim=0)
+    maxima = [q8.act_amax(t, cm, prologue) for t in halves]
+    for t, m in zip(halves, maxima):
+        want = q8.act_amax_plain(t, cm, prologue)
+        torch.testing.assert_close(m, want, rtol=0 if cm else 2.0 ** -7, atol=0)
+    amax = torch.maximum(*maxima)
+    wmax = torch.maximum(*(t.abs().amax(0, keepdim=True) for t in w_halves))
+    acc = 0
+    for t, wt in zip(halves, w_halves):
+        wq, ws = q8.quantize_weight_dk(wt, amax=wmax)
+        if cm:
+            part, a = q8.dense_cm_q8_partial(t, wq, amax)
+        else:
+            part, a = q8.dense_q8_partial(t, wq, amax, prologue)
+        xq, a_own = q8.quantize_act_tokens(t, cm, prologue, amax)
+        k = wt.shape[0]
+        exact = torch.einsum("nk,dk->nd", xq[:, :k].double(), wq[:, :k].double())
+        assert torch.equal(part.view(-1, D), exact.to(torch.int32)) and torch.equal(a, a_own)
+        if cm:
+            plain = q8.dense_q8_partial_plain(t, wq, amax, prologue, cm)
+            assert torch.equal(part, plain[0]) and torch.equal(a, plain[1])
+        acc = acc + part
+    got = q8.post_reduce_q8_residual_stats(acc, a, ws, b, res, gamma)
+    plain = q8.post_reduce_q8_residual_stats_plain(acc, a, ws, b, res, gamma)
+    torch.cuda.synchronize()
+    for x, y in zip(got, whole):
+        assert torch.equal(x, y)
+    assert torch.equal(got[0], plain[0])
+    for x, y in zip(got[1:], plain[1:]):
+        assert max_excess(x, y, KERNEL_TOLERANCES["post_reduce_q8_stats"]) <= 0
+
+
 # the qkv's GEMM tiles run over the flattened B N tokens: N 63 / 64 / 65 /
 # 129 with B 3 put tile edges inside and across images, N 37 a whole image
 # inside one tile; C 40 and 200 (K neither a multiple of 128 nor of 16
@@ -1031,6 +1095,11 @@ def test_launches_are_counted(dev):
     q8.dense_q8_residual_stats(h, wq, bq, res, bq, "gelu")
     q8.dense_cm_q8_residual_stats(h.transpose(1, 2).contiguous(), wq, bq, res, bq)
     q8.qkv_q8_dmaj(h, wq, bq, 2, 8)
+    amax = q8.act_amax(h, prologue="gelu")
+    wqq = q8.quantized_weight(wq)[0]
+    acc, a = q8.dense_q8_partial(h, wqq, amax, "gelu")
+    q8.dense_cm_q8_partial(h.transpose(1, 2).contiguous(), wqq, amax)
+    q8.post_reduce_q8_residual_stats(acc, a, torch.ones(48, device=dev), bq, res, bq)
     transpconv2x2_cm(x, torch.zeros((16, 4, 2, 2), device=dev), torch.zeros(4, device=dev))
     seg_head_cm(x, torch.zeros((3, 16, 1, 1), device=dev), torch.zeros(3, device=dev), p)
     torch.cuda.synchronize()
@@ -1041,7 +1110,9 @@ def test_launches_are_counted(dev):
     assert counts["msda_fwd_merged"] == 1 and counts["msda_fwd_premapped"] == 1
     assert all(counts[k] == 1 for k in ("conv3x3_cm", "conv3x3_hwbc",
                                         "transpconv2x2_cm", "seg_head_cm", "qkv_q8_dmaj",
-                                        "dense_q8", "dense_q8_stats", "dense_cm_q8_stats"))
+                                        "dense_q8", "dense_q8_stats", "dense_cm_q8_stats",
+                                        "act_amax", "dense_q8_partial",
+                                        "dense_cm_q8_partial", "post_reduce_q8_stats"))
 
 
 def test_bad_inputs_raise(dev):

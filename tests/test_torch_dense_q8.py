@@ -17,6 +17,11 @@ int8 switches on in both packages, on weights carried over by
   contract the rescale into an FMA, and its erf differs from PyTorch's by
   an fp32 ulp or two, which at these seeds moves no int8 level), bf16 one
   ulp of the output (2^-7 relative: a tie at the bf16 rounding);
+- the row-parallel mode split by hand over K (each rank's maxima taken
+  together, the ranks' int32 products summed, then the post-reduce pass):
+  bit for bit against the port's whole op, statistics included, and the
+  output against the JAX reference (fp32 with the GELU: 1e-5, XLA's erf);
+  the statistics against JAX's 1e-6 (its mean sums in another order);
 - the models: bounds beside each test.
 """
 
@@ -296,6 +301,126 @@ def test_qkv_q8_dmaj_matches_reference(dtype, bias):
     want = qkv_q8_premapped_dmaj(jx, jw, jb if bias else None, M, C // M)
     assert got.dtype == tx.dtype
     np.testing.assert_allclose(_np(got), _np(want), **_ref_tol(dtype))
+
+
+# ------------------------------------------ the row-parallel mode (model axis)
+
+
+def _split_mode(h, w, b, res, g, form: str, n: int = 2, local: bool = False):
+    """The row-parallel mode on n ranks in one process: h's and w's K split
+    n ways (each rank's part contiguous, as a rank holds it), the ranks'
+    per-token and per-column maxima taken together (each rank's own with
+    `local`), each rank's int32 product at those scales, the products
+    summed, then the post-reduce pass. `local` instead rescales each rank's
+    product at its own scales and sums the fp32 results: what a rank-local
+    scale would give. Returns (out, mean, var) and the maxima by rank."""
+    cm = form == "cm"
+    prologue = "gelu" if form == "gelu" else "none"
+    parts = np.array_split(np.arange(w.shape[0]), n)
+    hs = [(h[:, p[0]:p[-1] + 1] if cm else h[..., p[0]:p[-1] + 1]).contiguous() for p in parts]
+    ws_ = [w[p[0]:p[-1] + 1] for p in parts]
+    amaxes = [tq8.act_amax(hr, cm, prologue) for hr in hs]
+    wmaxes = [wr.abs().amax(0, keepdim=True) for wr in ws_]
+    amax, wmax = torch.stack(amaxes).amax(0), torch.stack(wmaxes).amax(0)
+    acc, scales, ys = 0, set(), 0
+    for hr, wr, am, wm in zip(hs, ws_, amaxes, wmaxes):
+        wq, ws = tq8.quantize_weight_dk(wr, amax=wm if local else wmax)
+        if cm:
+            acc_r, a = tq8.dense_cm_q8_partial(hr, wq, am if local else amax)
+        else:
+            acc_r, a = tq8.dense_q8_partial(hr, wq, am if local else amax, prologue)
+        assert acc_r.dtype == torch.int32 and a.dtype == torch.float32
+        acc = acc + acc_r
+        ys = ys + acc_r.float() * a.view(*acc_r.shape[:2], 1) * ws
+        scales.add(a.numpy().tobytes())
+    if local:
+        return tq8._residual_stats(ys + b.float(), res, g), (amaxes, wmaxes)
+    assert len(scales) == 1  # every rank holds the same per-token scales
+    return tq8.post_reduce_q8_residual_stats(acc, a, ws, b, res, g), (amaxes, wmaxes)
+
+
+def _whole_plain(h, w, b, res, g, form):
+    if form == "cm":
+        return tq8.dense_cm_q8_residual_stats_plain(h, w, b, res, g)
+    return tq8.dense_q8_residual_stats_plain(h, w, b, res, g, "gelu" if form == "gelu" else "none")
+
+
+# (B, N, K, D): N odd, K / 2 = 36 and 100 not multiples of 16, D past no pass
+SPLIT_SHAPES = [(2, 37, 72, 48), (1, 21, 200, 40)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ["gelu", "none", "cm"])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_row_parallel_split_matches_reference(dtype, form, shape):
+    """#11's (row-major, with or without the GELU) and #12's (channel-major)
+    row-parallel mode split over two ranks by hand: the JAX package's whole
+    ``quantize_weight`` scales, the whole port op bit for bit (the int32
+    sums are exact, the scales the whole rows'), the JAX references'
+    outputs bit for bit (fp32 with the GELU: 1e-5, XLA's erf against
+    PyTorch's), their statistics to 1e-6."""
+    from dinounet_tpu.ops.dense_q8_pallas import (_reference_cm_q8_stats, _reference_q8_stats,
+                                                  quantize_weight)
+
+    cm = form == "cm"
+    (th, jh), (tw, jw), (tb, jb), (tr, jr), (tg, jg) = _dense_case(15, *shape, dtype,
+                                                                   channel_major=cm)
+    got, _ = _split_mode(th, tw, tb, tr, tg, form)
+    whole = _whole_plain(th, tw, tb, tr, tg, form)
+    for g_, w_ in zip(got, whole):
+        assert g_.dtype == w_.dtype and torch.equal(g_, w_)
+    wmax = torch.stack([tw[:shape[2] // 2].abs().amax(0), tw[shape[2] // 2:].abs().amax(0)])
+    _, ws = tq8.quantize_weight(tw[:shape[2] // 2], wmax.amax(0, keepdim=True))
+    np.testing.assert_array_equal(ws.numpy(), np.asarray(quantize_weight(jw)[1]))
+    if cm:
+        want = _reference_cm_q8_stats(jh, jw, jb, jr, jg)
+    else:
+        want = _reference_q8_stats(jh, jw, jb, jr, jg, form)
+    if dtype == "float32" and form == "gelu":
+        np.testing.assert_allclose(_np(got[0]), _np(want[0]), rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(_np(got[0]), _np(want[0]))
+    for g_, w_ in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(_np(g_), _np(w_), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("form", ["gelu", "cm"])
+def test_row_parallel_scales_are_the_whole_rows(form):
+    """Every token's maximum lies in rank 0's half of K and every weight
+    column's in rank 1's: the mode equals the whole op bit for bit only
+    with both scales taken over the ranks. Rank-local scales (each rank's
+    product rescaled at its own and the fp32 results summed) run and land
+    near, but not on, the whole result."""
+    cm = form == "cm"
+    B, N, K, D = 2, 37, 72, 48
+    (th, _), (tw, _), (tb, _), (tr, _), (tg, _) = _dense_case(16, B, N, K, D, "float32",
+                                                              channel_major=cm)
+    if cm:
+        th[:, 3] = 8.0  # channel 3 of every token: rank 0's
+    else:
+        th[..., 3] = 8.0
+    tw[K - 2] = 1.0  # row K - 2 of every column: rank 1's
+    got, (amaxes, wmaxes) = _split_mode(th, tw, tb, tr, tg, form)
+    assert torch.all(amaxes[0] > amaxes[1]) and torch.all(wmaxes[1] > wmaxes[0])
+    whole = _whole_plain(th, tw, tb, tr, tg, form)
+    for g_, w_ in zip(got, whole):
+        assert torch.equal(g_, w_)
+    local, _ = _split_mode(th, tw, tb, tr, tg, form, local=True)
+    assert not torch.equal(local[0], whole[0])
+    assert _rel_l2(local[0], whole[0]) < 0.05  # plausible, and wrong
+
+
+def test_row_parallel_ops_raise_on_bad_inputs():
+    """The mode's wrappers check the cached weight's width, the prologue and
+    the channel-major pass's lack of one, as the whole ops do."""
+    h = torch.zeros((1, 5, 40))
+    amax = torch.ones(5)
+    with pytest.raises(ValueError, match="wq"):
+        tq8.dense_q8_partial(h, torch.zeros((8, 40), dtype=torch.int8), amax)
+    with pytest.raises(ValueError, match="prologue"):
+        tq8.dense_q8_partial(h, torch.zeros((8, 48), dtype=torch.int8), amax, "relu")
+    with pytest.raises(ValueError, match="no prologue"):
+        tq8.act_amax(h.transpose(1, 2), channel_major=True, prologue="gelu")
 
 
 # ------------------------------------------------------------------ grads

@@ -6,11 +6,13 @@ on the CPU. This process computes the JAX side and hands every rank the same
 numpy-made tensors. One spawn of two ranks holds the mesh, the repeated and
 the conflicting ``init_distributed``, a data-parallel train step of the tiny
 DinoUNet of tests/test_torch_models.py (batch Dice off and on), the narrow
-SwiGLU and mlp blocks split over a model axis (and their int8 mode's
-refusal), and a sharded checkpoint's round trip; another runs three
-trainers on a model axis of 2 (the 7B-structured, an s-structured one
-reading a published-layout ``.pth`` into its shards, the plans'
-PlainConvUNet), the last two held to one process's run. Tolerances, fp32
+SwiGLU and mlp blocks split over a model axis (in bf16 arithmetic's fp32
+and in the int8 serving mode, on the JAX blocks' weights and on weights
+whose maxima lie off each rank), and a sharded checkpoint's round trip;
+another runs four trainers on a model axis of 2 (the 7B-structured, an
+s-structured one reading a published-layout ``.pth`` into its shards, the
+same in the int8 serving mode, the plans' PlainConvUNet), the last three
+held to one process's run. Tolerances, fp32
 (each gradient tensor's error is taken over its
 largest entry, that scale floored at 0.1 of the model's largest gradient:
 the biases in front of an InstanceNorm have a true gradient of 0 and hold
@@ -26,6 +28,12 @@ rounding noise on both sides):
   BatchNorm statistics would be off by their own size;
 - the split blocks against JAX ``Block`` (the mlp block's statistics
   against its output's own): 1e-5;
+- the split int8 blocks against the port's whole int8 blocks: bit for bit,
+  statistics included (the int32 sums are exact and both scales are taken
+  over the ranks); against the JAX int8 ``Block`` (its jnp ``QuantDense``
+  layers, the unfused path): 1e-5, the same fp32 operations (XLA's erf in
+  the mlp block's GELU against PyTorch's, an fp32 ulp, moves no level at
+  these seeds);
 - a trainer on the model axis against one process: the logged loss within
   the train-parity bound (2 %), the trained parameters to 1e-5 relative L2
   (the split only reorders fp32 sums).
@@ -101,7 +109,9 @@ def step_inputs():
 def _jax_block(kw: dict, seed: int):
     """The JAX ``Block`` of `kw` at width 64, seeded weights, and its output
     (its plain attention and unfused dense layers: ``DINOUNET_TPU_ATTN_IMPL
-    =jax``, no statistics threaded)."""
+    =jax``, no statistics threaded), then its output in the int8 serving
+    mode (``DINOUNET_TPU_VIT_INT8=1``: every dense layer a jnp
+    ``QuantDense``)."""
     from dinounet_tpu.models.vit import Block, ViTConfig
 
     cfg = ViTConfig(**kw, dtype="float32")
@@ -110,14 +120,39 @@ def _jax_block(kw: dict, seed: int):
     block = Block(cfg)
     params = _fill(jax.eval_shape(lambda: block.init(jax.random.PRNGKey(0), jnp.asarray(x),
                                                      (sin, cos))), seed)["params"]
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("DINOUNET_TPU_ATTN_IMPL", "jax")
-        out = np.asarray(jax.jit(lambda p, x: block.apply({"params": p}, x, (sin, cos)))(
-            params, jnp.asarray(x)))
+    outs = []
+    for int8 in ("0", "1"):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("DINOUNET_TPU_ATTN_IMPL", "jax")
+            mp.setenv("DINOUNET_TPU_VIT_INT8", int8)
+            outs.append(np.asarray(jax.jit(
+                lambda p, x: block.apply({"params": p}, x, (sin, cos)))(params, jnp.asarray(x))))
     state = state_dict_from_flax({"params": {"backbone": {"block0": params}}})
     prefix = BACKBONE + "blocks.0."
     state = {k[len(prefix):]: v for k, v in state.items()}
-    return state, x, (sin, cos), out
+    return state, x, (sin, cos), outs[0], outs[1]
+
+
+def _off_rank(state: dict, kind: str) -> dict:
+    """`state` (a narrow block's, split over two ranks) with every token's
+    maximum entering a row-parallel layer in rank 0's half of its K and
+    every column maximum of a row-parallel weight in rank 1's: the v rows of
+    rank 0's heads and rank 0's fc1 (mlp) or w2 (SwiGLU) rows scaled up 16
+    times, the last input column of proj and fc2 / w3 set to 1."""
+    s = {k: v.clone() for k, v in state.items()}
+    C = s["attn.proj.weight"].shape[0]
+    rows = slice(2 * C, 2 * C + C // 2)  # the v rows of rank 0's heads
+    s["attn.qkv.weight"][rows] *= 16
+    if "attn.qkv.bias" in s:
+        s["attn.qkv.bias"][rows] *= 16
+    s["attn.proj.weight"][:, -1] = 1.0
+    first, last = ("mlp.fc1", "mlp.fc2") if kind == "mlp" else ("mlp.w2", "mlp.w3")
+    half = s[first + ".weight"].shape[0] // 2
+    s[first + ".weight"][:half] *= 16
+    if first + ".bias" in s:
+        s[first + ".bias"][:half] *= 16
+    s[last + ".weight"][:, -1] = 1.0
+    return s
 
 
 @pytest.fixture(scope="module")
@@ -212,9 +247,16 @@ class TinyPlainOneProcess(torch_ranks.TinyParallelTrainer):
     """TinyParallelTrainer under its own name, for one process."""
 
 
-# a trainer on the model axis -> its one-process counterpart
+class TinySInt8OneProcess(torch_ranks.TinySParallelTrainer):
+    """TinySParallelTrainer under its own name, for one process in the int8
+    serving mode."""
+
+
+# a trainer on the model axis -> its one-process counterpart (the int8 one
+# run apart from the others, after them)
 ONE_PROCESS = {"TinySParallelTrainer": TinySOneProcess,
                "TinyPlainModelAxisTrainer": TinyPlainOneProcess}
+INT8_ONE_PROCESS = {"TinySInt8ParallelTrainer": TinySInt8OneProcess}
 
 
 def _train_one_process(dataset_id, name: str, pretrained: str) -> dict:
@@ -223,7 +265,7 @@ def _train_one_process(dataset_id, name: str, pretrained: str) -> dict:
     from dinounet_tpu_torch.run import run_training
     from dinounet_tpu_torch.utilities import registry
 
-    cls = ONE_PROCESS[name]
+    cls = {**ONE_PROCESS, **INT8_ONE_PROCESS}[name]
     cls.pretrained = pretrained
     registry.trainers.add(cls.__name__, cls)
     trainer = run_training(dataset_id, "2d", 0, cls.__name__, num_gpus=1, device="cpu")
@@ -258,7 +300,7 @@ def two_ranks(variables, step_inputs, jax_block, jax_mlp_block, planned_set,  # 
     trainers are held to. The payload, the ranks' results, ``jax_mesh_step``'s,
     and the other runs' results by name."""
     image, target = step_inputs
-    block_state, x, rope, _ = jax_block
+    block_state, x, rope = jax_block[:3]
     vit = TorchDinoViT(TorchViTConfig(**{**BLOCK_KW, "depth": 2}, dtype="float32"))
     gen = torch.Generator().manual_seed(33)
     vit_state = {k: torch.randn(v.shape, generator=gen) for k, v in vit.state_dict().items()}
@@ -274,8 +316,10 @@ def two_ranks(variables, step_inputs, jax_block, jax_mlp_block, planned_set,  # 
         state=state_dict_from_flax(variables), image=torch.from_numpy(image),
         target=torch.from_numpy(target),
         block_cfg=TorchViTConfig(**BLOCK_KW, dtype="float32"), block_state=block_state,
+        off_rank_state=_off_rank(block_state, "swiglu"),
         mlp_block_cfg=TorchViTConfig(**MLP_BLOCK_KW, dtype="float32"),
         mlp_block_state=jax_mlp_block[0],
+        mlp_off_rank_state=_off_rank(jax_mlp_block[0], "mlp"),
         x=torch.from_numpy(x), rope=tuple(torch.from_numpy(t) for t in rope),
         vit_state=vit_state, optimizer_state=opt.state_dict(), directory=directory,
         pretrained=_published_backbone(str(tmp_path_factory.mktemp("pth") / "vits.pth")))
@@ -295,8 +339,14 @@ def two_ranks(variables, step_inputs, jax_block, jax_mlp_block, planned_set,  # 
             lambda: {name: _train_one_process(planned_set[1], name, pretrained)
                      for name in ONE_PROCESS})
         want = jax_mesh_step(variables, image, target)
-        return (payload, ranks.result(), want,
-                {name: f.result() for name, f in others.items()})
+        results = {name: f.result() for name, f in others.items()}
+        ranks = ranks.result()
+    # the int8 trainer's one-process run, alone: the switch is the process's
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DINOUNET_TPU_VIT_INT8", "1")
+        results["one_process"]["TinySInt8ParallelTrainer"] = _train_one_process(
+            planned_set[1], "TinySInt8ParallelTrainer", pretrained)
+    return payload, ranks, want, results
 
 
 # ------------------------------------------------------------- mesh, init
@@ -631,11 +681,53 @@ def test_split_mlp_block_matches_jax_block(two_ranks, jax_mlp_block):
         np.testing.assert_allclose(var.numpy(), want.var(-1), rtol=1e-5, atol=1e-5)
 
 
-def test_int8_under_a_model_axis_raises(two_ranks):
-    """The int8 serving mode under a model axis raises from the mlp and the
-    SwiGLU blocks alike, saying it is queued."""
+@pytest.mark.parametrize("state", ["block_state", "off_rank_state"])
+@pytest.mark.parametrize("kind", ["mlp", "swiglu"])
+def test_split_int8_block_equals_whole_int8_block(two_ranks, kind, state):
+    """``DINOUNET_TPU_VIT_INT8=1`` on a model axis of 2: the split mlp block
+    (#13 and #10 on the rank's rows, #12's and #11's row-parallel modes, the
+    int8 post-reduce pass) and the split SwiGLU block (``QuantDense`` column-
+    and row-parallel) equal the port's whole int8 blocks bit for bit, the
+    mlp block's statistics included, on the JAX blocks' weights and on the
+    off-rank weights."""
     for rank in two_ranks[1]:
-        assert rank["int8"] == {"mlp": True, "swiglu": True}
+        got = rank["int8"][kind, state]
+        split, whole = got["split"], got["whole"]
+        if kind == "mlp":
+            (split, (mu, var)), (whole, (mu_w, var_w)) = split, whole
+            assert torch.equal(mu, mu_w) and torch.equal(var, var_w)
+        assert split.dtype == torch.float32 and torch.equal(split, whole)
+
+
+@pytest.mark.parametrize("kind", ["mlp", "swiglu"])
+def test_split_int8_block_matches_jax_int8_block(two_ranks, jax_block, jax_mlp_block, kind):
+    """The split int8 blocks against the JAX blocks with
+    ``DINOUNET_TPU_VIT_INT8=1`` (jnp ``QuantDense`` layers), fp32: 1e-5; the
+    int8 mode moved the output off the float block's."""
+    want, float_out = (jax_mlp_block if kind == "mlp" else jax_block)[4:2:-1]
+    for rank in two_ranks[1]:
+        out = rank["int8"][kind, "block_state"]["split"]
+        out = out[0] if kind == "mlp" else out
+        np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-5)
+        assert not np.allclose(out.numpy(), float_out, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["mlp", "swiglu"])
+def test_int8_scales_are_taken_over_the_model_axis(two_ranks, kind):
+    """On the off-rank weights each row-parallel layer's maxima lie off a
+    rank: rank 1's per-token activation maxima are all below the
+    all-reduced ones (every token's lies in rank 0's half), rank 0's weight
+    column maxima all below theirs (every column's lies in rank 1's half);
+    each of the two row-parallel layers reduced one of each. A rank-local
+    scale would differ from the whole block's there, which
+    test_split_int8_block_equals_whole_int8_block holds to bit equality."""
+    for r, rank in enumerate(two_ranks[1]):
+        maxima = rank["int8"][kind, "off_rank_state"]["maxima"]
+        assert sorted(k for k, _, _ in maxima) == ["activation"] * 2 + ["weight"] * 2
+        for what, local, reduced in maxima:
+            assert torch.all(local <= reduced)
+            if (what, r) in (("activation", 1), ("weight", 0)):
+                assert torch.all(local < reduced), (what, r)
 
 
 def test_run_training_on_a_model_axis(two_ranks):
@@ -670,6 +762,29 @@ def test_run_training_on_a_model_axis(two_ranks):
 
 # the train-parity bound on the loss (chip_smoke.py's TRAIN_LOSS_BOUND)
 TRAIN_LOSS_BOUND = 0.02
+
+
+def test_int8_trainer_on_a_model_axis_matches_one_process(two_ranks):
+    """``DinoUNetTrainer_s``'s build (TinySParallelTrainer) in the int8
+    serving mode on two CPU ranks with ``DINOUNET_TPU_MODEL_AXIS=2``: it
+    builds, steps and validates; its loss is one int8 process's within the
+    train-parity bound and its trained parameters one process's to 1e-5
+    relative L2 (the split int8 backbone is the whole one's bit for bit);
+    the int8 mode moved the loss off the bf16-arithmetic run's."""
+    name = "TinySInt8ParallelTrainer"
+    ranks = [r[name] for r in two_ranks[3]["model_axis"]]
+    one = two_ranks[3]["one_process"][name]
+    float_losses = two_ranks[3]["model_axis"][0]["TinySParallelTrainer"]["train_losses"]
+    for rank in ranks:
+        assert rank["resumed_equal"] and rank["epoch"] == 1
+        assert rank["train_losses"][0] == pytest.approx(one["train_losses"][0],
+                                                        rel=TRAIN_LOSS_BOUND)
+        assert rank["train_losses"] != float_losses
+        flat = [torch.cat([d[k].flatten() for k in sorted(d)])
+                for d in (rank["trainable"], one["trainable"])]
+        assert float((flat[0] - flat[1]).norm() / flat[1].norm()) <= 1e-5
+    with open(os.path.join(ranks[0]["output_folder"], "validation", "summary.json")) as f:
+        assert len(json.load(f)["metric_per_case"]) == 2
 
 
 @pytest.mark.parametrize("name", ["TinySParallelTrainer", "TinyPlainModelAxisTrainer"])

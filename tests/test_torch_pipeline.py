@@ -286,11 +286,14 @@ def test_load_pretrained_weights_skips_the_segmentation_head(trained):
 
 
 def test_unported_options_raise(trained, tmp_path):
-    """What is not ported raises: the int8 serving mode under a model axis
-    (queued). Striding the cases over ``num_parts``, the cascade's
-    previous-stage files and the model axis itself are ported (multi-GPU
-    training, in tests/test_torch_parallel.py): a trainer's DinoUNet builds
-    its backbone's blocks as the rank's shards."""
+    """What was once refused is ported: striding the cases over
+    ``num_parts``, the cascade's previous-stage files and the model axis
+    itself (multi-GPU training, in tests/test_torch_parallel.py): a
+    trainer's DinoUNet builds its backbone's blocks as the rank's shards,
+    and in the int8 serving mode as in bf16 their row-parallel projections
+    go to the model group's collectives (no longer a refusal), which a
+    process with no process group cannot reach; the two-rank int8 runs are
+    in tests/test_torch_parallel.py."""
     from dinounet_tpu_torch.parallel.sharding import ModelShard
 
     root, trainer = trained
@@ -312,7 +315,9 @@ def test_unported_options_raise(trained, tmp_path):
     blocks = network.encoder.dinov3_adapter.backbone.blocks
     assert tuple(blocks[0].attn.qkv.weight.shape) == (3 * C // 2, C)
     assert tuple(blocks[0].mlp.fc2.weight.shape) == (C, network.cfg.vit.ffn_hidden // 2)
-    with pytest.MonkeyPatch.context() as mp, torch.no_grad():
-        mp.setenv("DINOUNET_TPU_VIT_INT8", "1")
-        with pytest.raises(NotImplementedError, match="model axis.*queued"):
-            network.eval()(torch.zeros((1, 1, *trainer.configuration_manager.patch_size)))
+    x = torch.zeros((1, 1, *trainer.configuration_manager.patch_size))
+    for int8 in ("0", "1"):
+        with pytest.MonkeyPatch.context() as mp, torch.no_grad():
+            mp.setenv("DINOUNET_TPU_VIT_INT8", int8)
+            with pytest.raises(ValueError, match="process group"):
+                network.eval()(x)

@@ -11,8 +11,10 @@ import os
 import torch
 import torch.distributed as dist
 
+from dinounet_tpu_torch.models import vit as vit_module
 from dinounet_tpu_torch.models.dinounet import DinoUNet, DinoUNetConfig
 from dinounet_tpu_torch.models.vit import Block, ViTConfig
+from dinounet_tpu_torch.ops import dense_q8 as dense_q8_module
 from dinounet_tpu_torch.parallel.mesh import (MODEL_AXIS, init_distributed, make_mesh,
                                               wrap_data_parallel)
 from dinounet_tpu_torch.parallel.sharding import (ModelShard, dcp_state_dict,
@@ -72,38 +74,56 @@ def ddp_steps(device, payload: dict) -> dict:
     return out
 
 
-def sharded_block(payload: dict, prefix: str = ""):
+def sharded_block(payload: dict, prefix: str = "", state: str = "block_state",
+                  whole: bool = False):
     """The narrow SwiGLU block (or, with `prefix` "mlp_", the narrow mlp
     block) built as this rank's shard of a model axis over every rank, fed
-    the full block's weights through ``shard_state_dict``: its output (the
-    whole (B, N, C); the mlp block's with the next LayerNorm's statistics)."""
-    mesh = make_mesh(dist.get_world_size(), "cpu")
-    shard = ModelShard(dist.get_rank(), dist.get_world_size(), mesh.get_group(MODEL_AXIS))
+    the full block's weights (``payload[prefix + state]``) through
+    ``shard_state_dict``, or with `whole` built and fed whole: its output
+    (the whole (B, N, C); the mlp block's with the next LayerNorm's
+    statistics)."""
+    shard = None
+    full = payload[prefix + state]
+    if not whole:
+        mesh = make_mesh(dist.get_world_size(), "cpu")
+        shard = ModelShard(dist.get_rank(), dist.get_world_size(), mesh.get_group(MODEL_AXIS))
+        full = shard_state_dict(full, shard.rank, shard.size)
     block = Block(payload[prefix + "block_cfg"], torch.float32, shard)
-    block.load_state_dict(shard_state_dict(payload[prefix + "block_state"], shard.rank,
-                                           shard.size))
+    block.load_state_dict(full)
     with torch.no_grad():
         return block(payload["x"], payload["rope"])
 
 
-def int8_refused(payload: dict) -> dict:
-    """The narrow mlp and SwiGLU blocks split over the model axis, run in
-    the int8 serving mode: whether each raised NotImplementedError saying
-    the split is queued."""
+def int8_blocks(payload: dict) -> dict:
+    """The narrow mlp and SwiGLU blocks in the int8 serving mode, split over
+    the model axis and whole on this rank, on the JAX blocks' weights
+    ("state") and on the off-rank weights ("off_rank": every token's maximum
+    entering a row-parallel layer in rank 0's half of its K, every column
+    maximum of its weight in rank 1's). By kind and weights: the split and
+    the whole outputs, and the split's maxima as (local, all-reduced) pairs,
+    "activation" or "weight" (each row-parallel layer's, in call order)."""
+    calls = []
+
+    def recording(t, group):
+        out = reduce_max(t, group)
+        calls.append(("weight" if t.dim() == 2 else "activation", t.clone(), out.clone()))
+        return out
+
+    reduce_max = dense_q8_module.all_reduce_max
     os.environ["DINOUNET_TPU_VIT_INT8"] = "1"
+    dense_q8_module.all_reduce_max = vit_module.all_reduce_max = recording
     try:
-        return {kind: _raises_queued(sharded_block, payload, prefix)
-                for kind, prefix in (("mlp", "mlp_"), ("swiglu", ""))}
+        out = {}
+        for kind, prefix in (("mlp", "mlp_"), ("swiglu", "")):
+            for state in ("block_state", "off_rank_state"):
+                calls.clear()
+                split = sharded_block(payload, prefix, state)
+                out[kind, state] = {"split": split, "maxima": list(calls),
+                                    "whole": sharded_block(payload, prefix, state, whole=True)}
+        return out
     finally:
+        dense_q8_module.all_reduce_max = vit_module.all_reduce_max = reduce_max
         del os.environ["DINOUNET_TPU_VIT_INT8"]
-
-
-def _raises_queued(fn, *args) -> bool:
-    try:
-        fn(*args)
-    except NotImplementedError as e:
-        return "queued" in str(e)
-    return False
 
 
 def dcp_round_trip(payload: dict) -> dict:
@@ -138,7 +158,7 @@ def parallel_checks(device, payload: dict) -> dict:
     torch.set_num_threads(1)
     return {"mesh": mesh_checks(), "ddp": ddp_steps(device, payload),
             "block": sharded_block(payload), "mlp_block": sharded_block(payload, "mlp_"),
-            "int8": int8_refused(payload), "dcp": dcp_round_trip(payload)}
+            "int8": int8_blocks(payload), "dcp": dcp_round_trip(payload)}
 
 
 class TinyParallelTrainer(nnUNetTrainer):
@@ -216,15 +236,24 @@ class TinyPlainModelAxisTrainer(TinyParallelTrainer):
     """TinyParallelTrainer (the plans' PlainConvUNet) under its own name."""
 
 
+class TinySInt8ParallelTrainer(TinySParallelTrainer):
+    """TinySParallelTrainer under its own name, run in the int8 serving mode
+    (``DINOUNET_TPU_VIT_INT8=1``: the frozen backbone's projections w8a8)."""
+
+
 MODEL_AXIS_TRAINERS = {"Tiny7bParallelTrainer": Tiny7bParallelTrainer,
                        "TinySParallelTrainer": TinySParallelTrainer,
-                       "TinyPlainModelAxisTrainer": TinyPlainModelAxisTrainer}
+                       "TinyPlainModelAxisTrainer": TinyPlainModelAxisTrainer,
+                       "TinySInt8ParallelTrainer": TinySInt8ParallelTrainer}
+# the trainers run with DINOUNET_TPU_VIT_INT8=1
+INT8_TRAINERS = ("TinySInt8ParallelTrainer",)
 
 
 def train_on_model_axis(device, args: dict) -> dict:
     """``run_training`` of each of MODEL_AXIS_TRAINERS in this rank's process
     group with ``DINOUNET_TPU_MODEL_AXIS=2`` (TinySParallelTrainer's
-    backbone read from ``args["pretrained"]``); then a fresh trainer reads
+    backbone read from ``args["pretrained"]``; INT8_TRAINERS in the int8
+    serving mode, their validation too); then a fresh trainer reads
     each sharded checkpoint_final back onto its shards. By trainer name: the
     output folder, the epoch read back, the shapes the rank holds, whether
     the read-back network equals the trained one, the logged train losses
@@ -241,7 +270,13 @@ def train_on_model_axis(device, args: dict) -> dict:
     out = {}
     for name, cls in MODEL_AXIS_TRAINERS.items():
         registry.trainers.add(name, cls)
-        trainer = run_training(args["dataset_id"], "2d", 0, name, num_gpus=2, device=device)
+        if name in INT8_TRAINERS:
+            os.environ["DINOUNET_TPU_VIT_INT8"] = "1"
+        try:
+            trainer = run_training(args["dataset_id"], "2d", 0, name, num_gpus=2,
+                                   device=device)
+        finally:
+            os.environ.pop("DINOUNET_TPU_VIT_INT8", None)
         final = os.path.join(trainer.output_folder, "checkpoint_final.pth")
         fresh = get_trainer_from_args(args["dataset_id"], "2d", 0, name, device=device)
         fresh.load_checkpoint(final)
@@ -254,7 +289,7 @@ def train_on_model_axis(device, args: dict) -> dict:
             "train_losses": trainer.logger.my_fantastic_logging["train_losses"],
             "trainable": {n: p.detach().clone()
                           for n, p in trainer.network.named_parameters() if p.requires_grad}}
-        if cls is TinySParallelTrainer:
+        if name == "TinySParallelTrainer":
             # a trainer set up afresh holds the file's shards (the trained
             # one's backbone is frozen, so equal to them too)
             shard = trainer.model_shard
