@@ -358,18 +358,41 @@ not 0:
               memory, the augmentation's ms, the Dice values the selection
               chose between and whether matplotlib imports, for information.
 
+19. jax_checkpoints -- a model folder that the JAX package's trainer wrote
+              (tests/fixtures/jax_checkpoint, JAX_FIXTURE: DinoUNetTrainer
+              with the fixture's network.json injected; fold 0 its pickled
+              file, fold 1 its orbax directory) read with no JAX and no
+              zstandard. (a) the host zstd decoder built by the machine's
+              C++ compiler (seconds, compiler version); (b) both folds read
+              raw, every array's SHA-256 equal to sha256.json (seconds a
+              format); (c) the fixture's tile predicted on the card through
+              initialize_from_trained_model_folder from each fold, within
+              PARITY_BOUND (relative L2) of the JAX network's fp32 logits,
+              #1 - #4 launched; (d) one training step resumed from each fold
+              by the port's trainer on the card: the momentum buffers equal
+              to the fold's optax traces before it, the loss finite, #7
+              launched; (e) the zstd-coded .b2nd case equal to its array;
+              (f) the decoder's rate (the host's CPU, not the card) on the
+              orbax fold's own zstd chunks and on a level-1 frame of 256
+              KiB of fp32 weights (weights_l1.zst, its content's digest
+              checked), each decoded again and again to DECODE_RATE_BYTES,
+              on one thread and on all.
+
 Then the seconds of each group of phases, the card's name and power limit,
 one JSON line of kernel results (launches: the counts of the serve path,
 each route's, the train paths, the parallel phase's (its processes' too),
 the pipeline, the api, pretrained, regions,
-train_7b, unet_3d, datasets, resenc_3d, unet_2d and cascade phases), and as the last
+train_7b, unet_3d, datasets, resenc_3d, unet_2d, cascade and jax_checkpoints
+phases), and as the last
 line {"ok": true, "device": {...}}. Without a CUDA device the
 script raises before printing any result.
 """
 
 import contextlib
 import dataclasses
+import hashlib
 import json
+import math
 import os
 import pickle
 import re
@@ -385,12 +408,17 @@ import torch.nn.functional as F
 
 import dinounet_training_torch
 from dinounet_tpu_torch import api
+from dinounet_tpu_torch.compression import zstd_native
+from dinounet_tpu_torch.compression.b2nd import open_b2nd
+from dinounet_tpu_torch.compression.ocdbt import OcdbtStore
+from dinounet_tpu_torch.compression.zarr2 import ZarrArray
 from dinounet_tpu_torch.evaluation.metrics import load_summary_json
 from dinounet_tpu_torch.imageio.natural_image import pil_image
 from dinounet_tpu_torch.imageio.nifti import NiftiIO, read_nifti
 from dinounet_tpu_torch.inference import export as export_module
 from dinounet_tpu_torch.inference import predictor as predictor_module
 from dinounet_tpu_torch.inference.predictor import nnUNetPredictor
+from dinounet_tpu_torch.models import convert as convert_module
 from dinounet_tpu_torch.models.convert import checkpoint_manifest
 from dinounet_tpu_torch.models.dinounet import DinoUNet, DinoUNetConfig
 from dinounet_tpu_torch.models.vit import VIT_CONFIGS, rope_sincos
@@ -449,6 +477,7 @@ from dinounet_tpu_torch.planning.resenc_planner import nnUNetPlannerResEncM
 from dinounet_tpu_torch.preprocessing.preprocessor import DefaultPreprocessor
 from dinounet_tpu_torch.run import get_trainer_from_args, run_training
 from dinounet_tpu_torch.training import dinounet_trainer as dinounet_trainer_module
+from dinounet_tpu_torch.training import jax_checkpoint
 from dinounet_tpu_torch.training.augmentation import (CascadeDraws, RemoveDraws,
                                                       cascade_onehot_augment)
 from dinounet_tpu_torch.training.dataloading import nnUNetDataset
@@ -457,6 +486,7 @@ from dinounet_tpu_torch.training.dinounet_trainer import (DinoUNetTrainer, DinoU
 from dinounet_tpu_torch.training.losses import dc_and_ce_loss
 from dinounet_tpu_torch.training.trainer import clip_and_step, nnUNetTrainer, sgd_nesterov
 from dinounet_tpu_torch.utilities.label_handling import convert_labelmap_to_one_hot
+from dinounet_tpu_torch.utilities.json_export import load_json
 from dinounet_tpu_torch.utilities.plans_handler import PlansManager
 from dinounet_tpu_torch.utilities.synthetic_dataset import (disk_ring_case,
                                                             write_disk_ring_dataset,
@@ -708,6 +738,14 @@ CASCADE_PROFILE_BATCHES, CASCADE_PROFILE_SPLIT = 6, 1
 # the logits of one case accumulated on the host against on the device: the
 # same fp32 additions in the same order, so equal; held to one fp16 ulp
 HOST_ACCUM_RTOL = 2.0 ** -10
+# the jax_checkpoints phase: the committed JAX-written model folder, its
+# folds' forms, and the bytes the decoder's rate is taken over
+JAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                           "fixtures", "jax_checkpoint")
+JAX_FIXTURE_MODEL = "DinoUNetTrainer__nnUNetPlans__2d"
+JAX_FIXTURE_FOLDS = {0: "pickled file", 1: "orbax directory"}
+JAX_FIXTURE_KERNELS = ("msda_fwd", "rope_attention", "dense_cm_stats", "dense_rm_stats")
+DECODE_RATE_BYTES = 512 * 2**20
 # the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, dense
 # bf16 tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores, dense int8
 # tensor-core operations/s
@@ -4262,6 +4300,200 @@ def phase_cascade(dev, root: str) -> dict:
     return counts
 
 
+def jax_array_digests(raw: dict) -> dict:
+    """SHA-256 of every array of a raw JAX checkpoint (``jax_checkpoint.
+    read_jax_checkpoint``), keyed as the fixture's sha256.json: the weights
+    by path, the optimizer state's leaves in ``jax.tree.leaves`` order."""
+    def digest(t):
+        a = t.contiguous()
+        shape = "x".join(map(str, a.shape))
+        dtype = "bfloat16" if a.dtype == torch.bfloat16 else str(a.numpy().dtype)
+        data = (a.view(torch.int16) if a.dtype == torch.bfloat16 else a).numpy().tobytes()
+        return f"{dtype} {shape} {hashlib.sha256(data).hexdigest()}"
+
+    def flat(tree, prefix):
+        for k in sorted(tree):
+            path = f"{prefix}/{k}"
+            if isinstance(tree[k], dict):
+                yield from flat(tree[k], path)
+            else:
+                yield path, tree[k]
+
+    out = {p: digest(t) for p, t in flat(raw["network_weights"], "network_weights")}
+    leaves = jax_checkpoint.tree_leaves(raw["optimizer_state"])
+    out.update({f"optimizer_state/{i:04d}": digest(torch.as_tensor(t))
+                for i, t in enumerate(leaves)})
+    return out
+
+
+def fixture_network():
+    """``tests/fixture_network.py`` (the fixture's network injected into the
+    DinoUNet trainers), loaded by its path: ``tests/`` has no
+    ``__init__.py``, and a package named ``tests`` installed elsewhere on
+    the path would shadow it."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixture_network.py")
+    spec = importlib.util.spec_from_file_location("fixture_network", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_jax_checkpoints(dev) -> dict:
+    """Read, predict and resume the JAX-written fixture on the card (see
+    the module docstring, phase 19); returns the launches of (c) and (d)."""
+    t0 = time.perf_counter()
+    zstd_native.library()
+    build_s = time.perf_counter() - t0
+    cxx = subprocess.run([_build.host_compiler(), "--version"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.splitlines()[0]
+    log(f"[jax_checkpoints] (a) host zstd decoder built in {build_s:.2f} s by {cxx}")
+    model_dir = os.path.join(JAX_FIXTURE, JAX_FIXTURE_MODEL)
+    with open(os.path.join(JAX_FIXTURE, "sha256.json")) as f:
+        want_digests = json.load(f)
+    with open(os.path.join(JAX_FIXTURE, "network.json")) as f:
+        spec = json.load(f)
+    raws = {}
+    for fold, form in JAX_FIXTURE_FOLDS.items():
+        path = os.path.join(model_dir, f"fold_{fold}", "checkpoint_final.pth")
+        t0 = time.perf_counter()
+        raws[fold] = jax_checkpoint.read_jax_checkpoint(path)
+        read_s = time.perf_counter() - t0
+        got = jax_array_digests(raws[fold])
+        want = want_digests[f"fold_{fold}"]
+        if got != want:
+            bad = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+            raise AssertionError(f"fold {fold} ({form}): arrays differ from sha256.json: "
+                                 f"{bad[:5]}")
+        log(f"[jax_checkpoints] (b) fold {fold}, the {form}: {len(got)} arrays equal to "
+            f"their SHA-256, read in {read_s:.3f} s")
+    tile = np.load(os.path.join(JAX_FIXTURE, "tile.npy"))
+    counts = dict.fromkeys(_build.launch_counts(), 0)
+    with fixture_network().injected_network(spec), tempfile.TemporaryDirectory() as work:
+        for fold, form in JAX_FIXTURE_FOLDS.items():
+            predictor = nnUNetPredictor(tile_step_size=0.5, use_gaussian=True,
+                                        use_mirroring=False, device=dev)
+            t0 = time.perf_counter()
+            predictor.initialize_from_trained_model_folder(model_dir, (fold,))
+            init_s = time.perf_counter() - t0
+            torch.cuda.synchronize(dev)
+            _build.reset_launch_counts()
+            got = predictor.predict_sliding_window_return_logits(tile[0][:, None])
+            torch.cuda.synchronize(dev)
+            launched = _build.launch_counts()
+            want = np.load(os.path.join(JAX_FIXTURE, f"logits_fold_{fold}.npy"))[0]
+            rel = rel_l2(torch.from_numpy(np.asarray(got, np.float32)[:, 0]),
+                         torch.from_numpy(want))
+            ran = {k: launched[k] for k in JAX_FIXTURE_KERNELS}
+            log(f"[jax_checkpoints] (c) fold {fold}: initialize_from_trained_model_folder "
+                f"{init_s:.2f} s; the tile's card bf16 logits vs the JAX network's fp32 "
+                f"ones: relative L2 {rel:.4e} (bound {PARITY_BOUND}); launches {ran}")
+            if not rel <= PARITY_BOUND:
+                raise AssertionError(f"fold {fold}: logits {rel} off the JAX ones")
+            if not all(ran.values()):
+                raise AssertionError(f"fold {fold}: the prediction launched {ran}")
+            for k, n in launched.items():
+                counts[k] += n
+            del predictor
+        os.environ["nnUNet_preprocessed"] = os.path.join(work, "pre")
+        os.environ["nnUNet_results"] = os.path.join(work, "res")
+        plans = load_json(os.path.join(model_dir, "plans.json"))
+        dataset_json = load_json(os.path.join(model_dir, "dataset.json"))
+        rng = np.random.default_rng(5)
+        data = torch.from_numpy(rng.standard_normal((2, 1, 64, 64)).astype(np.float32))
+        seg = torch.from_numpy(rng.integers(0, N_CLASSES, (2, 64, 64)))
+        for fold, form in JAX_FIXTURE_FOLDS.items():
+            trainer = DinoUNetTrainer(plans, "2d", fold, dataset_json, device=dev)
+            trainer.seed = 0
+            trainer.initialize()
+            path = os.path.join(model_dir, f"fold_{fold}", "checkpoint_final.pth")
+            t0 = time.perf_counter()
+            trainer.load_checkpoint(path)
+            load_s = time.perf_counter() - t0
+            traces = jax_checkpoint.trace_by_path(raws[fold]["optimizer_state"],
+                                                  raws[fold]["network_weights"]["params"])
+            names = dict(trainer.network.named_parameters())
+            momentum = {n: trainer.optimizer.state[names[n]]["momentum_buffer"]
+                        for n in names if names[n].requires_grad}
+            matched = 0
+            for fpath, t in traces.items():
+                name = jax_checkpoint.port_names(fpath)[0][0]
+                sub = "/".join(fpath[1:])
+                want_m = torch.as_tensor(np.ascontiguousarray(
+                    convert_module._torch_layout(sub, t.float().numpy())))
+                if not torch.equal(momentum[name].cpu(), want_m):
+                    raise AssertionError(f"fold {fold}: {name}'s momentum differs")
+                matched += 1
+            if matched != len(momentum):
+                raise AssertionError(f"fold {fold}: {matched} traces for {len(momentum)} "
+                                     "trainable parameters")
+            torch.cuda.synchronize(dev)
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            for group in trainer.optimizer.param_groups:
+                group["lr"] = trainer.current_lr()
+            trainer.network.train()
+            trainer.optimizer.zero_grad(set_to_none=True)
+            loss = trainer._train_loss(trainer.network(data.to(dev)), seg.to(dev))
+            loss.backward()
+            clip_and_step(trainer.optimizer, 12.0)
+            loss = float(loss)
+            step_ms = (time.perf_counter() - t0) * 1e3
+            launched = _build.launch_counts()
+            log(f"[jax_checkpoints] (d) fold {fold}: load_checkpoint {load_s:.2f} s (epoch "
+                f"{trainer.current_epoch}, {matched} momentum buffers equal to the optax "
+                f"traces); one step resumed: loss {loss:.4f}, {step_ms:.1f} ms; launches "
+                f"{ {k: n for k, n in launched.items() if n} }")
+            if not np.isfinite(loss):
+                raise AssertionError(f"fold {fold}: resumed step's loss {loss}")
+            if not launched["msda_bwd"]:
+                raise AssertionError(f"fold {fold}: the resumed step did not launch #7")
+            for k, n in launched.items():
+                counts[k] += n
+            del trainer
+    want_case = np.load(os.path.join(JAX_FIXTURE, "case.npy"))
+    got_case = open_b2nd(os.path.join(JAX_FIXTURE, "case.b2nd"))[:]
+    if not np.array_equal(got_case, want_case):
+        raise AssertionError("the zstd .b2nd case differs from its array")
+    log(f"[jax_checkpoints] (e) zstd .b2nd case {got_case.shape} {got_case.dtype} read, "
+        "equal to its array")
+    store = OcdbtStore(os.path.join(model_dir, "fold_1", "checkpoint_final.pth", "arrays"))
+    sources, sizes = [], []
+    for key in store.keys():
+        if key.endswith("/.zarray"):
+            arr = ZarrArray(store, key[:-len("/.zarray")])
+            chunk = math.prod(arr.chunks) * arr.itemsize
+            for k in store.keys():
+                if k.startswith(arr.prefix + "/") and not k.endswith("/.zarray"):
+                    sources.append(store.read(k))
+                    sizes.append(chunk)
+    with open(os.path.join(JAX_FIXTURE, "weights_l1.zst"), "rb") as f:
+        frame = f.read()
+    weights = np.empty(262144, np.uint8)
+    zstd_native.decode_into([frame], [weights])
+    if hashlib.sha256(weights.tobytes()).hexdigest() != want_digests["weights_l1"]:
+        raise AssertionError("weights_l1.zst decodes to other bytes than its digest's")
+    threads = zstd_native.default_threads()
+    cases = [("the orbax fold's chunks", sources, sizes),
+             ("a level-1 frame of 256 KiB of fp32 weights", [frame] * threads,
+              [weights.nbytes] * threads)]
+    for what, srcs, lens in cases:
+        jobs = zstd_native.DecodeJobs(srcs, [np.empty(n, np.uint8) for n in lens])
+        rounds = -(-DECODE_RATE_BYTES // jobs.nbytes)
+        for n in (1, threads):
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                jobs.run(n)
+            secs = time.perf_counter() - t0
+            log(f"[jax_checkpoints] (f) zstd decoder on this host's CPU, {n} thread(s), "
+                f"{what} ({len(srcs)} frames, {jobs.nbytes} bytes from "
+                f"{sum(map(len, srcs))}) x {rounds} = {rounds * jobs.nbytes / 1e6:.1f} MB "
+                f"in {secs:.3f} s: {rounds * jobs.nbytes / secs / 1e6:.1f} MB/s")
+    return counts
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -4364,6 +4596,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         counts["cascade"] = phase_cascade(dev, root)
     stamp("cascade")
+    counts["jax_checkpoints"] = phase_jax_checkpoints(dev)
+    stamp("jax_checkpoints")
 
     log("[time] " + ", ".join(f"{name} {s:.1f} s" for name, s in spent.items())
         + f"; all phases {clock[-1] - clock[0]:.1f} s")

@@ -1,11 +1,13 @@
 """Blosc chunk codec in pure Python (zstd / zlib backends).
 
 Counterpart of ``dinounet_tpu/compression/blosc1_chunk.py``: the same bytes
-for the same input, and each reads the other's chunks. The one change is
-where ``zstandard`` is imported: inside the zstd path, so that the port
-imports on a machine without that package. There a zstd chunk, read or
-written, raises ``RuntimeError`` naming the missing package; zlib chunks
-need only the standard library.
+for the same input, and each reads the other's chunks. Two things differ.
+zstd chunks are decoded by the port's own decoder (the host C++ one of
+``compression/zstd_native.py``), so reading needs no ``zstandard`` package;
+and ``zstandard`` is imported only where a zstd chunk is written, so the
+port imports on a machine without that package, where writing a zstd chunk
+raises ``RuntimeError`` naming it. zlib chunks need only the standard
+library.
 
 A Blosc chunk is the compression unit inside every Blosc2 container:
 
@@ -46,6 +48,8 @@ from typing import Tuple
 
 import numpy as np
 
+from dinounet_tpu_torch.compression import zstd_native
+
 # flags bits
 _SHUFFLE = 0x01
 _MEMCPYED = 0x02
@@ -66,14 +70,14 @@ MAX_OVERHEAD = 16
 
 
 def _zstandard():
-    """The ``zstandard`` module, imported on first use."""
+    """The ``zstandard`` module, imported on first use (writing zstd only)."""
     try:
         import zstandard
     except ImportError as e:
         raise RuntimeError(
-            "the Blosc zstd codec needs the zstandard package, which is not "
-            "installed here; zlib-coded chunks (codec='zlib') need only the "
-            "standard library") from e
+            "writing Blosc zstd chunks needs the zstandard package, which is not "
+            "installed here (reading them does not); zlib-coded chunks "
+            "(codec='zlib') need only the standard library") from e
     return zstandard
 
 
@@ -166,8 +170,7 @@ def _decompress_stream(payload: bytes, flags: int, out_nbytes: int) -> bytes:
         return payload  # stored raw
     codec = (flags >> 5) & 0x7
     if codec == _CODEC_ZSTD:
-        return _zstandard().ZstdDecompressor().decompress(
-            payload, max_output_size=out_nbytes)
+        return zstd_native.decompress(payload, out_nbytes)
     if codec == _CODEC_ZLIB:
         return zlib.decompress(payload)
     raise ValueError(

@@ -94,8 +94,17 @@ class nnUNetPredictor:
                                              checkpoint_name: str = "checkpoint_final.pth"):
         """The folds' checkpoints of a trained model folder, mapped; the
         network is the trainer's, built on the predictor's device with deep
-        supervision off (ref :67-130)."""
-        from dinounet_tpu_torch.training.checkpointing import load_checkpoint
+        supervision off (ref :67-130). A fold's checkpoint may be any form
+        that ``training/checkpointing.py::load_checkpoint`` reads: the
+        port's file or sharded directory, or the JAX package's pickled file
+        or orbax directory (a model folder trained on a TPU). A JAX fold is
+        read into a host copy of the built network's tensors, each in the
+        network's dtype (a 7B's backbone in bf16, never a whole fp32 copy);
+        the trainer and configuration come from the first fold's keys
+        without its tensors (a JAX pickle is read for them, then again)."""
+        from dinounet_tpu_torch.training.checkpointing import (JAX_FORMATS, checkpoint_format,
+                                                               load_checkpoint,
+                                                               load_checkpoint_meta)
 
         if use_folds is None:
             use_folds = self.auto_detect_available_folds(model_training_output_dir,
@@ -105,17 +114,13 @@ class nnUNetPredictor:
             os.path.join(model_training_output_dir, "plans.json")))
         if isinstance(use_folds, str):
             use_folds = [use_folds]
-
-        parameters = []
-        for i, f in enumerate(use_folds):
-            f = int(f) if f != "all" else f
-            checkpoint = load_checkpoint(
-                os.path.join(model_training_output_dir, f"fold_{f}", checkpoint_name))
-            if i == 0:
-                trainer_name = checkpoint["trainer_name"]
-                configuration_name = checkpoint["init_args"]["configuration"]
-                mirroring_axes = checkpoint.get("inference_allowed_mirroring_axes")
-            parameters.append(checkpoint["network_weights"])
+        paths = [os.path.join(model_training_output_dir,
+                              f"fold_{int(f) if f != 'all' else f}", checkpoint_name)
+                 for f in use_folds]
+        meta = load_checkpoint_meta(paths[0])
+        trainer_name = meta["trainer_name"]
+        configuration_name = meta["init_args"]["configuration"]
+        mirroring_axes = meta.get("inference_allowed_mirroring_axes")
 
         configuration_manager = plans_manager.get_configuration(configuration_name)
         num_input_channels = determine_num_input_channels(
@@ -124,6 +129,14 @@ class nnUNetPredictor:
             self.device, configuration_manager, num_input_channels,
             plans_manager.get_label_manager(dataset_json).num_segmentation_heads,
             enable_deep_supervision=False)
+        parameters = []
+        for path in paths:
+            template = None
+            if checkpoint_format(path) in JAX_FORMATS:
+                template = {k: torch.empty_like(v, device="cpu")
+                            for k, v in network.state_dict().items()}
+            parameters.append(load_checkpoint(path, network_template=template)[
+                "network_weights"])
         self.manual_initialization(network, plans_manager, configuration_manager,
                                    parameters, dataset_json, trainer_name,
                                    mirroring_axes)
@@ -148,10 +161,12 @@ class nnUNetPredictor:
     @staticmethod
     def auto_detect_available_folds(model_training_output_dir: str,
                                     checkpoint_name: str) -> List[int]:
+        """The folds with a checkpoint of that name: a file, or a sharded
+        directory (a model-axis run's, the port's or the JAX package's)."""
         fold_folders = [
             f for f in os.listdir(model_training_output_dir)
             if f.startswith("fold_") and f != "fold_all"
-            and os.path.isfile(os.path.join(model_training_output_dir, f, checkpoint_name))
+            and os.path.exists(os.path.join(model_training_output_dir, f, checkpoint_name))
         ]
         if not fold_folders:
             raise RuntimeError(f"No fold checkpoints in {model_training_output_dir}")

@@ -165,6 +165,50 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+_host_libs = {}
+
+
+def host_compiler() -> str:
+    """The host C++ compiler: $CXX, else ``c++`` on the PATH."""
+    found = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+    if not found:
+        raise RuntimeError("no host C++ compiler ($CXX, c++ or g++ on the PATH): "
+                           "the host libraries are built on first use")
+    return found
+
+
+def host_library_path(source: str) -> Path:
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update((CSRC / source).read_bytes())
+    return BUILD_ROOT / "host" / h.hexdigest()[:16] / f"lib{Path(source).stem}.so"
+
+
+def host_library(source: str) -> ctypes.CDLL:
+    """A host C++ source of ``csrc/`` (no CUDA), built on first call by the
+    host compiler into ``build/dinounet_tpu_torch/host/<hash>/`` and loaded
+    with ``ctypes``. A failed build raises with the compiler's output."""
+    with _lock:
+        if source not in _host_libs:
+            out = host_library_path(source)
+            if not out.exists():
+                out.parent.mkdir(parents=True, exist_ok=True)
+                work = Path(tempfile.mkdtemp(dir=out.parent))
+                try:
+                    p = subprocess.run([host_compiler(), *HOST_FLAGS, "-o",
+                                        str(work / out.name), str(CSRC / source)],
+                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+                    if p.returncode != 0:
+                        raise RuntimeError(f"{host_compiler()} failed on {source} "
+                                           f"({p.returncode}):\n{p.stdout}")
+                    os.replace(work / out.name, out)
+                finally:
+                    shutil.rmtree(work, ignore_errors=True)
+            _host_libs[source] = ctypes.CDLL(str(out))
+    return _host_libs[source]
+
+
 def check(err: int, name: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if err != 0:

@@ -30,8 +30,22 @@ checkpointer.py:45-330): every rank writes its shards of the tensors
 other entries and the full shapes of the entries saved as views go to a
 sidecar, ``meta.pth``. ``load_checkpoint`` on such a directory reads the
 arrays onto a template's tensors in place (a rank's shards), or, without
-one, as whole CPU tensors in one process. The JAX package's orbax
-directories are not read.
+one, as whole CPU tensors in one process.
+
+``load_checkpoint`` and ``load_checkpoint_meta`` also read what the JAX
+package's trainer writes (``training/jax_checkpoint.py``), with the JAX
+``load_checkpoint``'s dispatch on file or directory, and no JAX installed:
+its single pickled file and its orbax directory (``meta.pkl`` beside
+``arrays/_METADATA``). ``checkpoint_format`` tells the four forms apart: a
+file starting with a zip header (``PK``) is ``torch.save``'s, one starting
+with a pickle's protocol byte (0x80) the JAX envelope; a directory with
+``meta.pth`` is the port's, one with ``meta.pkl`` and ``arrays/_METADATA``
+orbax's. Every form comes back as the port's dict: the weights as the
+port's state dict (or read into a template's tensors), the optimizer state
+as its SGD's (for a JAX checkpoint given the trainable parameters' names in
+optimizer order, else None; there the momentum alone, without
+``param_groups``, which the resuming trainer's optimizer keeps), the other
+keys as they were.
 """
 
 import os
@@ -41,6 +55,9 @@ from typing import Any, Dict, Mapping, Optional
 import torch
 import torch.distributed as dist
 
+TORCH_FILE, TORCH_DIRECTORY, JAX_FILE, JAX_DIRECTORY = (
+    "torch", "torch_sharded", "jax_pickle", "jax_orbax")
+JAX_FORMATS = (JAX_FILE, JAX_DIRECTORY)
 CHECKPOINT_KEYS = ("network_weights", "optimizer_state", "grad_scaler_state",
                    "logging", "_best_ema", "current_epoch", "init_args",
                    "trainer_name", "inference_allowed_mirroring_axes")
@@ -63,12 +80,40 @@ def save_checkpoint(checkpoint: Dict[str, Any], filename: str,
     os.replace(tmp, filename)
 
 
-def load_checkpoint(filename: str, network_template: Optional[Mapping] = None
-                    ) -> Dict[str, Any]:
+def checkpoint_format(filename: str) -> str:
+    """Which of the four checkpoint forms `filename` holds."""
+    if os.path.isdir(filename):
+        if os.path.isfile(os.path.join(filename, "meta.pth")):
+            return TORCH_DIRECTORY
+        if (os.path.isfile(os.path.join(filename, "meta.pkl"))
+                and os.path.isfile(os.path.join(filename, "arrays", "_METADATA"))):
+            return JAX_DIRECTORY
+        raise ValueError(f"{filename}: a directory with neither meta.pth nor "
+                         "meta.pkl and arrays/_METADATA is no checkpoint")
+    with open(filename, "rb") as f:
+        head = f.read(2)
+    if head == b"PK":
+        return TORCH_FILE
+    if head[:1] == bytes([0x80]):
+        return JAX_FILE
+    raise ValueError(f"{filename}: neither a torch.save zip nor a pickle")
+
+
+def load_checkpoint(filename: str, network_template: Optional[Mapping] = None,
+                    shard: Optional[tuple] = None,
+                    trainable_names: Optional[list] = None) -> Dict[str, Any]:
     """The checkpoint with its tensors on the CPU, mapped from the file; or,
     from a sharded directory, the network weights read into
-    `network_template`'s tensors in place (whole CPU tensors without one)."""
-    if os.path.isdir(filename):
+    `network_template`'s tensors in place (whole CPU tensors without one).
+    A JAX checkpoint reads into `network_template` too where one is given
+    (plain tensors, a model-axis rank's shards with `shard` = (rank, size)),
+    and its optimizer state needs `trainable_names`."""
+    fmt = checkpoint_format(filename)
+    if fmt in JAX_FORMATS:
+        from dinounet_tpu_torch.training.jax_checkpoint import load_jax_checkpoint
+
+        return load_jax_checkpoint(filename, network_template, shard, trainable_names)
+    if fmt == TORCH_DIRECTORY:
         return _load_sharded(filename, network_template)
     return torch.load(filename, map_location="cpu", weights_only=True, mmap=True)
 
@@ -77,8 +122,17 @@ def load_checkpoint_meta(filename: str) -> Dict[str, Any]:
     """The checkpoint's keys other than its tensors' (the training log, the
     epoch, ...): a file mapped as ``load_checkpoint`` maps it, or a sharded
     directory's sidecar alone."""
-    if os.path.isdir(filename):
+    fmt = checkpoint_format(filename)
+    if fmt == TORCH_DIRECTORY:
         return torch.load(os.path.join(filename, "meta.pth"), weights_only=True)
+    if fmt in JAX_FORMATS:
+        from dinounet_tpu_torch.training import jax_checkpoint
+
+        if fmt == JAX_DIRECTORY:
+            return jax_checkpoint._plain(jax_checkpoint.unpickle(
+                os.path.join(filename, "meta.pkl")))
+        return {k: v for k, v in jax_checkpoint.read_jax_pickle(filename).items()
+                if k not in (_WEIGHTS, _OPT)}
     return load_checkpoint(filename)
 
 

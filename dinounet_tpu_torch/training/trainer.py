@@ -99,7 +99,9 @@ from dinounet_tpu_torch.training.augmentation import (AugmentConfig, AugmentConf
                                                       downsample_seg_for_ds,
                                                       get_enlarged_patch_size,
                                                       get_enlarged_patch_size_3d)
-from dinounet_tpu_torch.training.checkpointing import load_checkpoint, save_checkpoint
+from dinounet_tpu_torch.training.checkpointing import (JAX_FORMATS, TORCH_DIRECTORY,
+                                                       checkpoint_format, load_checkpoint,
+                                                       save_checkpoint)
 from dinounet_tpu_torch.training.dataloading import (nnUNetDataLoader2D, nnUNetDataLoader3D,
                                                      nnUNetDataset, unpack_dataset)
 from dinounet_tpu_torch.training.logger import nnUNetLogger
@@ -782,10 +784,23 @@ class nnUNetTrainer:
 
     def load_checkpoint(self, filename_or_checkpoint: Union[str, dict]):
         """ref :1108-1144. A sharded checkpoint's directory is read onto this
-        rank's shards in place (in one process, into the whole network)."""
+        rank's shards in place (in one process, into the whole network). A
+        checkpoint of the JAX package's trainer (its pickled file or its
+        orbax directory) is read in place too, each tensor from the region
+        this rank holds, its momentum into this trainer's SGD under the
+        SGD's own learning rate, momentum and decay."""
         if not self.was_initialized:
             self.initialize()
-        if isinstance(filename_or_checkpoint, str) and os.path.isdir(filename_or_checkpoint):
+        fmt = (checkpoint_format(filename_or_checkpoint)
+               if isinstance(filename_or_checkpoint, str) else None)
+        if fmt in JAX_FORMATS:
+            shard = self.model_shard
+            checkpoint = load_checkpoint(
+                filename_or_checkpoint, network_template=self.network.state_dict(),
+                shard=None if shard is None else (shard.rank, shard.size),
+                trainable_names=[n for n, p in self.network.named_parameters()
+                                 if p.requires_grad])
+        elif fmt == TORCH_DIRECTORY:
             weights = self.network.state_dict()
             if self.n_model > 1:
                 weights, _ = dcp_state_dict(weights, self.mesh, self.n_model)
@@ -795,8 +810,12 @@ class nnUNetTrainer:
                           if isinstance(filename_or_checkpoint, str)
                           else filename_or_checkpoint)
             self.network.load_state_dict(checkpoint["network_weights"])
-        if checkpoint.get("optimizer_state") is not None:
-            self.optimizer.load_state_dict(checkpoint["optimizer_state"])
+        optimizer_state = checkpoint.get("optimizer_state")
+        if optimizer_state is not None:
+            if fmt in JAX_FORMATS:  # the momentum alone, under this optimizer's groups
+                optimizer_state = dict(optimizer_state,
+                                       param_groups=self.optimizer.state_dict()["param_groups"])
+            self.optimizer.load_state_dict(optimizer_state)
         self.logger.load_checkpoint(checkpoint["logging"])
         self._best_ema = checkpoint["_best_ema"]
         self.current_epoch = checkpoint["current_epoch"]

@@ -46,3 +46,6 @@ def cpu_devices():
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs a CUDA device; skips where none is present")
+    config.addinivalue_line(
+        "markers", "slow: minutes of JAX work at full width; the tier-1 command "
+        "deselects it (-m 'not slow')")

@@ -181,9 +181,21 @@ def test_bad_typesize_rejected():
         blosc1_chunk.compress_chunk(b"x" * 600, 300, blocksize=600)
 
 
-def test_zstd_is_imported_only_by_the_zstd_codec():
+def test_zstd_is_imported_only_by_the_zstd_codec(tmp_path):
     """With ``zstandard`` hidden: the engine imports, zlib chunks and files
-    round-trip, and a zstd chunk raises, naming the package, both ways."""
+    round-trip, zstd chunks and a zstd ``.b2nd`` file that the JAX engine
+    wrote (with ``zstandard``) read through the port's own decoder, equal to
+    what was written, and only writing a zstd chunk raises, naming the
+    package."""
+    rng = np.random.default_rng(3)
+    b2nd_array = (rng.standard_normal((3, 20, 30)) * 5).astype(np.float32)
+    jax_save_b2nd(b2nd_array, str(tmp_path / "jax.b2nd"), chunks=(2, 8, 16),
+                  blocks=(1, 4, 8))
+    np.save(tmp_path / "want.npy", b2nd_array)
+    payload = rng.standard_normal(2000).astype(np.float32).tobytes()
+    (tmp_path / "chunk.bin").write_bytes(
+        bytes(jax_chunk.compress_chunk(payload, 4, 4096, codec="zstd")))
+    (tmp_path / "payload.bin").write_bytes(payload)
     code = (
         "import sys, tempfile, os\n"
         "sys.modules['zstandard'] = None\n"
@@ -199,14 +211,19 @@ def test_zstd_is_imported_only_by_the_zstd_codec():
         "save_b2nd(a, p, chunks=(8, 16), blocks=(4, 8), codec='zlib')\n"
         "assert (open_b2nd(p)[3:17, 2:29] == a[3:17, 2:29]).all()\n"
         f"chunk = {bytes(jax_chunk.compress_chunk(b'abcd' * 64, 4, 256))!r}\n"
-        "for f in (lambda: blosc1_chunk.compress_chunk(data, 4, 256),\n"
-        "          lambda: blosc1_chunk.decompress_chunk(chunk)):\n"
-        "    try:\n"
-        "        f()\n"
-        "    except RuntimeError as e:\n"
-        "        assert 'zstandard' in str(e), e\n"
-        "    else:\n"
-        "        raise AssertionError('a zstd chunk went through without zstandard')\n"
+        "assert blosc1_chunk.decompress_chunk(chunk) == b'abcd' * 64\n"
+        f"root = {str(tmp_path)!r}\n"
+        "big = open(os.path.join(root, 'chunk.bin'), 'rb').read()\n"
+        "want = open(os.path.join(root, 'payload.bin'), 'rb').read()\n"
+        "assert blosc1_chunk.decompress_chunk(big) == want\n"
+        "got = open_b2nd(os.path.join(root, 'jax.b2nd'))[:]\n"
+        "assert np.array_equal(got, np.load(os.path.join(root, 'want.npy')))\n"
+        "try:\n"
+        "    blosc1_chunk.compress_chunk(data, 4, 256)\n"
+        "except RuntimeError as e:\n"
+        "    assert 'zstandard' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('a zstd chunk was written without zstandard')\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)

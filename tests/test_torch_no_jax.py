@@ -2,9 +2,12 @@
 
 Every module of ``dinounet_tpu_torch`` and the end-to-end CLI
 ``dinounet_training_torch.py`` are imported in a fresh interpreter, after
-which neither jax, flax nor the JAX package may be loaded; and no source file
-of the port, the CLI included, names them in an import (lazy imports
-included).
+which neither jax, flax, the JAX package, nor the packages its checkpoints
+are written with (optax, orbax, tensorstore, ml_dtypes) may be loaded; no
+source file of the port, the CLI, ``chip_smoke.py`` and the test helper it
+imports included, names them
+in an import (lazy imports included); and the JAX package's checkpoints
+and a zstd ``.b2nd`` file read with all of them and ``zstandard`` blocked.
 """
 
 import json
@@ -20,9 +23,14 @@ import dinounet_tpu_torch
 PKG_DIR = Path(dinounet_tpu_torch.__file__).parent
 REPO = PKG_DIR.parent
 CLI = REPO / "dinounet_training_torch.py"
-FORBIDDEN = ("jax", "flax", "dinounet_tpu")
+FORBIDDEN = ("jax", "flax", "dinounet_tpu", "optax", "orbax", "tensorstore", "ml_dtypes")
 _IMPORT = re.compile(
-    r"^\s*(?:from|import)\s+(jax|flax|dinounet_tpu)(?![\w])", re.MULTILINE)
+    r"^\s*(?:from|import)\s+(jax|flax|dinounet_tpu|optax|orbax|tensorstore|ml_dtypes)"
+    r"(?![\w])", re.MULTILINE)
+_ZSTANDARD = re.compile(r"^\s*(?:from|import)\s+zstandard(?![\w])", re.MULTILINE)
+CHIP_SMOKE = REPO / "chip_smoke.py"
+FIXTURE_NETWORK = REPO / "tests" / "fixture_network.py"  # chip_smoke.py imports it
+JAX_FIXTURE = REPO / "tests" / "fixtures" / "jax_checkpoint"
 
 
 def _port_modules():
@@ -48,13 +56,22 @@ def test_importing_every_port_module_loads_no_jax():
 
 
 def test_no_port_source_imports_jax():
-    sources = sorted(PKG_DIR.rglob("*.py")) + [CLI]
-    assert CLI.is_file() and PKG_DIR / "api.py" in sources
+    sources = sorted(PKG_DIR.rglob("*.py")) + [CLI, CHIP_SMOKE, FIXTURE_NETWORK]
+    assert CLI.is_file() and FIXTURE_NETWORK.is_file() and PKG_DIR / "api.py" in sources
     offenders = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
                  for p in sources for m in _IMPORT.finditer(p.read_text())]
     assert offenders == []
     assert _IMPORT.search("    from dinounet_tpu.ops import x")  # the check bites
+    assert _IMPORT.search("        import optax._src.base")
     assert not _IMPORT.search("from dinounet_tpu_torch.ops import x")
+    # zstandard: imported once, where a Blosc zstd chunk is written
+    zstd_importers = [p.relative_to(REPO) for p in sources
+                      if _ZSTANDARD.search(p.read_text())]
+    assert [str(p) for p in zstd_importers] == [
+        "dinounet_tpu_torch/compression/blosc1_chunk.py"]
+    blosc = (PKG_DIR / "compression" / "blosc1_chunk.py").read_text()
+    assert len(_ZSTANDARD.findall(blosc)) == 1
+    assert "def _zstandard():\n" in blosc
 
 
 def test_importing_every_port_module_needs_no_pil():
@@ -98,8 +115,8 @@ def test_importing_every_port_module_needs_no_matplotlib():
 
 
 def test_importing_every_port_module_needs_no_zstandard():
-    """Nor zstandard: only the Blosc zstd codec imports it, on first use
-    (``compression/blosc1_chunk.py``). The dataset backends, the loader
+    """Nor zstandard: only writing a Blosc zstd chunk imports it, on first
+    use (``compression/blosc1_chunk.py``). The dataset backends, the loader
     and the ``.b2nd`` engine are among the modules imported."""
     modules = _port_modules()
     for name in ("compression.blosc1_chunk", "compression.b2nd", "compression.blosc2_shim",
@@ -109,6 +126,37 @@ def test_importing_every_port_module_needs_no_zstandard():
         "import importlib, sys\n"
         "sys.modules['zstandard'] = None\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_the_jax_checkpoints_read_with_the_jax_packages_blocked():
+    """In a fresh interpreter with jax, flax, optax, orbax, tensorstore,
+    ml_dtypes and zstandard blocked: every port module imports, both folds
+    of the committed JAX model folder (its pickled file and its orbax
+    directory) read to the port's dict, and its zstd ``.b2nd`` case reads
+    equal to its array."""
+    modules = _port_modules()
+    for name in ("compression.zstd", "compression.zstd_native", "compression.ocdbt",
+                 "compression.zarr2", "training.jax_checkpoint"):
+        assert "dinounet_tpu_torch." + name in modules
+    model = JAX_FIXTURE / "DinoUNetTrainer__nnUNetPlans__2d"
+    code = (
+        "import importlib, sys\n"
+        f"for m in {FORBIDDEN + ('zstandard',)!r}: sys.modules[m] = None\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "import numpy as np\n"
+        "from dinounet_tpu_torch.training.checkpointing import load_checkpoint\n"
+        "from dinounet_tpu_torch.compression.b2nd import open_b2nd\n"
+        "for f in (0, 1):\n"
+        f"    c = load_checkpoint(f'{model}/fold_{{f}}/checkpoint_final.pth')\n"
+        "    assert c['trainer_name'] == 'DinoUNetTrainer' and len(c['network_weights']) > 300\n"
+        f"a = open_b2nd('{JAX_FIXTURE / 'case.b2nd'}')[:]\n"
+        f"assert np.array_equal(a, np.load('{JAX_FIXTURE / 'case.npy'}'))\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

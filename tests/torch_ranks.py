@@ -300,3 +300,58 @@ def train_on_model_axis(device, args: dict) -> dict:
             out[name]["pretrained_equal"] = (set(backbone) == set(want) and all(
                 torch.equal(backbone[k], want[k].to(backbone[k].dtype)) for k in want))
     return out
+
+
+def jax_orbax_shards(device, payload: dict) -> dict:
+    """A DinoUNetTrainer on a model axis of 2 (this rank's process group)
+    resuming from the JAX package's orbax directory ``payload["path"]`` with
+    the injected ``payload["spec"]`` network: whether its network equals
+    this rank's slices of the whole read (``load_jax_checkpoint`` without a
+    template, split by ``shard_state_dict``), its momentum the whole read's,
+    and, by state-dict name, the elements it asked the zarr arrays for
+    beside the elements it holds."""
+    from dinounet_tpu_torch.compression import zarr2
+    from dinounet_tpu_torch.training.dinounet_trainer import DinoUNetTrainer
+    from dinounet_tpu_torch.training.jax_checkpoint import load_jax_checkpoint
+    from tests.fixture_network import injected_network
+
+    torch.set_num_threads(1)
+    os.environ.update(payload["env"])
+    os.environ["DINOUNET_TPU_MODEL_AXIS"] = "2"
+    requested = {}
+    read_region = zarr2.ZarrArray.read_region
+
+    def recording(self, index):
+        n = 1
+        for s, size in zip(index, self.shape):
+            start, stop, _ = s.indices(size)
+            n *= stop - start
+        requested[self.prefix] = requested.get(self.prefix, 0) + n
+        return read_region(self, index)
+
+    zarr2.ZarrArray.read_region = recording
+    with injected_network(payload["spec"]):
+        trainer = DinoUNetTrainer(payload["plans"], "2d", 1, payload["dataset_json"],
+                                  device=device)
+        trainer.seed = 0
+        trainer.initialize()
+        trainer.load_checkpoint(payload["path"])
+    zarr2.ZarrArray.read_region = read_region
+    shard = trainer.model_shard
+    names = [n for n, p in trainer.network.named_parameters() if p.requires_grad]
+    whole = load_jax_checkpoint(payload["path"], trainable_names=names)
+    want = shard_state_dict(whole["network_weights"], shard.rank, shard.size)
+    held = trainer.network.state_dict()
+    params = dict(trainer.network.named_parameters())
+    momentum = whole["optimizer_state"]["state"]
+    return {
+        "rank": shard.rank, "size": shard.size, "epoch": trainer.current_epoch,
+        "equal_to_slices": set(held) == set(want) and all(
+            torch.equal(held[k], want[k].to(held[k].dtype)) for k in want),
+        "momentum_equal": all(
+            torch.equal(trainer.optimizer.state[params[n]]["momentum_buffer"],
+                        momentum[i]["momentum_buffer"]) for i, n in enumerate(names)),
+        "requested": requested,
+        "held": {k: v.numel() for k, v in held.items()},
+        "split": sorted(k for k, v in held.items() if tuple(v.shape) != tuple(
+            whole["network_weights"][k].shape))}
