@@ -53,7 +53,13 @@ not 0:
               and the weight's one-time quantization; without the GELU
               their outputs must equal the plain versions' bit for bit, and
               qkv_q8_dmaj (tiles across images), dense_q8_stats and
-              dense_cm_q8_stats are also held at edge shapes. Each conv3x3
+              dense_cm_q8_stats are also held at edge shapes. The nine
+              kernels of the learnability phase's path are held again at
+              dinounet_s's shapes (phase_kernels_vit_s: ViT-S/16's 6 heads
+              of 64, the dense layers at K 384, 1536, 192 and 96 into D
+              384, the MSDA forward and backward at 12 channels a head, at
+              the train step's batch 2; the four int8 ops at part B's one
+              tile), each also with its device time. Each conv3x3
               case (the seven of serve_cm, the four of serve_hwbc) also
               prints its device time a call split into the conv kernel and
               the memset of the sums (a call must launch those and nothing
@@ -333,12 +339,12 @@ not 0:
               of nnUNetTrainer on 3d_lowres for both folds with the
               validation's probabilities exported (the final validations
               export every case for the next stage), then on
-              3d_cascade_fullres for both folds (1 + 2 input channels, the
+              3d_cascade_fullres for fold 0 (1 + 2 input channels, the
               previous stage's map as augmented one-hot channels);
-              find_best_configuration over the two models; the held-out
-              case predicted in two stages from the trained folders (both
-              folds; the probabilities saved where the ensemble that won
-              reads them), ensembled where the ensemble won,
+              find_best_configuration over the two models on fold 0
+              (SELECTION_FOLDS); the held-out case predicted in two stages
+              from the trained folders (each stage's folds; the
+              probabilities saved where the ensemble that won reads them), ensembled where the ensemble won,
               postprocessed with the chosen functions. Checks: each run's
               losses finite and falling, every validation file on its raw
               case's geometry, predicted_next_stage holding every case, the
@@ -377,13 +383,39 @@ not 0:
               KiB of fp32 weights (weights_l1.zst, its content's digest
               checked), each decoded again and again to DECODE_RATE_BYTES,
               on one thread and on all.
+20. learnability -- dinounet_s, the CLI's default model, trained to a
+              Dice: tools/learnability_run_torch.py's main (its ten raw
+              512^2 PNG cases of intensity-correlated disks, then
+              dinounet_training_torch.main_dinov3("dinounet_s"): fingerprint,
+              plan, preprocess, DinoUNetTrainer_s at full width with a random
+              frozen backbone, LEARN_EPOCHS epochs of the trainer's own
+              LEARN_ITERS steps and LEARN_VAL_ITERS validation batches, the
+              final sliding-window validation, evaluate). Checks: the trained
+              backbone is ViT-S/16's (12 blocks, qkv 1152 x 384), every
+              logged loss finite, the last epoch's mean train loss below the
+              first's, the final foreground Dice at least LEARN_DICE_BOUND,
+              the launches exactly the steps' PER_TRAIN_STEP plus PER_FORWARD
+              for every validation batch and every validation case's tile
+              under the mirrors. Then tools/int8_accuracy_experiment_torch.py:
+              part B on that fold (the validation again with
+              DINOUNET_TPU_VIT_INT8 0, then 1, each then evaluate): the fp
+              Dice the training's, |int8 - fp| within LEARN_INT8_DICE_DELTA,
+              the launches PER_FORWARD and PER_FORWARD_INT8 (#10 - #13) for
+              every tile; part A (dinounet_b, random fp32 weights, two 512^2
+              tiles): the logits' relative L2 within INT8_BF16_BOUND, 48
+              linears quantized, its launches. Each epoch's pseudo-Dice,
+              seconds and median step ms, the peak memory, part A's per-layer
+              quantization errors and argmax agreement over the classes, and
+              the phase's seconds for information. The phase leaves the
+              trainers' class-level injection as it found it.
 
 Then the seconds of each group of phases, the card's name and power limit,
 one JSON line of kernel results (launches: the counts of the serve path,
 each route's, the train paths, the parallel phase's (its processes' too),
 the pipeline, the api, pretrained, regions,
-train_7b, unet_3d, datasets, resenc_3d, unet_2d, cascade and jax_checkpoints
-phases), and as the last
+train_7b, unet_3d, datasets, resenc_3d, unet_2d, cascade, jax_checkpoints and
+learnability phases; for the nine kernels of the learnability path also their
+cases at dinounet_s's shapes, "at_dinounet_s"), and as the last
 line {"ok": true, "device": {...}}. Without a CUDA device the
 script raises before printing any result.
 """
@@ -478,6 +510,7 @@ from dinounet_tpu_torch.preprocessing.preprocessor import DefaultPreprocessor
 from dinounet_tpu_torch.run import get_trainer_from_args, run_training
 from dinounet_tpu_torch.training import dinounet_trainer as dinounet_trainer_module
 from dinounet_tpu_torch.training import jax_checkpoint
+from dinounet_tpu_torch.training.checkpointing import load_checkpoint
 from dinounet_tpu_torch.training.augmentation import (CascadeDraws, RemoveDraws,
                                                       cascade_onehot_augment)
 from dinounet_tpu_torch.training.dataloading import nnUNetDataset
@@ -591,7 +624,7 @@ PER_TRAIN_STEP = {**dict.fromkeys(PER_FORWARD, 0), "rope_attention": 12,
 PER_TRAIN_STEP_L = {**PER_TRAIN_STEP, "rope_attention": 24, "dense_cm_stats": 24,
                     "dense_rm_stats": 24}
 PER_TRAIN_STEP_XLA = {**PER_TRAIN_STEP, "msda_fwd": 0, "msda_fwd_premapped": 12}
-TRAIN_ITERS, TRAIN_EPOCHS, VAL_ITERS, LEARN_STEPS, ROUTE_STEPS = 5, 2, 2, 40, 5
+TRAIN_ITERS, TRAIN_EPOCHS, VAL_ITERS, LEARN_STEPS, ROUTE_STEPS = 5, 2, 2, 20, 5
 TRAIN_DATASET = "Dataset998_SmokeTrain"
 # the pipeline phase's raw dataset: one 800 x 800 slice a case at 0.8 mm,
 # planned at 1.0 mm (640 x 640 after preprocessing); fold 0 of the 5-fold
@@ -717,14 +750,19 @@ PER_FORWARD_UNET2D_CHAIN = {"conv3x3_cm": 6, "transpconv2x2_cm": 3, "seg_head_cm
 # planner makes the cascade pair (a lowres stage needs the median case over 4x
 # the fullres patch and a spacing that halves it: 248^3 plans none): 3d_lowres
 # at ~1.267 mm (~202^3 a case), 3d_fullres, and 3d_cascade_fullres inheriting
-# it, each 128^3 patches, batch 2 (PLANNED_CASCADE). Both stages train the two
-# folds of CASCADE_SPLITS; the augmentation check crops CASCADE_CROP^3 of two
-# previous-stage maps (a step's batch), timed over CASCADE_AUG_ITERS calls
+# it, each 128^3 patches, batch 2 (PLANNED_CASCADE). 3d_lowres trains both
+# folds of CASCADE_SPLITS (their validations export every case's map for the
+# next stage), 3d_cascade_fullres fold 0, and find_best_configuration selects
+# over SELECTION_FOLDS (the metrics at 256^3 are host work whose time moves
+# 2x call to call: 107.9-238.9 s over two folds); the augmentation check crops
+# CASCADE_CROP^3 of two previous-stage maps (a step's batch), timed over
+# CASCADE_AUG_ITERS calls
 CASCADE_ID, CASCADE_DATASET = 991, "Dataset991_SmokeCascade"
 CASCADE_TRAIN, CASCADE_TEST = 4, 1
 CASCADE_SIZE = (256, 256, 256)
 CASCADE_STAGES = ("3d_lowres", "3d_cascade_fullres")
-CASCADE_FOLDS = (0, 1)
+CASCADE_FOLDS = {"3d_lowres": (0, 1), "3d_cascade_fullres": (0,)}
+SELECTION_FOLDS = (0,)
 CASCADE_CASES = [f"case_{i:03d}" for i in range(CASCADE_TRAIN)]
 CASCADE_SPLITS = [{"train": CASCADE_CASES[2:], "val": CASCADE_CASES[:2]},
                   {"train": CASCADE_CASES[:2], "val": CASCADE_CASES[2:]}]
@@ -746,6 +784,22 @@ JAX_FIXTURE_MODEL = "DinoUNetTrainer__nnUNetPlans__2d"
 JAX_FIXTURE_FOLDS = {0: "pickled file", 1: "orbax directory"}
 JAX_FIXTURE_KERNELS = ("msda_fwd", "rope_attention", "dense_cm_stats", "dense_rm_stats")
 DECODE_RATE_BYTES = 512 * 2**20
+# the learnability phase: tools/learnability_run_torch.py's dinounet_s run
+# (ten 512^2 PNG cases, the CLI's path) for LEARN_EPOCHS epochs of the
+# trainer's own LEARN_ITERS steps and LEARN_VAL_ITERS validation batches,
+# its final validation's foreground Dice at least LEARN_DICE_BOUND (the JAX
+# run's pseudo-Dice was 0.97 after its second epoch); the int8 tool's part B
+# on that fold within LEARN_INT8_DICE_DELTA, its part A within
+# INT8_BF16_BOUND. The kernel cases at dinounet_s's shapes: the train
+# step's batch, the ViT-S widths, the adapter's MSDA heads and points
+LEARN_EPOCHS, LEARN_ITERS, LEARN_VAL_ITERS = 2, 250, 50
+LEARN_DICE_BOUND, LEARN_INT8_DICE_DELTA = 0.90, 0.02
+VIT_S_BATCH, VIT_S_EMBED, VIT_S_HEADS = 2, 384, 6
+VIT_S_MSDA_HEADS, VIT_S_MSDA_POINTS = 16, 4
+# dinounet_s in the int8 serving mode, a tile-batch forward: the 12 blocks'
+# qkv, attention projection, fc1 and fc2 in int8, the 6 extractors'
+# junctions bf16 (serve_int8's counts)
+PER_FORWARD_INT8 = {**PER_FORWARD, **PER_FORWARD_ROUTE["serve_int8"]}
 # the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, dense
 # bf16 tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores, dense int8
 # tensor-core operations/s
@@ -1547,6 +1601,7 @@ def phase_kernels(dev) -> dict:
                                      f"disagrees with its plain version (excess {excess})")
     log("[kernels] dense_q8_stats (+GELU) and dense_cm_q8_stats at 5 edge shapes (N 21-130, "
         "K 37-200, D 24-264): within their tolerances, dense_cm_q8_stats's out bit-equal")
+    results["dinounet_s"] = phase_kernels_vit_s(dev, randn, linear_t, int8_case)
     return results
 
 
@@ -1669,6 +1724,142 @@ def phase_kernels_int8_split(dev, randn, linear_t, int8_case, results: dict) -> 
             raise AssertionError(f"{where}: the split int8 mode's stream differs from the "
                                  f"whole op's (max abs {max_abs_err(split[0], whole[0])})")
         del h, res, acc
+
+
+def phase_kernels_vit_s(dev, randn, linear_t, int8_case) -> dict:
+    """The nine kernels of the learnability path at dinounet_s's shapes
+    (ViT-S/16: embed 384, 6 heads of 64; the adapter's MSDA value 384 * 0.5 =
+    192 channels over 16 heads, 12 a head; its ConvFFN hidden 384 * 0.25 =
+    96), which no other case gives them: at the train step's batch 2 (and
+    its validation batches') the attention (#2), the dense + statistics of
+    the blocks and the junctions (#3 at K 384 and 192, #4 with the GELU at K
+    1536 and 96), the fused MSDA forward (#1) and its backward (#7); at the
+    final validation's one 512^2 tile the four int8 ops of part B (#13 K 384
+    -> 1152, #10 384 -> 1536, #11 1536 -> 384 with the GELU, #12 384 ->
+    384). Each against its plain version within its tolerance, with its
+    event time, device time (the profiler's, a call), bound and library
+    time; returns {kernel: [case, ...]}."""
+    bf, B, E = torch.bfloat16, VIT_S_BATCH, VIT_S_EMBED
+    M, Dh, side = VIT_S_HEADS, E // VIT_S_HEADS, PATCH // 16
+    N = 5 + side * side
+    g = torch.Generator(device=dev).manual_seed(6)
+    out = {}
+
+    def record(name, desc, r, kernel_fn):
+        busy = sum(device_times(kernel_fn).values())
+        log(f"[kernels: dinounet_s] {name} {desc}: event {r['ms']:.4f} ms, device {busy:.4f} "
+            f"ms a call, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), library "
+            + ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"))
+        out.setdefault(name, []).append({"shape": desc, **r, "device_ms": busy})
+
+    # the attention: 6 heads of 64 over the 5 + 32 * 32 tokens of a tile
+    sin, cos = rope_sincos(side, side, Dh, device=dev)
+    sin = torch.cat([torch.zeros((5, Dh), device=dev), sin])
+    cos = torch.cat([torch.ones((5, Dh), device=dev), cos])
+    qkv = randn(B, 3, M, Dh, N).to(bf)
+    tables = rope_tables_dmaj(sin, cos, N, Dh, dev)
+
+    def rotated(x):
+        xf = x.float()
+        r = xf * tables[1] + torch.roll(xf, Dh // 2, dims=-2) * tables[0]
+        return r.to(bf).transpose(-1, -2).contiguous()
+
+    q, k = rotated(qkv[:, 0]), rotated(qkv[:, 1])
+    v = qkv[:, 2].transpose(-1, -2).contiguous()
+    kernel_fn = lambda: fused_rope_attention_premapped_dmaj(qkv, sin, cos)
+    desc = f"qkv {tuple(qkv.shape)}"
+    r = _compare("rope_attention", desc, kernel_fn,
+                 lambda: rope_attention_dmaj_plain(qkv, *tables), (qkv, sin, cos),
+                 4.0 * B * M * N * N * Dh, BF16_FLOP_S,
+                 lambda: F.scaled_dot_product_attention(q, k, v))
+    record("rope_attention", desc, r, kernel_fn)
+    del qkv, q, k, v
+    # the dense layers and the junctions, D = 384
+    Lq = 21 * (side // 2) ** 2
+    for K, Nd, cm, where in ((E, N, True, "vit proj"),
+                             (E // 2, Lq, True, "msda output proj"),
+                             (4 * E, N, False, "vit fc2 +GELU"),
+                             (E // 4, Lq, False, "convffn fc2 +GELU")):
+        h = randn(B, K, Nd).to(bf) if cm else randn(B, Nd, K).to(bf)
+        w, b = randn(E, K, scale=K ** -0.5).t(), randn(E, scale=0.1)
+        res, gamma = randn(B, Nd, E).to(bf), randn(E, scale=0.5)
+        wb, hl = w.to(bf), (h.transpose(1, 2) if cm else h)
+        name = "dense_cm_stats" if cm else "dense_rm_stats"
+        if cm:
+            kernel_fn = lambda: dense_cm_residual_stats(h, w, b, res, gamma)
+            plain_fn = lambda: dense_cm_residual_stats_plain(h, w, b, res, gamma)
+        else:
+            kernel_fn = lambda: dense_residual_stats(h, w, b, res, gamma, apply_gelu=True)
+            plain_fn = lambda: dense_residual_stats_plain(h, w, b, res, gamma, True)
+        desc = f"{where} K={K} N={Nd} D={E}"
+        r = _compare(name, desc, kernel_fn, plain_fn, (h, w, b, res, gamma),
+                     2.0 * B * Nd * K * E, BF16_FLOP_S, lambda: torch.matmul(hl, wb))
+        record(name, desc, r, kernel_fn)
+        del h, w, res
+    # the MSDA forward and backward: 16 heads of 12 channels over the 32 x 32
+    # map, 4 points, the adapter's 5376 queries
+    Mq, P, D = VIT_S_MSDA_HEADS, VIT_S_MSDA_POINTS, E // 2 // VIT_S_MSDA_HEADS
+    shapes = ((side, side),)
+    vw = randn(B, Mq, D, side * side).to(bf)
+    ow, lw = randn(B, Mq, 2 * P, Lq, scale=2.0).to(bf), randn(B, Mq, P, Lq).to(bf)
+    bw = torch.rand((2 * P, Lq), generator=g, device=dev) * side - 0.5
+    xw, yw, aww = (t.contiguous() for t in premapped_fused_prep(ow, lw, bw))
+    desc = f"value {tuple(vw.shape)} Lq={Lq}"
+    kernel_fn = lambda: ms_deform_attn_premapped_fused(vw, shapes, ow, lw, bw)
+    r = _compare("msda_fwd", desc, kernel_fn,
+                 lambda: ms_deform_attn_premapped_fused_plain(vw, shapes, ow, lw, bw),
+                 (vw, ow, lw, bw), 8.0 * B * Mq * Lq * P * D, FP32_FLOP_S,
+                 _grid_sample_fwd(vw, shapes, xw, yw), library_label=GRID_SAMPLE_LABEL)
+    _log_launch_split("msda_fwd", f"dinounet_s {desc}", kernel_fn, MSDA_FWD_PARTS,
+                      {"gathers": 1, "token-major copy": 0})
+    record("msda_fwd", desc, r, kernel_fn)
+    cw = randn(B, Mq, D, Lq)
+    plan = bwd_plan(D, side * side, vw.element_size())
+    if plan is None or plan[1] != 1:
+        raise AssertionError(f"msda_bwd dinounet_s {desc}: plan {plan}, not one staged slice")
+    kernel_fn = lambda: ms_deform_attn_premapped_backward(vw, shapes, xw, yw, aww, cw)
+    r = _compare("msda_bwd", desc, kernel_fn,
+                 lambda: ms_deform_attn_premapped_backward_plain(vw, shapes, xw, yw, aww, cw),
+                 (vw, xw, yw, aww, cw), 32.0 * B * Mq * Lq * P * D, FP32_FLOP_S,
+                 _grid_sample_bwd(vw, shapes, xw, yw, cw), library_label=GRID_SAMPLE_LABEL)
+    _log_launch_split("msda_bwd", f"dinounet_s {desc}", kernel_fn, MSDA_BWD_PARTS,
+                      {"walk": 1, "finish": 1, "gv scratch memset": 1, "slice sums": 0})
+    record("msda_bwd", desc, r, kernel_fn)
+    del vw, ow, lw, xw, yw, aww, cw
+    # the int8 ops on the final validation's one tile
+    Bt = 1
+    x = randn(Bt, N, E).to(bf)
+    w, b = linear_t(E, 3 * E), randn(3 * E, scale=0.1)
+    kernel_fn = lambda: qkv_q8_dmaj(x, w, b, M, Dh)
+    desc = f"x {tuple(x.shape)} -> ({Bt}, 3, {M}, {Dh}, {N})"
+    r = int8_case("qkv_q8_dmaj", desc, kernel_fn, lambda: qkv_q8_dmaj_plain(x, w, b, M, Dh),
+                  x, w, (b,), 2.0 * Bt * N * E * 3 * E)
+    record("qkv_q8_dmaj", desc, r, kernel_fn)
+    w, b = linear_t(E, 4 * E), randn(4 * E, scale=0.1)
+    kernel_fn = lambda: dense_q8(x, w, b)
+    desc = f"vit fc1 K={E} D={4 * E} N={N} B={Bt}"
+    r = int8_case("dense_q8", desc, kernel_fn, lambda: dense_q8_plain(x, w, b), x, w, (b,),
+                  2.0 * Bt * N * E * 4 * E)
+    record("dense_q8", desc, r, kernel_fn)
+    h = randn(Bt, N, 4 * E).to(bf)
+    w, b = linear_t(4 * E, E), randn(E, scale=0.1)
+    res, gamma = randn(Bt, N, E).to(bf), randn(E, scale=0.5)
+    kernel_fn = lambda: dense_q8_residual_stats(h, w, b, res, gamma, "gelu")
+    desc = f"vit fc2 +GELU K={4 * E} D={E} N={N} B={Bt}"
+    r = int8_case("dense_q8_stats", desc, kernel_fn,
+                  lambda: dense_q8_residual_stats_plain(h, w, b, res, gamma, "gelu"),
+                  h, w, (b, res, gamma), 2.0 * Bt * N * 4 * E * E, exact=False)
+    record("dense_q8_stats", desc, r, kernel_fn)
+    h = randn(Bt, E, N).to(bf)
+    w = linear_t(E, E)
+    kernel_fn = lambda: dense_cm_q8_residual_stats(h, w, b, res, gamma)
+    desc = f"vit proj K={E} D={E} N={N} B={Bt}"
+    r = int8_case("dense_cm_q8_stats", desc, kernel_fn,
+                  lambda: dense_cm_q8_residual_stats_plain(h, w, b, res, gamma),
+                  h, w, (b, res, gamma), 2.0 * Bt * N * E * E, channel_major=True)
+    record("dense_cm_q8_stats", desc, r, kernel_fn)
+    return out
 
 
 def build_model() -> DinoUNet:
@@ -3138,6 +3329,16 @@ def loaded_as_file(backbone, sd: dict) -> int:
 def injected(trainer_cls, config: dict, path: str, model_name: str):
     """set_network_config(config, path, model_name) on `trainer_cls` for the
     block; every DinoUNet trainer's class-level injection put back after."""
+    with kept_injection():
+        trainer_cls.set_network_config(config, dinov3_pretrained_path=path,
+                                       dinov3_model_name=model_name)
+        yield
+
+
+@contextlib.contextmanager
+def kept_injection():
+    """Every DinoUNet trainer's class-level injection put back as the block
+    found it."""
     classes, todo = [], [DinoUNetTrainer]
     while todo:
         cls = todo.pop()
@@ -3145,8 +3346,6 @@ def injected(trainer_cls, config: dict, path: str, model_name: str):
         todo.extend(cls.__subclasses__())
     names = ("_network_config", "_dinov3_model_name", "_dinov3_pretrained_path")
     saved = [(cls, {a: vars(cls)[a] for a in names if a in vars(cls)}) for cls in classes]
-    trainer_cls.set_network_config(config, dinov3_pretrained_path=path,
-                                   dinov3_model_name=model_name)
     try:
         yield
     finally:
@@ -3887,13 +4086,13 @@ def _cascade_plans(plans_id: str) -> dict:
 
 
 def _cascade_stage(dev, plans_id: str, configuration: str, raw: str) -> dict:
-    """run_training of nnUNetTrainer on `configuration`, each fold of
+    """run_training of nnUNetTrainer on `configuration`, each of its
     CASCADE_FOLDS, shortened, with the validation's probabilities exported:
     finite, falling losses, every validation file on its raw case's
     geometry. Returns the model folder, the network's input channels, the
     steps and the peak memory of each fold's run."""
     out = {"steps": [], "peak": []}
-    for fold in CASCADE_FOLDS:
+    for fold in CASCADE_FOLDS[configuration]:
         steps = {}
         torch.cuda.reset_peak_memory_stats(dev)
         with recorded_steps(steps), shortened_training(nnUNetTrainer):
@@ -4103,7 +4302,7 @@ def phase_cascade(dev, root: str) -> dict:
     """nnU-Net's cascade and its post-training tools: raw volumes ->
     fingerprint -> the default planner's cascade pair -> 3d_lowres and
     3d_fullres preprocessing -> 3d_lowres on two folds (exporting the next
-    stage's inputs) -> 3d_cascade_fullres on two folds -> find_best_configuration
+    stage's inputs) -> 3d_cascade_fullres on fold 0 -> find_best_configuration
     -> a held-out case predicted in two stages, ensembled where the ensemble
     won, postprocessed."""
     from dinounet_tpu_torch.ensembling.ensemble import ensemble_folders
@@ -4159,14 +4358,15 @@ def phase_cascade(dev, root: str) -> dict:
         ms = [t for s in st["steps"] for t in s["step_ms"][1:]]
         line = (f"[cascade] {card_line()}: nnUNetTrainer {configuration} "
                 f"({stages[configuration]['input_channels']} input channels), folds "
-                f"{CASCADE_FOLDS} of {TRAIN_EPOCHS} epochs x {TRAIN_ITERS} steps in "
+                f"{CASCADE_FOLDS[configuration]} of {TRAIN_EPOCHS} epochs x {TRAIN_ITERS} "
+                f"steps in "
                 f"{secs[configuration]:.1f} s: step {float(np.median(ms)):.1f} ms median "
                 f"(after each fold's first); losses "
                 + "; ".join(f"fold {f} {[round(x, 3) for x in s['losses']]}"
-                            for f, s in zip(CASCADE_FOLDS, st["steps"]))
+                            for f, s in zip(CASCADE_FOLDS[configuration], st["steps"]))
                 + "; step ms " + "; ".join(
                     f"fold {f} " + ", ".join(f"{t:.0f}" for t in s["step_ms"])
-                    for f, s in zip(CASCADE_FOLDS, st["steps"]))
+                    for f, s in zip(CASCADE_FOLDS[configuration], st["steps"]))
                 + f"; peak device memory {max(st['peak']):.2f} GiB; final validation "
                 f"{_per_case([v / len(CASCADE_SPLITS[0]['val']) for v in tt['validation']])} "
                 f"(prediction on the device "
@@ -4199,11 +4399,12 @@ def phase_cascade(dev, root: str) -> dict:
               for c in CASCADE_STAGES]
     t0 = time.perf_counter()
     info = fbc_module.find_best_configuration(CASCADE_ID, models, num_processes=8,
-                                              folds=CASCADE_FOLDS)
+                                              folds=SELECTION_FOLDS)
     secs["select"] = time.perf_counter() - t0
     best = info["best_model_or_ensemble"]
     ensemble = "ensemble___" + "___".join(os.path.basename(stages[c]["folder"])
-                                          for c in CASCADE_STAGES) + "___0_1"
+                                          for c in CASCADE_STAGES) + "___" + "_".join(
+        map(str, SELECTION_FOLDS))
     if ensemble not in info["all_results"] or not os.path.isfile(
             best["postprocessing_file"]) or not os.path.isfile(os.path.join(
             os.environ["nnUNet_results"], CASCADE_DATASET, "inference_information.json")):
@@ -4212,7 +4413,7 @@ def phase_cascade(dev, root: str) -> dict:
         pp_fns, pp_kwargs = pickle.load(f)
     members = [m["configuration"] for m in best["selected_model_or_models"]]
     log(f"[cascade] find_best_configuration {secs['select']:.1f} s over folds "
-        f"{CASCADE_FOLDS}: foreground mean Dice {info['all_results']}; best {members} "
+        f"{SELECTION_FOLDS}: foreground mean Dice {info['all_results']}; best {members} "
         f"({best['result_on_crossval_pre_pp']:.4f}, postprocessed "
         f"{best['result_on_crossval_post_pp']:.4f}); postprocessing "
         f"{[fn.__name__ for fn in pp_fns]} {pp_kwargs}")
@@ -4224,7 +4425,7 @@ def phase_cascade(dev, root: str) -> dict:
     for configuration, prev in zip(CASCADE_STAGES, (None, CASCADE_STAGES[0])):
         predictors[configuration] = nnUNetPredictor(device=dev)
         predictors[configuration].initialize_from_trained_model_folder(
-            stages[configuration]["folder"], use_folds=CASCADE_FOLDS)
+            stages[configuration]["folder"], use_folds=CASCADE_FOLDS[configuration])
         outputs[configuration] = os.path.join(root, "predicted_" + configuration)
         t0 = time.perf_counter()
         # probabilities only where the ensemble that won reads them
@@ -4326,19 +4527,23 @@ def jax_array_digests(raw: dict) -> dict:
     return out
 
 
-def fixture_network():
-    """``tests/fixture_network.py`` (the fixture's network injected into the
-    DinoUNet trainers), loaded by its path: ``tests/`` has no
-    ``__init__.py``, and a package named ``tests`` installed elsewhere on
-    the path would shadow it."""
+def repo_module(folder: str, name: str):
+    """``<folder>/<name>.py`` of this checkout, loaded by its path:
+    ``tests/`` has no ``__init__.py``, and a package named ``tests`` or
+    ``tools`` installed elsewhere on the path would shadow the repo's."""
     import importlib.util
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "fixture_network.py")
-    spec = importlib.util.spec_from_file_location("fixture_network", path)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), folder, name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def fixture_network():
+    """``tests/fixture_network.py``: the fixture's network injected into the
+    DinoUNet trainers."""
+    return repo_module("tests", "fixture_network")
 
 
 def phase_jax_checkpoints(dev) -> dict:
@@ -4494,6 +4699,122 @@ def phase_jax_checkpoints(dev) -> dict:
     return counts
 
 
+def phase_learnability(dev) -> dict:
+    """dinounet_s trained to a Dice through the CLI's path, then the int8
+    mode's Dice and logit cost (see the module docstring, phase 20);
+    returns the launches of its three runs."""
+    learn = repo_module("tools", "learnability_run_torch")
+    int8 = repo_module("tools", "int8_accuracy_experiment_torch")
+    counts = dict.fromkeys(_build.launch_counts(), 0)
+
+    def add(launched):
+        for k, n in launched.items():
+            counts[k] += n
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work, kept_injection():
+        torch.cuda.synchronize(dev)
+        _build.reset_launch_counts()
+        out = learn.main(LEARN_EPOCHS, work, dev)
+        torch.cuda.synchronize(dev)
+        launched = _build.launch_counts()
+        add(launched)
+        result_folder = out["result_folder"]
+        if os.path.basename(os.path.dirname(result_folder)) != (
+                "DinoUNetTrainer_s__nnUNetPlans__2d"):
+            raise AssertionError(f"learnability: trained into {result_folder}")
+        weights = load_checkpoint(os.path.join(result_folder, "checkpoint_final.pth"))[
+            "network_weights"]
+        qkv = tuple(weights["encoder.dinov3_adapter.backbone.blocks.0.attn.qkv.weight"].shape)
+        n_blocks = len({k.split(".")[4] for k in weights
+                        if k.startswith("encoder.dinov3_adapter.backbone.blocks.")})
+        if qkv != (3 * VIT_S_EMBED, VIT_S_EMBED) or n_blocks != 12:
+            raise AssertionError(f"learnability: the trained backbone's qkv {qkv}, "
+                                 f"{n_blocks} blocks; not ViT-S/16's")
+        del weights
+        log_ = out["training_log"]
+        losses = log_["train_losses"] + log_["val_losses"]
+        if len(log_["train_losses"]) != LEARN_EPOCHS or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"learnability: logged losses {losses}")
+        if not log_["train_losses"][-1] < log_["train_losses"][0]:
+            raise AssertionError(f"learnability: train losses {log_['train_losses']} do not "
+                                 "fall")
+        splits = load_json(os.path.join(work, "preprocessed", learn.DATASET_NAME,
+                                        "splits_final.json"))
+        n_val = len(splits[0]["val"])
+        # a validation batch a forward, then each validation case's one
+        # 512^2 tile under the 4 mirrors
+        n_forwards = LEARN_EPOCHS * LEARN_VAL_ITERS + n_val * MIRRORS
+        want = {k: LEARN_EPOCHS * LEARN_ITERS * PER_TRAIN_STEP[k]
+                + n_forwards * PER_FORWARD[k] for k in PER_FORWARD}
+        steps = [e["step_ms"] for e in out["epochs"]]
+        fg = out["fg_dice"]
+        log(f"[learnability] {card_line()}: main_dinov3('dinounet_s') on "
+            f"{learn.DATASET_NAME}'s 10 raw PNG cases of 512^2: {LEARN_EPOCHS} epochs x "
+            f"{LEARN_ITERS} steps; pseudo-Dice by epoch "
+            f"{[round(e['pseudo_dice'], 4) for e in out['epochs']]}, train losses "
+            f"{[round(x, 4) for x in log_['train_losses']]}, val losses "
+            f"{[round(x, 4) for x in log_['val_losses']]}; epochs "
+            f"{[round(e['seconds'], 1) for e in out['epochs']]} s; median step "
+            f"{[round(x, 1) for x in steps]} ms by epoch; the run {out['seconds']:.1f} s; peak "
+            f"device memory {out['peak_gib'] or 0.0:.2f} GiB; final validation ({n_val} cases x "
+            f"{MIRRORS} mirrors) foreground Dice {fg:.4f} (bound {LEARN_DICE_BOUND}); "
+            f"launches { {k: n for k, n in launched.items() if n} }")
+        if not (fg is not None and fg >= LEARN_DICE_BOUND):
+            raise AssertionError(f"learnability: foreground Dice {fg} < {LEARN_DICE_BOUND}")
+        if launched != want:
+            raise AssertionError(f"learnability: kernel launches {launched}, the path makes "
+                                 f"{want}")
+        # part B: the fold re-validated with int8 off, then on
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        b = int8.part_b(work, dev)
+        torch.cuda.synchronize(dev)
+        b_s = time.perf_counter() - t0
+        launched = _build.launch_counts()
+        add(launched)
+        want = {k: n_val * MIRRORS * (PER_FORWARD[k] + PER_FORWARD_INT8[k])
+                for k in PER_FORWARD}
+        log(f"[learnability] int8 part B: validation foreground Dice fp "
+            f"{b['val_fg_dice_fp']:.6f}, int8 {b['val_fg_dice_int8']:.6f}, delta "
+            f"{b['dice_delta']:+.3e} (bound {LEARN_INT8_DICE_DELTA}); {b_s:.1f} s; "
+            f"launches { {k: n for k, n in launched.items() if n} }")
+        if not abs(b["dice_delta"]) <= LEARN_INT8_DICE_DELTA:
+            raise AssertionError(f"learnability: int8 Dice delta {b['dice_delta']}")
+        if abs(b["val_fg_dice_fp"] - fg) > 1e-3:
+            raise AssertionError(f"learnability: re-validated Dice {b['val_fg_dice_fp']}, "
+                                 f"the training's {fg}")
+        if launched != want:
+            raise AssertionError(f"learnability: part B's launches {launched}, the path "
+                                 f"makes {want}")
+    # part A: dinounet_b's random fp32 weights, two tiles, int8 off then on
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    a = int8.part_a(dev)
+    torch.cuda.synchronize(dev)
+    a_s = time.perf_counter() - t0
+    launched = _build.launch_counts()
+    add(launched)
+    want = {k: PER_FORWARD[k] + PER_FORWARD_INT8[k] for k in PER_FORWARD}
+    log(f"[learnability] int8 part A (dinounet_b, random fp32 weights, 2 tiles of 512^2): "
+        f"logits relative L2 {a['logit_rel_l2']:.4e} (bound {INT8_BF16_BOUND}), MAE "
+        f"{a['logit_mae']:.4e}, argmax agreement over the classes {a['argmax_agreement']:.4f}; "
+        f"weight quantization relative L2 median {a['weight_quant_rel_l2_median']:.4e}, worst "
+        f"{a['weight_quant_rel_l2_worst']:.4e} over {a['n_quantized_layers']} linears; "
+        f"{a_s:.1f} s; launches { {k: n for k, n in launched.items() if n} }")
+    if not a["logit_rel_l2"] <= INT8_BF16_BOUND:
+        raise AssertionError(f"learnability: part A's logits {a['logit_rel_l2']}")
+    if a["n_quantized_layers"] != 48:
+        raise AssertionError(f"learnability: part A quantized {a['n_quantized_layers']} "
+                             "linears, not the ViT-B's 48")
+    if launched != want:
+        raise AssertionError(f"learnability: part A's launches {launched}, the path makes "
+                             f"{want}")
+    torch.cuda.empty_cache()
+    log(f"[learnability] the phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -4598,6 +4919,8 @@ def main() -> int:
     stamp("cascade")
     counts["jax_checkpoints"] = phase_jax_checkpoints(dev)
     stamp("jax_checkpoints")
+    counts["learnability"] = phase_learnability(dev)
+    stamp("learnability")
 
     log("[time] " + ", ".join(f"{name} {s:.1f} s" for name, s in spent.items())
         + f"; all phases {clock[-1] - clock[0]:.1f} s")
@@ -4606,7 +4929,9 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": sum(c[name] for c in counts.values()),
          "launches_by_path": {path: c[name] for path, c in counts.items()},
-         **kernel_results[name]}
+         **kernel_results[name],
+         **({"at_dinounet_s": kernel_results["dinounet_s"][name]}
+            if name in kernel_results["dinounet_s"] else {})}
         for name, (src, tpu) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -163,3 +163,35 @@ def test_the_jax_checkpoints_read_with_the_jax_packages_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+TORCH_TOOLS = sorted((REPO / "tools").glob("*_torch.py"))
+# the JAX package's tools, whose counterparts these are
+_JAX_TOOL = re.compile(r"^\s*(?:from|import)\s+(?:tools\.)?(learnability_run|"
+                       r"int8_accuracy_experiment)(?![\w])", re.MULTILINE)
+
+
+def test_the_torch_tools_import_no_jax():
+    """``tools/*_torch.py`` (the learnability run, the int8 accuracy
+    experiment) name neither JAX, the JAX package nor the JAX tools in an
+    import, and importing them in a fresh interpreter loads none of them."""
+    names = [p.name for p in TORCH_TOOLS]
+    assert {"learnability_run_torch.py", "int8_accuracy_experiment_torch.py"} <= set(names)
+    offenders = [f"{p.name}: {m.group(0).strip()}" for p in TORCH_TOOLS
+                 for pattern in (_IMPORT, _JAX_TOOL) for m in pattern.finditer(p.read_text())]
+    assert offenders == []
+    assert _JAX_TOOL.search("    from tools.learnability_run import make_dataset")
+    assert _JAX_TOOL.search("import int8_accuracy_experiment")
+    assert not _JAX_TOOL.search("from tools.learnability_run_torch import main")
+    code = (
+        "import importlib.util, json, sys\n"
+        f"for p in {[str(p) for p in TORCH_TOOLS]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(p.split('/')[-1][:-3], p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in "
+        f"{FORBIDDEN!r} or k.split('.')[-1] in ('learnability_run', "
+        "'int8_accuracy_experiment'))))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
